@@ -1,0 +1,226 @@
+"""Vision Transformer backbone (mmpretrain layout) in PyTorch.
+
+Port of ``probpose_code_tpu/models/backbones/vit.py``: ``VisionTransformer``
+(``:343``), ``TransformerBlock`` (``:183``) and ``Attention`` (``:126``).
+Patch conv k16 s16 with padding 2, a learned ``pos_embed``, no cls token,
+pre-norm blocks with LayerNorm eps 1e-6, a final LayerNorm in f32, and a
+feature map out in f32. ``dtype`` sets the residual stream's type (bf16 on
+the card keeps the products fast; the parameters stay f32).
+
+``fused_layers``: None (auto) and True run every serving layer through K1
+(``ops/kernels/vit_layer.py``) whenever its shape rule holds; False runs the
+eager block, whose attention is the max-shifted softmax of the JAX
+package's XLA path. State-dict names are mmpretrain's, so reference
+checkpoints load as they are.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from probpose_code_torch.ops.kernels.vit_layer import fits, prepare_weights, vit_layer_prepared
+from probpose_code_torch.registry import MODELS
+
+VIT_ARCH_ZOO = {
+    "small": dict(embed_dims=384, num_layers=12, num_heads=12, feedforward_channels=1536),
+    "base": dict(embed_dims=768, num_layers=12, num_heads=12, feedforward_channels=3072),
+    "large": dict(embed_dims=1024, num_layers=24, num_heads=16, feedforward_channels=4096),
+    "huge": dict(embed_dims=1280, num_layers=32, num_heads=16, feedforward_channels=5120),
+}
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_dtype(dtype: Any) -> torch.dtype:
+    if dtype is None:
+        return torch.float32
+    name = str(dtype).removeprefix("torch.")
+    if name not in _DTYPES:
+        raise ValueError(f"dtype {dtype!r}: the port computes in float32 or bfloat16")
+    return _DTYPES[name]
+
+
+def layer_norm_f32(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """flax LayerNorm: statistics in f32 with var = E[x^2] - mean^2 clipped
+    at 0; the result in f32."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+    return (xf - mean) * torch.rsqrt(var + ln.eps) * ln.weight + ln.bias
+
+
+def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """flax Dense with ``dtype``: operands and bias in ``dtype``."""
+    bias = layer.bias.to(dtype) if layer.bias is not None else None
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with a fused qkv projection; the eager path
+    (``xla_attention``: pre-scaled q, max-shifted softmax in f32)."""
+
+    def __init__(self, embed_dims: int, num_heads: int, qkv_bias: bool = True):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(embed_dims, 3 * embed_dims, bias=qkv_bias)
+        self.proj = nn.Linear(embed_dims, embed_dims)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        B, N, C = x.shape
+        D = C // self.num_heads
+        qkv = linear(x, self.qkv, dtype).reshape(B, N, 3, self.num_heads, D)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (B, h, N, D)
+        s = (q * torch.tensor(D ** -0.5, dtype=dtype)) @ k.transpose(-1, -2)
+        a = torch.softmax(s.float(), dim=-1).to(dtype)
+        o = (a @ v).transpose(1, 2).reshape(B, N, C)
+        return linear(o, self.proj, dtype)
+
+
+class FFN(nn.Module):
+    """mmpretrain FFN naming: ``layers.0.0`` is fc1, ``layers.1`` is fc2."""
+
+    def __init__(self, embed_dims: int, feedforward_channels: int):
+        super().__init__()
+        self.layers = nn.Sequential(
+            nn.Sequential(nn.Linear(embed_dims, feedforward_channels)),
+            nn.Linear(feedforward_channels, embed_dims),
+        )
+
+    @property
+    def fc1(self) -> nn.Linear:
+        return self.layers[0][0]
+
+    @property
+    def fc2(self) -> nn.Linear:
+        return self.layers[1]
+
+
+class TransformerBlock(nn.Module):
+    def __init__(
+        self,
+        embed_dims: int,
+        num_heads: int,
+        feedforward_channels: int,
+        qkv_bias: bool = True,
+        dtype: torch.dtype = torch.float32,
+        approximate_gelu: bool = False,
+        fused_layers: Optional[bool] = None,
+    ):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.approximate_gelu = approximate_gelu
+        self.fused_layers = fused_layers
+        self.ln1 = nn.LayerNorm(embed_dims, eps=1e-6)
+        self.attn = Attention(embed_dims, num_heads, qkv_bias)
+        self.ln2 = nn.LayerNorm(embed_dims, eps=1e-6)
+        self.ffn = FFN(embed_dims, feedforward_channels)
+        self._prepared = None  # (key, K1's operands), see kernel_weights
+
+    def kernel_weights(self) -> Tuple[torch.Tensor, ...]:
+        """K1's operands (``prepare_weights``). Without autograd they are kept
+        and reused until a parameter is replaced or changed in place."""
+        qkv, proj, fc1, fc2 = self.attn.qkv, self.attn.proj, self.ffn.fc1, self.ffn.fc2
+        C = qkv.in_features
+        b_qkv = qkv.bias if qkv.bias is not None else torch.zeros(3 * C, device=qkv.weight.device)
+
+        def prepare():
+            return prepare_weights(
+                self.ln1.weight, self.ln1.bias, qkv.weight.t(), b_qkv, proj.weight.t(), proj.bias,
+                self.ln2.weight, self.ln2.bias, fc1.weight.t(), fc1.bias, fc2.weight.t(), fc2.bias,
+                num_heads=self.num_heads, dtype=self.dtype,
+            )
+
+        if torch.is_grad_enabled():
+            return prepare()
+        key = (self.dtype,) + tuple((p.data_ptr(), p._version) for p in self.parameters())
+        if self._prepared is None or self._prepared[0] != key:
+            self._prepared = (key, prepare())
+        return self._prepared[1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        B, N, C = x.shape
+        if self.fused_layers is not False and fits(N, C, self.num_heads):
+            return vit_layer_prepared(
+                x, self.kernel_weights(), num_heads=self.num_heads, eps=self.ln1.eps,
+                approximate_gelu=self.approximate_gelu, dtype=self.dtype,
+            )
+        dt = self.dtype
+        h = self.attn(layer_norm_f32(x, self.ln1).to(dt), dt)
+        x = x + h
+        h = linear(layer_norm_f32(x, self.ln2).to(dt), self.ffn.fc1, dt)
+        h = F.gelu(h, approximate="tanh" if self.approximate_gelu else "none")
+        return x + linear(h, self.ffn.fc2, dt)
+
+
+@MODELS.register_module()
+class VisionTransformer(nn.Module):
+    """ViT backbone: NCHW image in, tuple of one (B, C, h, w) f32 map out.
+
+    ``arch`` is a preset name or a dict with embed_dims/num_layers/num_heads/
+    feedforward_channels; ``img_size`` is (H, W) like mmpretrain.
+    ``drop_path_rate`` is accepted for the config's sake: stochastic depth
+    acts only in training, which comes with a later slice.
+    """
+
+    def __init__(
+        self,
+        arch: Any = "small",
+        img_size: Tuple[int, int] = (256, 192),
+        patch_size: int = 16,
+        patch_padding: int = 2,
+        in_channels: int = 3,
+        qkv_bias: bool = True,
+        drop_path_rate: float = 0.0,
+        with_cls_token: bool = False,
+        out_type: str = "featmap",
+        final_norm: bool = True,
+        out_indices: Sequence[int] = (-1,),
+        dtype: Any = "float32",
+        approximate_gelu: bool = False,
+        fused_layers: Optional[bool] = None,
+    ):
+        super().__init__()
+        if with_cls_token or out_type != "featmap" or tuple(out_indices) != (-1,) or not final_norm:
+            raise NotImplementedError(
+                "the port's ViT emits the final featmap only (no cls token, out_indices=(-1,))"
+            )
+        arch = VIT_ARCH_ZOO[arch] if isinstance(arch, str) else dict(arch)
+        self.embed_dims = C = arch["embed_dims"]
+        self.num_layers = arch["num_layers"]
+        self.dtype = resolve_dtype(dtype)
+        H, W = img_size
+        self.grid_h = (H + 2 * patch_padding - patch_size) // patch_size + 1
+        self.grid_w = (W + 2 * patch_padding - patch_size) // patch_size + 1
+
+        self.patch_embed = nn.Module()
+        self.patch_embed.projection = nn.Conv2d(
+            in_channels, C, kernel_size=patch_size, stride=patch_size, padding=patch_padding
+        )
+        self.pos_embed = nn.Parameter(torch.zeros(1, self.grid_h * self.grid_w, C))
+        self.layers = nn.ModuleList(
+            TransformerBlock(
+                C, arch["num_heads"], arch["feedforward_channels"], qkv_bias=qkv_bias,
+                dtype=self.dtype, approximate_gelu=approximate_gelu, fused_layers=fused_layers,
+            )
+            for _ in range(self.num_layers)
+        )
+        self.ln1 = nn.LayerNorm(C, eps=1e-6)  # the final norm, mmpretrain's name
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor]:
+        """x: (B, 3, H, W) normalised image -> ((B, C, h, w) f32,)."""
+        dt = self.dtype
+        proj = self.patch_embed.projection
+        x = F.conv2d(x.to(dt), proj.weight.to(dt), proj.bias.to(dt), proj.stride, proj.padding)
+        B, C, gh, gw = x.shape
+        x = x.flatten(2).transpose(1, 2)  # (B, gh*gw, C), row-major over the grid
+        x = x + self.pos_embed.to(dt)
+        for layer in self.layers:
+            x = layer(x.contiguous())
+        y = layer_norm_f32(x, self.ln1)
+        return (y.transpose(1, 2).reshape(B, C, gh, gw).contiguous(),)

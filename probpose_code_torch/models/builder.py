@@ -1,0 +1,169 @@
+"""Model construction from config dicts, and the PoseModel runtime wrapper.
+
+Port of ``probpose_code_tpu/models/builder.py``: ``build_pose_estimator``
+(``:39``) reads the same reference-style config dicts, and ``PoseModel``
+owns the module and its predict program for the top-down ProbMapHead branch
+(``:752-822``): preprocess -> original and mirrored crops as one doubled
+batch -> flip-TTA average -> expected-OKS decode.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from probpose_code_torch.registry import MODELS
+
+from .backbones.vit import VisionTransformer  # noqa: F401  (registers)
+from .heads.probmap_head import ProbMapHead  # noqa: F401  (registers)
+from .pose_estimators.topdown import TopdownPoseEstimator, preprocess_inputs, probmap_head_predict
+
+
+def _adapt_backbone_cfg(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """Accept ``type='mmpretrain.VisionTransformer'`` and its kwargs
+    (``patch_cfg.padding``); drop the torch-side ``init_cfg`` and the
+    optimizer-side ``frozen_stages``."""
+    cfg = copy.deepcopy(dict(cfg))
+    if cfg.get("type") in ("mmpretrain.VisionTransformer", "VisionTransformer"):
+        cfg["type"] = "VisionTransformer"
+        patch_cfg = cfg.pop("patch_cfg", None)
+        if patch_cfg and "padding" in patch_cfg:
+            cfg["patch_padding"] = patch_cfg["padding"]
+    cfg.pop("init_cfg", None)
+    cfg.pop("frozen_stages", None)
+    return cfg
+
+
+def build_pose_estimator(cfg: Dict[str, Any]):
+    """Build the module tree from a model config dict. Returns (module, aux),
+    aux carrying the data_preprocessor / test_cfg / head / backbone configs."""
+    cfg = copy.deepcopy(dict(cfg))
+    model_type = cfg.pop("type", "TopdownPoseEstimator")
+    data_preprocessor = cfg.pop("data_preprocessor", None) or {}
+    test_cfg = cfg.pop("test_cfg", None) or {}
+    cfg.pop("train_cfg", None)
+    backbone_cfg = cfg.pop("backbone")
+    head_cfg = cfg.pop("head")
+    neck_cfg = cfg.pop("neck", None)
+
+    backbone = MODELS.build(_adapt_backbone_cfg(backbone_cfg))
+    head = MODELS.build(dict(head_cfg))
+    neck = MODELS.build(dict(neck_cfg)) if neck_cfg else None
+    estimator_cls = MODELS.get(model_type) if isinstance(model_type, str) else model_type
+    if estimator_cls is None:
+        raise KeyError(f"unknown pose estimator type {model_type}")
+    module = estimator_cls(backbone=backbone, head=head, neck=neck)
+    aux = dict(
+        data_preprocessor=data_preprocessor,
+        test_cfg=test_cfg,
+        head_cfg=dict(head_cfg),
+        backbone_cfg=dict(backbone_cfg),
+    )
+    return module, aux
+
+
+@contextlib.contextmanager
+def full_f32_precision():
+    """No TF32 in products or convolutions for the duration (the counterpart
+    of ``_predict_precision`` = "highest", ``builder.py:588-599``: TF32-like
+    drift flips argmax decodes)."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+class PoseModel:
+    """Runtime handle: the module on its device plus the predict program."""
+
+    def __init__(self, cfg: Dict[str, Any], metainfo: Optional[dict] = None, device="cuda"):
+        self.cfg = copy.deepcopy(dict(cfg))
+        self.module, self.aux = build_pose_estimator(cfg)
+        head_cfg = self.aux["head_cfg"]
+        self.head_type = head_cfg.get("type")
+        if self.head_type != "ProbMapHead" or not isinstance(self.module, TopdownPoseEstimator):
+            raise NotImplementedError("the port predicts with top-down ProbMapHead models only")
+        self.decoder_cfg = head_cfg.get("decoder") or {}
+        if "input_size" in self.decoder_cfg:
+            self.input_size = tuple(self.decoder_cfg["input_size"])
+        else:
+            self.input_size = tuple(self.aux["test_cfg"].get("input_size", (192, 256)))
+        self.metainfo = metainfo
+        self.device = torch.device(device)
+        self.module.to(self.device).eval()
+        self._predict_fn = None
+
+    def init_weights(self, seed: int = 0) -> None:
+        """Random weights from a seeded generator: lecun-normal products,
+        pos_embed N(0, 0.02), unit norms, zero biases."""
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for name, p in self.module.named_parameters():
+                if name.endswith("pos_embed"):
+                    value = torch.randn(p.shape, generator=gen) * 0.02
+                elif p.dim() >= 2:
+                    fan_in = p.shape[1] * math.prod(p.shape[2:])
+                    value = torch.randn(p.shape, generator=gen) / math.sqrt(fan_in)
+                elif name.endswith("weight"):
+                    value = torch.ones(p.shape)
+                else:
+                    value = torch.zeros(p.shape)
+                p.copy_(value)
+
+    def is_low_precision(self) -> bool:
+        dtypes = (self.aux["backbone_cfg"].get("dtype"), self.aux["head_cfg"].get("dtype"))
+        return any(str(d) == "bfloat16" for d in dtypes)
+
+    def preprocess(self, images: torch.Tensor) -> torch.Tensor:
+        dp = self.aux["data_preprocessor"]
+        return preprocess_inputs(
+            images,
+            mean=dp.get("mean", (0.0, 0.0, 0.0)),
+            std=dp.get("std", (1.0, 1.0, 1.0)),
+            bgr_to_rgb=dp.get("bgr_to_rgb", False),
+        )
+
+    def flip_indices(self):
+        if self.metainfo:
+            return list(self.metainfo["flip_indices"])
+        return list(range(self.aux["head_cfg"].get("out_channels", 17)))
+
+    def make_predict(self):
+        """(B, H, W, 3) raw crops on the model's device -> decoded predictions."""
+        test_cfg = self.aux["test_cfg"]
+        flip_test = test_cfg.get("flip_test", False)
+        shift_heatmap = test_cfg.get("shift_heatmap", False)
+        freeze_oks = self.aux["head_cfg"].get("freeze_oks", False)
+        flip_indices = self.flip_indices()
+        precision = contextlib.nullcontext if self.is_low_precision() else full_f32_precision
+
+        def predict(images: torch.Tensor) -> Dict[str, torch.Tensor]:
+            with torch.inference_mode(), precision():
+                x = self.preprocess(images)
+                outputs_flipped = None
+                if flip_test:
+                    # original and mirrored crops as one doubled batch
+                    B = x.shape[0]
+                    both = self.module(torch.cat([x, torch.flip(x, dims=[2])], dim=0))
+                    outputs = {k: v[:B] for k, v in both.items()}
+                    outputs_flipped = {k: v[B:] for k, v in both.items()}
+                else:
+                    outputs = self.module(x)
+                return probmap_head_predict(
+                    outputs, outputs_flipped, flip_indices, input_size=self.input_size,
+                    shift_heatmap=shift_heatmap, freeze_oks=freeze_oks,
+                )
+
+        return predict
+
+    def predict(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if self._predict_fn is None:
+            self._predict_fn = self.make_predict()
+        return self._predict_fn(images)

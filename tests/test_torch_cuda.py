@@ -1,0 +1,101 @@
+"""The CUDA kernels against their plain twins, on the card.
+
+These tests need an NVIDIA card with the CUDA toolkit; elsewhere they skip.
+They import no JAX, so they run where JAX is absent:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+They cover shapes beyond the flagship one that ``chip_smoke.py`` holds:
+ragged tiles, head widths of 8 and above 128, maps whose filter needs more
+than 48 KB of shared memory, and flat maps whose argmax is a tie.
+Bars are ``chip_smoke.py``'s, with its reasons.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import (
+    GOLDEN,
+    K1_BF16_REL,
+    K1_F32_REL,
+    K2_CONV_ATOL,
+    K2_LOCS_ATOL,
+    K2_VALS_ATOL,
+    TINY_CFG,
+    golden_errors,
+    golden_samples,
+    layer_inputs,
+    peaked_heatmaps,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc (run on the card)")
+
+
+@pytest.mark.parametrize("B,N,C,H,F", [(3, 24, 40, 5, 72), (1, 8, 64, 8, 256), (2, 200, 272, 2, 544)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_vit_layer_matches_plain(card, B, N, C, H, F, dtype):
+    from probpose_code_torch.ops.kernels.vit_layer import vit_layer, vit_layer_plain, vit_layer_prepared
+
+    dt = getattr(torch, dtype)
+    approx = dtype == "bfloat16"
+    bar = K1_BF16_REL if approx else K1_F32_REL
+    x, p = layer_inputs(B, N, C, F, dt, seed=B + N)
+    kw = dict(num_heads=H, approximate_gelu=approx, dtype=dt)
+    before = vit_layer_prepared.launches
+    got = vit_layer(x, *p, **kw).float()
+    want = vit_layer_plain(x, *p, **kw).float()
+    assert vit_layer_prepared.launches == before + 1
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() / want.abs().max().item() < bar
+
+
+@pytest.mark.parametrize("B,K,H,W", [(5, 17, 64, 48), (2, 17, 128, 96), (3, 4, 32, 24)])
+def test_expected_oks_matches_plain(card, B, K, H, W):
+    from probpose_code_torch.ops.decode import expected_oks_decode_to_input_space, oks_convolve_plain
+    from probpose_code_torch.ops.kernels.expected_oks import expected_oks_decode, oks_convolve
+
+    hm = torch.from_numpy(peaked_heatmaps(B, K, H, W, seed=H)).cuda()
+    size = (4 * W, 4 * H)
+    scale = torch.tensor([size[0] / (W - 1), size[1] / (H - 1)], device="cuda")
+    locs, vals = expected_oks_decode(hm, size)
+    locs_p, vals_p = expected_oks_decode_to_input_space(hm, size)
+    assert ((locs - locs_p) / scale).abs().max().item() < K2_LOCS_ATOL
+    assert (vals - vals_p).abs().max().item() < K2_VALS_ATOL
+    assert (oks_convolve(hm) - oks_convolve_plain(hm)).abs().max().item() < K2_CONV_ATOL
+
+
+def test_expected_oks_flat_maps_take_the_first_index(card):
+    from probpose_code_torch.ops.decode import expected_oks_decode_to_input_space
+    from probpose_code_torch.ops.kernels.expected_oks import expected_oks_decode
+
+    hm = torch.zeros(2, 17, 64, 48, device="cuda")
+    locs, vals = expected_oks_decode(hm, (192, 256))
+    locs_p, vals_p = expected_oks_decode_to_input_space(hm, (192, 256))
+    assert torch.equal(locs, locs_p) and torch.equal(vals, vals_p)
+
+
+def test_kernels_reject_what_they_do_not_take(card):
+    from probpose_code_torch.ops.kernels.expected_oks import expected_oks_decode
+    from probpose_code_torch.ops.kernels.vit_layer import vit_layer
+
+    with pytest.raises(ValueError):
+        expected_oks_decode(torch.zeros(2, 17, 48, 64, device="cuda").transpose(2, 3), (192, 256))
+    x, p = layer_inputs(2, 16, 64, 128, torch.float32, seed=0)
+    with pytest.raises(TypeError):
+        vit_layer(x, *p, num_heads=4, dtype=torch.bfloat16)
+
+
+def test_golden_fixture_on_the_card(card):
+    from probpose_code_torch.apis import init_model
+
+    model = init_model(TINY_CFG, checkpoint=str(GOLDEN / "e2e_weights.pth"))
+    err, aux = golden_errors(*golden_samples(model))
+    assert np.percentile(err, 99) < 1.0 and err.max() < 5.0
+    assert max(aux.values()) < 2e-3
