@@ -8,12 +8,19 @@ card and the CUDA toolkit (nvcc); it builds the port's kernels from
 1. the card's name and power limit, and the kernels' build time;
 2. K1 (whole ViT layer) against its plain twin at the flagship layer shape;
 3. K2 (expected-OKS decode) and its conv-only entry against their plain twin;
-4. the golden tiny ProbPose fixture end to end through ``init_model`` and
+4. K3 (the differentiable ViT layer): forward and all 13 gradients against
+   its plain twin, at a small f32 shape and at the flagship layer shape in
+   bf16 with stochastic-depth masks that drop some images;
+5. the golden tiny ProbPose fixture end to end through ``init_model`` and
    ``inference_topdown``, against the reference keypoints;
-5. the flagship ProbPose-S predict at full width (random weights, seed 0),
+6. the flagship ProbPose-S predict at full width (random weights, seed 0),
    64 boxes with flip-TTA: the kernels' launch counts in one call, then
    crops/s;
-6. each kernel's time beside its plain twin's, a PyTorch library call's where
+7. the flagship training recipe at full width (random weights, seed 0, a
+   synthetic batch of 64 crops, targets encoded on the card, drop_path 0.1)
+   through ``make_train_step``: the kernels' launch counts in one step, the
+   losses, lr and gradient norm of each step, train crops/s and a profile;
+8. each kernel's time beside its plain twin's, a PyTorch library call's where
    one computes the same function, and its bound from this run's shapes.
 
 The line before the last holds the kernels' record as JSON, the last line
@@ -24,6 +31,7 @@ It imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -50,6 +58,18 @@ K1_F32_REL = 1e-4
 K2_LOCS_ATOL = 1e-3
 K2_VALS_ATOL = 1e-5
 K2_CONV_ATOL = 1e-4
+# K3, as the relative max error max|kernel - twin| / max|twin| of each
+# output: f32 forward 2e-4 and gradients 5e-4, the JAX package's bars
+# (tests/test_ops/test_vit_layer_train.py:81,101); bf16 5e-2, its bar for
+# bf16 backbone gradients (:152). The twin's gradients are torch autograd's,
+# which rounds to bf16 at other points than the kernel's backward.
+K3_F32_FWD = 2e-4
+K3_F32_GRAD = 5e-4
+K3_BF16_REL = 5e-2
+K3_NAMES = ("out", "dx", "ln1_scale", "ln1_bias", "w_qkv", "b_qkv", "w_proj", "b_proj",
+            "ln2_scale", "ln2_bias", "w_fc1", "b_fc1", "w_fc2", "b_fc2")
+# COCO train2017 person instances with keypoints over the recipe's batch of 64
+STEPS_PER_EPOCH = 149813 // 64
 
 TINY_CFG = dict(
     model=dict(
@@ -114,6 +134,64 @@ def layer_inputs(B, N, C, F, dtype, seed):
     return x, params
 
 
+def drop_masks(B, keep, seed):
+    """Per-image stochastic-depth multipliers (0 or 1/keep) with the first
+    image's attention branch and the last image's MLP branch dropped."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    m1, m2 = ((torch.rand(2, B, generator=g) < keep).float() / keep).cuda()
+    m1[0] = 0.0
+    m2[-1] = 0.0
+    return m1, m2
+
+
+def k3_errors(B, N, C, H, F, dtype, masked, seed):
+    """K3's output and its 13 gradients (x and the twelve parameters) against
+    the plain twin's under torch autograd, on the same inputs and the same
+    random output gradient: {name: relative max error}."""
+    import torch
+
+    from probpose_code_torch.ops.kernels.vit_layer_train import vit_layer_train, vit_layer_train_plain
+
+    x, p = layer_inputs(B, N, C, F, dtype, seed)
+    m1, m2 = drop_masks(B, 0.9, seed) if masked else (None, None)
+    g = torch.randn(B, N, C, generator=torch.Generator().manual_seed(seed + 1)).cuda().to(dtype)
+    results = []
+    for fn in (vit_layer_train, vit_layer_train_plain):
+        xs = x.clone().requires_grad_(True)
+        ps = [t.clone().requires_grad_(True) for t in p]
+        out = fn(xs, *ps, m1, m2, num_heads=H, dtype=dtype)
+        results.append([out.detach().float()] + [t.float() for t in torch.autograd.grad(out, [xs, *ps], g)])
+    torch.cuda.synchronize()
+    # a gradient that is zero on both sides (every image's branch dropped) counts as 0
+    return {n: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for n, a, b in zip(K3_NAMES, *results)}
+
+
+def synthetic_train_batch(B, seed):
+    """A batch of B crops as the ProbMap codec and the device pipeline give
+    it: raw 0-255 crops, heatmap-space keypoints (some outside the map, some
+    unannotated) whose maps are encoded on the card, and the codec's weight
+    fields (``codecs/probmap.py:_encode_probmap``)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    W, H = 192, 256  # input size
+    K = 17
+    kpts = torch.stack([torch.rand(B, K, generator=g) * (W + 40) - 20,
+                        torch.rand(B, K, generator=g) * (H + 40) - 20], dim=-1)
+    vis = (torch.rand(B, K, generator=g) > 0.15).float()
+    visibility = (torch.rand(B, K, generator=g) > 0.3).float() * vis
+    in_image = ((kpts[..., 0] >= 0) & (kpts[..., 0] < W) & (kpts[..., 1] >= 0) & (kpts[..., 1] < H)).float()
+    scale = torch.tensor([(W - 1) / (48 - 1), (H - 1) / (64 - 1)])
+    batch = dict(
+        inputs=torch.randint(0, 256, (B, H, W, 3), generator=g).float(),
+        kpts_hm=kpts / scale, kpts_visible=vis, keypoint_weights=vis, in_image=in_image,
+        annotated=(vis > 0).float(), keypoints_visibility=visibility,
+    )
+    return {k: v.cuda() for k, v in batch.items()}
+
+
 def peaked_heatmaps(B, K, H, W, seed):
     """(B, K, H, W) float32 numpy maps with one gaussian peak each, away
     from the border: argmax ties on flat noise are last-bit behaviour, so the
@@ -169,6 +247,16 @@ def golden_errors(data, samples):
     aux = {f: float(np.abs(np.stack([by_id[i].pred_instances[f].reshape(17) for i in ids]) - data[k]).max())
            for f, k in GOLDEN_AUX}
     return err, aux
+
+
+def kernel_counters():
+    """Each kernel wrapper, whose ``launches`` counts its kernel's launches."""
+    from probpose_code_torch.ops.kernels.expected_oks import expected_oks_decode, oks_convolve
+    from probpose_code_torch.ops.kernels.vit_layer import vit_layer_prepared
+    from probpose_code_torch.ops.kernels.vit_layer_train import vit_layer_train_backward, vit_layer_train_forward
+
+    return dict(vit_layer=vit_layer_prepared, expected_oks=expected_oks_decode, oks_convolve=oks_convolve,
+                vit_layer_train_fwd=vit_layer_train_forward, vit_layer_train_bwd=vit_layer_train_backward)
 
 
 class Smoke:
@@ -232,6 +320,21 @@ class Smoke:
         if not (dl < K2_LOCS_ATOL and dv < K2_VALS_ATOL and conv_err < K2_CONV_ATOL):
             raise AssertionError("K2 disagrees with its plain twin")
 
+    def k3_parity(self):
+        import torch
+
+        cases = ((4, 16, 64, 4, 128, torch.float32, False), (4, 16, 64, 4, 128, torch.float32, True),
+                 (64, 192, 384, 12, 1536, torch.bfloat16, True))
+        for B, N, C, H, F, dtype, masked in cases:
+            errs = k3_errors(B, N, C, H, F, dtype, masked, seed=B + N)
+            bars = {n: (K3_BF16_REL if dtype == torch.bfloat16 else K3_F32_FWD if n == "out" else K3_F32_GRAD)
+                    for n in errs}
+            print(f"K3 B={B} N={N} C={C} H={H} F={F} {str(dtype)[6:]}{' masked' if masked else ''}: "
+                  + ", ".join(f"{n} {e:.2e} (bar {bars[n]:g})" for n, e in errs.items()))
+            bad = [n for n, e in errs.items() if not e < bars[n]]
+            if bad:
+                raise AssertionError(f"K3 disagrees with its plain twin on {bad}")
+
     def golden(self):
         import numpy as np
 
@@ -258,8 +361,6 @@ class Smoke:
 
         from probpose_code_torch.apis import inference_topdown, init_model
         from probpose_code_torch.config import Config
-        from probpose_code_torch.ops.kernels.expected_oks import expected_oks_decode
-        from probpose_code_torch.ops.kernels.vit_layer import vit_layer_prepared
 
         model = init_model(Config.fromfile(FLAGSHIP), device="cuda")
         rng = np.random.RandomState(0)
@@ -269,10 +370,12 @@ class Smoke:
         boxes = np.concatenate([xy, np.minimum(xy + wh, [640, 480])], axis=1).astype(np.float32)
 
         # the main path: counts set to 0 just before, read just after
-        vit_layer_prepared.launches = expected_oks_decode.launches = 0
+        counters = kernel_counters()
+        for c in counters.values():
+            c.launches = 0
         samples = inference_topdown(model, img, boxes)
         torch.cuda.synchronize()
-        launches = {"vit_layer": vit_layer_prepared.launches, "expected_oks": expected_oks_decode.launches}
+        launches = {k: c.launches for k, c in counters.items()}
         print(f"flagship main path: {len(samples)} crops, launches {json.dumps(launches)}")
         kpts = np.stack([s.pred_instances.keypoints for s in samples])
         fields = [np.stack([s.pred_instances[f] for s in samples]) for f in
@@ -281,8 +384,8 @@ class Smoke:
             raise AssertionError(f"flagship output shapes {kpts.shape}, {[f.shape for f in fields]}")
         if not (np.isfinite(kpts).all() and all(np.isfinite(f).all() for f in fields)):
             raise AssertionError("flagship outputs are not finite")
-        if launches != {"vit_layer": 12, "expected_oks": 1}:
-            raise AssertionError(f"expected K1 x12 and K2 x1 per call, got {launches}")
+        if launches != dict(vit_layer=12, expected_oks=1, oks_convolve=0, vit_layer_train_fwd=0, vit_layer_train_bwd=0):
+            raise AssertionError(f"expected K1 x12 and K2 x1 per call and no other kernel, got {launches}")
         self.record["launches"] = launches
 
         iters = 10
@@ -298,10 +401,79 @@ class Smoke:
               f"({1e3 * dt / iters:.2f} ms per inference_topdown call, {iters} calls after 3 warm-up)")
         self.profile(lambda: inference_topdown(model, img, boxes), calls=3)
 
+    def train(self):
+        import torch
+
+        from probpose_code_torch.apis import init_model
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.engine.optim import build_optimizer
+        from probpose_code_torch.parallel import create_train_state, make_train_step
+
+        cfg = Config.fromfile(FLAGSHIP)
+        model = init_model(cfg, device="cuda")
+        optimizer, lr_fn = build_optimizer(
+            model, cfg["optim_wrapper"], cfg["param_scheduler"], STEPS_PER_EPOCH, cfg["train_cfg"]["max_epochs"],
+        )
+        state = create_train_state(model, optimizer)
+        step = make_train_step(model, optimizer)
+        B = cfg["train_dataloader"]["batch_size"]
+        batch = synthetic_train_batch(B, seed=0)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        qkv0 = dict(model.module.named_parameters())["backbone.layers.0.attn.qkv.weight"]
+
+        def run(n):
+            """n steps; their (step, lr, metrics) with the metrics still on the card."""
+            nonlocal state
+            logs = []
+            for _ in range(n):
+                lr = lr_fn(state.step)
+                state, metrics = step(state, batch, gen)
+                logs.append((state.step, lr, metrics))
+            return logs
+
+        def report(logs):
+            for k, lr, metrics in logs:
+                m = {name: float(v) for name, v in metrics.items()}
+                print(f"train step {k}: lr {lr:.4e} " + json.dumps(m))
+                if not all(map(math.isfinite, m.values())) or not m["grad_norm"] > 0:
+                    raise AssertionError(f"train step {k}: non-finite metrics or zero grad norm")
+
+        # the main path: counts set to 0 just before one step, read just after
+        counters = kernel_counters()
+        for c in counters.values():
+            c.launches = 0
+        report(run(1))
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        g0 = qkv0.grad.abs().max().item()
+        print(f"train main path: one step of B={B}, launches {json.dumps(launches)}; "
+              f"max |grad| of backbone.layers.0.attn.qkv.weight {g0:.3e}")
+        want = dict(vit_layer=0, expected_oks=0, oks_convolve=0, vit_layer_train_fwd=12, vit_layer_train_bwd=12)
+        if launches != want:
+            raise AssertionError(f"expected K3 x12 forward and x12 backward and no other kernel, got {launches}")
+        if not g0 > 0:
+            raise AssertionError("the first ViT layer got no gradient")
+        self.record["train_launches"] = launches
+
+        report(run(2))  # warm-up: 3 steps with the one above
+        torch.cuda.synchronize()
+        steps = 5
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logs = run(steps)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        report(logs)
+        print(f"flagship ProbPose-S train step, B={B}, bf16, drop_path 0.1: {B * steps / dt:.1f} crops/s "
+              f"({1e3 * dt / steps:.2f} ms per step, {steps} steps after 3 warm-up; the loss dicts are read "
+              f"to the host after the timed steps); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        self.profile(lambda: run(1), calls=2, what="train steps")
+
     @staticmethod
-    def profile(fn, calls: int):
-        """Device time by kernel over a few flagship calls, and the device's
-        busy share of the wall time (torch.profiler's CUDA activity)."""
+    def profile(fn, calls: int, what: str = "flagship calls"):
+        """Device time by kernel over a few calls, and the device's busy
+        share of the wall time (torch.profiler's CUDA activity)."""
         import torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -321,9 +493,10 @@ class Smoke:
             print("profile: the profiler recorded no device time (busy share not measured)")
             return
         busy = sum(t for t, _ in by_name.values())
-        print(f"profile over {calls} flagship calls: wall {wall_us / calls / 1e3:.2f} ms per call, device busy "
+        launched = sum(n for _, n in by_name.values())
+        print(f"profile over {calls} {what}: wall {wall_us / calls / 1e3:.2f} ms per call, device busy "
               f"{busy / calls / 1e3:.2f} ms per call ({100 * busy / wall_us:.1f}% busy, "
-              f"{100 * (1 - busy / wall_us):.1f}% idle)")
+              f"{100 * (1 - busy / wall_us):.1f}% idle), {launched // calls} kernels per call")
         for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
             print(f"  {100 * t / busy:5.1f}%  {t / calls / 1e3:8.3f} ms/call  x{n // calls:<4d} {name[:110]}")
 
@@ -384,6 +557,7 @@ class Smoke:
         k2_err = max((locs - locs_p).abs().max().item(), (vals - vals_p).abs().max().item())
         k2_ms = cuda_time_ms(lambda: expected_oks_decode(hm, size), 50)
         k2_plain = cuda_time_ms(lambda: expected_oks_decode_to_input_space(hm, size), 10)
+        conv_err = (oks_convolve(hm) - oks_convolve_plain(hm)).abs().max().item()
         conv_ms = cuda_time_ms(lambda: oks_convolve(hm), 50)
         conv_plain = cuda_time_ms(lambda: oks_convolve_plain(hm), 10)
         D = 19
@@ -393,8 +567,15 @@ class Smoke:
         k2_bound = max(k2_ops / PEAK_F32, k2_bytes / PEAK_BYTES) * 1e3
         conv_bytes = 2 * hm.numel() * 4 + K * D * 4  # the conv-only entry writes the maps back
         conv_bound = max(k2_ops / PEAK_F32, conv_bytes / PEAK_BYTES) * 1e3
-        # the launch counts above belong to the comparisons, not the main path
-        launches = self.record.get("launches", {"vit_layer": 0, "expected_oks": 0})
+        # K3 at the flagship training shape: 64 crops, bf16, masks that drop some images
+        Bt = 64
+        kt = self.k3_timings(Bt, N, C, H, F)
+
+        # the launch counts above belong to the comparisons, not the main paths:
+        # K1, K2 and K2b from the predict run, K3 from the train step
+        predict, train = self.record.get("launches", {}), self.record.get("train_launches", {})
+        launches = {k: predict.get(k, 0) for k in ("vit_layer", "expected_oks", "oks_convolve")}
+        launches.update({k: train.get(k, 0) for k in ("vit_layer_train_fwd", "vit_layer_train_bwd")})
 
         self.record["kernels"] = [
             dict(name="vit_layer", route="cuda", source="probpose_code_torch/csrc/vit_layer.cu",
@@ -407,6 +588,16 @@ class Smoke:
                  max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound,
                  bound_by="operations" if k2_ops / PEAK_F32 >= k2_bytes / PEAK_BYTES else "bytes",
                  library_ms=None),
+            dict(name="oks_convolve", route="cuda", source="probpose_code_torch/csrc/expected_oks.cu",
+                 replaces="probpose_code_tpu/ops/pallas/expected_oks.py:51", launches=launches["oks_convolve"],
+                 max_abs_err=conv_err, ms=conv_ms, plain_ms=conv_plain, bound_ms=conv_bound,
+                 bound_by="operations" if k2_ops / PEAK_F32 >= conv_bytes / PEAK_BYTES else "bytes",
+                 library_ms=None),
+        ] + [
+            dict(name=f"vit_layer_train_{part}", route="cuda", source="probpose_code_torch/csrc/vit_layer_train.cu",
+                 replaces=f"probpose_code_tpu/ops/pallas/vit_layer_train.py:{line}",
+                 launches=launches[f"vit_layer_train_{part}"], **kt[part])
+            for part, line in (("fwd", 298), ("bwd", 371))
         ]
         print(f"K1 vit_layer B={B} N={N} C={C} bf16: {k1_ms:.3f} ms, plain {k1_plain:.3f} ms, "
               f"nn.TransformerEncoderLayer (erf GELU, max-shifted softmax) {k1_lib:.3f} ms, "
@@ -416,6 +607,88 @@ class Smoke:
               f"bound {k2_bound:.4f} ms ({k2_bytes / 1e6:.2f} MB, {k2_ops / 1e9:.3f} GFLOP)")
         print(f"K2b oks_convolve (conv-only entry of expected_oks.cu): {conv_ms:.4f} ms, plain {conv_plain:.4f} ms, "
               f"bound {conv_bound:.4f} ms ({conv_bytes / 1e6:.2f} MB, {k2_ops / 1e9:.3f} GFLOP)")
+        for part in ("fwd", "bwd"):
+            t = kt[part]
+            print(f"K3 vit_layer_train {part} B={Bt} N={N} C={C} bf16: {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+                  f"nn.TransformerEncoderLayer {part} (erf GELU, max-shifted softmax) {t['library_ms']:.3f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms ({kt['gflop'][part]:.1f} GFLOP, {kt['mb'][part]:.1f} MB), "
+                  f"max abs err {t['max_abs_err']:.3e} (relative to the largest value {kt['rel'][part]:.2e})")
+
+    @staticmethod
+    def k3_timings(B, N, C, H, F):
+        """K3's forward and backward kernels, their plain twin (forward, and
+        autograd's backward through it) and nn.TransformerEncoderLayer's
+        forward and backward, at one layer of the training shape; the bound
+        of each half from its operations (forward: the layer's products;
+        backward: twice those, the least a backward can do) and its bytes
+        (each input read once, each output written once)."""
+        import torch
+        import torch.nn as nn
+
+        from probpose_code_torch.ops.kernels.vit_layer import _fold_q_scale, layer_flops
+        from probpose_code_torch.ops.kernels.vit_layer_train import (
+            _operands, vit_layer_train_backward, vit_layer_train_forward, vit_layer_train_plain,
+        )
+
+        dt = torch.bfloat16
+        x, p = layer_inputs(B, N, C, F, dt, seed=4)
+        m1, m2 = drop_masks(B, 0.9, seed=4)
+        g = torch.randn(B, N, C, generator=torch.Generator().manual_seed(5)).cuda().to(dt)
+        w_qkv, b_qkv = _fold_q_scale(p[2], p[3], C // H)
+        ops = _operands([p[0], p[1], w_qkv, b_qkv, *p[4:]], dt)
+        kw = dict(num_heads=H, eps=1e-6)
+        out, saved = vit_layer_train_forward(x, m1, m2, ops, **kw)
+        grads = vit_layer_train_backward(g, x, m1, m2, ops, saved, **kw)
+        fwd_ms = cuda_time_ms(lambda: vit_layer_train_forward(x, m1, m2, ops, **kw), 10)
+        bwd_ms = cuda_time_ms(lambda: vit_layer_train_backward(g, x, m1, m2, ops, saved, **kw), 10)
+
+        xs = x.clone().requires_grad_(True)
+        ps = [t.clone().requires_grad_(True) for t in p]
+        want = vit_layer_train_plain(xs, *ps, m1, m2, num_heads=H, dtype=dt)
+        want_grads = torch.autograd.grad(want, [xs, *ps], g, retain_graph=True)
+        # the twin's w_qkv / b_qkv gradients are the un-scaled ones; the kernel's are for the folded operands
+        col = torch.ones(3 * C, device="cuda")
+        col[:C] = (C // H) ** -0.5
+        got_grads = [grads[0], *grads[1:3], grads[3] * col, grads[4] * col, *grads[5:]]
+        fwd_err = (out.float() - want.float()).abs().max().item()
+        bwd_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got_grads, want_grads))
+        rel = dict(fwd=fwd_err / want.float().abs().max().item(),
+                   bwd=max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                           for a, b in zip(got_grads, want_grads)))
+        if not max(rel.values()) < K3_BF16_REL:
+            raise AssertionError(f"K3 at B={B}: relative max errors {rel}")
+        fwd_plain = cuda_time_ms(lambda: vit_layer_train_plain(xs, *ps, m1, m2, num_heads=H, dtype=dt), 5)
+        bwd_plain = cuda_time_ms(lambda: torch.autograd.grad(want, [xs, *ps], g, retain_graph=True), 5)
+
+        lib = nn.TransformerEncoderLayer(
+            C, H, F, dropout=0.0, activation="gelu", layer_norm_eps=1e-6, batch_first=True, norm_first=True,
+        ).cuda().to(dt).train()
+        xl = x.clone().requires_grad_(True)
+        fwd_lib = cuda_time_ms(lambda: lib(xl), 10)
+        yl = lib(xl)
+        bwd_lib = cuda_time_ms(lambda: torch.autograd.grad(yl, [xl, *lib.parameters()], g, retain_graph=True), 10)
+
+        fwd_ops = layer_flops(B, N, C, F)
+        w_bytes = sum(t.numel() * t.element_size() for t in ops)
+        act = B * N * C
+        # forward: x and the masks in, out and x1 (f32) out; backward: g, x and x1 in, dx and 12 f32 grads out
+        fwd_bytes = act * 2 + 2 * B * 4 + w_bytes + act * 2 + act * 4
+        bwd_bytes = act * 2 * 2 + act * 4 + 2 * B * 4 + w_bytes + act * 2 + sum(t.numel() * 4 for t in ops)
+        result = {}
+        for part, ops_, bytes_, ms, plain, libms, err in (
+            ("fwd", fwd_ops, fwd_bytes, fwd_ms, fwd_plain, fwd_lib, fwd_err),
+            ("bwd", 2 * fwd_ops, bwd_bytes, bwd_ms, bwd_plain, bwd_lib, bwd_err),
+        ):
+            result[part] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=max(ops_ / PEAK_BF16, bytes_ / PEAK_BYTES) * 1e3,
+                bound_by="operations" if ops_ / PEAK_BF16 >= bytes_ / PEAK_BYTES else "bytes",
+                library_ms=libms,
+            )
+        result["rel"] = rel
+        result["gflop"] = dict(fwd=fwd_ops / 1e9, bwd=2 * fwd_ops / 1e9)
+        result["mb"] = dict(fwd=fwd_bytes / 1e6, bwd=bwd_bytes / 1e6)
+        return result
 
 
 def main() -> int:
@@ -439,8 +712,10 @@ def main() -> int:
     if not smoke.failures:
         smoke.phase("k1_parity", smoke.k1_parity)
         smoke.phase("k2_parity", smoke.k2_parity)
+        smoke.phase("k3_parity", smoke.k3_parity)
         smoke.phase("golden", smoke.golden)
         smoke.phase("flagship", smoke.flagship)
+        smoke.phase("train", smoke.train)
         smoke.phase("timings", smoke.timings)
     if smoke.failures:
         print(f"chip_smoke: failed phases: {', '.join(smoke.failures)}", file=sys.stderr)

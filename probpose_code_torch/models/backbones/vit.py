@@ -7,11 +7,15 @@ pre-norm blocks with LayerNorm eps 1e-6, a final LayerNorm in f32, and a
 feature map out in f32. ``dtype`` sets the residual stream's type (bf16 on
 the card keeps the products fast; the parameters stay f32).
 
-``fused_layers``: None (auto) and True run every serving layer through K1
-(``ops/kernels/vit_layer.py``) whenever its shape rule holds; False runs the
-eager block, whose attention is the max-shifted softmax of the JAX
-package's XLA path. State-dict names are mmpretrain's, so reference
-checkpoints load as they are.
+``fused_layers``: None (auto) and True run every layer through a kernel
+whenever its shape rule holds: K1 (``ops/kernels/vit_layer.py``) for
+serving, and K3 (``ops/kernels/vit_layer_train.py``, tanh-GELU only) in
+training or whenever autograd needs the layer's gradient; False runs the
+eager block, whose attention is the max-shifted softmax of the JAX package's
+XLA path. Stochastic depth (``drop_path_rate``, linear over the blocks)
+acts in training only, with per-image masks drawn from the generator the
+caller passes. State-dict names are mmpretrain's, so reference checkpoints
+load as they are.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from probpose_code_torch.ops.kernels.vit_layer import fits, prepare_weights, vit_layer_prepared
+from probpose_code_torch.ops.kernels.vit_layer_train import vit_layer_train
 from probpose_code_torch.registry import MODELS
 
 VIT_ARCH_ZOO = {
@@ -109,10 +114,12 @@ class TransformerBlock(nn.Module):
         dtype: torch.dtype = torch.float32,
         approximate_gelu: bool = False,
         fused_layers: Optional[bool] = None,
+        drop_path_rate: float = 0.0,
     ):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
+        self.drop_path_rate = drop_path_rate
         self.approximate_gelu = approximate_gelu
         self.fused_layers = fused_layers
         self.ln1 = nn.LayerNorm(embed_dims, eps=1e-6)
@@ -121,19 +128,22 @@ class TransformerBlock(nn.Module):
         self.ffn = FFN(embed_dims, feedforward_channels)
         self._prepared = None  # (key, K1's operands), see kernel_weights
 
-    def kernel_weights(self) -> Tuple[torch.Tensor, ...]:
-        """K1's operands (``prepare_weights``). Without autograd they are kept
-        and reused until a parameter is replaced or changed in place."""
+    def layer_params(self) -> Tuple[torch.Tensor, ...]:
+        """The twelve parameters in the kernels' order, weights as (in, out)."""
         qkv, proj, fc1, fc2 = self.attn.qkv, self.attn.proj, self.ffn.fc1, self.ffn.fc2
         C = qkv.in_features
         b_qkv = qkv.bias if qkv.bias is not None else torch.zeros(3 * C, device=qkv.weight.device)
+        return (
+            self.ln1.weight, self.ln1.bias, qkv.weight.t(), b_qkv, proj.weight.t(), proj.bias,
+            self.ln2.weight, self.ln2.bias, fc1.weight.t(), fc1.bias, fc2.weight.t(), fc2.bias,
+        )
+
+    def kernel_weights(self) -> Tuple[torch.Tensor, ...]:
+        """K1's operands (``prepare_weights``). Without autograd they are kept
+        and reused until a parameter is replaced or changed in place."""
 
         def prepare():
-            return prepare_weights(
-                self.ln1.weight, self.ln1.bias, qkv.weight.t(), b_qkv, proj.weight.t(), proj.bias,
-                self.ln2.weight, self.ln2.bias, fc1.weight.t(), fc1.bias, fc2.weight.t(), fc2.bias,
-                num_heads=self.num_heads, dtype=self.dtype,
-            )
+            return prepare_weights(*self.layer_params(), num_heads=self.num_heads, dtype=self.dtype)
 
         if torch.is_grad_enabled():
             return prepare()
@@ -142,20 +152,47 @@ class TransformerBlock(nn.Module):
             self._prepared = (key, prepare())
         return self._prepared[1]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def drop_masks(self, batch: int, generator: Optional[torch.Generator], device=None):
+        """Per-image stochastic-depth multipliers for the two branches, 0 or
+        1/keep (``vit.py:DropPath``, ``:39-52``), on ``device``, or
+        (None, None) at rate 0."""
+        if self.drop_path_rate == 0.0:
+            return None, None
+        if generator is None:
+            raise ValueError("drop_path_rate > 0 in training needs a torch.Generator")
+        keep = 1.0 - self.drop_path_rate
+        u = torch.rand(2, batch, generator=generator, device=generator.device).to(device)
+        m1, m2 = ((u < keep).float() / keep).unbind(0)
+        return m1, m2
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = x.to(self.dtype)
         B, N, C = x.shape
-        if self.fused_layers is not False and fits(N, C, self.num_heads):
+        kernel = self.fused_layers is not False and fits(N, C, self.num_heads)
+        needs_grad = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters())
+        )
+        m1 = m2 = None
+        if self.training or needs_grad:
+            if self.training:
+                m1, m2 = self.drop_masks(B, generator, x.device)
+            if kernel and self.approximate_gelu:
+                return vit_layer_train(
+                    x, *self.layer_params(), m1, m2, num_heads=self.num_heads, eps=self.ln1.eps,
+                    dtype=self.dtype,
+                )
+        elif kernel:
             return vit_layer_prepared(
                 x, self.kernel_weights(), num_heads=self.num_heads, eps=self.ln1.eps,
                 approximate_gelu=self.approximate_gelu, dtype=self.dtype,
             )
         dt = self.dtype
         h = self.attn(layer_norm_f32(x, self.ln1).to(dt), dt)
-        x = x + h
+        x = x + (h if m1 is None else h * m1[:, None, None].to(dt))
         h = linear(layer_norm_f32(x, self.ln2).to(dt), self.ffn.fc1, dt)
         h = F.gelu(h, approximate="tanh" if self.approximate_gelu else "none")
-        return x + linear(h, self.ffn.fc2, dt)
+        h = linear(h, self.ffn.fc2, dt)
+        return x + (h if m2 is None else h * m2[:, None, None].to(dt))
 
 
 @MODELS.register_module()
@@ -164,8 +201,8 @@ class VisionTransformer(nn.Module):
 
     ``arch`` is a preset name or a dict with embed_dims/num_layers/num_heads/
     feedforward_channels; ``img_size`` is (H, W) like mmpretrain.
-    ``drop_path_rate`` is accepted for the config's sake: stochastic depth
-    acts only in training, which comes with a later slice.
+    ``drop_path_rate`` is the last block's stochastic-depth rate; block i
+    gets ``rate * i / (num_layers - 1)`` (``vit.py:398``).
     """
 
     def __init__(
@@ -203,17 +240,20 @@ class VisionTransformer(nn.Module):
             in_channels, C, kernel_size=patch_size, stride=patch_size, padding=patch_padding
         )
         self.pos_embed = nn.Parameter(torch.zeros(1, self.grid_h * self.grid_w, C))
+        L = self.num_layers
         self.layers = nn.ModuleList(
             TransformerBlock(
                 C, arch["num_heads"], arch["feedforward_channels"], qkv_bias=qkv_bias,
                 dtype=self.dtype, approximate_gelu=approximate_gelu, fused_layers=fused_layers,
+                drop_path_rate=drop_path_rate * i / max(L - 1, 1),
             )
-            for _ in range(self.num_layers)
+            for i in range(L)
         )
         self.ln1 = nn.LayerNorm(C, eps=1e-6)  # the final norm, mmpretrain's name
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor]:
-        """x: (B, 3, H, W) normalised image -> ((B, C, h, w) f32,)."""
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor]:
+        """x: (B, 3, H, W) normalised image -> ((B, C, h, w) f32,).
+        ``generator`` draws the stochastic-depth masks in training."""
         dt = self.dtype
         proj = self.patch_embed.projection
         x = F.conv2d(x.to(dt), proj.weight.to(dt), proj.bias.to(dt), proj.stride, proj.padding)
@@ -221,6 +261,6 @@ class VisionTransformer(nn.Module):
         x = x.flatten(2).transpose(1, 2)  # (B, gh*gw, C), row-major over the grid
         x = x + self.pos_embed.to(dt)
         for layer in self.layers:
-            x = layer(x.contiguous())
+            x = layer(x.contiguous(), generator)
         y = layer_norm_f32(x, self.ln1)
         return (y.transpose(1, 2).reshape(B, C, gh, gw).contiguous(),)

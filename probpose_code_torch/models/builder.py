@@ -1,10 +1,12 @@
 """Model construction from config dicts, and the PoseModel runtime wrapper.
 
 Port of ``probpose_code_tpu/models/builder.py``: ``build_pose_estimator``
-(``:39``) reads the same reference-style config dicts, and ``PoseModel``
-owns the module and its predict program for the top-down ProbMapHead branch
-(``:752-822``): preprocess -> original and mirrored crops as one doubled
-batch -> flip-TTA average -> expected-OKS decode.
+(``:39``) reads the same reference-style config dicts, ``build_loss_modules``
+(``:132``) builds the head's five losses, and ``PoseModel`` owns the module,
+its predict program for the top-down ProbMapHead branch (``:752-822``:
+preprocess -> original and mirrored crops as one doubled batch -> flip-TTA
+average -> expected-OKS decode) and its loss (``loss_fn``, ``:406``, with the
+targets encoded on the device by ``device_preprocess_batch``, ``:363``).
 """
 
 from __future__ import annotations
@@ -16,11 +18,18 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from probpose_code_torch.ops.encode import generate_probmaps_device, probmap_encode_scales
 from probpose_code_torch.registry import MODELS
 
+from . import losses  # noqa: F401  (registers)
 from .backbones.vit import VisionTransformer  # noqa: F401  (registers)
 from .heads.probmap_head import ProbMapHead  # noqa: F401  (registers)
-from .pose_estimators.topdown import TopdownPoseEstimator, preprocess_inputs, probmap_head_predict
+from .pose_estimators.topdown import (
+    TopdownPoseEstimator,
+    preprocess_inputs,
+    probmap_head_loss,
+    probmap_head_predict,
+)
 
 
 def _adapt_backbone_cfg(cfg: Dict[str, Any]) -> Dict[str, Any]:
@@ -66,6 +75,24 @@ def build_pose_estimator(cfg: Dict[str, Any]):
     return module, aux
 
 
+_LOSS_DEFAULTS = dict(
+    keypoint_loss=dict(type="KeypointMSELoss", use_target_weight=True),
+    probability_loss=dict(type="BCELoss", use_target_weight=True),
+    visibility_loss=dict(type="BCELoss", use_target_weight=True),
+    oks_loss=dict(type="MSELoss", use_target_weight=True),
+    error_loss=dict(type="L1LogLoss", use_target_weight=True),
+)
+
+
+def build_loss_modules(head_cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """The ProbMapHead's five loss configs as callables, under the keys
+    ``keypoint``, ``probability``, ``visibility``, ``oks`` and ``error``."""
+    return {
+        key.replace("_loss", ""): MODELS.build(dict(head_cfg.get(key) or default))
+        for key, default in _LOSS_DEFAULTS.items()
+    }
+
+
 @contextlib.contextmanager
 def full_f32_precision():
     """No TF32 in products or convolutions for the duration (the counterpart
@@ -81,7 +108,9 @@ def full_f32_precision():
 
 
 class PoseModel:
-    """Runtime handle: the module on its device plus the predict program."""
+    """Runtime handle: the module on its device, the predict program and the
+    loss. ``loss_fn`` runs the module in training mode and ``predict`` in
+    evaluation mode; ``train()`` / ``eval()`` switch it explicitly."""
 
     def __init__(self, cfg: Dict[str, Any], metainfo: Optional[dict] = None, device="cuda"):
         self.cfg = copy.deepcopy(dict(cfg))
@@ -98,7 +127,21 @@ class PoseModel:
         self.metainfo = metainfo
         self.device = torch.device(device)
         self.module.to(self.device).eval()
+        self.loss_modules = build_loss_modules(head_cfg)
         self._predict_fn = None
+
+    def train(self, mode: bool = True) -> "PoseModel":
+        """Training mode: batch statistics in BatchNorm (running statistics
+        updated), stochastic depth on, the ViT layers through K3."""
+        self.module.train(mode)
+        return self
+
+    def eval(self) -> "PoseModel":
+        return self.train(False)
+
+    def batch_stats(self) -> Dict[str, torch.Tensor]:
+        """The BatchNorm running statistics by state-dict name (live buffers)."""
+        return {k: v for k, v in self.module.named_buffers() if k.endswith(("running_mean", "running_var"))}
 
     def init_weights(self, seed: int = 0) -> None:
         """Random weights from a seeded generator: lecun-normal products,
@@ -145,6 +188,7 @@ class PoseModel:
         precision = contextlib.nullcontext if self.is_low_precision() else full_f32_precision
 
         def predict(images: torch.Tensor) -> Dict[str, torch.Tensor]:
+            self.eval()
             with torch.inference_mode(), precision():
                 x = self.preprocess(images)
                 outputs_flipped = None
@@ -167,3 +211,40 @@ class PoseModel:
         if self._predict_fn is None:
             self._predict_fn = self.make_predict()
         return self._predict_fn(images)
+
+    def device_preprocess_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """The device half of the input pipeline: a batch that carries
+        heatmap-space keypoints (``kpts_hm`` (B, K, 2), ``kpts_visible``
+        (B, K)) instead of target maps gets its expected-OKS maps encoded
+        here, on the batch's device."""
+        if {"canvas", "canvas_sep"} & set(batch):
+            raise NotImplementedError("the device warp of canvas batches is not ported yet")
+        if "kpts_hm" not in batch or "heatmaps" in batch:
+            return batch
+        dc = self.decoder_cfg
+        if dc.get("type", "ProbMap") not in ("ProbMap", "ArgMaxProbMap"):
+            raise NotImplementedError(f"device encode for the {dc.get('type')} codec is not ported yet")
+        batch = dict(batch)
+        kpts = batch.pop("kpts_hm")
+        vis = batch.pop("kpts_visible")
+        hm_size = tuple(dc.get("heatmap_size", (48, 64)))
+        scales = probmap_encode_scales(kpts.shape[1], hm_size, float(dc.get("sigma", -1.0)))
+        batch["heatmaps"] = generate_probmaps_device(kpts, vis, hm_size, scales)
+        return batch
+
+    def loss_fn(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None):
+        """One forward in training mode and the ProbMapHead loss. ``batch``:
+        ``inputs`` (B, H, W, 3) raw 0-255 crops, ``heatmaps`` or ``kpts_hm`` /
+        ``kpts_visible``, and the codec's ``keypoint_weights``, ``in_image``,
+        ``annotated``, ``keypoints_visibility``. ``generator`` draws the
+        stochastic-depth masks. Returns ``(total, (loss_dict, new_state))``
+        as the JAX package does; ``new_state["batch_stats"]`` holds the
+        running statistics this forward updated."""
+        self.train()
+        batch = self.device_preprocess_batch(batch)
+        outputs = self.module(self.preprocess(batch["inputs"]), generator)
+        losses = probmap_head_loss(
+            outputs, batch, self.loss_modules, self.aux["head_cfg"], input_size=self.input_size,
+        )
+        total = sum(v for k, v in losses.items() if k.startswith("loss_"))
+        return total, (losses, {"batch_stats": self.batch_stats()})

@@ -6,7 +6,7 @@ Port of ``probpose_code_tpu/models/heads/heatmap_head.py:DeconvStack``
 ``ConvTranspose2d(k=4, s=2, padding=1)`` takes the reference weights as they
 are (only the flax side flips the taps, ``engine/checkpoint.py:768``).
 Sequential indices follow the reference keys: ``{0, 3}`` deconvs,
-``{1, 4}`` BN.
+``{1, 4}`` BN. ``BatchNorm2d`` trains as flax's ``nn.BatchNorm`` does.
 """
 
 from __future__ import annotations
@@ -16,6 +16,27 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with flax's training semantics (``nn.BatchNorm``,
+    ``momentum=0.9``): batch statistics in f32 with var = E[x^2] - mean^2
+    clipped at 0, and the running variance updated with that BIASED variance
+    (torch's own BatchNorm2d updates it with the unbiased one, which drifts
+    by n/(n-1) a step). Evaluation uses the running statistics, as torch's
+    does. Same buffers and state-dict keys as ``nn.BatchNorm2d``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
 
 def conv_in(module: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -48,7 +69,7 @@ def make_deconv_stack(in_channels: int, out_channels: Sequence[int], kernel_size
             raise NotImplementedError(f"deconv kernel size {k} is not ported yet (4 is)")
         layers += [
             nn.ConvTranspose2d(in_channels, c, 4, stride=2, padding=1, bias=False),
-            nn.BatchNorm2d(c, eps=1e-5, momentum=0.1),
+            BatchNorm2d(c, eps=1e-5, momentum=0.1),
             nn.ReLU(inplace=False),
         ]
         in_channels = c

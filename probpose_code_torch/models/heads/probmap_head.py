@@ -11,10 +11,15 @@ feature map:
 4. oks           tower -> sigmoid
 5. errors        tower -> ReLU
 
+The gradient switches are the JAX head's (``probmap_head.py:113-150``):
+``detach_probability`` / ``detach_visibility`` cut the gradient into those
+towers' input, the oks and error towers always see a detached input, and
+``freeze_*`` cut it at each output.
+
 Module indices follow the reference keys (``head.deconv_layers.{0,1,3,4}``,
 ``head.final_layer``, ``head.<tower>.{0,1,4,5,8,9,12}``), so reference
-checkpoints load with ``strict=True``. The loss configs are kept unbuilt:
-losses come with the training slice.
+checkpoints load with ``strict=True``. The loss configs are kept as given:
+``models/builder.py:build_loss_modules`` builds them.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from probpose_code_torch.models.backbones.vit import resolve_dtype
 from probpose_code_torch.ops.sparsemax import sparsemax
 from probpose_code_torch.registry import MODELS
 
-from .heatmap_head import make_deconv_stack, run_sequential
+from .heatmap_head import BatchNorm2d, make_deconv_stack, run_sequential
 
 
 class ClampedMaxPool(nn.Module):
@@ -51,7 +56,7 @@ def make_scalar_tower(channels: int, out_channels: int, pool_sizes=((4, 3), (2, 
     for pool in pool_sizes:
         layers += [
             nn.Conv2d(channels, channels, 3, padding=1),
-            nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1),
+            BatchNorm2d(channels, eps=1e-5, momentum=0.1),
             ClampedMaxPool(pool),
             nn.ReLU(inplace=False),
         ]
@@ -101,7 +106,13 @@ class ProbMapHead(nn.Module):
         self.temperature = temperature
         self.normalize = normalize
         self.dtype = resolve_dtype(dtype)
-        # stored unbuilt; the loss program comes with the training slice
+        self.detach_probability = detach_probability
+        self.detach_visibility = detach_visibility
+        self.freeze_heatmaps = freeze_heatmaps
+        self.freeze_probability = freeze_probability
+        self.freeze_visibility = freeze_visibility
+        self.freeze_oks = freeze_oks
+        self.freeze_error = freeze_error
         self.loss_cfgs = dict(
             keypoint=keypoint_loss, probability=probability_loss, visibility=visibility_loss,
             oks=oks_loss, error=error_loss,
@@ -130,10 +141,17 @@ class ProbMapHead(nn.Module):
         else:
             h = h / self.temperature
         heatmaps = torch.clamp(h, 0.0, 1.0).reshape(B, K, H, W)
+
+        def cut(t, stop):
+            return t.detach() if stop else t
+
+        x_det = x.detach()
         return dict(
-            heatmaps=heatmaps,
-            probabilities=torch.sigmoid(run_tower(self.probability_layers, x, self.dtype)),
-            visibilities=torch.sigmoid(run_tower(self.visibility_layers, x, self.dtype)),
-            oks=torch.sigmoid(run_tower(self.oks_layers, x, self.dtype)),
-            errors=torch.relu(run_tower(self.error_layers, x, self.dtype)),
+            heatmaps=cut(heatmaps, self.freeze_heatmaps),
+            probabilities=cut(torch.sigmoid(run_tower(
+                self.probability_layers, cut(x, self.detach_probability), self.dtype)), self.freeze_probability),
+            visibilities=cut(torch.sigmoid(run_tower(
+                self.visibility_layers, cut(x, self.detach_visibility), self.dtype)), self.freeze_visibility),
+            oks=cut(torch.sigmoid(run_tower(self.oks_layers, x_det, self.dtype)), self.freeze_oks),
+            errors=cut(torch.relu(run_tower(self.error_layers, x_det, self.dtype)), self.freeze_error),
         )

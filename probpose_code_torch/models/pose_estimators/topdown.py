@@ -1,18 +1,25 @@
-"""Top-down pose estimator and the ProbMap predict program pieces.
+"""Top-down pose estimator and the ProbMap predict and loss programs.
 
 Port of ``probpose_code_tpu/models/pose_estimators/topdown.py``:
-``TopdownPoseEstimator`` (``:41``), ``preprocess_inputs`` (``:74``) and
-``probmap_head_predict`` (``:659-703``). The decode goes through K2
-(``ops/kernels/expected_oks.py``) on every predict.
+``TopdownPoseEstimator`` (``:41``), ``preprocess_inputs`` (``:74``),
+``probmap_head_predict`` (``:659-703``) and the ProbMap loss program
+(``:94-251``): the OKS and error targets come from the fast decode of the
+ground-truth and predicted heatmaps on the device, and the training monitors
+(PCK, balanced binary accuracies, MAEs) are computed beside the losses. The
+predict decode goes through K2 (``ops/kernels/expected_oks.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
+from probpose_code_torch.codecs.utils.oks_map import COCO_KPT_SIGMAS
+from probpose_code_torch.ops.decode import argmax_probmap_decode_batch
+from probpose_code_torch.ops.heatmap import heatmap_maximum_batch
 from probpose_code_torch.ops.kernels.expected_oks import expected_oks_decode
 from probpose_code_torch.ops.tta import flip_heatmaps
 from probpose_code_torch.registry import MODELS
@@ -30,8 +37,9 @@ class TopdownPoseEstimator(nn.Module):
         self.backbone = backbone
         self.head = head
 
-    def forward(self, inputs: torch.Tensor):
-        feats = self.backbone(inputs.permute(0, 3, 1, 2))
+    def forward(self, inputs: torch.Tensor, generator: Optional[torch.Generator] = None):
+        """``generator`` draws the backbone's stochastic-depth masks in training."""
+        feats = self.backbone(inputs.permute(0, 3, 1, 2), generator)
         return self.head(feats)
 
 
@@ -90,3 +98,144 @@ def probmap_head_predict(
         keypoints_error=errs,
         heatmaps=heatmaps,
     )
+
+
+# --------------------------------------------------------------------------
+# ProbMap head: training targets, losses and monitors, all on the device
+# --------------------------------------------------------------------------
+
+
+def _fast_decode_to_input_space(heatmaps: torch.Tensor, input_size: Tuple[int, int]) -> torch.Tensor:
+    """Argmax + DARK-UDP decode -> input-space coords (B, K, 2)."""
+    B, K, H, W = heatmaps.shape
+    locs, _ = argmax_probmap_decode_batch(heatmaps, 11)
+    scale = torch.tensor([input_size[0] / (W - 1), input_size[1] / (H - 1)], dtype=torch.float32,
+                         device=locs.device)
+    return locs * scale
+
+
+def compute_oks_targets(
+    gt_coords: torch.Tensor, dt_coords: torch.Tensor, weight: torch.Tensor,
+    kpt_sigmas: Optional[np.ndarray] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-keypoint OKS between decoded ground truth and prediction, with the
+    reference's training constants: a fixed 64 x 48 box, area 64*48*0.53,
+    per keypoint. ``weight`` (B, K) gates keypoints; an instance without a
+    valid keypoint gets zero targets and weight 0."""
+    K = gt_coords.shape[1]
+    sigmas = torch.as_tensor(np.asarray(kpt_sigmas if kpt_sigmas is not None else COCO_KPT_SIGMAS)[:K],
+                             dtype=torch.float32, device=gt_coords.device)
+    vars_ = (sigmas * 2) ** 2
+    tmparea = 48.0 * 64.0 * 0.53
+    w = weight.float()
+    g = gt_coords * w[..., None]
+    d = dt_coords * w[..., None]
+    valid = w > 0
+    has_any = valid.sum(dim=1) > 0  # (B,)
+    dx = d[..., 0] - g[..., 0]
+    dy = d[..., 1] - g[..., 1]
+    e = (dx ** 2 + dy ** 2) / vars_[None] / (tmparea + 1e-9) / 2.0
+    oks = torch.exp(-e) * valid
+    oks = torch.where(has_any[:, None], oks, torch.zeros_like(oks))
+    return oks, has_any.float()
+
+
+def _balanced_visibility_weights(annotated_in, gt_vis, gt_annotated):
+    """Reweight annotated keypoints so that the invisible and the visible
+    populations weigh the same (reference ``probmap_head.py:883-889``)."""
+    invisible_in = (gt_vis == 0) & (gt_annotated > 0.5)
+    visible_in = (gt_vis > 0) & (gt_annotated > 0.5)
+    w = annotated_in.float()
+    w = torch.where(invisible_in, 1.0 / (invisible_in.sum() + 1e-10), w)
+    w = torch.where(visible_in, 1.0 / (visible_in.sum() + 1e-10), w)
+    positive_min = torch.where(w > 0, w, torch.full_like(w, float("inf"))).min()
+    positive_min = torch.where(torch.isfinite(positive_min), positive_min, torch.ones_like(positive_min))
+    return w / positive_min
+
+
+def _pose_pck_accuracy(dt_heatmaps, gt_heatmaps, mask, thr: float = 0.05):
+    """PCK of the argmax locations, normalised by heatmap_size / 10."""
+    B, K, H, W = dt_heatmaps.shape
+    dt_locs, _ = heatmap_maximum_batch(dt_heatmaps)
+    gt_locs, _ = heatmap_maximum_batch(gt_heatmaps)
+    norm = torch.tensor([W, H], dtype=torch.float32, device=dt_locs.device) / 10.0
+    dist = torch.linalg.norm((dt_locs - gt_locs) / norm, dim=-1)
+    valid = mask & (gt_locs[..., 0] >= 0)
+    correct = (dist < thr * 10.0) & valid
+    return correct.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def _balanced_binary_accuracy(dt, gt, mask):
+    """Best-threshold balanced accuracy (the deterministic form of the
+    reference's ``get_binary_accuracy`` with force_balanced=True)."""
+    thresholds = torch.arange(0.1, 1.0, 0.05, dtype=torch.float32, device=dt.device)
+    gt_b = gt > 0.5
+    pos = (gt_b & (mask > 0)).float()
+    neg = ((~gt_b) & (mask > 0)).float()
+    n_pos = torch.clamp(pos.sum(), min=1.0)
+    n_neg = torch.clamp(neg.sum(), min=1.0)
+    preds = dt[None] > thresholds[:, None, None]
+    tp = (preds * pos[None]).sum(dim=(1, 2))
+    tn = ((~preds) * neg[None]).sum(dim=(1, 2))
+    balanced = 0.5 * (tp / n_pos + tn / n_neg)
+    has_both = (pos.sum() > 0) & (neg.sum() > 0)
+    return torch.where(has_both, balanced.max(), torch.zeros_like(n_pos))
+
+
+def probmap_head_loss(
+    outputs: Dict[str, torch.Tensor],
+    batch: Dict[str, torch.Tensor],
+    loss_modules: Dict[str, Any],
+    head_cfg: Dict[str, Any],
+    input_size: Tuple[int, int] = (192, 256),
+    compute_acc: bool = True,
+) -> Dict[str, torch.Tensor]:
+    """The ProbMapHead loss dict (reference ``probmap_head.py:806-942``):
+    ``loss_kpt``, ``loss_probability``, ``loss_visibility``, ``loss_oks``,
+    ``loss_error`` and the monitors ``acc_pose``, ``acc_prob``, ``acc_vis``,
+    ``mae_oks``, ``mae_err``."""
+    dt_heatmaps = outputs["heatmaps"]
+    B, C, H, W = dt_heatmaps.shape
+    dt_probs = outputs["probabilities"].reshape(B, C)
+    dt_vis = outputs["visibilities"].reshape(B, C)
+    dt_oks = outputs["oks"].reshape(B, C)
+    dt_errs = outputs["errors"].reshape(B, C)
+
+    gt_heatmaps = batch["heatmaps"]
+    gt_probs = batch["in_image"].float().reshape(B, C)
+    gt_annotated = batch["annotated"].float().reshape(B, C)
+    gt_vis = batch["keypoints_visibility"].float().reshape(B, C)
+    keypoint_weights = batch["keypoint_weights"].reshape(B, C)
+
+    freeze_oks = head_cfg.get("freeze_oks", False)
+    freeze_error = head_cfg.get("freeze_error", True)
+    zeros = torch.zeros((B, C), dtype=torch.float32, device=dt_heatmaps.device)
+    if (not freeze_error) or (not freeze_oks):
+        gt_coords = _fast_decode_to_input_space(gt_heatmaps.detach(), input_size)
+        dt_coords = _fast_decode_to_input_space(dt_heatmaps.detach(), input_size)
+    gt_errs = zeros if freeze_error else torch.linalg.norm(gt_coords - dt_coords, dim=-1)
+    if freeze_oks:
+        gt_oks = zeros
+    else:
+        gt_oks, _ = compute_oks_targets(gt_coords, dt_coords, (gt_probs > 0.5) & (gt_annotated > 0.5))
+
+    annotated_in = (gt_annotated > 0.5) & (gt_probs > 0.5)
+    heatmap_weights = gt_annotated if head_cfg.get("learn_heatmaps_from_zeros", False) else keypoint_weights
+
+    losses: Dict[str, torch.Tensor] = {}
+    losses["loss_kpt"] = loss_modules["keypoint"](dt_heatmaps, gt_heatmaps, heatmap_weights, per_pixel=True).mean()
+    losses["loss_probability"] = loss_modules["probability"](dt_probs, gt_probs, gt_annotated)
+    vis_weights = _balanced_visibility_weights(annotated_in, gt_vis, gt_annotated)
+    losses["loss_visibility"] = loss_modules["visibility"](dt_vis, gt_vis, vis_weights)
+    losses["loss_oks"] = loss_modules["oks"](dt_oks, gt_oks, annotated_in.float())
+    losses["loss_error"] = loss_modules["error"](dt_errs, gt_errs, annotated_in.float())
+
+    if compute_acc:
+        losses["acc_pose"] = _pose_pck_accuracy(dt_heatmaps.detach(), gt_heatmaps, keypoint_weights > 0.5)
+        losses["acc_prob"] = _balanced_binary_accuracy(dt_probs.detach(), gt_probs, gt_annotated > 0.5)
+        losses["acc_vis"] = _balanced_binary_accuracy(dt_vis.detach(), gt_vis, annotated_in)
+        mask_f = annotated_in.float()
+        denom = torch.clamp(mask_f.sum(), min=1.0)
+        losses["mae_oks"] = ((dt_oks.detach() - gt_oks).abs() * mask_f).sum() / denom
+        losses["mae_err"] = ((dt_errs.detach() - gt_errs).abs() * mask_f).sum() / denom
+    return losses

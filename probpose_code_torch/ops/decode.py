@@ -1,14 +1,19 @@
-"""Expected-OKS keypoint decode on (B, K, H, W) tensors: the plain version.
+"""Keypoint decodes on (B, K, H, W) tensors.
 
 Port of ``probpose_code_tpu/ops/decode.py``: ``subpixel_refine_batch``
-(``:58``), ``heatmap_expected_value_batch`` (``:83``, separable method) and
-``expected_oks_decode_to_input_space`` (``:257``). This is the plain twin of
-the K2 CUDA kernel (``ops/kernels/expected_oks.py``): the CPU path runs it,
-and the card's kernel is held against it.
+(``:58``), ``heatmap_expected_value_batch`` (``:83``, separable method),
+``dark_udp_refine_batch`` (``:123``), ``argmax_probmap_decode_batch``
+(``:184``) and ``expected_oks_decode_to_input_space`` (``:257``).
 
-Per keypoint: convolve the heatmap with its OKS kernel (reflect border) as
-two banded products, take the argmax (first index on ties), shift it by a
-1-D Taylor step, and score it with the raw heatmap at the integer peak.
+The expected-OKS decode is the plain twin of the K2 CUDA kernel
+(``ops/kernels/expected_oks.py``): the CPU path runs it, and the card's
+kernel is held against it. Per keypoint: convolve the heatmap with its OKS
+kernel (reflect border) as two banded products, take the argmax (first index
+on ties), shift it by a 1-D Taylor step, and score it with the raw heatmap at
+the integer peak.
+
+The fast decode (argmax + DARK-UDP) gives the training loss its heatmap-space
+coordinates for the OKS and error targets.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 
 from probpose_code_torch.codecs.utils.oks_map import separable_oks_operators
 
-from .heatmap import gather_hw
+from .heatmap import gather_hw, gaussian_blur_batch, heatmap_maximum_batch
 
 
 @lru_cache(maxsize=8)
@@ -108,3 +113,59 @@ def expected_oks_decode_to_input_space(
     locs, vals = heatmap_expected_value_batch(heatmaps)
     scale = torch.tensor(input_space_scale(input_size, H, W), dtype=torch.float32, device=locs.device)
     return locs * scale, vals
+
+
+def dark_udp_refine_batch(keypoints: torch.Tensor, heatmaps: torch.Tensor, blur_kernel_size: int = 11) -> torch.Tensor:
+    """DARK-UDP refinement of (B, K, 2) peaks over (B, K, H, W) heatmaps: blur,
+    log, edge padding, and a Newton step through the pseudo-inverse of the
+    2x2 Hessian (directions of a near-zero eigenvalue are dropped, as
+    ``np.linalg.pinv`` drops them, not inverted)."""
+    hm = torch.log(torch.clamp(gaussian_blur_batch(heatmaps, blur_kernel_size), 1e-3, 50.0))
+    pad = torch.nn.functional.pad(hm, (1, 1, 1, 1), mode="replicate")
+    x = (keypoints[..., 0] + 1).to(torch.int32)  # truncation toward zero, as astype(int32)
+    y = (keypoints[..., 1] + 1).to(torch.int32)
+
+    def tap(dx_, dy_):
+        return gather_hw(pad, x + dx_, y + dy_)
+
+    i_ = tap(0, 0)
+    ix1, iy1, ix1y1 = tap(1, 0), tap(0, 1), tap(1, 1)
+    ix1_y1_, ix1_, iy1_ = tap(-1, -1), tap(-1, 0), tap(0, -1)
+
+    dx = 0.5 * (ix1 - ix1_)
+    dy = 0.5 * (iy1 - iy1_)
+    dxx = ix1 - 2 * i_ + ix1_
+    dyy = iy1 - 2 * i_ + iy1_
+    dxy = 0.5 * (ix1y1 - ix1 - iy1 + 2 * i_ - ix1_ - iy1_ + ix1_y1_)
+
+    eps = float(np.finfo(np.float32).eps)
+    a, b, d = dxx + eps, dxy, dyy + eps
+    tr = a + d
+    disc = torch.sqrt((a - d) ** 2 + 4.0 * b * b)
+    l1 = 0.5 * (tr + disc)
+    l2 = 0.5 * (tr - disc)
+    # eigenvector of l1: (b, l1 - a), or an axis when it degenerates
+    v1x, v1y = b, l1 - a
+    n1 = torch.sqrt(v1x * v1x + v1y * v1y)
+    degen = n1 < 1e-20
+    a_ge_d = (a >= d).to(a.dtype)
+    v1x = torch.where(degen, a_ge_d, v1x / torch.clamp(n1, min=1e-30))
+    v1y = torch.where(degen, 1.0 - a_ge_d, v1y / torch.clamp(n1, min=1e-30))
+    v2x, v2y = -v1y, v1x
+    rcond = 1e-15 * torch.maximum(l1.abs(), l2.abs())
+    zero = torch.zeros_like(l1)
+    il1 = torch.where(l1.abs() > rcond, 1.0 / l1, zero)
+    il2 = torch.where(l2.abs() > rcond, 1.0 / l2, zero)
+    c1 = v1x * dx + v1y * dy
+    c2 = v2x * dx + v2y * dy
+    off_x = il1 * c1 * v1x + il2 * c2 * v2x
+    off_y = il1 * c1 * v1y + il2 * c2 * v2y
+    return keypoints - torch.stack([off_x, off_y], dim=-1)
+
+
+def argmax_probmap_decode_batch(
+    heatmaps: torch.Tensor, blur_kernel_size: int = 11
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fast decode (argmax + DARK-UDP) in heatmap space: locs (B, K, 2), vals."""
+    locs, vals = heatmap_maximum_batch(heatmaps)
+    return dark_udp_refine_batch(locs, heatmaps, blur_kernel_size), vals

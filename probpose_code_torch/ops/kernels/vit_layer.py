@@ -93,8 +93,11 @@ def _layer_plain(
     x, ln1_scale, ln1_bias, w_qkv, b_qkv, w_proj, b_proj,
     ln2_scale, ln2_bias, w_fc1, b_fc1, w_fc2, b_fc2,
     *, num_heads: int, eps: float, approximate_gelu: bool, dtype: torch.dtype,
+    drop_mask1=None, drop_mask2=None,
 ) -> torch.Tensor:
-    # the weights as ``prepare_weights`` leaves them: q-scale folded
+    # the weights as ``prepare_weights`` leaves them: q-scale folded. With
+    # per-image masks (B,), each branch is scaled before its residual add,
+    # as in K3: x1 = x + m1 * (attn @ W_proj + b_proj)
     B, N, C = x.shape
     H = num_heads
     D = C // H
@@ -111,12 +114,20 @@ def _layer_plain(
     o = (p.to(dtype).float() @ v).to(dtype)
     attn = o.permute(0, 2, 1, 3).reshape(B * N, C)
 
-    x1 = xf + _mm(attn, w_proj.to(dtype)) + b_proj.float()
+    h1 = _mm(attn, w_proj.to(dtype))
+    if drop_mask1 is None:
+        x1 = xf + h1 + b_proj.float()
+    else:
+        x1 = xf + drop_mask1.float().repeat_interleave(N)[:, None] * (h1 + b_proj.float())
     xn2 = _ln_f32(x1, ln2_scale.float(), ln2_bias.float(), eps)
     hh = _mm(xn2.to(dtype), w_fc1.to(dtype)) + b_fc1.float()
     hh = F.gelu(hh, approximate="tanh" if approximate_gelu else "none")
     y = _mm(hh.to(dtype), w_fc2.to(dtype))
-    return (x1 + y + b_fc2.float()).to(x.dtype).reshape(B, N, C)
+    if drop_mask2 is None:
+        out = x1 + y + b_fc2.float()
+    else:
+        out = x1 + drop_mask2.float().repeat_interleave(N)[:, None] * (y + b_fc2.float())
+    return out.to(x.dtype).reshape(B, N, C)
 
 
 def vit_layer_plain(
@@ -175,6 +186,11 @@ def vit_layer_prepared(
         return _layer_plain(
             x, *weights, num_heads=num_heads, eps=eps, approximate_gelu=approximate_gelu, dtype=dtype,
         )
+    if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in weights)):
+        # the kernel fills its output through ctypes: the result would carry
+        # no gradient, so the call is refused rather than silently detached
+        raise RuntimeError("vit_layer: K1 has no backward; a layer under autograd goes through "
+                           "ops.kernels.vit_layer_train (K3)")
     if x.device.type != "cuda":
         raise ValueError(f"vit_layer: unsupported device {x.device}")
     if dtype not in _DTYPE_CODE or x.dtype != dtype:

@@ -7,7 +7,9 @@ They import no JAX, so they run where JAX is absent:
 
 They cover shapes beyond the flagship one that ``chip_smoke.py`` holds:
 ragged tiles, head widths of 8 and above 128, maps whose filter needs more
-than 48 KB of shared memory, and flat maps whose argmax is a tie.
+than 48 KB of shared memory, and flat maps whose argmax is a tie; K3 forward
+and backward at those shapes, with and without stochastic-depth masks; and
+one train step of the tiny config through K3.
 Bars are ``chip_smoke.py``'s, with its reasons.
 """
 
@@ -22,11 +24,17 @@ from chip_smoke import (
     K2_CONV_ATOL,
     K2_LOCS_ATOL,
     K2_VALS_ATOL,
+    K3_BF16_REL,
+    K3_F32_FWD,
+    K3_F32_GRAD,
     TINY_CFG,
     golden_errors,
     golden_samples,
+    k3_errors,
+    kernel_counters,
     layer_inputs,
     peaked_heatmaps,
+    synthetic_train_batch,
 )
 
 pytestmark = pytest.mark.cuda
@@ -99,3 +107,65 @@ def test_golden_fixture_on_the_card(card):
     err, aux = golden_errors(*golden_samples(model))
     assert np.percentile(err, 99) < 1.0 and err.max() < 5.0
     assert max(aux.values()) < 2e-3
+
+
+@pytest.mark.parametrize("B,N,C,H,F", [(3, 24, 40, 5, 72), (1, 8, 64, 8, 256), (2, 200, 272, 2, 544)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_vit_layer_train_matches_plain(card, B, N, C, H, F, dtype, masked):
+    from probpose_code_torch.ops.kernels.vit_layer_train import vit_layer_train_backward, vit_layer_train_forward
+
+    dt = getattr(torch, dtype)
+    before = (vit_layer_train_forward.launches, vit_layer_train_backward.launches)
+    errs = k3_errors(B, N, C, H, F, dt, masked, seed=B + N)
+    assert (vit_layer_train_forward.launches, vit_layer_train_backward.launches) == (before[0] + 1, before[1] + 1)
+    for name, err in errs.items():
+        bar = K3_BF16_REL if dt == torch.bfloat16 else K3_F32_FWD if name == "out" else K3_F32_GRAD
+        assert err < bar, (name, err)
+
+
+def test_vit_layer_train_rejects_what_it_does_not_take(card):
+    from probpose_code_torch.ops.kernels.vit_layer_train import vit_layer_train
+
+    x, p = layer_inputs(2, 16, 64, 128, torch.float32, seed=0)
+    with pytest.raises(TypeError):
+        vit_layer_train(x, *p, num_heads=4, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="K3 rule"):
+        vit_layer_train(x[:, :12].contiguous(), *p, num_heads=4, dtype=torch.float32)
+
+
+def test_k1_refuses_autograd_on_the_card(card):
+    from probpose_code_torch.ops.kernels.vit_layer import vit_layer
+
+    x, p = layer_inputs(2, 16, 64, 128, torch.float32, seed=1)
+    with pytest.raises(RuntimeError, match="no backward"):
+        vit_layer(x.requires_grad_(True), *p, num_heads=4, dtype=torch.float32)
+
+
+def test_one_train_step_goes_through_k3(card):
+    """The tiny config (tanh-GELU, drop_path 0.1) takes one step on the card:
+    every ViT layer runs K3 forward and backward, no layer reaches K1, the
+    losses are finite and the first layer gets a gradient."""
+    import copy
+
+    from probpose_code_torch.apis import init_model
+    from probpose_code_torch.engine.optim import build_optimizer
+    from probpose_code_torch.parallel import create_train_state, make_train_step
+
+    cfg = copy.deepcopy(TINY_CFG)
+    cfg["model"]["backbone"].update(approximate_gelu=True, drop_path_rate=0.1)
+    model = init_model(cfg, device="cuda")
+    optimizer, _ = build_optimizer(model, dict(optimizer=dict(type="AdamW", lr=1e-3, weight_decay=0.1),
+                                               clip_grad=dict(max_norm=1.0)))
+    step = make_train_step(model, optimizer)
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    _, metrics = step(create_train_state(model, optimizer), synthetic_train_batch(4, seed=0),
+                      torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    assert launches == dict(vit_layer=0, expected_oks=0, oks_convolve=0, vit_layer_train_fwd=2, vit_layer_train_bwd=2)
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    assert float(metrics["grad_norm"]) > 0
+    assert model.module.backbone.layers[0].attn.qkv.weight.grad.abs().max() > 0

@@ -4,9 +4,9 @@
   no ``jax*``, ``flax*``, ``cv2`` or ``probpose_code_tpu*`` module.
 - ``init_model`` with ``device=None`` raises when CUDA is absent.
 - A tensor that is not on the CPU never reaches a plain twin: every call of a
-  plain twin in the kernel wrappers sits under a ``device.type == "cpu"``
-  test (static check), and a tensor on another device makes the wrapper raise
-  before any plain code runs.
+  plain twin in the kernel wrappers (K1, K2, K2b, K3) sits under a
+  ``device.type == "cpu"`` test (static check), and a tensor on another device
+  makes the wrapper raise before any plain code runs.
 - ``chip_smoke.py`` alone, without the repository, fails without printing a
   result.
 """
@@ -63,7 +63,8 @@ def test_init_model_without_cuda_raises(monkeypatch):
         init_model(TINY_CFG)
 
 
-PLAIN = {"vit_layer_plain", "_layer_plain", "expected_oks_decode_to_input_space", "oks_convolve_plain"}
+PLAIN = {"vit_layer_plain", "_layer_plain", "expected_oks_decode_to_input_space", "oks_convolve_plain",
+         "vit_layer_train_plain"}
 
 
 def _is_cpu_test(node):
@@ -72,9 +73,10 @@ def _is_cpu_test(node):
 
 
 def test_plain_twins_only_under_a_cpu_test():
-    from probpose_code_torch.ops.kernels import expected_oks, vit_layer
+    from probpose_code_torch.ops.kernels import expected_oks, vit_layer, vit_layer_train
 
-    for fn in (vit_layer.vit_layer_prepared, expected_oks.expected_oks_decode, expected_oks.oks_convolve):
+    for fn in (vit_layer.vit_layer_prepared, expected_oks.expected_oks_decode, expected_oks.oks_convolve,
+               vit_layer_train.vit_layer_train):
         tree = ast.parse(inspect.getsource(fn))
         guarded = set()
         for node in ast.walk(tree):
@@ -88,13 +90,14 @@ def test_plain_twins_only_under_a_cpu_test():
 
 
 def test_non_cpu_tensor_never_reaches_a_plain_twin(monkeypatch):
-    from probpose_code_torch.ops.kernels import expected_oks, vit_layer
+    from probpose_code_torch.ops.kernels import expected_oks, vit_layer, vit_layer_train
 
     def boom(*a, **k):
         raise AssertionError("a plain twin ran for a tensor off the CPU")
 
     for mod, name in ((vit_layer, "vit_layer_plain"), (vit_layer, "_layer_plain"),
-                      (expected_oks, "expected_oks_decode_to_input_space"), (expected_oks, "oks_convolve_plain")):
+                      (expected_oks, "expected_oks_decode_to_input_space"), (expected_oks, "oks_convolve_plain"),
+                      (vit_layer_train, "vit_layer_train_plain"), (vit_layer_train, "_layer_plain")):
         monkeypatch.setattr(mod, name, boom)
     hm = torch.empty(2, 17, 64, 48, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -107,6 +110,8 @@ def test_non_cpu_tensor_never_reaches_a_plain_twin(monkeypatch):
          [(C,), (C,), (C, 3 * C), (3 * C,), (C, C), (C,), (C,), (C,), (C, F), (F,), (F, C), (C,)]]
     with pytest.raises(ValueError, match="unsupported device"):
         vit_layer.vit_layer(x, *w, num_heads=4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        vit_layer_train.vit_layer_train(x, *w, num_heads=4)
 
 
 def test_chip_smoke_alone_fails(tmp_path):
