@@ -20,8 +20,24 @@ card and the CUDA toolkit (nvcc); it builds the port's kernels from
    synthetic batch of 64 crops, targets encoded on the card, drop_path 0.1)
    through ``make_train_step``: the kernels' launch counts in one step, the
    losses, lr and gradient norm of each step, train crops/s and a profile;
-8. each kernel's time beside its plain twin's, a PyTorch library call's where
-   one computes the same function, and its bound from this run's shapes.
+8. ``k4_parity``: K4 (the attention core) against its plain twin at the
+   ViTPose-B training shape in f32 and the ProbPose-S shape in bf16, and one
+   gradient through its autograd Function against autograd through
+   ``xla_attention``;
+9. ``vitpose_predict``: ViTPose-B-simple (ViT-B/16, f32, erf GELU, x4 neck,
+   HeatmapHead, UDP decode) at full width through ``init_model`` /
+   ``inference_topdown``, 64 boxes with flip-TTA: K1's launches in one call
+   (12), the outputs finite, every positive heatmap peak inside its crop's
+   padded box, two crops' heatmaps and scores against the same model on the
+   CPU, then crops/s and a profile;
+10. ``vitpose_train``: the ViTPose-B-simple recipe (drop_path 0.3, UDP
+   targets encoded on the card, AdamW with layer decay 0.75) through
+   ``make_train_step`` on 64 crops: K4's launches in one step (12, and K3's
+   0), the losses, lr and gradient norm of each step, train crops/s, peak
+   memory and a profile;
+11. ``timings``: each kernel's time beside its plain twin's, a PyTorch
+   library call's where one computes the same function, and its bound from
+   this run's shapes; K1 also at the ViT-B predict shape.
 
 The line before the last holds the kernels' record as JSON, the last line
 ``{"ok": true, "device": ...}``. Any failure exits non-zero without them.
@@ -41,6 +57,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
 FLAGSHIP = ROOT / "configs/body_2d_keypoint/topdown_probmap/coco/td-pm_ProbPose-small_8xb64-210e_coco-256x192.py"
+VITPOSE = ROOT / "configs/body_2d_keypoint/topdown_heatmap/coco/td-hm_ViTPose-base-simple_8xb64-210e_coco-256x192.py"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them, and device memory.
@@ -66,6 +83,13 @@ K2_CONV_ATOL = 1e-4
 K3_F32_FWD = 2e-4
 K3_F32_GRAD = 5e-4
 K3_BF16_REL = 5e-2
+# K4: f32 max abs error on unit-normal inputs, the JAX package's bar
+# (tests/test_ops/test_pallas_decode.py:76); bf16 relative max error, K1's bf16
+# bar; the gradient through the Function against autograd through
+# xla_attention, f32 atol 1e-4.
+K4_F32_ATOL = 1e-4
+K4_BF16_REL = 3e-2
+K4_GRAD_ATOL = 1e-4
 K3_NAMES = ("out", "dx", "ln1_scale", "ln1_bias", "w_qkv", "b_qkv", "w_proj", "b_proj",
             "ln2_scale", "ln2_bias", "w_fc1", "b_fc1", "w_fc2", "b_fc2")
 # COCO train2017 person instances with keypoints over the recipe's batch of 64
@@ -251,12 +275,62 @@ def golden_errors(data, samples):
 
 def kernel_counters():
     """Each kernel wrapper, whose ``launches`` counts its kernel's launches."""
+    from probpose_code_torch.ops.kernels.attention import attention_kernel
     from probpose_code_torch.ops.kernels.expected_oks import expected_oks_decode, oks_convolve
     from probpose_code_torch.ops.kernels.vit_layer import vit_layer_prepared
     from probpose_code_torch.ops.kernels.vit_layer_train import vit_layer_train_backward, vit_layer_train_forward
 
     return dict(vit_layer=vit_layer_prepared, expected_oks=expected_oks_decode, oks_convolve=oks_convolve,
-                vit_layer_train_fwd=vit_layer_train_forward, vit_layer_train_bwd=vit_layer_train_backward)
+                vit_layer_train_fwd=vit_layer_train_forward, vit_layer_train_bwd=vit_layer_train_backward,
+                attention=attention_kernel)
+
+
+def reset_counts():
+    """Every kernel's count set to 0; returns a reader of the counts."""
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    return lambda: {k: c.launches for k, c in counters.items()}
+
+
+def qkv_views(B, N, H, D, dtype, seed):
+    """q, k, v as the ViT block hands them to K4: strided (B, N, h, d) views
+    of one unit-normal (B, N, 3, h, d) projection."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(B, N, 3, H, D, generator=g).cuda().to(dtype)
+    return qkv.unbind(2)
+
+
+def synthetic_boxes(n, seed=0):
+    """One synthetic 640 x 480 image and ``n`` xyxy boxes inside it."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    img = (rng.rand(480, 640, 3) * 255).astype(np.uint8)
+    xy = rng.uniform(0, [560, 380], (n, 2))
+    wh = rng.uniform([40, 60], [200, 300], (n, 2))
+    return img, np.concatenate([xy, np.minimum(xy + wh, [640, 480])], axis=1).astype(np.float32)
+
+
+def run_steps(step, state, batch, gen, lr_fn, n):
+    """n train steps; the new state and each step's (step, lr, metrics), the
+    metrics still on the card."""
+    logs = []
+    for _ in range(n):
+        lr = lr_fn(state.step)
+        state, metrics = step(state, batch, gen)
+        logs.append((state.step, lr, metrics))
+    return state, logs
+
+
+def report_steps(logs):
+    for k, lr, metrics in logs:
+        m = {name: float(v) for name, v in metrics.items()}
+        print(f"train step {k}: lr {lr:.4e} " + json.dumps(m))
+        if not all(map(math.isfinite, m.values())) or not m["grad_norm"] > 0:
+            raise AssertionError(f"train step {k}: non-finite metrics or zero grad norm")
 
 
 class Smoke:
@@ -363,19 +437,13 @@ class Smoke:
         from probpose_code_torch.config import Config
 
         model = init_model(Config.fromfile(FLAGSHIP), device="cuda")
-        rng = np.random.RandomState(0)
-        img = (rng.rand(480, 640, 3) * 255).astype(np.uint8)
-        xy = rng.uniform(0, [560, 380], (64, 2))
-        wh = rng.uniform([40, 60], [200, 300], (64, 2))
-        boxes = np.concatenate([xy, np.minimum(xy + wh, [640, 480])], axis=1).astype(np.float32)
+        img, boxes = synthetic_boxes(64)
 
         # the main path: counts set to 0 just before, read just after
-        counters = kernel_counters()
-        for c in counters.values():
-            c.launches = 0
+        read_counts = reset_counts()
         samples = inference_topdown(model, img, boxes)
         torch.cuda.synchronize()
-        launches = {k: c.launches for k, c in counters.items()}
+        launches = read_counts()
         print(f"flagship main path: {len(samples)} crops, launches {json.dumps(launches)}")
         kpts = np.stack([s.pred_instances.keypoints for s in samples])
         fields = [np.stack([s.pred_instances[f] for s in samples]) for f in
@@ -384,7 +452,8 @@ class Smoke:
             raise AssertionError(f"flagship output shapes {kpts.shape}, {[f.shape for f in fields]}")
         if not (np.isfinite(kpts).all() and all(np.isfinite(f).all() for f in fields)):
             raise AssertionError("flagship outputs are not finite")
-        if launches != dict(vit_layer=12, expected_oks=1, oks_convolve=0, vit_layer_train_fwd=0, vit_layer_train_bwd=0):
+        if launches != dict(vit_layer=12, expected_oks=1, oks_convolve=0, vit_layer_train_fwd=0, vit_layer_train_bwd=0,
+                            attention=0):
             raise AssertionError(f"expected K1 x12 and K2 x1 per call and no other kernel, got {launches}")
         self.record["launches"] = launches
 
@@ -424,38 +493,26 @@ class Smoke:
         def run(n):
             """n steps; their (step, lr, metrics) with the metrics still on the card."""
             nonlocal state
-            logs = []
-            for _ in range(n):
-                lr = lr_fn(state.step)
-                state, metrics = step(state, batch, gen)
-                logs.append((state.step, lr, metrics))
+            state, logs = run_steps(step, state, batch, gen, lr_fn, n)
             return logs
 
-        def report(logs):
-            for k, lr, metrics in logs:
-                m = {name: float(v) for name, v in metrics.items()}
-                print(f"train step {k}: lr {lr:.4e} " + json.dumps(m))
-                if not all(map(math.isfinite, m.values())) or not m["grad_norm"] > 0:
-                    raise AssertionError(f"train step {k}: non-finite metrics or zero grad norm")
-
         # the main path: counts set to 0 just before one step, read just after
-        counters = kernel_counters()
-        for c in counters.values():
-            c.launches = 0
-        report(run(1))
+        read_counts = reset_counts()
+        report_steps(run(1))
         torch.cuda.synchronize()
-        launches = {k: c.launches for k, c in counters.items()}
+        launches = read_counts()
         g0 = qkv0.grad.abs().max().item()
         print(f"train main path: one step of B={B}, launches {json.dumps(launches)}; "
               f"max |grad| of backbone.layers.0.attn.qkv.weight {g0:.3e}")
-        want = dict(vit_layer=0, expected_oks=0, oks_convolve=0, vit_layer_train_fwd=12, vit_layer_train_bwd=12)
+        want = dict(vit_layer=0, expected_oks=0, oks_convolve=0, vit_layer_train_fwd=12, vit_layer_train_bwd=12,
+                    attention=0)
         if launches != want:
             raise AssertionError(f"expected K3 x12 forward and x12 backward and no other kernel, got {launches}")
         if not g0 > 0:
             raise AssertionError("the first ViT layer got no gradient")
         self.record["train_launches"] = launches
 
-        report(run(2))  # warm-up: 3 steps with the one above
+        report_steps(run(2))  # warm-up: 3 steps with the one above
         torch.cuda.synchronize()
         steps = 5
         torch.cuda.reset_peak_memory_stats()
@@ -463,12 +520,182 @@ class Smoke:
         logs = run(steps)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        report(logs)
+        report_steps(logs)
         print(f"flagship ProbPose-S train step, B={B}, bf16, drop_path 0.1: {B * steps / dt:.1f} crops/s "
               f"({1e3 * dt / steps:.2f} ms per step, {steps} steps after 3 warm-up; the loss dicts are read "
               f"to the host after the timed steps); peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         self.profile(lambda: run(1), calls=2, what="train steps")
+
+    def k4_parity(self):
+        import torch
+
+        from probpose_code_torch.ops.kernels.attention import (
+            fused_attention, fused_attention_plain, xla_attention_plain,
+        )
+
+        # the ViTPose-B training shape in f32: max abs error on unit-normal inputs
+        B, N, H, D = 64, 192, 12, 64
+        q, k, v = qkv_views(B, N, H, D, torch.float32, seed=6)
+        with torch.no_grad():
+            err = (fused_attention(q, k, v, D ** -0.5) - fused_attention_plain(q, k, v, D ** -0.5)).abs().max().item()
+        print(f"K4 B={B} N={N} h={H} d={D} f32: max abs err {err:.3e} (bar {K4_F32_ATOL:g})")
+        if not err < K4_F32_ATOL:
+            raise AssertionError(f"K4 f32 disagrees with its plain twin: {err:.3e}")
+        # the ProbPose-S shape in bf16: relative max error
+        Bs, Ds = 128, 32
+        qs, ks, vs = qkv_views(Bs, N, H, Ds, torch.bfloat16, seed=7)
+        with torch.no_grad():
+            got = fused_attention(qs, ks, vs, Ds ** -0.5).float()
+            want = fused_attention_plain(qs, ks, vs, Ds ** -0.5).float()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        print(f"K4 B={Bs} N={N} h={H} d={Ds} bf16: rel max err {rel:.3e} (bar {K4_BF16_REL:g})")
+        if not (rel < K4_BF16_REL and torch.isfinite(got).all()):
+            raise AssertionError(f"K4 bf16 disagrees with its plain twin: {rel:.3e}")
+        # one gradient through the Function on the card (the kernel's forward, the
+        # strided qkv views saved and recomputed there) against autograd through
+        # xla_attention on CPU copies of the same inputs
+        g = torch.randn(B, N, H, D, generator=torch.Generator().manual_seed(8))
+        qkv = torch.stack((q, k, v), dim=2).detach().requires_grad_(True)
+        (card,) = torch.autograd.grad(fused_attention(*qkv.unbind(2), D ** -0.5), qkv, g.cuda())
+        qkv = qkv.detach().cpu().requires_grad_(True)
+        (host,) = torch.autograd.grad(xla_attention_plain(*qkv.unbind(2), D ** -0.5), qkv, g)
+        gerr = (card.cpu() - host).abs().max().item()
+        print(f"K4 gradient (dq, dk, dv) on the card vs autograd through xla_attention on the CPU: "
+              f"max abs err {gerr:.3e} (bar {K4_GRAD_ATOL:g})")
+        if not gerr < K4_GRAD_ATOL:
+            raise AssertionError(f"K4's gradient disagrees: {gerr:.3e}")
+
+    def vitpose_predict(self):
+        import numpy as np
+        import torch
+
+        from probpose_code_torch.apis import inference_topdown, init_model
+        from probpose_code_torch.apis.inference import crop_batch
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.ops.heatmap import heatmap_maximum_batch
+
+        model = init_model(Config.fromfile(VITPOSE), device="cuda")
+        img, boxes = synthetic_boxes(64, seed=1)
+
+        # the main path: counts set to 0 just before, read just after
+        read_counts = reset_counts()
+        samples = inference_topdown(model, img, boxes)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        print(f"vitpose predict main path: {len(samples)} crops, launches {json.dumps(launches)}")
+        kpts = np.stack([s.pred_instances.keypoints for s in samples])
+        scores = np.stack([s.pred_instances.keypoint_scores for s in samples])
+        if kpts.shape != (64, 1, 17, 2) or scores.shape != (64, 1, 17):
+            raise AssertionError(f"vitpose output shapes {kpts.shape}, {scores.shape}")
+        if not (np.isfinite(kpts).all() and np.isfinite(scores).all()):
+            raise AssertionError("vitpose outputs are not finite")
+        # every positive heatmap peak maps inside its crop's padded box (a map
+        # whose maximum is <= 0 has no peak: its location is -1, as in the
+        # JAX decode). The DARK-UDP step that follows is a Newton step on
+        # random-weight maps, which may carry a keypoint out of the box (as
+        # the JAX decode does); how far is printed, and the refined values are
+        # held against the CPU twin below.
+        crops, centers, scales = crop_batch(img, boxes, model.input_size, model.device)
+        hm = model.predict(crops)["heatmaps"]
+        peaks, vals = (t.cpu().numpy() for t in heatmap_maximum_batch(hm))
+        hm_wh = np.asarray([hm.shape[3] - 1, hm.shape[2] - 1], np.float32)  # UDP: the map's ends are the crop's
+        lo, hi = (centers - scales / 2)[:, None], (centers + scales / 2)[:, None]
+        peaks = peaks / hm_wh * scales[:, None] + lo
+        inside = ((peaks >= lo - 1e-3) & (peaks <= hi + 1e-3)).all(-1)
+        if not inside[vals > 0].all():
+            raise AssertionError("a vitpose heatmap peak maps outside its padded box")
+        outside = np.maximum(np.maximum(lo - kpts[:, 0], kpts[:, 0] - hi), 0) / scales[:, None]
+        print(f"vitpose heatmap peaks inside the padded boxes ({int((vals > 0).sum())} of {vals.size} positive); "
+              f"refined keypoints outside them: {int((outside.max(-1) > 0).sum())}, at most "
+              f"{outside.max():.3f} box widths")
+        # the predict program on two of the crops against the same model on the
+        # CPU (K1's plain twin, the same seed-0 weights), both in f32
+        crops = crops[:2]
+        got = model.predict(crops)
+        ref = init_model(Config.fromfile(VITPOSE), device="cpu").predict(crops.cpu())
+        hm_rel = ((got["heatmaps"].cpu() - ref["heatmaps"]).abs().max() / ref["heatmaps"].abs().max()).item()
+        score_err = (got["keypoint_scores"].cpu() - ref["keypoint_scores"]).abs().max().item()
+        print(f"vitpose predict on 2 crops vs the CPU twin: heatmaps rel max err {hm_rel:.3e} "
+              f"(bar {K1_F32_REL:g}), scores max abs err {score_err:.3e} (bar {K1_F32_REL:g})")
+        if not (hm_rel < K1_F32_REL and score_err < K1_F32_REL):
+            raise AssertionError("vitpose predict disagrees with the CPU twin")
+        want = dict(vit_layer=12, expected_oks=0, oks_convolve=0, vit_layer_train_fwd=0, vit_layer_train_bwd=0,
+                    attention=0)
+        if launches != want:
+            raise AssertionError(f"expected K1 x12 per call and no other kernel, got {launches}")
+        self.record["vitpose_launches"] = launches
+
+        iters = 5
+        for _ in range(2):
+            inference_topdown(model, img, boxes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            inference_topdown(model, img, boxes)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"ViTPose-B-simple predict, f32, flip-TTA, B=64: {64 * iters / dt:.1f} crops/s "
+              f"({1e3 * dt / iters:.2f} ms per inference_topdown call, {iters} calls after 2 warm-up)")
+        self.profile(lambda: inference_topdown(model, img, boxes), calls=2, what="vitpose predict calls")
+
+    def vitpose_train(self):
+        import torch
+
+        from probpose_code_torch.apis import init_model
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.engine.optim import build_optimizer
+        from probpose_code_torch.parallel import create_train_state, make_train_step
+
+        cfg = Config.fromfile(VITPOSE)
+        model = init_model(cfg, device="cuda")
+        optimizer, lr_fn = build_optimizer(
+            model, cfg["optim_wrapper"], cfg["param_scheduler"], STEPS_PER_EPOCH, cfg["train_cfg"]["max_epochs"],
+        )
+        state = create_train_state(model, optimizer)
+        step = make_train_step(model, optimizer)
+        B = cfg["train_dataloader"]["batch_size"]
+        batch = synthetic_train_batch(B, seed=1)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        qkv0 = dict(model.module.named_parameters())["backbone.layers.0.attn.qkv.weight"]
+
+        # the main path: counts set to 0 just before one step, read just after
+        read_counts = reset_counts()
+        state, logs = run_steps(step, state, batch, gen, lr_fn, 1)
+        report_steps(logs)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        g0 = qkv0.grad.abs().max().item()
+        print(f"vitpose train main path: one step of B={B}, launches {json.dumps(launches)}; "
+              f"max |grad| of backbone.layers.0.attn.qkv.weight {g0:.3e}")
+        want = dict(vit_layer=0, expected_oks=0, oks_convolve=0, vit_layer_train_fwd=0, vit_layer_train_bwd=0,
+                    attention=12)
+        if launches != want:
+            raise AssertionError(f"expected K4 x12 (and K3 x0) in a ViTPose step and no other kernel, got {launches}")
+        if not g0 > 0:
+            raise AssertionError("the first ViT layer got no gradient")
+        self.record["vitpose_train_launches"] = launches
+
+        state, logs = run_steps(step, state, batch, gen, lr_fn, 2)  # warm-up: 3 steps with the one above
+        report_steps(logs)
+        torch.cuda.synchronize()
+        steps = 5
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, logs = run_steps(step, state, batch, gen, lr_fn, steps)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        report_steps(logs)
+        print(f"ViTPose-B-simple train step, B={B}, f32, drop_path 0.3: {B * steps / dt:.1f} crops/s "
+              f"({1e3 * dt / steps:.2f} ms per step, {steps} steps after 3 warm-up; the loss dicts are read "
+              f"to the host after the timed steps); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+        def one():
+            nonlocal state
+            state, _ = run_steps(step, state, batch, gen, lr_fn, 1)
+
+        self.profile(one, calls=2, what="vitpose train steps")
 
     @staticmethod
     def profile(fn, calls: int, what: str = "flagship calls"):
@@ -570,12 +797,17 @@ class Smoke:
         # K3 at the flagship training shape: 64 crops, bf16, masks that drop some images
         Bt = 64
         kt = self.k3_timings(Bt, N, C, H, F)
+        # K4 at the ViTPose-B training shape; K1 at the ViTPose-B predict shape
+        k4 = self.k4_timings(64, N, 12, 64)
+        kb = self.k1_vitb_timings(128, N, 768, 12, 3072)
 
         # the launch counts above belong to the comparisons, not the main paths:
-        # K1, K2 and K2b from the predict run, K3 from the train step
+        # K1, K2 and K2b from the flagship predict run, K3 from the flagship
+        # train step, K4 from the ViTPose-B train step
         predict, train = self.record.get("launches", {}), self.record.get("train_launches", {})
         launches = {k: predict.get(k, 0) for k in ("vit_layer", "expected_oks", "oks_convolve")}
         launches.update({k: train.get(k, 0) for k in ("vit_layer_train_fwd", "vit_layer_train_bwd")})
+        launches["attention"] = self.record.get("vitpose_train_launches", {}).get("attention", 0)
 
         self.record["kernels"] = [
             dict(name="vit_layer", route="cuda", source="probpose_code_torch/csrc/vit_layer.cu",
@@ -598,6 +830,10 @@ class Smoke:
                  replaces=f"probpose_code_tpu/ops/pallas/vit_layer_train.py:{line}",
                  launches=launches[f"vit_layer_train_{part}"], **kt[part])
             for part, line in (("fwd", 298), ("bwd", 371))
+        ] + [
+            dict(name="attention", route="cuda", source="probpose_code_torch/csrc/attention.cu",
+                 replaces="probpose_code_tpu/ops/pallas/attention.py:73", launches=launches["attention"],
+                 **{key: k4[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
         ]
         print(f"K1 vit_layer B={B} N={N} C={C} bf16: {k1_ms:.3f} ms, plain {k1_plain:.3f} ms, "
               f"nn.TransformerEncoderLayer (erf GELU, max-shifted softmax) {k1_lib:.3f} ms, "
@@ -613,6 +849,80 @@ class Smoke:
                   f"nn.TransformerEncoderLayer {part} (erf GELU, max-shifted softmax) {t['library_ms']:.3f} ms, "
                   f"bound {t['bound_ms']:.4f} ms ({kt['gflop'][part]:.1f} GFLOP, {kt['mb'][part]:.1f} MB), "
                   f"max abs err {t['max_abs_err']:.3e} (relative to the largest value {kt['rel'][part]:.2e})")
+        print(f"K4 attention B=64 N={N} h=12 d=64 f32 (strided qkv views): {k4['ms']:.3f} ms, "
+              f"plain {k4['plain_ms']:.3f} ms, F.scaled_dot_product_attention {k4['library_ms']:.3f} ms, "
+              f"bound {k4['bound_ms']:.4f} ms, {k4['bound_by']} ({k4['gflop']:.2f} GFLOP, {k4['mb']:.1f} MB), "
+              f"{k4['gflop'] / k4['ms']:.1f} TFLOP/s, max abs err {k4['max_abs_err']:.3e}")
+        print(f"K1 vit_layer at the ViTPose-B predict shape B=128 N={N} C=768 f32 erf: {kb['ms']:.3f} ms, "
+              f"plain {kb['plain_ms']:.3f} ms, nn.TransformerEncoderLayer {kb['library_ms']:.3f} ms, "
+              f"bound {kb['bound_ms']:.4f} ms, {kb['bound_by']} ({kb['gflop']:.1f} GFLOP), "
+              f"{kb['gflop'] / kb['ms']:.1f} TFLOP/s, rel max err {kb['rel']:.2e}")
+
+    @staticmethod
+    def k4_timings(B, N, H, D):
+        """K4 on strided views of a (B, N, 3, h, d) f32 projection, its plain
+        twin, and F.scaled_dot_product_attention on the same values in its
+        (B, h, N, d) layout (the transposes are made before timing); the
+        bound from QK^T and PV's operations and q, k, v read once and the
+        output written once."""
+        import torch
+        import torch.nn.functional as F_
+
+        from probpose_code_torch.ops.kernels.attention import (
+            attention_flops, attention_kernel, fused_attention_plain,
+        )
+
+        q, k, v = qkv_views(B, N, H, D, torch.float32, seed=9)
+        scale = D ** -0.5
+        got = attention_kernel(q, k, v, scale)
+        want = fused_attention_plain(q, k, v, scale)
+        err = (got - want).abs().max().item()
+        if not err < K4_F32_ATOL:
+            raise AssertionError(f"K4 at B={B}: max abs err {err:.3e}")
+        ms = cuda_time_ms(lambda: attention_kernel(q, k, v, scale), 20)
+        plain = cuda_time_ms(lambda: fused_attention_plain(q, k, v, scale), 5)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = cuda_time_ms(lambda: F_.scaled_dot_product_attention(qt, kt, vt, scale=scale), 20)
+        ops = attention_flops(B, N, H, D)
+        nbytes = 4 * B * N * H * D * 4
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                    bound_ms=max(ops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3,
+                    bound_by="operations" if ops / PEAK_F32 >= nbytes / PEAK_BYTES else "bytes",
+                    gflop=ops / 1e9, mb=nbytes / 1e6)
+
+    @staticmethod
+    def k1_vitb_timings(B, N, C, H, F):
+        """K1 on prepared f32 weights with exact GELU, its plain twin and
+        nn.TransformerEncoderLayer (f32, erf GELU) at one ViT-B layer of the
+        ViTPose predict call (64 crops and their mirrors)."""
+        import torch
+        import torch.nn as nn
+
+        from probpose_code_torch.ops.kernels.vit_layer import (
+            layer_flops, prepare_weights, vit_layer_plain, vit_layer_prepared,
+        )
+
+        dt = torch.float32
+        x, p = layer_inputs(B, N, C, F, dt, seed=10)
+        kw = dict(num_heads=H, approximate_gelu=False, dtype=dt)
+        lib = nn.TransformerEncoderLayer(
+            C, H, F, dropout=0.0, activation="gelu", layer_norm_eps=1e-6, batch_first=True, norm_first=True,
+        ).cuda().eval()
+        with torch.inference_mode():
+            w = prepare_weights(*p, num_heads=H, dtype=dt)
+            got = vit_layer_prepared(x, w, **kw)
+            want = vit_layer_plain(x, *p, **kw)
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            if not rel < K1_F32_REL:
+                raise AssertionError(f"K1 at the ViT-B shape: rel max err {rel:.3e}")
+            ms = cuda_time_ms(lambda: vit_layer_prepared(x, w, **kw), 5, warmup=1)
+            plain = cuda_time_ms(lambda: vit_layer_plain(x, *p, **kw), 3, warmup=1)
+            libms = cuda_time_ms(lambda: lib(x), 5, warmup=1)
+        ops = layer_flops(B, N, C, F)
+        nbytes = 2 * x.numel() * 4 + sum(t.numel() * 4 for t in p)
+        return dict(ms=ms, plain_ms=plain, library_ms=libms, rel=rel, gflop=ops / 1e9,
+                    bound_ms=max(ops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3,
+                    bound_by="operations" if ops / PEAK_F32 >= nbytes / PEAK_BYTES else "bytes")
 
     @staticmethod
     def k3_timings(B, N, C, H, F):
@@ -716,6 +1026,9 @@ def main() -> int:
         smoke.phase("golden", smoke.golden)
         smoke.phase("flagship", smoke.flagship)
         smoke.phase("train", smoke.train)
+        smoke.phase("k4_parity", smoke.k4_parity)
+        smoke.phase("vitpose_predict", smoke.vitpose_predict)
+        smoke.phase("vitpose_train", smoke.vitpose_train)
         smoke.phase("timings", smoke.timings)
     if smoke.failures:
         print(f"chip_smoke: failed phases: {', '.join(smoke.failures)}", file=sys.stderr)

@@ -29,6 +29,7 @@ from probpose_code_torch.structures.bbox import (
 from probpose_code_torch.structures.data_sample import InstanceData, PoseDataSample
 
 INPUT_PADDING = 1.25  # the top-down recipes' bbox padding (GetBBoxCenterScale / TopdownAffine)
+PROBMAP_FIELDS = ("keypoints_probs", "keypoints_visible", "keypoints_oks", "keypoints_error", "keypoints_conf")
 
 
 def init_model(
@@ -87,7 +88,10 @@ def inference_topdown(
     bboxes: Optional[Union[List, np.ndarray]] = None,
     bbox_format: str = "xyxy",
 ) -> List[PoseDataSample]:
-    """Estimate one pose per bbox of one (H, W, 3) BGR uint8 image."""
+    """Estimate one pose per bbox of one (H, W, 3) BGR uint8 image. Each
+    sample's ``pred_instances`` holds ``keypoints`` and ``keypoint_scores``,
+    and a ProbMapHead's presence, visibility, OKS, error and confidence
+    fields."""
     if not isinstance(img, np.ndarray):
         raise TypeError("inference_topdown takes the image as a numpy array (the port reads no files)")
     h, w = img.shape[:2]
@@ -116,8 +120,9 @@ def inference_topdown(
         sample.gt_instances = InstanceData(bboxes=bboxes[i][None], bbox_scores=np.ones(1, np.float32))
         inst = InstanceData(keypoints=kpts[None].astype(np.float32))
         inst.keypoint_scores = preds["keypoint_scores"][i][None]
-        for name in ("keypoints_probs", "keypoints_visible", "keypoints_oks", "keypoints_error", "keypoints_conf"):
-            inst.set_field(preds[name][i][None], name)
+        for name in PROBMAP_FIELDS:  # only a ProbMapHead predicts them
+            if name in preds:
+                inst.set_field(preds[name][i][None], name)
         inst.bboxes = bboxes[i][None]
         inst.bbox_scores = np.ones(1, np.float32)
         sample.pred_instances = inst

@@ -5,7 +5,8 @@ port's modules (the names are the reference's). ``state_dict_from_jax``
 turns the JAX package's ``{"params", "batch_stats"}`` tree of numpy arrays
 into the port's state dict: the inverse of
 ``probpose_code_tpu/engine/checkpoint.py:convert_torch_state_dict``
-(``:680-836``) for the ViT + ProbMapHead family.
+(``:680-836``) for the ViT + ProbMapHead and ViT + HeatmapHead families (a
+neck has no parameters).
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ def _deconv(kernel: np.ndarray) -> np.ndarray:
 
 
 def state_dict_from_jax(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
-    """JAX ``{"params", "batch_stats"}`` (ViT + ProbMapHead) -> torch state dict."""
+    """JAX ``{"params", "batch_stats"}`` (ViT + ProbMapHead or HeatmapHead)
+    -> torch state dict."""
     params, stats = variables["params"], variables.get("batch_stats", {})
     sd: Dict[str, np.ndarray] = {}
 
@@ -74,9 +76,19 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Te
         sd[f"head.deconv_layers.{3 * j}.weight"] = _deconv(deconv[f"deconv{j}"]["kernel"])
         bn(f"head.deconv_layers.{3 * j + 1}", deconv[f"bn{j}"], head_s["deconv_layers"][f"bn{j}"])
         j += 1
-    sd["head.final_layer.weight"] = _conv(head["final_layer"]["kernel"])
-    sd["head.final_layer.bias"] = head["final_layer"]["bias"]
+    conv = head.get("conv_layers", {})
+    j = 0
+    while f"conv{j}" in conv:  # HeatmapHead's ConvStack
+        sd[f"head.conv_layers.{3 * j}.weight"] = _conv(conv[f"conv{j}"]["kernel"])
+        sd[f"head.conv_layers.{3 * j}.bias"] = conv[f"conv{j}"]["bias"]
+        bn(f"head.conv_layers.{3 * j + 1}", conv[f"bn{j}"], head_s["conv_layers"][f"bn{j}"])
+        j += 1
+    if "final_layer" in head:
+        sd["head.final_layer.weight"] = _conv(head["final_layer"]["kernel"])
+        sd["head.final_layer.bias"] = head["final_layer"]["bias"]
     for name in ("probability_layers", "visibility_layers", "oks_layers", "error_layers"):
+        if name not in head:  # HeatmapHead has no towers
+            continue
         tower, tower_s = head[name], head_s[name]
         j = 0
         while f"conv{j}" in tower:

@@ -7,12 +7,21 @@ pre-norm blocks with LayerNorm eps 1e-6, a final LayerNorm in f32, and a
 feature map out in f32. ``dtype`` sets the residual stream's type (bf16 on
 the card keeps the products fast; the parameters stay f32).
 
-``fused_layers``: None (auto) and True run every layer through a kernel
-whenever its shape rule holds: K1 (``ops/kernels/vit_layer.py``) for
-serving, and K3 (``ops/kernels/vit_layer_train.py``, tanh-GELU only) in
-training or whenever autograd needs the layer's gradient; False runs the
-eager block, whose attention is the max-shifted softmax of the JAX package's
-XLA path. Stochastic depth (``drop_path_rate``, linear over the blocks)
+Which code runs a layer:
+- K1 (``ops/kernels/vit_layer.py``), the whole layer for serving: with
+  ``fused_layers`` None (auto) or True, whenever its shape rule ``fits``
+  holds, in evaluation mode without autograd;
+- K3 (``ops/kernels/vit_layer_train.py``), the differentiable whole layer:
+  the same, but in training or whenever autograd needs the layer's
+  gradient, and only with tanh-GELU (as in the JAX package, ``vit.py:
+  215-218``);
+- otherwise the eager block: ``fused_layers=False``, a shape that fails
+  ``fits``, or training with exact (erf) GELU. Its products are torch's and
+  its attention core is K4 (``ops/kernels/attention.py``, the JAX
+  ``Attention`` with the fused kernel selected, ``vit.py:160``): a
+  max-shifted softmax in f32.
+
+Stochastic depth (``drop_path_rate``, linear over the blocks)
 acts in training only, with per-image masks drawn from the generator the
 caller passes. State-dict names are mmpretrain's, so reference checkpoints
 load as they are.
@@ -26,6 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from probpose_code_torch.ops.kernels.attention import fused_attention
 from probpose_code_torch.ops.kernels.vit_layer import fits, prepare_weights, vit_layer_prepared
 from probpose_code_torch.ops.kernels.vit_layer_train import vit_layer_train
 from probpose_code_torch.registry import MODELS
@@ -65,8 +75,9 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention with a fused qkv projection; the eager path
-    (``xla_attention``: pre-scaled q, max-shifted softmax in f32)."""
+    """Multi-head self-attention with a fused qkv projection; its core is K4
+    (pre-scaled q, max-shifted softmax in f32), fed the qkv projection's
+    strided views."""
 
     def __init__(self, embed_dims: int, num_heads: int, qkv_bias: bool = True):
         super().__init__()
@@ -78,10 +89,8 @@ class Attention(nn.Module):
         B, N, C = x.shape
         D = C // self.num_heads
         qkv = linear(x, self.qkv, dtype).reshape(B, N, 3, self.num_heads, D)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (B, h, N, D)
-        s = (q * torch.tensor(D ** -0.5, dtype=dtype)) @ k.transpose(-1, -2)
-        a = torch.softmax(s.float(), dim=-1).to(dtype)
-        o = (a @ v).transpose(1, 2).reshape(B, N, C)
+        q, k, v = qkv.unbind(2)  # (B, N, h, D) views
+        o = fused_attention(q, k, v, D ** -0.5).reshape(B, N, C)
         return linear(o, self.proj, dtype)
 
 

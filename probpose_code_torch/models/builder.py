@@ -2,11 +2,12 @@
 
 Port of ``probpose_code_tpu/models/builder.py``: ``build_pose_estimator``
 (``:39``) reads the same reference-style config dicts, ``build_loss_modules``
-(``:132``) builds the head's five losses, and ``PoseModel`` owns the module,
-its predict program for the top-down ProbMapHead branch (``:752-822``:
-preprocess -> original and mirrored crops as one doubled batch -> flip-TTA
-average -> expected-OKS decode) and its loss (``loss_fn``, ``:406``, with the
-targets encoded on the device by ``device_preprocess_batch``, ``:363``).
+(``:132``) builds the head's losses, and ``PoseModel`` owns the module, its
+predict program for top-down ProbMapHead and HeatmapHead models (preprocess
+-> original and mirrored crops as one doubled batch -> flip-TTA average ->
+the expected-OKS decode, ``:815-822``, or argmax + DARK-UDP for the UDP
+codec, ``:870-908``) and its loss (``loss_fn``, ``:406``, with the targets
+encoded on the device by ``device_preprocess_batch``, ``:363``).
 """
 
 from __future__ import annotations
@@ -18,18 +19,28 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from probpose_code_torch.ops.encode import generate_probmaps_device, probmap_encode_scales
+from probpose_code_torch.ops.encode import (
+    generate_probmaps_device,
+    generate_udp_gaussian_device,
+    probmap_encode_scales,
+)
 from probpose_code_torch.registry import MODELS
 
 from . import losses  # noqa: F401  (registers)
 from .backbones.vit import VisionTransformer  # noqa: F401  (registers)
+from .heads.heatmap_head import HeatmapHead  # noqa: F401  (registers)
 from .heads.probmap_head import ProbMapHead  # noqa: F401  (registers)
+from .necks.necks import FeatureMapProcessor  # noqa: F401  (registers)
 from .pose_estimators.topdown import (
     TopdownPoseEstimator,
+    heatmap_head_loss,
+    heatmap_head_predict,
     preprocess_inputs,
     probmap_head_loss,
     probmap_head_predict,
 )
+
+HEAD_TYPES = ("ProbMapHead", "HeatmapHead")
 
 
 def _adapt_backbone_cfg(cfg: Dict[str, Any]) -> Dict[str, Any]:
@@ -86,11 +97,16 @@ _LOSS_DEFAULTS = dict(
 
 def build_loss_modules(head_cfg: Dict[str, Any]) -> Dict[str, Any]:
     """The ProbMapHead's five loss configs as callables, under the keys
-    ``keypoint``, ``probability``, ``visibility``, ``oks`` and ``error``."""
-    return {
+    ``keypoint``, ``probability``, ``visibility``, ``oks`` and ``error``; a
+    single-loss head's ``loss`` (HeatmapHead) replaces ``keypoint``
+    (``builder.py:145-147``)."""
+    out = {
         key.replace("_loss", ""): MODELS.build(dict(head_cfg.get(key) or default))
         for key, default in _LOSS_DEFAULTS.items()
     }
+    if head_cfg.get("loss"):
+        out["keypoint"] = MODELS.build(dict(head_cfg["loss"]))
+    return out
 
 
 @contextlib.contextmanager
@@ -117,8 +133,8 @@ class PoseModel:
         self.module, self.aux = build_pose_estimator(cfg)
         head_cfg = self.aux["head_cfg"]
         self.head_type = head_cfg.get("type")
-        if self.head_type != "ProbMapHead" or not isinstance(self.module, TopdownPoseEstimator):
-            raise NotImplementedError("the port predicts with top-down ProbMapHead models only")
+        if self.head_type not in HEAD_TYPES or not isinstance(self.module, TopdownPoseEstimator):
+            raise NotImplementedError(f"the port runs top-down models with a head of {HEAD_TYPES} only")
         self.decoder_cfg = head_cfg.get("decoder") or {}
         if "input_size" in self.decoder_cfg:
             self.input_size = tuple(self.decoder_cfg["input_size"])
@@ -132,7 +148,9 @@ class PoseModel:
 
     def train(self, mode: bool = True) -> "PoseModel":
         """Training mode: batch statistics in BatchNorm (running statistics
-        updated), stochastic depth on, the ViT layers through K3."""
+        updated), stochastic depth on. A ViT layer with tanh-GELU runs K3; one
+        with exact GELU (ViTPose) runs the eager block, whose attention is K4.
+        Evaluation mode runs K1 (see ``models/backbones/vit.py``)."""
         self.module.train(mode)
         return self
 
@@ -185,6 +203,8 @@ class PoseModel:
         shift_heatmap = test_cfg.get("shift_heatmap", False)
         freeze_oks = self.aux["head_cfg"].get("freeze_oks", False)
         flip_indices = self.flip_indices()
+        if self.head_type == "HeatmapHead" and self.decoder_cfg.get("type", "UDPHeatmap") != "UDPHeatmap":
+            raise NotImplementedError(f"the {self.decoder_cfg['type']} decode is not ported yet (UDPHeatmap is)")
         precision = contextlib.nullcontext if self.is_low_precision() else full_f32_precision
 
         def predict(images: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -196,10 +216,18 @@ class PoseModel:
                     # original and mirrored crops as one doubled batch
                     B = x.shape[0]
                     both = self.module(torch.cat([x, torch.flip(x, dims=[2])], dim=0))
-                    outputs = {k: v[:B] for k, v in both.items()}
-                    outputs_flipped = {k: v[B:] for k, v in both.items()}
+                    if isinstance(both, dict):
+                        outputs = {k: v[:B] for k, v in both.items()}
+                        outputs_flipped = {k: v[B:] for k, v in both.items()}
+                    else:
+                        outputs, outputs_flipped = both[:B], both[B:]
                 else:
                     outputs = self.module(x)
+                if self.head_type == "HeatmapHead":
+                    return heatmap_head_predict(
+                        outputs, outputs_flipped, flip_indices, self.decoder_cfg, input_size=self.input_size,
+                        shift_heatmap=shift_heatmap,
+                    )
                 return probmap_head_predict(
                     outputs, outputs_flipped, flip_indices, input_size=self.input_size,
                     shift_heatmap=shift_heatmap, freeze_oks=freeze_oks,
@@ -215,36 +243,43 @@ class PoseModel:
     def device_preprocess_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """The device half of the input pipeline: a batch that carries
         heatmap-space keypoints (``kpts_hm`` (B, K, 2), ``kpts_visible``
-        (B, K)) instead of target maps gets its expected-OKS maps encoded
-        here, on the batch's device."""
+        (B, K)) instead of target maps gets its maps encoded here, on the
+        batch's device: UDP gaussians for the UDPHeatmap codec, expected-OKS
+        maps for the ProbMap family (``builder.py:392-404``)."""
         if {"canvas", "canvas_sep"} & set(batch):
             raise NotImplementedError("the device warp of canvas batches is not ported yet")
         if "kpts_hm" not in batch or "heatmaps" in batch:
             return batch
         dc = self.decoder_cfg
-        if dc.get("type", "ProbMap") not in ("ProbMap", "ArgMaxProbMap"):
+        if dc.get("type", "ProbMap") not in ("ProbMap", "ArgMaxProbMap", "UDPHeatmap"):
             raise NotImplementedError(f"device encode for the {dc.get('type')} codec is not ported yet")
         batch = dict(batch)
         kpts = batch.pop("kpts_hm")
         vis = batch.pop("kpts_visible")
         hm_size = tuple(dc.get("heatmap_size", (48, 64)))
-        scales = probmap_encode_scales(kpts.shape[1], hm_size, float(dc.get("sigma", -1.0)))
-        batch["heatmaps"] = generate_probmaps_device(kpts, vis, hm_size, scales)
+        if dc.get("type") == "UDPHeatmap":
+            batch["heatmaps"] = generate_udp_gaussian_device(kpts, vis, hm_size, float(dc.get("sigma", 2.0)))
+        else:
+            scales = probmap_encode_scales(kpts.shape[1], hm_size, float(dc.get("sigma", -1.0)))
+            batch["heatmaps"] = generate_probmaps_device(kpts, vis, hm_size, scales)
         return batch
 
     def loss_fn(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None):
-        """One forward in training mode and the ProbMapHead loss. ``batch``:
+        """One forward in training mode and the head's loss. ``batch``:
         ``inputs`` (B, H, W, 3) raw 0-255 crops, ``heatmaps`` or ``kpts_hm`` /
-        ``kpts_visible``, and the codec's ``keypoint_weights``, ``in_image``,
-        ``annotated``, ``keypoints_visibility``. ``generator`` draws the
-        stochastic-depth masks. Returns ``(total, (loss_dict, new_state))``
+        ``kpts_visible``, and the codec's ``keypoint_weights`` (and, for
+        ProbMapHead, ``in_image``, ``annotated``, ``keypoints_visibility``).
+        ``generator`` draws the stochastic-depth masks. Returns ``(total, (loss_dict, new_state))``
         as the JAX package does; ``new_state["batch_stats"]`` holds the
         running statistics this forward updated."""
         self.train()
         batch = self.device_preprocess_batch(batch)
         outputs = self.module(self.preprocess(batch["inputs"]), generator)
-        losses = probmap_head_loss(
-            outputs, batch, self.loss_modules, self.aux["head_cfg"], input_size=self.input_size,
-        )
+        if self.head_type == "HeatmapHead":
+            losses = heatmap_head_loss(outputs, batch, self.loss_modules["keypoint"])
+        else:
+            losses = probmap_head_loss(
+                outputs, batch, self.loss_modules, self.aux["head_cfg"], input_size=self.input_size,
+            )
         total = sum(v for k, v in losses.items() if k.startswith("loss_"))
         return total, (losses, {"batch_stats": self.batch_stats()})

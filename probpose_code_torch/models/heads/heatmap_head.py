@@ -1,21 +1,28 @@
-"""Deconvolution stack of the heatmap heads.
+"""Deconvolutional heatmap head and the conv stacks of the heatmap heads.
 
-Port of ``probpose_code_tpu/models/heads/heatmap_head.py:DeconvStack``
-(``:19``): ConvTranspose(k4, s2) + BN(eps 1e-5) + ReLU blocks (kernel size
+Port of ``probpose_code_tpu/models/heads/heatmap_head.py``: ``DeconvStack``
+(``:19``), ``ConvStack`` (``:40``) and ``HeatmapHead`` (``:57-92``).
+DeconvStack: ConvTranspose(k4, s2) + BN(eps 1e-5) + ReLU blocks (kernel size
 4, the ProbPose heads' size; 2 and 3 are not ported yet). Torch's
 ``ConvTranspose2d(k=4, s=2, padding=1)`` takes the reference weights as they
 are (only the flax side flips the taps, ``engine/checkpoint.py:768``).
-Sequential indices follow the reference keys: ``{0, 3}`` deconvs,
-``{1, 4}`` BN. ``BatchNorm2d`` trains as flax's ``nn.BatchNorm`` does.
+ConvStack: Conv(k, "SAME", bias) + BN + ReLU blocks. Sequential indices
+follow the reference keys: ``deconv_layers.{0, 3, ...}`` deconvs and
+``{1, 4, ...}`` BN, ``conv_layers.{0, 3, ...}`` convs and ``{1, 4, ...}``
+BN, then ``final_layer``. ``BatchNorm2d`` trains as flax's ``nn.BatchNorm``
+does.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from probpose_code_torch.models.backbones.vit import resolve_dtype
+from probpose_code_torch.registry import MODELS
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -74,3 +81,67 @@ def make_deconv_stack(in_channels: int, out_channels: Sequence[int], kernel_size
         ]
         in_channels = c
     return nn.Sequential(*layers)
+
+
+def make_conv_stack(in_channels: int, out_channels: Sequence[int], kernel_sizes: Sequence[int]) -> nn.Sequential:
+    layers = []
+    for c, k in zip(out_channels, kernel_sizes):
+        layers += [
+            nn.Conv2d(in_channels, c, k, padding="same"),
+            BatchNorm2d(c, eps=1e-5, momentum=0.1),
+            nn.ReLU(inplace=False),
+        ]
+        in_channels = c
+    return nn.Sequential(*layers)
+
+
+@MODELS.register_module()
+class HeatmapHead(nn.Module):
+    """SimpleBaselines-style head: deconv stack -> conv stack -> final conv
+    ("SAME" padding) -> heatmaps (B, K, H, W) in f32. As in the JAX head,
+    ``final_layer`` is a dict with ``kernel_size`` (its ``padding`` is
+    "SAME"), or False for none; None keeps ``final_layer_kernel_size``. The
+    stacks compute in ``dtype``, the final conv in f32."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        deconv_out_channels: Optional[Sequence[int]] = (256, 256, 256),
+        deconv_kernel_sizes: Optional[Sequence[int]] = (4, 4, 4),
+        conv_out_channels: Optional[Sequence[int]] = None,
+        conv_kernel_sizes: Optional[Sequence[int]] = None,
+        has_final_layer: bool = True,
+        final_layer_kernel_size: int = 1,
+        final_layer: Any = None,
+        keypoint_loss: Any = None,
+        loss: Any = None,
+        decoder: Any = None,
+        dtype: Any = "float32",
+    ):
+        super().__init__()
+        self.dtype = resolve_dtype(dtype)
+        self.decoder = decoder
+        channels = in_channels
+        self.deconv_layers = nn.Sequential()
+        if deconv_out_channels:
+            self.deconv_layers = make_deconv_stack(channels, deconv_out_channels, deconv_kernel_sizes)
+            channels = deconv_out_channels[-1]
+        self.conv_layers = nn.Sequential()
+        if conv_out_channels:
+            self.conv_layers = make_conv_stack(channels, conv_out_channels, conv_kernel_sizes)
+            channels = conv_out_channels[-1]
+        self.final_layer = None
+        if has_final_layer and final_layer is not False:
+            k = final_layer_kernel_size
+            if isinstance(final_layer, dict):
+                k = final_layer.get("kernel_size", k)
+            self.final_layer = nn.Conv2d(channels, out_channels, k, padding="same")
+
+    def forward(self, feats) -> torch.Tensor:
+        x = feats[-1] if isinstance(feats, (tuple, list)) else feats  # (B, C, h, w)
+        x = run_sequential(self.deconv_layers, x, self.dtype)
+        x = run_sequential(self.conv_layers, x, self.dtype)
+        if self.final_layer is not None:
+            x = self.final_layer(x.float())
+        return x.float()

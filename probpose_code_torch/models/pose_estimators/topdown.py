@@ -1,12 +1,16 @@
-"""Top-down pose estimator and the ProbMap predict and loss programs.
+"""Top-down pose estimator and its predict and loss programs.
 
 Port of ``probpose_code_tpu/models/pose_estimators/topdown.py``:
 ``TopdownPoseEstimator`` (``:41``), ``preprocess_inputs`` (``:74``),
-``probmap_head_predict`` (``:659-703``) and the ProbMap loss program
-(``:94-251``): the OKS and error targets come from the fast decode of the
-ground-truth and predicted heatmaps on the device, and the training monitors
-(PCK, balanced binary accuracies, MAEs) are computed beside the losses. The
-predict decode goes through K2 (``ops/kernels/expected_oks.py``).
+``probmap_head_predict`` (``:659-703``), the ProbMap loss program
+(``:94-251``) and ``heatmap_head_loss`` (``:637-651``); and the plain
+heatmap head's decode of ``probpose_code_tpu/models/builder.py:make_predict``
+(``:870-908``). ProbMap: the OKS and error targets come from the fast decode
+of the ground-truth and predicted heatmaps on the device, the training
+monitors (PCK, balanced binary accuracies, MAEs) are computed beside the
+losses, and the predict decode goes through K2
+(``ops/kernels/expected_oks.py``). Plain heatmaps: flip average, then argmax
+and DARK-UDP for the UDP codec.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import torch
 import torch.nn as nn
 
 from probpose_code_torch.codecs.utils.oks_map import COCO_KPT_SIGMAS
-from probpose_code_torch.ops.decode import argmax_probmap_decode_batch
+from probpose_code_torch.ops.decode import argmax_probmap_decode_batch, dark_udp_refine_batch
 from probpose_code_torch.ops.heatmap import heatmap_maximum_batch
 from probpose_code_torch.ops.kernels.expected_oks import expected_oks_decode
 from probpose_code_torch.ops.tta import flip_heatmaps
@@ -27,19 +31,21 @@ from probpose_code_torch.registry import MODELS
 
 @MODELS.register_module()
 class TopdownPoseEstimator(nn.Module):
-    """backbone (+ neck) -> head. Input (B, H, W, 3) normalised, NHWC like
-    the JAX package; the backbone runs NCHW."""
+    """backbone -> neck (if any) -> head, the JAX estimator's order
+    (``topdown.py:48-72``). Input (B, H, W, 3) normalised, NHWC like the JAX
+    package; the backbone, neck and head run NCHW."""
 
     def __init__(self, backbone: nn.Module, head: nn.Module, neck: Optional[nn.Module] = None):
         super().__init__()
-        if neck is not None:
-            raise NotImplementedError("necks are not ported yet")
         self.backbone = backbone
+        self.neck = neck
         self.head = head
 
     def forward(self, inputs: torch.Tensor, generator: Optional[torch.Generator] = None):
         """``generator`` draws the backbone's stochastic-depth masks in training."""
         feats = self.backbone(inputs.permute(0, 3, 1, 2), generator)
+        if self.neck is not None:
+            feats = self.neck(feats)
         return self.head(feats)
 
 
@@ -98,6 +104,41 @@ def probmap_head_predict(
         keypoints_error=errs,
         heatmaps=heatmaps,
     )
+
+
+def heatmap_head_predict(
+    heatmaps: torch.Tensor,
+    heatmaps_flipped: Optional[torch.Tensor],
+    flip_indices,
+    decoder_cfg: Dict[str, Any],
+    input_size: Tuple[int, int] = (192, 256),
+    shift_heatmap: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """Flip-TTA average in heatmap mode, then the UDP codec's decode to input
+    space (``builder.py:884-908``): argmax + DARK-UDP, scaled by input /
+    (W - 1). ``PoseModel.make_predict`` refuses the other codecs."""
+    if heatmaps_flipped is not None:
+        heatmaps = (heatmaps + flip_heatmaps(heatmaps_flipped, flip_indices=flip_indices,
+                                             shift_heatmap=shift_heatmap)) * 0.5
+    B, K, H, W = heatmaps.shape
+    locs, vals = heatmap_maximum_batch(heatmaps)
+    locs = dark_udp_refine_batch(locs, heatmaps, decoder_cfg.get("blur_kernel_size", 11))
+    scale = torch.tensor([input_size[0] / (W - 1), input_size[1] / (H - 1)], dtype=torch.float32,
+                         device=locs.device)
+    return dict(keypoints=locs * scale, keypoint_scores=vals, heatmaps=heatmaps)
+
+
+def heatmap_head_loss(
+    heatmaps: torch.Tensor,
+    batch: Dict[str, torch.Tensor],
+    loss_module: Any,
+) -> Dict[str, torch.Tensor]:
+    """The plain HeatmapHead loss (reference ``heatmap_head.py:loss:270``):
+    ``loss_kpt`` and the PCK monitor ``acc_pose``."""
+    return {
+        "loss_kpt": loss_module(heatmaps, batch["heatmaps"], batch["keypoint_weights"]),
+        "acc_pose": _pose_pck_accuracy(heatmaps.detach(), batch["heatmaps"], batch["keypoint_weights"] > 0.5),
+    }
 
 
 # --------------------------------------------------------------------------
@@ -188,7 +229,6 @@ def probmap_head_loss(
     loss_modules: Dict[str, Any],
     head_cfg: Dict[str, Any],
     input_size: Tuple[int, int] = (192, 256),
-    compute_acc: bool = True,
 ) -> Dict[str, torch.Tensor]:
     """The ProbMapHead loss dict (reference ``probmap_head.py:806-942``):
     ``loss_kpt``, ``loss_probability``, ``loss_visibility``, ``loss_oks``,
@@ -230,12 +270,11 @@ def probmap_head_loss(
     losses["loss_oks"] = loss_modules["oks"](dt_oks, gt_oks, annotated_in.float())
     losses["loss_error"] = loss_modules["error"](dt_errs, gt_errs, annotated_in.float())
 
-    if compute_acc:
-        losses["acc_pose"] = _pose_pck_accuracy(dt_heatmaps.detach(), gt_heatmaps, keypoint_weights > 0.5)
-        losses["acc_prob"] = _balanced_binary_accuracy(dt_probs.detach(), gt_probs, gt_annotated > 0.5)
-        losses["acc_vis"] = _balanced_binary_accuracy(dt_vis.detach(), gt_vis, annotated_in)
-        mask_f = annotated_in.float()
-        denom = torch.clamp(mask_f.sum(), min=1.0)
-        losses["mae_oks"] = ((dt_oks.detach() - gt_oks).abs() * mask_f).sum() / denom
-        losses["mae_err"] = ((dt_errs.detach() - gt_errs).abs() * mask_f).sum() / denom
+    losses["acc_pose"] = _pose_pck_accuracy(dt_heatmaps.detach(), gt_heatmaps, keypoint_weights > 0.5)
+    losses["acc_prob"] = _balanced_binary_accuracy(dt_probs.detach(), gt_probs, gt_annotated > 0.5)
+    losses["acc_vis"] = _balanced_binary_accuracy(dt_vis.detach(), gt_vis, annotated_in)
+    mask_f = annotated_in.float()
+    denom = torch.clamp(mask_f.sum(), min=1.0)
+    losses["mae_oks"] = ((dt_oks.detach() - gt_oks).abs() * mask_f).sum() / denom
+    losses["mae_err"] = ((dt_errs.detach() - gt_errs).abs() * mask_f).sum() / denom
     return losses

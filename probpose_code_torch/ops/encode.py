@@ -1,10 +1,11 @@
-"""Training targets encoded on the device (expected-OKS maps).
+"""Training targets encoded on the device (expected-OKS and UDP maps).
 
 Port of ``probpose_code_tpu/ops/encode.py``: ``probmap_encode_scales``
-(``:27``) and ``generate_probmaps_device`` (``:44``). The host ships (B, K, 2)
+(``:27``), ``generate_probmaps_device`` (``:44``) and
+``generate_udp_gaussian_device`` (``:74``). The host ships (B, K, 2)
 heatmap-space keypoints; the (B, K, H, W) maps are built on the device as two
-separable exponential factors and their outer product, from the same
-per-keypoint spread table as the host encoder (``oks_kernel_scales``).
+separable factors and their outer product, from the same per-keypoint spread
+table as the host encoder (``oks_kernel_scales``) or the UDP codec's sigma.
 """
 
 from __future__ import annotations
@@ -42,5 +43,33 @@ def generate_probmaps_device(
     kpts = kpts_hm.float()
     fx = torch.exp(-((xs[None, None, :] - kpts[..., 0:1]) ** 2) / s2[None, :, None])  # (B, K, W)
     fy = torch.exp(-((ys[None, None, :] - kpts[..., 1:2]) ** 2) / s2[None, :, None])  # (B, K, H)
+    maps = fy[..., :, None] * fx[..., None, :]
+    return maps * (visible >= 0.5).float()[..., None, None]
+
+
+def generate_udp_gaussian_device(
+    kpts_hm: torch.Tensor, visible: torch.Tensor, heatmap_size: Tuple[int, int], sigma: float,
+) -> torch.Tensor:
+    """(B, K, 2) heatmap-space keypoints and a (B, K) visibility gate ->
+    (B, K, H, W) f32 UDP targets: a unit-peak gaussian ``exp(-d^2 /
+    (2 sigma^2))`` at the sub-pixel keypoint, cut to the window [mu - 3 sigma,
+    mu + 3 sigma + 1) around the rounded centre mu = trunc(kpt + 0.5) (the
+    bounds truncated toward zero, as the host encoder's int casts), zero for
+    keypoints whose visibility is below 0.5. A keypoint whose window misses
+    the map gets an all-zero map; its weight is the host's business."""
+    W, H = int(heatmap_size[0]), int(heatmap_size[1])
+    dev = kpts_hm.device
+    radius = float(sigma) * 3.0
+    s2 = torch.tensor(2.0 * float(sigma) ** 2, dtype=torch.float32)
+    xs = torch.arange(W, dtype=torch.float32, device=dev)
+    ys = torch.arange(H, dtype=torch.float32, device=dev)
+    kpts = kpts_hm.float()
+    mu = torch.trunc(kpts + 0.5)
+    lt = torch.trunc(mu - radius)
+    rb = torch.trunc(mu + radius + 1.0)
+    wx = (xs[None, None, :] >= lt[..., 0:1]) & (xs[None, None, :] < rb[..., 0:1])
+    wy = (ys[None, None, :] >= lt[..., 1:2]) & (ys[None, None, :] < rb[..., 1:2])
+    fx = torch.exp(-((xs[None, None, :] - kpts[..., 0:1]) ** 2) / s2.to(dev)) * wx
+    fy = torch.exp(-((ys[None, None, :] - kpts[..., 1:2]) ** 2) / s2.to(dev)) * wy
     maps = fy[..., :, None] * fx[..., None, :]
     return maps * (visible >= 0.5).float()[..., None, None]

@@ -8,8 +8,10 @@ They import no JAX, so they run where JAX is absent:
 They cover shapes beyond the flagship one that ``chip_smoke.py`` holds:
 ragged tiles, head widths of 8 and above 128, maps whose filter needs more
 than 48 KB of shared memory, and flat maps whose argmax is a tie; K3 forward
-and backward at those shapes, with and without stochastic-depth masks; and
-one train step of the tiny config through K3.
+and backward at those shapes, with and without stochastic-depth masks; one
+train step of the tiny config through K3; K4 on strided and contiguous
+inputs, ragged N and head widths from 8 to 160; and one ViTPose-B-simple
+train step, whose twelve layers run K4 and not K3.
 Bars are ``chip_smoke.py``'s, with its reasons.
 """
 
@@ -19,6 +21,9 @@ import torch
 
 from chip_smoke import (
     GOLDEN,
+    K4_BF16_REL,
+    K4_F32_ATOL,
+    VITPOSE,
     K1_BF16_REL,
     K1_F32_REL,
     K2_CONV_ATOL,
@@ -34,6 +39,7 @@ from chip_smoke import (
     kernel_counters,
     layer_inputs,
     peaked_heatmaps,
+    qkv_views,
     synthetic_train_batch,
 )
 
@@ -165,7 +171,71 @@ def test_one_train_step_goes_through_k3(card):
                       torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}
-    assert launches == dict(vit_layer=0, expected_oks=0, oks_convolve=0, vit_layer_train_fwd=2, vit_layer_train_bwd=2)
+    assert launches == dict(vit_layer=0, expected_oks=0, oks_convolve=0, vit_layer_train_fwd=2, vit_layer_train_bwd=2,
+                            attention=0)
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    assert float(metrics["grad_norm"]) > 0
+    assert model.module.backbone.layers[0].attn.qkv.weight.grad.abs().max() > 0
+
+
+@pytest.mark.parametrize("B,N,H,D", [(2, 192, 12, 64), (3, 37, 5, 8), (1, 200, 2, 160), (2, 16, 3, 36)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attention_matches_plain(card, B, N, H, D, dtype):
+    from probpose_code_torch.ops.kernels.attention import attention_kernel, fused_attention_plain
+
+    dt = getattr(torch, dtype)
+    q, k, v = qkv_views(B, N, H, D, dt, seed=B + N)
+    before = attention_kernel.launches
+    got = attention_kernel(q, k, v, D ** -0.5).float()
+    want = fused_attention_plain(q, k, v, D ** -0.5).float()
+    torch.cuda.synchronize()
+    assert attention_kernel.launches == before + 1
+    if dt == torch.float32:
+        assert (got - want).abs().max().item() < K4_F32_ATOL
+    else:
+        assert (got - want).abs().max().item() / want.abs().max().item() < K4_BF16_REL
+    # the same values laid out contiguously give the same result
+    again = attention_kernel(*(t.contiguous() for t in (q, k, v)), D ** -0.5).float()
+    assert torch.equal(again, got)
+
+
+def test_attention_rejects_what_it_does_not_take(card):
+    from probpose_code_torch.ops.kernels.attention import attention_kernel
+
+    q, k, v = qkv_views(1, 8, 2, 16, torch.float32, seed=0)
+    with pytest.raises(TypeError):
+        attention_kernel(q, k, v.bfloat16(), 0.25)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention_kernel(q.transpose(2, 3), k.transpose(2, 3), v.transpose(2, 3), 0.25)
+    big = torch.zeros(1, 8, 1, 4096, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        attention_kernel(big, big, big, 1.0)
+
+
+def test_one_vitpose_train_step_goes_through_k4(card):
+    """The ViTPose-B-simple recipe (exact GELU, drop_path 0.3) takes one step
+    on the card: each of its twelve layers runs the eager block, whose
+    attention is K4; no layer reaches K1 or K3; the losses are finite and the
+    first layer gets a gradient."""
+    from probpose_code_torch.apis import init_model
+    from probpose_code_torch.config import Config
+    from probpose_code_torch.engine.optim import build_optimizer
+    from probpose_code_torch.parallel import create_train_state, make_train_step
+
+    cfg = Config.fromfile(VITPOSE)
+    model = init_model(cfg, device="cuda")
+    optimizer, _ = build_optimizer(model, cfg["optim_wrapper"], cfg["param_scheduler"])
+    step = make_train_step(model, optimizer)
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    _, metrics = step(create_train_state(model, optimizer), synthetic_train_batch(4, seed=0),
+                      torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    assert launches == dict(vit_layer=0, expected_oks=0, oks_convolve=0, vit_layer_train_fwd=0, vit_layer_train_bwd=0,
+                            attention=12)
+    assert set(metrics) == {"loss_kpt", "acc_pose", "loss", "grad_norm"}
     assert all(torch.isfinite(v).all() for v in metrics.values())
     assert float(metrics["grad_norm"]) > 0
     assert model.module.backbone.layers[0].attn.qkv.weight.grad.abs().max() > 0
