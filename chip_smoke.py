@@ -37,7 +37,10 @@ card and the CUDA toolkit (nvcc); it builds the port's kernels from
    memory and a profile;
 11. ``timings``: each kernel's time beside its plain twin's, a PyTorch
    library call's where one computes the same function, and its bound from
-   this run's shapes; K1 also at the ViT-B predict shape.
+   this run's shapes; K1 also at the ViT-B predict shape. For the bf16 K1
+   and K3 (forward, backward) also the time over the bound and the rate of
+   the layer's products: their operations over the device time of the
+   GEMM kernels in a profile of a few calls.
 
 The line before the last holds the kernels' record as JSON, the last line
 ``{"ok": true, "device": ...}``. Any failure exits non-zero without them.
@@ -727,6 +730,27 @@ class Smoke:
         for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
             print(f"  {100 * t / busy:5.1f}%  {t / calls / 1e3:8.3f} ms/call  x{n // calls:<4d} {name[:110]}")
 
+    @staticmethod
+    def products_rate(fn, flops, calls=3):
+        """(device ms a call of the GEMM kernels, TFLOP/s of ``flops``) over
+        a profile of ``calls`` calls of fn."""
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and "gemm_kernel" in e.name)
+        if us == 0:
+            raise AssertionError("the profiler saw no GEMM kernel")
+        ms = us / calls / 1e3
+        return ms, flops / (ms * 1e-3) / 1e12
+
     def timings(self):
         import torch
         import torch.nn as nn
@@ -771,6 +795,8 @@ class Smoke:
             k1_ms = cuda_time_ms(lambda: vit_layer_prepared(x, w, **kw), 20)
             k1_plain = cuda_time_ms(lambda: vit_layer_plain(x, *p, **kw), 5)
             k1_lib = cuda_time_ms(lambda: lib(x), 20)
+            k1_prod_flops = 2 * B * N * C * (4 * C + 2 * F)
+            k1_prod_ms, k1_prod_rate = self.products_rate(lambda: vit_layer_prepared(x, w, **kw), k1_prod_flops)
         k1_bytes = 2 * x.numel() * 2 + sum(t.numel() * (2 if t.dim() == 2 else 4) for t in p)
         k1_ops = layer_flops(B, N, C, F)
         k1_bound = max(k1_ops / PEAK_BF16, k1_bytes / PEAK_BYTES) * 1e3
@@ -803,7 +829,8 @@ class Smoke:
 
         # the launch counts above belong to the comparisons, not the main paths:
         # K1, K2 and K2b from the flagship predict run, K3 from the flagship
-        # train step, K4 from the ViTPose-B train step
+        # train step, K4 from the ViTPose-B train step, K1 at the ViT-B shape
+        # from the ViTPose-B predict call
         predict, train = self.record.get("launches", {}), self.record.get("train_launches", {})
         launches = {k: predict.get(k, 0) for k in ("vit_layer", "expected_oks", "oks_convolve")}
         launches.update({k: train.get(k, 0) for k in ("vit_layer_train_fwd", "vit_layer_train_bwd")})
@@ -834,11 +861,17 @@ class Smoke:
             dict(name="attention", route="cuda", source="probpose_code_torch/csrc/attention.cu",
                  replaces="probpose_code_tpu/ops/pallas/attention.py:73", launches=launches["attention"],
                  **{key: k4[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+            dict(name="vit_layer_vitb_f32", route="cuda", source="probpose_code_torch/csrc/vit_layer.cu",
+                 replaces="probpose_code_tpu/ops/pallas/vit_layer.py:117",
+                 launches=self.record.get("vitpose_launches", {}).get("vit_layer", 0),
+                 **{key: kb[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
         ]
         print(f"K1 vit_layer B={B} N={N} C={C} bf16: {k1_ms:.3f} ms, plain {k1_plain:.3f} ms, "
               f"nn.TransformerEncoderLayer (erf GELU, max-shifted softmax) {k1_lib:.3f} ms, "
               f"bound {k1_bound:.4f} ms ({k1_ops / 1e9:.1f} GFLOP, {k1_bytes / 1e6:.1f} MB), "
-              f"{k1_ops / (k1_ms * 1e-3) / 1e12:.1f} TFLOP/s")
+              f"{k1_ops / (k1_ms * 1e-3) / 1e12:.1f} TFLOP/s, {k1_ms / k1_bound:.1f}x its bound, "
+              f"{k1_ms / k1_lib:.2f}x the library; its products ({k1_prod_flops / 1e9:.1f} GFLOP) "
+              f"{k1_prod_ms:.3f} ms of GEMM device time, {k1_prod_rate:.1f} TFLOP/s")
         print(f"K2 expected_oks B={Bk} K={K} {Hh}x{Wh}: {k2_ms:.4f} ms, plain {k2_plain:.4f} ms, "
               f"bound {k2_bound:.4f} ms ({k2_bytes / 1e6:.2f} MB, {k2_ops / 1e9:.3f} GFLOP)")
         print(f"K2b oks_convolve (conv-only entry of expected_oks.cu): {conv_ms:.4f} ms, plain {conv_plain:.4f} ms, "
@@ -848,7 +881,10 @@ class Smoke:
             print(f"K3 vit_layer_train {part} B={Bt} N={N} C={C} bf16: {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
                   f"nn.TransformerEncoderLayer {part} (erf GELU, max-shifted softmax) {t['library_ms']:.3f} ms, "
                   f"bound {t['bound_ms']:.4f} ms ({kt['gflop'][part]:.1f} GFLOP, {kt['mb'][part]:.1f} MB), "
-                  f"max abs err {t['max_abs_err']:.3e} (relative to the largest value {kt['rel'][part]:.2e})")
+                  f"{t['ms'] / t['bound_ms']:.1f}x its bound, {t['ms'] / t['library_ms']:.2f}x the library, "
+                  f"max abs err {t['max_abs_err']:.3e} (relative to the largest value {kt['rel'][part]:.2e}); "
+                  f"its products ({kt['prod_gflop'][part]:.1f} GFLOP) {kt['prod_ms'][part]:.3f} ms of GEMM "
+                  f"device time, {kt['prod_rate'][part]:.1f} TFLOP/s")
         print(f"K4 attention B=64 N={N} h=12 d=64 f32 (strided qkv views): {k4['ms']:.3f} ms, "
               f"plain {k4['plain_ms']:.3f} ms, F.scaled_dot_product_attention {k4['library_ms']:.3f} ms, "
               f"bound {k4['bound_ms']:.4f} ms, {k4['bound_by']} ({k4['gflop']:.2f} GFLOP, {k4['mb']:.1f} MB), "
@@ -912,7 +948,8 @@ class Smoke:
             w = prepare_weights(*p, num_heads=H, dtype=dt)
             got = vit_layer_prepared(x, w, **kw)
             want = vit_layer_plain(x, *p, **kw)
-            rel = ((got - want).abs().max() / want.abs().max()).item()
+            err = (got - want).abs().max().item()
+            rel = err / want.abs().max().item()
             if not rel < K1_F32_REL:
                 raise AssertionError(f"K1 at the ViT-B shape: rel max err {rel:.3e}")
             ms = cuda_time_ms(lambda: vit_layer_prepared(x, w, **kw), 5, warmup=1)
@@ -920,7 +957,7 @@ class Smoke:
             libms = cuda_time_ms(lambda: lib(x), 5, warmup=1)
         ops = layer_flops(B, N, C, F)
         nbytes = 2 * x.numel() * 4 + sum(t.numel() * 4 for t in p)
-        return dict(ms=ms, plain_ms=plain, library_ms=libms, rel=rel, gflop=ops / 1e9,
+        return dict(ms=ms, plain_ms=plain, library_ms=libms, rel=rel, max_abs_err=err, gflop=ops / 1e9,
                     bound_ms=max(ops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3,
                     bound_by="operations" if ops / PEAK_F32 >= nbytes / PEAK_BYTES else "bytes")
 
@@ -951,6 +988,12 @@ class Smoke:
         grads = vit_layer_train_backward(g, x, m1, m2, ops, saved, **kw)
         fwd_ms = cuda_time_ms(lambda: vit_layer_train_forward(x, m1, m2, ops, **kw), 10)
         bwd_ms = cuda_time_ms(lambda: vit_layer_train_backward(g, x, m1, m2, ops, saved, **kw), 10)
+        # the products: forward qkv, proj, fc1, fc2; backward their dx products and weight gradients
+        prod = {"fwd": 2 * B * N * C * (4 * C + 2 * F)}
+        prod["bwd"] = 2 * prod["fwd"]
+        rates = {"fwd": Smoke.products_rate(lambda: vit_layer_train_forward(x, m1, m2, ops, **kw), prod["fwd"]),
+                 "bwd": Smoke.products_rate(lambda: vit_layer_train_backward(g, x, m1, m2, ops, saved, **kw),
+                                            prod["bwd"])}
 
         xs = x.clone().requires_grad_(True)
         ps = [t.clone().requires_grad_(True) for t in p]
@@ -998,6 +1041,9 @@ class Smoke:
         result["rel"] = rel
         result["gflop"] = dict(fwd=fwd_ops / 1e9, bwd=2 * fwd_ops / 1e9)
         result["mb"] = dict(fwd=fwd_bytes / 1e6, bwd=bwd_bytes / 1e6)
+        result["prod_gflop"] = {k: v / 1e9 for k, v in prod.items()}
+        result["prod_ms"] = {k: v[0] for k, v in rates.items()}
+        result["prod_rate"] = {k: v[1] for k, v in rates.items()}
         return result
 
 

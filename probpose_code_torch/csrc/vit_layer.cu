@@ -20,17 +20,26 @@
 // images, so a whole layer cannot sit in one block. Here the intermediates
 // (xn, qkv, attn, x1, hidden) round-trip through device memory.
 //
-// What bounds it: 94.2 GFLOP per layer at the flagship shape (128 images,
-// N = 192, C = 384, F = 1536) against 41 MB of inputs and outputs in bf16,
-// so operations bound it (95 us at 989 TFLOP/s bf16, against 12 us for the
-// bytes at 3.35 TB/s). This first version runs its products on
-// the FMA units from shared-memory tiles (64x64 output tiles, 4x4 per
-// thread); tensor cores (mma.sync / wgmma), TMA and keeping the layer on chip
-// are later work.
+// What bounds it: operations. At the flagship shape (128 images, N = 192,
+// C = 384, F = 1536) a layer is 94.2 GFLOP against 41 MB of inputs and
+// outputs in bf16: 95 us at 989 TFLOP/s bf16, against 12 us for the bytes
+// at 3.35 TB/s. What the design does about it:
+//  - bf16: the four products and the attention run on the tensor cores
+//    through the shared tile engine (tc_tiles.cuh: mma.sync m16n8k16 from
+//    ldmatrix fragments, a cp.async ring, 128x128 or 128x64 block tiles),
+//    with the epilogues (bias, the f32 residual, GELU) on the accumulators;
+//    at the 256x192 crops' shape (N = 192, heads 32 wide) the attention
+//    computes each score once and keeps the key row in registers, and at
+//    any shape it never writes the N x N scores to device memory;
+//  - f32: the products run on the FMA units from shared-memory tiles (64x64
+//    outputs, 4x4 a thread) and the attention in two passes over 32-key
+//    tiles. Its bar (relative error 1e-4) rules out single-pass TF32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "tc_tiles.cuh"
 
 namespace {
 
@@ -81,15 +90,18 @@ layernorm_kernel(const Tin* __restrict__ x, const float* __restrict__ scale,
 }
 
 // ---------------------------------------------------------------------------
-// GEMM: out[M, N] = A[M, K] @ W[K, N] (both row-major, type T) with f32
-// accumulation and a fused epilogue. 64x64 output tile per block of 256
-// threads; each thread owns a 4x4 grid of outputs strided by 16 so that the
-// shared-memory reads of a warp are broadcasts or consecutive words. Ragged
-// edges are zero-filled on load and masked on store, so any M, N, K works.
+// GEMM epilogues, shared by the f32 FMA GEMM and the bf16 tensor-core one:
+// W outputs (m, n), (m, n + 1), ... at offset o, rounded where the TPU kernel
+// rounds them.
 // ---------------------------------------------------------------------------
 enum Epilogue { EPI_QKV = 0, EPI_PROJ = 1, EPI_FC1 = 2, EPI_FC2 = 3 };
 
-constexpr int GBM = 64, GBN = 64, GBK = 16, GTHREADS = 256;
+struct EpiArgs {
+  const float* bias;
+  const void* res;  // PROJ: x (T); FC2: x1 (f32)
+  void* out;        // PROJ: x1 (f32); others T
+  int exact_gelu;
+};
 
 __device__ __forceinline__ float gelu(float v, int exact) {
   if (exact) return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
@@ -97,11 +109,49 @@ __device__ __forceinline__ float gelu(float v, int exact) {
   return 0.5f * v * (1.0f + tanhf(k * (v + 0.044715f * v * v * v)));
 }
 
-template <typename T, int EPI>
+template <int W> __device__ __forceinline__ void store_w(float* p, const float (&v)[W]) {
+  if (W == 1) p[0] = v[0]; else tc::store2(p, v[0], v[W - 1]);
+}
+template <int W> __device__ __forceinline__ void store_w(__nv_bfloat16* p, const float (&v)[W]) {
+  if (W == 1) p[0] = __float2bfloat16(v[0]); else tc::store2(p, v[0], v[W - 1]);
+}
+
+template <typename T, int EPI, int W>
+__device__ __forceinline__ void epilogue(const EpiArgs& e, int n, size_t o, const float (&v)[W]) {
+  static_assert(W == 1 || W == 2, "one output or a pair");
+  float r[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const float b = e.bias[n + i];
+    if (EPI == EPI_QKV) {
+      r[i] = v[i] + b;
+    } else if (EPI == EPI_PROJ) {
+      r[i] = (to_f(static_cast<const T*>(e.res)[o + i]) + v[i]) + b;  // x1 = x + attn @ W_proj + b_proj
+    } else if (EPI == EPI_FC1) {
+      r[i] = gelu(v[i] + b, e.exact_gelu);
+    } else {
+      r[i] = (static_cast<const float*>(e.res)[o + i] + v[i]) + b;  // out = x1 + hidden @ W2 + b2
+    }
+  }
+  if (EPI == EPI_PROJ) {
+    store_w<W>(static_cast<float*>(e.out) + o, r);  // x1 in f32
+  } else {
+    store_w<W>(static_cast<T*>(e.out) + o, r);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 GEMM: out[M, N] = A[M, K] @ W[K, N] (both row-major) on the FMA units.
+// 64x64 output tile per block of 256 threads; each thread owns a 4x4 grid of
+// outputs strided by 16 so that the shared-memory reads of a warp are
+// broadcasts or consecutive words. Ragged edges are zero-filled on load and
+// masked on store, so any M, N, K works.
+// ---------------------------------------------------------------------------
+constexpr int GBM = 64, GBN = 64, GBK = 16, GTHREADS = 256;
+
+template <int EPI>
 __global__ void __launch_bounds__(GTHREADS)
-gemm_kernel(const T* __restrict__ A, const T* __restrict__ W,
-            const float* __restrict__ bias, const void* __restrict__ res,
-            void* __restrict__ out, int M, int N, int K, int exact_gelu) {
+gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W, EpiArgs e, int M, int N, int K) {
   __shared__ float As[GBK][GBM + 4];
   __shared__ float Ws[GBK][GBN];
   const int tid = threadIdx.x;
@@ -120,10 +170,10 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ W,
       const int idx = tid + i * GTHREADS;
       const int r = idx / GBK, kk = idx % GBK;
       const int gm = m0 + r, gk = k0 + kk;
-      As[kk][r] = (gm < M && gk < K) ? to_f(A[(size_t)gm * K + gk]) : 0.f;
+      As[kk][r] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
       const int kr = idx / GBN, c = idx % GBN;
       const int gk2 = k0 + kr, gn = n0 + c;
-      Ws[kr][c] = (gk2 < K && gn < N) ? to_f(W[(size_t)gk2 * N + gn]) : 0.f;
+      Ws[kr][c] = (gk2 < K && gn < N) ? W[(size_t)gk2 * N + gn] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -149,31 +199,55 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ W,
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx + 16 * j;
       if (n >= N) continue;
-      const size_t o = (size_t)m * N + n;
-      const float v = acc[i][j];
-      if (EPI == EPI_QKV) {
-        static_cast<T*>(out)[o] = from_f<T>(v + bias[n]);
-      } else if (EPI == EPI_PROJ) {
-        // x1 = x + attn @ W_proj + b_proj, in f32
-        static_cast<float*>(out)[o] = (to_f(static_cast<const T*>(res)[o]) + v) + bias[n];
-      } else if (EPI == EPI_FC1) {
-        static_cast<T*>(out)[o] = from_f<T>(gelu(v + bias[n], exact_gelu));
-      } else {
-        // out = x1 + hidden @ W2 + b2, cast to x's type
-        static_cast<T*>(out)[o] = from_f<T>((static_cast<const float*>(res)[o] + v) + bias[n]);
-      }
+      const float v[1] = {acc[i][j]};
+      epilogue<float, EPI, 1>(e, n, (size_t)m * N + n, v);
     }
   }
 }
 
+// The tensor-core GEMM's epilogue: a pair of columns (n, n + 1), stored
+// together where N is even; one at a time where it is odd (the pair is then
+// misaligned and may end past the row).
+template <int EPI>
+struct TcEpilogue {
+  EpiArgs e;
+  int N;
+  __device__ __forceinline__ void operator()(int m, int n, float v0, float v1) const {
+    const size_t o = (size_t)m * N + n;
+    if (N % 2 == 0) {
+      const float v[2] = {v0, v1};
+      epilogue<__nv_bfloat16, EPI, 2>(e, n, o, v);
+      return;
+    }
+    const float a[1] = {v0};
+    epilogue<__nv_bfloat16, EPI, 1>(e, n, o, a);
+    if (n + 1 < N) {
+      const float c[1] = {v1};
+      epilogue<__nv_bfloat16, EPI, 1>(e, n + 1, o + 1, c);
+    }
+  }
+};
+
+template <int EPI>
+int gemm(const float* A, const float* W, const EpiArgs& e, int M, int N, int K, cudaStream_t s) {
+  const dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM);
+  gemm_f32_kernel<EPI><<<grid, GTHREADS, 0, s>>>(A, W, e, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+template <int EPI>
+int gemm(const __nv_bfloat16* A, const __nv_bfloat16* W, const EpiArgs& e, int M, int N, int K, cudaStream_t s) {
+  return (int)tc::gemm<tc::NN>(A, W, TcEpilogue<EPI>{e, N}, M, N, K, s);
+}
+
 // ---------------------------------------------------------------------------
-// Attention: one block per (query tile of 32, head, image); 4 warps of 8
+// f32 attention: one block per (query tile of 32, head, image); 4 warps of 8
 // queries each. K (and V) stream through shared memory in tiles of 32 keys,
 // one key per lane. Since the softmax is exp(min(s, 80)) with no max shift,
 // the row sum needs no running maximum: pass 1 sums the exponentials, pass 2
-// recomputes each score, normalises it, rounds it to T (as the TPU kernel
-// rounds p before the PV product) and accumulates p @ v in f32. Any N works;
-// the head width D is covered in chunks of 128 output dims.
+// recomputes each score, normalises it and accumulates p @ v in f32. Any N
+// works; the head width D is covered in chunks of 128 output dims. (The bf16
+// attention is tc::attention_fwd.)
 // ---------------------------------------------------------------------------
 constexpr int ATT_WARPS = 4, ATT_QPW = 8, ATT_QT = ATT_WARPS * ATT_QPW;
 constexpr int ATT_KT = 32, ATT_DC = 128;
@@ -184,9 +258,8 @@ size_t attention_smem_bytes(int D) {
           (size_t)ATT_QT * ATT_KT);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
-attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int C, int D) {
+attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int N, int C, int D) {
   extern __shared__ float smem[];
   float* qs = smem;                           // ATT_QT x D
   float* ks = qs + ATT_QT * D;                // ATT_KT x (D + 1), padded rows
@@ -197,12 +270,12 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int C, i
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int nthreads = ATT_WARPS * 32;
   const size_t rs = (size_t)3 * C;
-  const T* base = qkv + (size_t)b * N * rs;
+  const float* base = qkv + (size_t)b * N * rs;
   const int Dp = D + 1;
 
   for (int i = tid; i < ATT_QT * D; i += nthreads) {
     const int qi = i / D, d = i % D, n = q0 + qi;
-    qs[i] = n < N ? to_f(base[(size_t)n * rs + h * D + d]) : 0.f;
+    qs[i] = n < N ? base[(size_t)n * rs + h * D + d] : 0.f;
   }
 
   // pass 1: row sums of exp(min(s, 80))
@@ -213,7 +286,7 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int C, i
     __syncthreads();
     for (int i = tid; i < ATT_KT * D; i += nthreads) {
       const int kj = i / D, d = i % D, n = k0 + kj;
-      ks[kj * Dp + d] = n < N ? to_f(base[(size_t)n * rs + C + h * D + d]) : 0.f;
+      ks[kj * Dp + d] = n < N ? base[(size_t)n * rs + C + h * D + d] : 0.f;
     }
     __syncthreads();
     if (k0 + lane < N) {
@@ -230,7 +303,7 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int C, i
 #pragma unroll
   for (int qq = 0; qq < ATT_QPW; ++qq) rsum[qq] = warp_sum(rsum[qq]);
 
-  // pass 2: p = exp(min(s, 80)) / sum, rounded to T, then p @ v
+  // pass 2: p = exp(min(s, 80)) / sum, then p @ v
   for (int dc0 = 0; dc0 < D; dc0 += ATT_DC) {
     const int dcn = min(ATT_DC, D - dc0);
     float acc[ATT_QPW][ATT_DC / 32];
@@ -243,11 +316,11 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int C, i
       __syncthreads();
       for (int i = tid; i < ATT_KT * D; i += nthreads) {
         const int kj = i / D, d = i % D, n = k0 + kj;
-        ks[kj * Dp + d] = n < N ? to_f(base[(size_t)n * rs + C + h * D + d]) : 0.f;
+        ks[kj * Dp + d] = n < N ? base[(size_t)n * rs + C + h * D + d] : 0.f;
       }
       for (int i = tid; i < ATT_KT * dcn; i += nthreads) {
         const int kj = i / dcn, d = i % dcn, n = k0 + kj;
-        vs[kj * ATT_DC + d] = n < N ? to_f(base[(size_t)n * rs + 2 * C + h * D + dc0 + d]) : 0.f;
+        vs[kj * ATT_DC + d] = n < N ? base[(size_t)n * rs + 2 * C + h * D + dc0 + d] : 0.f;
       }
       __syncthreads();
       const float* kr = ks + lane * Dp;
@@ -258,7 +331,7 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int C, i
         if (k0 + lane < N) {
           float s = 0.f;
           for (int d = 0; d < D; ++d) s = fmaf(qv[d], kr[d], s);
-          p = to_f(from_f<T>(expf(fminf(s, 80.f)) / rsum[qq]));
+          p = expf(fminf(s, 80.f)) / rsum[qq];
         }
         ps[(warp * ATT_QPW + qq) * ATT_KT + lane] = p;
       }
@@ -281,10 +354,27 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int C, i
 #pragma unroll
       for (int c = 0; c < ATT_DC / 32; ++c) {
         const int d = lane + 32 * c;
-        if (d < dcn) out[((size_t)b * N + n) * C + h * D + dc0 + d] = from_f<T>(acc[qq][c]);
+        if (d < dcn) out[((size_t)b * N + n) * C + h * D + dc0 + d] = acc[qq][c];
       }
     }
   }
+}
+
+int attention(const float* qkv, float* out, int B, int N, int C, int H, cudaStream_t s) {
+  const int D = C / H;
+  const size_t smem = attention_smem_bytes(D);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(attention_f32_kernel,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((N + ATT_QT - 1) / ATT_QT, H, B);
+  attention_f32_kernel<<<grid, ATT_WARPS * 32, smem, s>>>(qkv, out, N, C, D);
+  return (int)cudaGetLastError();
+}
+
+int attention(const __nv_bfloat16* qkv, __nv_bfloat16* out, int B, int N, int C, int H, cudaStream_t s) {
+  return (int)tc::attention_fwd(qkv, out, nullptr, B, N, C, H, s);
 }
 
 template <typename T>
@@ -295,46 +385,26 @@ int run_layer(const T* x, const float* ln1_s, const float* ln1_b, const T* w_qkv
               T* hidden, T* out, int B, int N, int C, int H, int F, float eps,
               int exact_gelu, cudaStream_t stream) {
   const int M = B * N;
-  const int D = C / H;
-  cudaError_t err;
-#define CHECK_LAUNCH()                          \
-  do {                                          \
-    err = cudaGetLastError();                   \
-    if (err != cudaSuccess) return (int)err;    \
+  int err;
+#define RETURN_IF(call)          \
+  do {                           \
+    err = (call);                \
+    if (err != 0) return err;    \
   } while (0)
 
   const dim3 ln_grid((M + LN_WARPS - 1) / LN_WARPS);
   const dim3 ln_block(LN_WARPS * 32);
-  auto gemm_grid = [M](int n) { return dim3((n + GBN - 1) / GBN, (M + GBM - 1) / GBM); };
 
   layernorm_kernel<T, T><<<ln_grid, ln_block, 0, stream>>>(x, ln1_s, ln1_b, xn, M, C, eps);
-  CHECK_LAUNCH();
-  gemm_kernel<T, EPI_QKV><<<gemm_grid(3 * C), GTHREADS, 0, stream>>>(
-      xn, w_qkv, b_qkv, nullptr, qkv, M, 3 * C, C, exact_gelu);
-  CHECK_LAUNCH();
-
-  const size_t smem = attention_smem_bytes(D);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(attention_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 att_grid((N + ATT_QT - 1) / ATT_QT, H, B);
-  attention_kernel<T><<<att_grid, ATT_WARPS * 32, smem, stream>>>(qkv, attn, N, C, D);
-  CHECK_LAUNCH();
-
-  gemm_kernel<T, EPI_PROJ><<<gemm_grid(C), GTHREADS, 0, stream>>>(
-      attn, w_proj, b_proj, x, x1, M, C, C, exact_gelu);
-  CHECK_LAUNCH();
+  RETURN_IF((int)cudaGetLastError());
+  RETURN_IF(gemm<EPI_QKV>(xn, w_qkv, EpiArgs{b_qkv, nullptr, qkv, exact_gelu}, M, 3 * C, C, stream));
+  RETURN_IF(attention(qkv, attn, B, N, C, H, stream));
+  RETURN_IF(gemm<EPI_PROJ>(attn, w_proj, EpiArgs{b_proj, x, x1, exact_gelu}, M, C, C, stream));
   layernorm_kernel<float, T><<<ln_grid, ln_block, 0, stream>>>(x1, ln2_s, ln2_b, xn, M, C, eps);
-  CHECK_LAUNCH();
-  gemm_kernel<T, EPI_FC1><<<gemm_grid(F), GTHREADS, 0, stream>>>(
-      xn, w_fc1, b_fc1, nullptr, hidden, M, F, C, exact_gelu);
-  CHECK_LAUNCH();
-  gemm_kernel<T, EPI_FC2><<<gemm_grid(C), GTHREADS, 0, stream>>>(
-      hidden, w_fc2, b_fc2, x1, out, M, C, F, exact_gelu);
-  CHECK_LAUNCH();
-#undef CHECK_LAUNCH
+  RETURN_IF((int)cudaGetLastError());
+  RETURN_IF(gemm<EPI_FC1>(xn, w_fc1, EpiArgs{b_fc1, nullptr, hidden, exact_gelu}, M, F, C, stream));
+  RETURN_IF(gemm<EPI_FC2>(hidden, w_fc2, EpiArgs{b_fc2, x1, out, exact_gelu}, M, C, F, stream));
+#undef RETURN_IF
   return 0;
 }
 
@@ -342,11 +412,13 @@ int run_layer(const T* x, const float* ln1_s, const float* ln1_b, const T* w_qkv
 
 extern "C" {
 
-// Largest head width whose attention tiles fit in one block's shared memory.
-int vit_layer_max_head_dim() {
-  int D = 8;
-  while (attention_smem_bytes(D + 8) <= 232448) D += 8;
-  return D;
+// Why the layer cannot run with heads D wide, or NULL. dtype as below.
+const char* vit_layer_shape_error(int dtype, int D) {
+  if (dtype == 0) {
+    return attention_smem_bytes(D) > tc::kSmemMax ? "f32: the head width exceeds one block's shared memory"
+                                                   : nullptr;
+  }
+  return tc::bf16_shape_error(D, 0);
 }
 
 const char* vit_layer_error_string(int code) {
@@ -355,6 +427,7 @@ const char* vit_layer_error_string(int code) {
 
 // dtype: 0 = float32, 1 = bfloat16 (x, weights, xn, qkv, attn, hidden, out).
 // LayerNorm parameters and biases are float32; x1 is float32 scratch.
+// The caller checks vit_layer_shape_error first.
 // Returns 0 or the first CUDA error code.
 int vit_layer_forward(int dtype, const void* x, const void* ln1_s, const void* ln1_b,
                       const void* w_qkv, const void* b_qkv, const void* w_proj,

@@ -3,9 +3,10 @@
 Each ``probpose_code_torch/csrc/<name>.cu`` compiles, at first use, into a
 shared library with a plain C interface under ``build/torch_kernels/`` at
 the repository root (listed in ``.gitignore``). The file name carries a hash
-of the source, so an edited source is rebuilt and an unchanged one is
-reused. Nothing here touches CUDA when the module is imported: the CPU tests
-import every module of the package.
+of the source, of every shared header ``csrc/*.cuh`` and of the flags, so an
+edited source or header is rebuilt and an unchanged one is reused. Nothing
+here touches CUDA when the module is imported: the CPU tests import every
+module of the package.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Any, Dict, Iterable, List, Tuple, Union
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -38,9 +39,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str):
@@ -80,20 +83,21 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+def load(name: str, signatures: Dict[str, Union[list, Tuple[list, Any]]]) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; declare every entry's
-    argument types (pointers and the stream as ``c_void_p``) and an int
-    return code."""
+    argument types (pointers and the stream as ``c_void_p``) and its return
+    type: an int return code, or the type given as ``(argtypes, restype)``."""
     with _lock:
         lib = _libs.get(name)
     if lib is not None:
         return lib
     (path,) = build([name])
     lib = ctypes.CDLL(str(path))
-    for fn, argtypes in signatures.items():
+    for fn, spec in signatures.items():
+        argtypes, restype = spec if isinstance(spec, tuple) else (spec, ctypes.c_int)
         f = getattr(lib, fn)
         f.argtypes = argtypes
-        f.restype = ctypes.c_int
+        f.restype = restype
     with _lock:
         _libs[name] = lib
     return lib

@@ -7,13 +7,20 @@ vit_layer_fused`` (``_layer_kernel``). The source is
 What bounds it on the H100: operations. At the flagship shape (128 images of
 N = 192 tokens, C = 384, 12 heads, F = 1536) one layer is 94.2 GFLOP against
 41 MB of inputs and outputs in bf16: 95 us at 989 TFLOP/s against 12 us at
-3.35 TB/s. What the design does about it: every product runs from
-shared-memory tiles with f32 accumulation and a fused epilogue (bias, the f32
-residual, GELU), and the attention streams K and V through shared memory so
-the N x N scores never reach device memory. A whole layer does not fit one
-block (x alone is 295 KB in f32 for four images), so the intermediates
-round-trip through device memory, and the products still run on the FMA
-units, not the tensor cores: that is the next step for speed.
+3.35 TB/s. What the design does about it: in bf16 every product runs on the
+tensor cores (``csrc/tc_tiles.cuh``: mma.sync from ldmatrix fragments fed by
+a cp.async ring) with f32 accumulation and a fused epilogue (bias, the f32
+residual, GELU), and the attention never writes the N x N scores to device
+memory (at the flagship shape it computes each score once and keeps the
+key row in registers; elsewhere it makes two passes over key chunks). A
+whole layer does not fit one block (x alone is 295 KB in f32 for four
+images), so the intermediates round-trip through device memory. In f32 the
+products run on the FMA units: the f32 bar (relative error 1e-4) rules out
+single-pass TF32.
+
+The bf16 path takes every shape that ``fits`` admits, with heads up to 896
+wide (the f32 path: up to 824); ``vit_layer_prepared`` raises on a wider
+head (there is no other bf16 path).
 
 ``vit_layer_prepared`` takes a CPU tensor to the plain twin and a CUDA tensor
 to the kernel; it never falls back from one to the other. ``vit_layer`` is
@@ -33,7 +40,7 @@ from . import _build
 _SIGNATURES = {
     "vit_layer_forward": [ctypes.c_int] + [ctypes.c_void_p] * 19
     + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "vit_layer_max_head_dim": [],
+    "vit_layer_shape_error": ([ctypes.c_int] * 2, ctypes.c_char_p),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -202,8 +209,9 @@ def vit_layer_prepared(
     if any(t.device != x.device for t in weights):
         raise ValueError("vit_layer: all tensors must be on x's device")
     lib = _lib()
-    if C // num_heads > lib.vit_layer_max_head_dim():
-        raise ValueError(f"vit_layer: head width {C // num_heads} exceeds one block's shared memory")
+    error = lib.vit_layer_shape_error(_DTYPE_CODE[dtype], C // num_heads)
+    if error is not None:
+        raise ValueError(f"vit_layer: shape {(B, N, C)} with {num_heads} heads: {error.decode()}")
 
     M = B * N
     xn = torch.empty(M, C, dtype=dtype, device=x.device)

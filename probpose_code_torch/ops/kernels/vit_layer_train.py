@@ -8,15 +8,20 @@ vit_layer_train`` (``_fwd_kernel``, ``_bwd_mlp_kernel``,
 
 What bounds it on the H100: operations. At the flagship shape (64 images of
 N = 192 tokens, C = 384, 12 heads, F = 1536) the forward is 47.1 GFLOP and
-the least a backward can do is twice that: 141 GFLOP a layer and step,
-0.143 ms at 989 TFLOP/s, against about 0.1 GB of inputs and outputs. What
-the design does about it: the products run from shared-memory tiles with f32
-accumulation and fused epilogues, the forward keeps what the backward reads
-(only the attention probabilities are recomputed), and the weight gradients
-are products over the B*N rows split into a few partials summed in a fixed
-order, so the result does not depend on the order of blocks. The products
-still run on the FMA units, not the tensor cores: that is the next step for
-speed.
+the least a backward can do is twice that, 94.2 GFLOP: 0.048 and 0.095 ms at
+989 TFLOP/s, against about 0.1 GB of inputs and outputs. What the design
+does about it: in bf16 every product runs on the tensor cores
+(``csrc/tc_tiles.cuh``: the forward's products, dx = dY W^T and the weight
+gradients as mma.sync GEMMs with fused epilogues; the attention forward and
+its query-side and key-side backward as mma.sync tiles). The forward keeps
+what the backward reads, the softmax row sums included, so only the
+attention probabilities are recomputed. The weight gradients are products
+over the B*N rows split into a few partials summed in a fixed order, with no
+atomics, so the result does not depend on the order of blocks and two runs
+give the same bits. In f32 the products run on the FMA units: the f32 bars
+(2e-4 forward, 5e-4 gradients) rule out single-pass TF32. Both take every
+shape that ``fits`` admits with heads up to 432 wide, and raise on a wider
+head.
 
 ``vit_layer_train`` takes a CPU tensor to the plain twin, which torch
 autograd differentiates, and a CUDA tensor to a ``torch.autograd.Function``
@@ -37,12 +42,12 @@ from .vit_layer import _DTYPE_CODE, _fold_q_scale, _layer_plain, fits
 
 _N_WEIGHTS = 12
 _SIGNATURES = {
-    "vit_layer_train_forward": [ctypes.c_int] + [ctypes.c_void_p] * 23
+    "vit_layer_train_forward": [ctypes.c_int] + [ctypes.c_void_p] * 24
     + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
-    "vit_layer_train_backward": [ctypes.c_int] + [ctypes.c_void_p] * 31
+    "vit_layer_train_backward": [ctypes.c_int] + [ctypes.c_void_p] * 32
     + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
     "vit_layer_train_workspace_bytes": [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "vit_layer_train_max_head_dim": [],
+    "vit_layer_train_shape_error": ([ctypes.c_int] * 2, ctypes.c_char_p),
 }
 # the operands the backward reads: ln1_scale, w_qkv, w_proj, ln2_scale, w_fc1, w_fc2
 _BWD_WEIGHTS = (0, 2, 4, 6, 8, 10)
@@ -94,13 +99,14 @@ def vit_layer_train_forward(
     """The forward kernels: x (B, N, C), masks (B,) f32, the twelve operands of
     ``_operands`` (q-scale folded). Returns out (B, N, C) in x's type and the
     tensors the backward reads: xn1, qkv, attn, x1 (f32), xn2, hpre (f32),
-    hidden."""
+    hidden and the softmax row sums (B*N, H) (f32)."""
     B, N, C = x.shape
     F_ = ops[8].shape[-1]
     _check(x, (m1, m2, *ops), x.dtype)
     lib = _lib()
-    if C // num_heads > lib.vit_layer_train_max_head_dim():
-        raise ValueError(f"vit_layer_train: head width {C // num_heads} exceeds one block's shared memory")
+    error = lib.vit_layer_train_shape_error(_DTYPE_CODE[x.dtype], C // num_heads)
+    if error is not None:
+        raise ValueError(f"vit_layer_train: shape {(B, N, C)} with {num_heads} heads: {error.decode()}")
     M, dt, dev = B * N, x.dtype, x.device
     saved = (
         torch.empty(M, C, dtype=dt, device=dev),            # xn1
@@ -110,6 +116,7 @@ def vit_layer_train_forward(
         torch.empty(M, C, dtype=dt, device=dev),            # xn2
         torch.empty(M, F_, dtype=torch.float32, device=dev),  # hpre
         torch.empty(M, F_, dtype=dt, device=dev),           # hidden
+        torch.empty(M, num_heads, dtype=torch.float32, device=dev),  # softmax row sums
     )
     out = torch.empty_like(x)
     with torch.cuda.device(dev):

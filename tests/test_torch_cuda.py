@@ -5,13 +5,16 @@ They import no JAX, so they run where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-They cover shapes beyond the flagship one that ``chip_smoke.py`` holds:
-ragged tiles, head widths of 8 and above 128, maps whose filter needs more
-than 48 KB of shared memory, and flat maps whose argmax is a tie; K3 forward
-and backward at those shapes, with and without stochastic-depth masks; one
-train step of the tiny config through K3; K4 on strided and contiguous
-inputs, ragged N and head widths from 8 to 160; and one ViTPose-B-simple
-train step, whose twelve layers run K4 and not K3.
+They cover shapes beyond the ones that ``chip_smoke.py`` holds: ragged
+tiles, head widths of 8 and above 128, maps whose filter needs more than
+48 KB of shared memory, and flat maps whose argmax is a tie; K1 and K3
+forward and backward at those shapes and at the flagship layer's widths,
+with and without stochastic-depth masks; in bf16 also MLP widths that are
+not a multiple of 8, keys streamed through shared memory and the widest
+heads; K3's gradients bitwise equal across two runs (no atomics); a bf16
+head too wide for shared memory refused; one train step of the tiny config through K3; K4 on strided and
+contiguous inputs, ragged N and head widths from 8 to 160; and one
+ViTPose-B-simple train step, whose twelve layers run K4 and not K3.
 Bars are ``chip_smoke.py``'s, with its reasons.
 """
 
@@ -52,7 +55,10 @@ def card():
         pytest.skip("needs an NVIDIA card and nvcc (run on the card)")
 
 
-@pytest.mark.parametrize("B,N,C,H,F", [(3, 24, 40, 5, 72), (1, 8, 64, 8, 256), (2, 200, 272, 2, 544)])
+LAYER_SHAPES = [(3, 24, 40, 5, 72), (1, 8, 64, 8, 256), (2, 200, 272, 2, 544), (4, 192, 384, 12, 1536)]
+
+
+@pytest.mark.parametrize("B,N,C,H,F", LAYER_SHAPES)
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_vit_layer_matches_plain(card, B, N, C, H, F, dtype):
     from probpose_code_torch.ops.kernels.vit_layer import vit_layer, vit_layer_plain, vit_layer_prepared
@@ -115,7 +121,7 @@ def test_golden_fixture_on_the_card(card):
     assert max(aux.values()) < 2e-3
 
 
-@pytest.mark.parametrize("B,N,C,H,F", [(3, 24, 40, 5, 72), (1, 8, 64, 8, 256), (2, 200, 272, 2, 544)])
+@pytest.mark.parametrize("B,N,C,H,F", LAYER_SHAPES)
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("masked", [False, True])
 def test_vit_layer_train_matches_plain(card, B, N, C, H, F, dtype, masked):
@@ -138,6 +144,67 @@ def test_vit_layer_train_rejects_what_it_does_not_take(card):
         vit_layer_train(x, *p, num_heads=4, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="K3 rule"):
         vit_layer_train(x[:, :12].contiguous(), *p, num_heads=4, dtype=torch.float32)
+
+
+def test_vit_layer_train_backward_is_deterministic(card):
+    """Two backward runs on the same inputs give the same bits: the weight
+    gradients are row-split products summed in a fixed order, no atomics."""
+    from probpose_code_torch.ops.kernels.vit_layer import _fold_q_scale
+    from probpose_code_torch.ops.kernels.vit_layer_train import (
+        _operands, vit_layer_train_backward, vit_layer_train_forward,
+    )
+
+    B, N, C, H, F = 4, 192, 384, 12, 1536
+    x, p = layer_inputs(B, N, C, F, torch.bfloat16, seed=3)
+    m1 = torch.tensor([0.0, 1 / 0.9, 1 / 0.9, 1 / 0.9], device="cuda")
+    m2 = torch.tensor([1 / 0.9, 1 / 0.9, 1 / 0.9, 0.0], device="cuda")
+    g = torch.randn(B, N, C, generator=torch.Generator().manual_seed(4)).cuda().bfloat16()
+    w_qkv, b_qkv = _fold_q_scale(p[2], p[3], C // H)
+    ops = _operands([p[0], p[1], w_qkv, b_qkv, *p[4:]], torch.bfloat16)
+    out, saved = vit_layer_train_forward(x, m1, m2, ops, num_heads=H, eps=1e-6)
+    first = vit_layer_train_backward(g, x, m1, m2, ops, saved, num_heads=H, eps=1e-6)
+    second = vit_layer_train_backward(g, x, m1, m2, ops, saved, num_heads=H, eps=1e-6)
+    torch.cuda.synchronize()
+    assert len(first) == 13
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+# bf16 shapes that ``fits`` admits beyond the ragged ones above: MLP widths
+# that are not a multiple of 8 (one odd), N above 192 with K and V whole in
+# shared memory, keys too many for it (streamed a chunk at a time), and the
+# widest heads each kernel takes (K3 432, K1 896; K1 alone at 824).
+BF16_EDGE_SHAPES = [(2, 16, 64, 4, 100), (2, 24, 64, 4, 75), (2, 256, 128, 2, 256), (1, 2048, 64, 1, 128),
+                    (1, 16, 432, 1, 64), (1, 16, 824, 1, 64)]
+
+
+@pytest.mark.parametrize("B,N,C,H,F", BF16_EDGE_SHAPES)
+def test_bf16_takes_every_shape_fits_admits(card, B, N, C, H, F):
+    from probpose_code_torch.ops.kernels.vit_layer import vit_layer, vit_layer_plain
+
+    x, p = layer_inputs(B, N, C, F, torch.bfloat16, seed=B + N + F)
+    kw = dict(num_heads=H, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        got = vit_layer(x, *p, **kw).float()
+        want = vit_layer_plain(x, *p, **kw).float()
+    assert (got - want).abs().max().item() / want.abs().max().item() < K1_BF16_REL
+    if C // H <= 432:
+        for name, err in k3_errors(B, N, C, H, F, torch.bfloat16, B > 1, seed=B + N + F).items():
+            assert err < K3_BF16_REL, (name, err)
+
+
+def test_bf16_heads_beyond_shared_memory_raise(card):
+    """A head wider than one block's shared memory takes (K1 896, K3 432) is
+    refused in bf16, which has no other path."""
+    from probpose_code_torch.ops.kernels.vit_layer import vit_layer
+    from probpose_code_torch.ops.kernels.vit_layer_train import vit_layer_train
+
+    x, p = layer_inputs(1, 8, 904, 16, torch.bfloat16, seed=5)
+    with pytest.raises(ValueError, match="shared memory"):
+        vit_layer(x, *p, num_heads=1, dtype=torch.bfloat16)
+    x, p = layer_inputs(1, 8, 440, 16, torch.bfloat16, seed=6)
+    with pytest.raises(ValueError, match="shared memory"):
+        vit_layer_train(x, *p, num_heads=1, dtype=torch.bfloat16)
 
 
 def test_k1_refuses_autograd_on_the_card(card):
