@@ -37,10 +37,11 @@ card and the CUDA toolkit (nvcc); it builds the port's kernels from
    memory and a profile;
 11. ``timings``: each kernel's time beside its plain twin's, a PyTorch
    library call's where one computes the same function, and its bound from
-   this run's shapes; K1 also at the ViT-B predict shape. For the bf16 K1
-   and K3 (forward, backward) also the time over the bound and the rate of
-   the layer's products: their operations over the device time of the
-   GEMM kernels in a profile of a few calls.
+   this run's shapes; K1 also at the ViT-B predict shape (f32), K4 also at
+   the ProbPose-S shape in bf16. For K1 (bf16 and f32) and K3 (forward,
+   backward) also the time over the bound and the rate of the layer's
+   products: their operations over the device time of the GEMM kernels in a
+   profile of a few calls.
 
 The line before the last holds the kernels' record as JSON, the last line
 ``{"ok": true, "device": ...}``. Any failure exits non-zero without them.
@@ -63,10 +64,14 @@ FLAGSHIP = ROOT / "configs/body_2d_keypoint/topdown_probmap/coco/td-pm_ProbPose-
 VITPOSE = ROOT / "configs/body_2d_keypoint/topdown_heatmap/coco/td-hm_ViTPose-base-simple_8xb64-210e_coco-256x192.py"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
-# them, and device memory.
+# them (the FMA units: K2 and K3's f32 instance), and device memory.
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+# f32-accurate products on the tensor cores: 3xTF32 issues three TF32
+# products (hi.hi, hi.lo, lo.hi) for each one, so a third of the 495 TFLOP/s
+# TF32 peak. It bounds the f32 products of K1 and K4, which run so.
+PEAK_F32_3XTF32 = 495e12 / 3
 
 # Bars. K1 bf16: the JAX package's own (tests/test_ops/test_vit_layer_fused.py:76).
 # K1 f32: both sides compute in f32 and differ only in summation order and in
@@ -733,21 +738,29 @@ class Smoke:
     @staticmethod
     def products_rate(fn, flops, calls=3):
         """(device ms a call of the GEMM kernels, TFLOP/s of ``flops``) over
-        a profile of ``calls`` calls of fn."""
+        a profile of ``calls`` calls of fn, traced as ``profile`` traces. A
+        trace that recorded no device time at all is taken once more; if
+        that one is empty too, both numbers are NaN (not measured)."""
         import torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and "gemm_kernel" in e.name)
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            if device:
+                break
+        else:
+            print("products: the profiler recorded no device time (their rate not measured)")
+            return float("nan"), float("nan")
+        us = sum(e.time_range.elapsed_us() for e in device if "gemm" in e.name)
         if us == 0:
-            raise AssertionError("the profiler saw no GEMM kernel")
+            raise AssertionError("the profiler saw device time but no GEMM kernel")
         ms = us / calls / 1e3
         return ms, flops / (ms * 1e-3) / 1e12
 
@@ -823,8 +836,11 @@ class Smoke:
         # K3 at the flagship training shape: 64 crops, bf16, masks that drop some images
         Bt = 64
         kt = self.k3_timings(Bt, N, C, H, F)
-        # K4 at the ViTPose-B training shape; K1 at the ViTPose-B predict shape
-        k4 = self.k4_timings(64, N, 12, 64)
+        # K4 at the ViTPose-B training shape (f32) and the ProbPose-S shape
+        # (bf16: no main path runs it, so it is printed, not recorded in the
+        # kernels line); K1 at the ViTPose-B predict shape
+        k4 = self.k4_timings(64, N, 12, 64, torch.float32)
+        k4b = self.k4_timings(128, N, 12, 32, torch.bfloat16)
         kb = self.k1_vitb_timings(128, N, 768, 12, 3072)
 
         # the launch counts above belong to the comparisons, not the main paths:
@@ -885,22 +901,28 @@ class Smoke:
                   f"max abs err {t['max_abs_err']:.3e} (relative to the largest value {kt['rel'][part]:.2e}); "
                   f"its products ({kt['prod_gflop'][part]:.1f} GFLOP) {kt['prod_ms'][part]:.3f} ms of GEMM "
                   f"device time, {kt['prod_rate'][part]:.1f} TFLOP/s")
-        print(f"K4 attention B=64 N={N} h=12 d=64 f32 (strided qkv views): {k4['ms']:.3f} ms, "
-              f"plain {k4['plain_ms']:.3f} ms, F.scaled_dot_product_attention {k4['library_ms']:.3f} ms, "
-              f"bound {k4['bound_ms']:.4f} ms, {k4['bound_by']} ({k4['gflop']:.2f} GFLOP, {k4['mb']:.1f} MB), "
-              f"{k4['gflop'] / k4['ms']:.1f} TFLOP/s, max abs err {k4['max_abs_err']:.3e}")
+        for t, shape in ((k4, "B=64 N=192 h=12 d=64 f32"), (k4b, "B=128 N=192 h=12 d=32 bf16")):
+            print(f"K4 attention {shape} (strided qkv views): {t['ms']:.3f} ms, "
+                  f"plain {t['plain_ms']:.3f} ms, F.scaled_dot_product_attention {t['library_ms']:.3f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms, {t['bound_by']} ({t['gflop']:.2f} GFLOP, {t['mb']:.1f} MB), "
+                  f"{t['gflop'] / t['ms']:.1f} TFLOP/s, {t['ms'] / t['bound_ms']:.1f}x its bound, "
+                  f"{t['ms'] / t['library_ms']:.2f}x the library, max abs err {t['max_abs_err']:.3e} "
+                  f"(relative to the largest value {t['rel']:.2e})")
         print(f"K1 vit_layer at the ViTPose-B predict shape B=128 N={N} C=768 f32 erf: {kb['ms']:.3f} ms, "
               f"plain {kb['plain_ms']:.3f} ms, nn.TransformerEncoderLayer {kb['library_ms']:.3f} ms, "
               f"bound {kb['bound_ms']:.4f} ms, {kb['bound_by']} ({kb['gflop']:.1f} GFLOP), "
-              f"{kb['gflop'] / kb['ms']:.1f} TFLOP/s, rel max err {kb['rel']:.2e}")
+              f"{kb['gflop'] / kb['ms']:.1f} TFLOP/s, {kb['ms'] / kb['bound_ms']:.1f}x its bound, "
+              f"{kb['ms'] / kb['library_ms']:.2f}x the library, rel max err {kb['rel']:.2e}; its products "
+              f"({kb['prod_gflop']:.1f} GFLOP) {kb['prod_ms']:.3f} ms of GEMM device time, "
+              f"{kb['prod_rate']:.1f} TFLOP/s")
 
     @staticmethod
-    def k4_timings(B, N, H, D):
-        """K4 on strided views of a (B, N, 3, h, d) f32 projection, its plain
-        twin, and F.scaled_dot_product_attention on the same values in its
+    def k4_timings(B, N, H, D, dtype):
+        """K4 on strided views of a (B, N, 3, h, d) projection, its plain twin,
+        and F.scaled_dot_product_attention on the same values in its
         (B, h, N, d) layout (the transposes are made before timing); the
-        bound from QK^T and PV's operations and q, k, v read once and the
-        output written once."""
+        bound from QK^T and PV's operations (bf16 at the bf16 peak, f32 as
+        3xTF32) and q, k, v read once and the output written once."""
         import torch
         import torch.nn.functional as F_
 
@@ -908,29 +930,33 @@ class Smoke:
             attention_flops, attention_kernel, fused_attention_plain,
         )
 
-        q, k, v = qkv_views(B, N, H, D, torch.float32, seed=9)
+        q, k, v = qkv_views(B, N, H, D, dtype, seed=9)
         scale = D ** -0.5
-        got = attention_kernel(q, k, v, scale)
-        want = fused_attention_plain(q, k, v, scale)
+        got = attention_kernel(q, k, v, scale).float()
+        want = fused_attention_plain(q, k, v, scale).float()
         err = (got - want).abs().max().item()
-        if not err < K4_F32_ATOL:
-            raise AssertionError(f"K4 at B={B}: max abs err {err:.3e}")
+        rel = err / want.abs().max().item()
+        if not (err < K4_F32_ATOL if dtype == torch.float32 else rel < K4_BF16_REL):
+            raise AssertionError(f"K4 {dtype} at B={B}: max abs err {err:.3e}, relative {rel:.3e}")
         ms = cuda_time_ms(lambda: attention_kernel(q, k, v, scale), 20)
         plain = cuda_time_ms(lambda: fused_attention_plain(q, k, v, scale), 5)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib = cuda_time_ms(lambda: F_.scaled_dot_product_attention(qt, kt, vt, scale=scale), 20)
         ops = attention_flops(B, N, H, D)
-        nbytes = 4 * B * N * H * D * 4
-        return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                    bound_ms=max(ops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3,
-                    bound_by="operations" if ops / PEAK_F32 >= nbytes / PEAK_BYTES else "bytes",
+        peak = PEAK_F32_3XTF32 if dtype == torch.float32 else PEAK_BF16
+        nbytes = 4 * B * N * H * D * q.element_size()
+        return dict(max_abs_err=err, rel=rel, ms=ms, plain_ms=plain, library_ms=lib,
+                    bound_ms=max(ops / peak, nbytes / PEAK_BYTES) * 1e3,
+                    bound_by="operations" if ops / peak >= nbytes / PEAK_BYTES else "bytes",
                     gflop=ops / 1e9, mb=nbytes / 1e6)
 
     @staticmethod
     def k1_vitb_timings(B, N, C, H, F):
         """K1 on prepared f32 weights with exact GELU, its plain twin and
         nn.TransformerEncoderLayer (f32, erf GELU) at one ViT-B layer of the
-        ViTPose predict call (64 crops and their mirrors)."""
+        ViTPose predict call (64 crops and their mirrors); the bound with the
+        products as 3xTF32, and the rate of the layer's products from the
+        device time of its GEMM kernels."""
         import torch
         import torch.nn as nn
 
@@ -955,11 +981,14 @@ class Smoke:
             ms = cuda_time_ms(lambda: vit_layer_prepared(x, w, **kw), 5, warmup=1)
             plain = cuda_time_ms(lambda: vit_layer_plain(x, *p, **kw), 3, warmup=1)
             libms = cuda_time_ms(lambda: lib(x), 5, warmup=1)
+            prod_flops = 2 * B * N * C * (4 * C + 2 * F)
+            prod_ms, prod_rate = Smoke.products_rate(lambda: vit_layer_prepared(x, w, **kw), prod_flops, calls=2)
         ops = layer_flops(B, N, C, F)
         nbytes = 2 * x.numel() * 4 + sum(t.numel() * 4 for t in p)
         return dict(ms=ms, plain_ms=plain, library_ms=libms, rel=rel, max_abs_err=err, gflop=ops / 1e9,
-                    bound_ms=max(ops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3,
-                    bound_by="operations" if ops / PEAK_F32 >= nbytes / PEAK_BYTES else "bytes")
+                    bound_ms=max(ops / PEAK_F32_3XTF32, nbytes / PEAK_BYTES) * 1e3,
+                    bound_by="operations" if ops / PEAK_F32_3XTF32 >= nbytes / PEAK_BYTES else "bytes",
+                    prod_gflop=prod_flops / 1e9, prod_ms=prod_ms, prod_rate=prod_rate)
 
     @staticmethod
     def k3_timings(B, N, C, H, F):

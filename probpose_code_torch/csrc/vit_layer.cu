@@ -23,17 +23,19 @@
 // What bounds it: operations. At the flagship shape (128 images, N = 192,
 // C = 384, F = 1536) a layer is 94.2 GFLOP against 41 MB of inputs and
 // outputs in bf16: 95 us at 989 TFLOP/s bf16, against 12 us for the bytes
-// at 3.35 TB/s. What the design does about it:
-//  - bf16: the four products and the attention run on the tensor cores
-//    through the shared tile engine (tc_tiles.cuh: mma.sync m16n8k16 from
-//    ldmatrix fragments, a cp.async ring, 128x128 or 128x64 block tiles),
-//    with the epilogues (bias, the f32 residual, GELU) on the accumulators;
-//    at the 256x192 crops' shape (N = 192, heads 32 wide) the attention
-//    computes each score once and keeps the key row in registers, and at
-//    any shape it never writes the N x N scores to device memory;
-//  - f32: the products run on the FMA units from shared-memory tiles (64x64
-//    outputs, 4x4 a thread) and the attention in two passes over 32-key
-//    tiles. Its bar (relative error 1e-4) rules out single-pass TF32.
+// at 3.35 TB/s. At the ViTPose-B predict shape (C = 768, F = 3072, f32) it
+// is 362.4 GFLOP: 2.2 ms at the 165 TFLOP/s of f32-accurate products that
+// 3xTF32 leaves of the tensor cores' 495 TF32. What the design does about
+// it: every product and the attention run on the tensor cores through the
+// shared tile engine (tc_tiles.cuh: mma.sync from ldmatrix fragments, a
+// cp.async ring, 128x128 or 128x64 block tiles), with the epilogues (bias,
+// the f32 residual, GELU) on the accumulators. bf16 operands go as they
+// are; f32 operands as 3xTF32 (each split into two TF32 parts, three
+// products), since the f32 bar (relative error 1e-4) rules out single-pass
+// TF32's 2^-11. At the 256x192 crops' shape (N = 192, heads up to 64 wide)
+// the attention computes each score once and keeps the key row in
+// registers, and at any shape it never writes the N x N scores to device
+// memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -90,7 +92,7 @@ layernorm_kernel(const Tin* __restrict__ x, const float* __restrict__ scale,
 }
 
 // ---------------------------------------------------------------------------
-// GEMM epilogues, shared by the f32 FMA GEMM and the bf16 tensor-core one:
+// GEMM epilogues, shared by the f32 (3xTF32) and bf16 tensor-core GEMMs:
 // W outputs (m, n), (m, n + 1), ... at offset o, rounded where the TPU kernel
 // rounds them.
 // ---------------------------------------------------------------------------
@@ -140,75 +142,10 @@ __device__ __forceinline__ void epilogue(const EpiArgs& e, int n, size_t o, cons
   }
 }
 
-// ---------------------------------------------------------------------------
-// f32 GEMM: out[M, N] = A[M, K] @ W[K, N] (both row-major) on the FMA units.
-// 64x64 output tile per block of 256 threads; each thread owns a 4x4 grid of
-// outputs strided by 16 so that the shared-memory reads of a warp are
-// broadcasts or consecutive words. Ragged edges are zero-filled on load and
-// masked on store, so any M, N, K works.
-// ---------------------------------------------------------------------------
-constexpr int GBM = 64, GBN = 64, GBK = 16, GTHREADS = 256;
-
-template <int EPI>
-__global__ void __launch_bounds__(GTHREADS)
-gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W, EpiArgs e, int M, int N, int K) {
-  __shared__ float As[GBK][GBM + 4];
-  __shared__ float Ws[GBK][GBN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += GBK) {
-#pragma unroll
-    for (int i = 0; i < (GBM * GBK) / GTHREADS; ++i) {
-      const int idx = tid + i * GTHREADS;
-      const int r = idx / GBK, kk = idx % GBK;
-      const int gm = m0 + r, gk = k0 + kk;
-      As[kk][r] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
-      const int kr = idx / GBN, c = idx % GBN;
-      const int gk2 = k0 + kr, gn = n0 + c;
-      Ws[kr][c] = (gk2 < K && gn < N) ? W[(size_t)gk2 * N + gn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GBK; ++kk) {
-      float a[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      const float v[1] = {acc[i][j]};
-      epilogue<float, EPI, 1>(e, n, (size_t)m * N + n, v);
-    }
-  }
-}
-
-// The tensor-core GEMM's epilogue: a pair of columns (n, n + 1), stored
+// The tensor-core GEMMs' epilogue: a pair of columns (n, n + 1), stored
 // together where N is even; one at a time where it is odd (the pair is then
 // misaligned and may end past the row).
-template <int EPI>
+template <typename T, int EPI>
 struct TcEpilogue {
   EpiArgs e;
   int N;
@@ -216,165 +153,26 @@ struct TcEpilogue {
     const size_t o = (size_t)m * N + n;
     if (N % 2 == 0) {
       const float v[2] = {v0, v1};
-      epilogue<__nv_bfloat16, EPI, 2>(e, n, o, v);
+      epilogue<T, EPI, 2>(e, n, o, v);
       return;
     }
     const float a[1] = {v0};
-    epilogue<__nv_bfloat16, EPI, 1>(e, n, o, a);
+    epilogue<T, EPI, 1>(e, n, o, a);
     if (n + 1 < N) {
       const float c[1] = {v1};
-      epilogue<__nv_bfloat16, EPI, 1>(e, n + 1, o + 1, c);
+      epilogue<T, EPI, 1>(e, n + 1, o + 1, c);
     }
   }
 };
 
 template <int EPI>
 int gemm(const float* A, const float* W, const EpiArgs& e, int M, int N, int K, cudaStream_t s) {
-  const dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM);
-  gemm_f32_kernel<EPI><<<grid, GTHREADS, 0, s>>>(A, W, e, M, N, K);
-  return (int)cudaGetLastError();
+  return (int)tc::gemm_tf32(A, W, TcEpilogue<float, EPI>{e, N}, M, N, K, s);
 }
 
 template <int EPI>
 int gemm(const __nv_bfloat16* A, const __nv_bfloat16* W, const EpiArgs& e, int M, int N, int K, cudaStream_t s) {
-  return (int)tc::gemm<tc::NN>(A, W, TcEpilogue<EPI>{e, N}, M, N, K, s);
-}
-
-// ---------------------------------------------------------------------------
-// f32 attention: one block per (query tile of 32, head, image); 4 warps of 8
-// queries each. K (and V) stream through shared memory in tiles of 32 keys,
-// one key per lane. Since the softmax is exp(min(s, 80)) with no max shift,
-// the row sum needs no running maximum: pass 1 sums the exponentials, pass 2
-// recomputes each score, normalises it and accumulates p @ v in f32. Any N
-// works; the head width D is covered in chunks of 128 output dims. (The bf16
-// attention is tc::attention_fwd.)
-// ---------------------------------------------------------------------------
-constexpr int ATT_WARPS = 4, ATT_QPW = 8, ATT_QT = ATT_WARPS * ATT_QPW;
-constexpr int ATT_KT = 32, ATT_DC = 128;
-
-size_t attention_smem_bytes(int D) {
-  return sizeof(float) *
-         ((size_t)ATT_QT * D + (size_t)ATT_KT * (D + 1) + (size_t)ATT_KT * ATT_DC +
-          (size_t)ATT_QT * ATT_KT);
-}
-
-__global__ void __launch_bounds__(ATT_WARPS * 32)
-attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int N, int C, int D) {
-  extern __shared__ float smem[];
-  float* qs = smem;                           // ATT_QT x D
-  float* ks = qs + ATT_QT * D;                // ATT_KT x (D + 1), padded rows
-  float* vs = ks + ATT_KT * (D + 1);          // ATT_KT x ATT_DC
-  float* ps = vs + ATT_KT * ATT_DC;           // ATT_QT x ATT_KT
-
-  const int q0 = blockIdx.x * ATT_QT, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int nthreads = ATT_WARPS * 32;
-  const size_t rs = (size_t)3 * C;
-  const float* base = qkv + (size_t)b * N * rs;
-  const int Dp = D + 1;
-
-  for (int i = tid; i < ATT_QT * D; i += nthreads) {
-    const int qi = i / D, d = i % D, n = q0 + qi;
-    qs[i] = n < N ? base[(size_t)n * rs + h * D + d] : 0.f;
-  }
-
-  // pass 1: row sums of exp(min(s, 80))
-  float rsum[ATT_QPW];
-#pragma unroll
-  for (int qq = 0; qq < ATT_QPW; ++qq) rsum[qq] = 0.f;
-  for (int k0 = 0; k0 < N; k0 += ATT_KT) {
-    __syncthreads();
-    for (int i = tid; i < ATT_KT * D; i += nthreads) {
-      const int kj = i / D, d = i % D, n = k0 + kj;
-      ks[kj * Dp + d] = n < N ? base[(size_t)n * rs + C + h * D + d] : 0.f;
-    }
-    __syncthreads();
-    if (k0 + lane < N) {
-      const float* kr = ks + lane * Dp;
-#pragma unroll
-      for (int qq = 0; qq < ATT_QPW; ++qq) {
-        const float* qv = qs + (warp * ATT_QPW + qq) * D;
-        float s = 0.f;
-        for (int d = 0; d < D; ++d) s = fmaf(qv[d], kr[d], s);
-        rsum[qq] += expf(fminf(s, 80.f));
-      }
-    }
-  }
-#pragma unroll
-  for (int qq = 0; qq < ATT_QPW; ++qq) rsum[qq] = warp_sum(rsum[qq]);
-
-  // pass 2: p = exp(min(s, 80)) / sum, then p @ v
-  for (int dc0 = 0; dc0 < D; dc0 += ATT_DC) {
-    const int dcn = min(ATT_DC, D - dc0);
-    float acc[ATT_QPW][ATT_DC / 32];
-#pragma unroll
-    for (int qq = 0; qq < ATT_QPW; ++qq)
-#pragma unroll
-      for (int c = 0; c < ATT_DC / 32; ++c) acc[qq][c] = 0.f;
-
-    for (int k0 = 0; k0 < N; k0 += ATT_KT) {
-      __syncthreads();
-      for (int i = tid; i < ATT_KT * D; i += nthreads) {
-        const int kj = i / D, d = i % D, n = k0 + kj;
-        ks[kj * Dp + d] = n < N ? base[(size_t)n * rs + C + h * D + d] : 0.f;
-      }
-      for (int i = tid; i < ATT_KT * dcn; i += nthreads) {
-        const int kj = i / dcn, d = i % dcn, n = k0 + kj;
-        vs[kj * ATT_DC + d] = n < N ? base[(size_t)n * rs + 2 * C + h * D + dc0 + d] : 0.f;
-      }
-      __syncthreads();
-      const float* kr = ks + lane * Dp;
-#pragma unroll
-      for (int qq = 0; qq < ATT_QPW; ++qq) {
-        const float* qv = qs + (warp * ATT_QPW + qq) * D;
-        float p = 0.f;
-        if (k0 + lane < N) {
-          float s = 0.f;
-          for (int d = 0; d < D; ++d) s = fmaf(qv[d], kr[d], s);
-          p = expf(fminf(s, 80.f)) / rsum[qq];
-        }
-        ps[(warp * ATT_QPW + qq) * ATT_KT + lane] = p;
-      }
-      __syncwarp();
-      for (int kj = 0; kj < ATT_KT; ++kj) {
-#pragma unroll
-        for (int c = 0; c < ATT_DC / 32; ++c) {
-          if (32 * c >= dcn) break;  // only the chunk's real dims (D = 32: one group)
-          const float v = lane + 32 * c < dcn ? vs[kj * ATT_DC + lane + 32 * c] : 0.f;
-#pragma unroll
-          for (int qq = 0; qq < ATT_QPW; ++qq)
-            acc[qq][c] = fmaf(ps[(warp * ATT_QPW + qq) * ATT_KT + kj], v, acc[qq][c]);
-        }
-      }
-    }
-#pragma unroll
-    for (int qq = 0; qq < ATT_QPW; ++qq) {
-      const int n = q0 + warp * ATT_QPW + qq;
-      if (n >= N) continue;
-#pragma unroll
-      for (int c = 0; c < ATT_DC / 32; ++c) {
-        const int d = lane + 32 * c;
-        if (d < dcn) out[((size_t)b * N + n) * C + h * D + dc0 + d] = acc[qq][c];
-      }
-    }
-  }
-}
-
-int attention(const float* qkv, float* out, int B, int N, int C, int H, cudaStream_t s) {
-  const int D = C / H;
-  const size_t smem = attention_smem_bytes(D);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(attention_f32_kernel,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((N + ATT_QT - 1) / ATT_QT, H, B);
-  attention_f32_kernel<<<grid, ATT_WARPS * 32, smem, s>>>(qkv, out, N, C, D);
-  return (int)cudaGetLastError();
-}
-
-int attention(const __nv_bfloat16* qkv, __nv_bfloat16* out, int B, int N, int C, int H, cudaStream_t s) {
-  return (int)tc::attention_fwd(qkv, out, nullptr, B, N, C, H, s);
+  return (int)tc::gemm<tc::NN>(A, W, TcEpilogue<__nv_bfloat16, EPI>{e, N}, M, N, K, s);
 }
 
 template <typename T>
@@ -398,7 +196,7 @@ int run_layer(const T* x, const float* ln1_s, const float* ln1_b, const T* w_qkv
   layernorm_kernel<T, T><<<ln_grid, ln_block, 0, stream>>>(x, ln1_s, ln1_b, xn, M, C, eps);
   RETURN_IF((int)cudaGetLastError());
   RETURN_IF(gemm<EPI_QKV>(xn, w_qkv, EpiArgs{b_qkv, nullptr, qkv, exact_gelu}, M, 3 * C, C, stream));
-  RETURN_IF(attention(qkv, attn, B, N, C, H, stream));
+  RETURN_IF((int)tc::attention_fwd(qkv, attn, nullptr, B, N, C, H, stream));
   RETURN_IF(gemm<EPI_PROJ>(attn, w_proj, EpiArgs{b_proj, x, x1, exact_gelu}, M, C, C, stream));
   layernorm_kernel<float, T><<<ln_grid, ln_block, 0, stream>>>(x1, ln2_s, ln2_b, xn, M, C, eps);
   RETURN_IF((int)cudaGetLastError());
@@ -414,11 +212,7 @@ extern "C" {
 
 // Why the layer cannot run with heads D wide, or NULL. dtype as below.
 const char* vit_layer_shape_error(int dtype, int D) {
-  if (dtype == 0) {
-    return attention_smem_bytes(D) > tc::kSmemMax ? "f32: the head width exceeds one block's shared memory"
-                                                   : nullptr;
-  }
-  return tc::bf16_shape_error(D, 0);
+  return dtype == 0 ? tc::attention_shape_error<float>(D) : tc::bf16_shape_error(D, 0);
 }
 
 const char* vit_layer_error_string(int code) {

@@ -4,15 +4,19 @@ Replaces the TPU kernel ``probpose_code_tpu/ops/pallas/attention.py:
 fused_attention`` (``_mha_kernel``). The source is
 ``probpose_code_torch/csrc/attention.cu``.
 
-What bounds it on the H100: operations. At the ViTPose-B training shape (64
-images of N = 192 tokens, 12 heads, d = 64, f32) QK^T and PV are 7.25 GFLOP
-against 151 MB of inputs and outputs: 0.108 ms at 67 TFLOP/s f32 against
-0.045 ms at 3.35 TB/s. What the design does about it: q, k and v are read in
-place from the qkv projection's strided (B, N, 3, h, d) view and the output
-is written as (B, N, C), so no transpose reaches device memory; K and V
-stream through shared memory in key tiles, so the N x N scores never do.
-The products run on the FMA units, not the tensor cores: that is the next
-step for speed.
+What bounds it on the H100: at the ViTPose-B training shape (64 images of
+N = 192 tokens, 12 heads, d = 64, f32) QK^T and PV are 7.25 GFLOP against
+151 MB of inputs and outputs: 0.044 ms at the 165 TFLOP/s of f32-accurate
+products that 3xTF32 leaves of the tensor cores' 495 TF32, against 0.045 ms
+at 3.35 TB/s. What the design does about it: both products run on the
+tensor cores (``csrc/tc_tiles.cuh``: bf16 as mma.sync m16n8k16, f32 as
+3xTF32 m16n8k8, whose error of about 2^-22 a product keeps the f32 bar);
+q, k and v are read in place from the qkv projection's strided
+(B, N, 3, h, d) view and the output is written as (B, N, C), so no
+transpose reaches device memory; at N <= 192 and d <= 64 each score is
+computed once and the key row stays in registers, elsewhere K and V stream
+through shared memory in key chunks, so the N x N scores never reach
+device memory. Heads up to 896 wide.
 
 ``fused_attention`` is a ``torch.autograd.Function``. Its forward is the
 kernel on a CUDA tensor and ``fused_attention_plain`` on a CPU tensor; it
@@ -35,7 +39,7 @@ from . import _build
 _SIGNATURES = {
     "attention_forward": [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
     + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
-    "attention_max_head_dim": [],
+    "attention_shape_error": ([ctypes.c_int] * 2, ctypes.c_char_p),
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -81,9 +85,9 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: f
         raise ValueError("attention: the head dimension d must be contiguous")
     B, N, H, D = q.shape
     lib = _lib()
-    if D > lib.attention_max_head_dim():
-        raise ValueError(f"attention: head width {D} exceeds one block's shared memory "
-                         f"(at most {lib.attention_max_head_dim()})")
+    error = lib.attention_shape_error(_DTYPE_CODE[q.dtype], D)
+    if error is not None:
+        raise ValueError(f"attention: head width {D}: {error.decode()}")
     out = torch.empty(B, N, H, D, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

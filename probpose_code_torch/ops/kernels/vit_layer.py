@@ -7,20 +7,23 @@ vit_layer_fused`` (``_layer_kernel``). The source is
 What bounds it on the H100: operations. At the flagship shape (128 images of
 N = 192 tokens, C = 384, 12 heads, F = 1536) one layer is 94.2 GFLOP against
 41 MB of inputs and outputs in bf16: 95 us at 989 TFLOP/s against 12 us at
-3.35 TB/s. What the design does about it: in bf16 every product runs on the
-tensor cores (``csrc/tc_tiles.cuh``: mma.sync from ldmatrix fragments fed by
-a cp.async ring) with f32 accumulation and a fused epilogue (bias, the f32
-residual, GELU), and the attention never writes the N x N scores to device
-memory (at the flagship shape it computes each score once and keeps the
-key row in registers; elsewhere it makes two passes over key chunks). A
-whole layer does not fit one block (x alone is 295 KB in f32 for four
-images), so the intermediates round-trip through device memory. In f32 the
-products run on the FMA units: the f32 bar (relative error 1e-4) rules out
-single-pass TF32.
+3.35 TB/s; at the ViTPose-B predict shape (C = 768, F = 3072, f32) it is
+362.4 GFLOP: 2.2 ms at the 165 TFLOP/s of f32-accurate products that 3xTF32
+leaves of the tensor cores' 495 TF32. What the design does about it: every
+product runs on the tensor cores (``csrc/tc_tiles.cuh``: mma.sync from
+ldmatrix fragments fed by a cp.async ring) with f32 accumulation and a fused
+epilogue (bias, the f32 residual, GELU): bf16 operands as they are, f32
+operands as 3xTF32 (each split into two TF32 parts, three products: about
+2^-22 relative error a product, where the f32 bar of 1e-4 rules out
+single-pass TF32's 2^-11). The attention never writes the N x N scores to
+device memory (at N <= 192 with heads up to 64 wide it computes each score
+once and keeps the key row in registers; elsewhere it makes two passes over
+key chunks). A whole layer does not fit one block (x alone is 295 KB in f32
+for four images), so the intermediates round-trip through device memory.
 
-The bf16 path takes every shape that ``fits`` admits, with heads up to 896
-wide (the f32 path: up to 824); ``vit_layer_prepared`` raises on a wider
-head (there is no other bf16 path).
+Both instances take every shape that ``fits`` admits, with heads up to 896
+wide; ``vit_layer_prepared`` raises on a wider head (there is no other
+path).
 
 ``vit_layer_prepared`` takes a CPU tensor to the plain twin and a CUDA tensor
 to the kernel; it never falls back from one to the other. ``vit_layer`` is

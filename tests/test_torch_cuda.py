@@ -9,11 +9,13 @@ They cover shapes beyond the ones that ``chip_smoke.py`` holds: ragged
 tiles, head widths of 8 and above 128, maps whose filter needs more than
 48 KB of shared memory, and flat maps whose argmax is a tie; K1 and K3
 forward and backward at those shapes and at the flagship layer's widths,
-with and without stochastic-depth masks; in bf16 also MLP widths that are
-not a multiple of 8, keys streamed through shared memory and the widest
-heads; K3's gradients bitwise equal across two runs (no atomics); a bf16
-head too wide for shared memory refused; one train step of the tiny config through K3; K4 on strided and
-contiguous inputs, ragged N and head widths from 8 to 160; and one
+with and without stochastic-depth masks; in bf16 and f32 also MLP widths
+that are not a multiple of 8, keys streamed through shared memory and the
+widest heads (in f32 also a wide head whose keys are streamed); K3's
+gradients bitwise equal across two runs (no atomics); a bf16 head too wide
+for shared memory refused; one train step of the tiny config through K3;
+K4 on strided and contiguous inputs, ragged N, head widths from 8 to 824,
+and keys beyond the one-pass instance (two passes, streamed); and one
 ViTPose-B-simple train step, whose twelve layers run K4 and not K3.
 Bars are ``chip_smoke.py``'s, with its reasons.
 """
@@ -170,38 +172,53 @@ def test_vit_layer_train_backward_is_deterministic(card):
         assert torch.equal(a, b)
 
 
-# bf16 shapes that ``fits`` admits beyond the ragged ones above: MLP widths
-# that are not a multiple of 8 (one odd), N above 192 with K and V whole in
-# shared memory, keys too many for it (streamed a chunk at a time), and the
-# widest heads each kernel takes (K3 432, K1 896; K1 alone at 824).
-BF16_EDGE_SHAPES = [(2, 16, 64, 4, 100), (2, 24, 64, 4, 75), (2, 256, 128, 2, 256), (1, 2048, 64, 1, 128),
-                    (1, 16, 432, 1, 64), (1, 16, 824, 1, 64)]
+# Shapes that ``fits`` admits beyond the ragged ones above: MLP widths that
+# are not a multiple of 8 (one odd), N above 192 with K and V whole in shared
+# memory, keys too many for it (streamed a chunk at a time), and the widest
+# heads each kernel takes (K3 432; K1 alone at 824). In f32 also an 824-wide
+# head whose keys do not fit whole in shared memory (streamed).
+EDGE_SHAPES = [(2, 16, 64, 4, 100), (2, 24, 64, 4, 75), (2, 256, 128, 2, 256), (1, 2048, 64, 1, 128),
+               (1, 16, 432, 1, 64), (1, 16, 824, 1, 64)]
+EDGE_CASES = [(*shape, "bfloat16") for shape in EDGE_SHAPES] + [
+    (*shape, "float32") for shape in EDGE_SHAPES + [(1, 64, 824, 1, 64)]]
 
 
-@pytest.mark.parametrize("B,N,C,H,F", BF16_EDGE_SHAPES)
-def test_bf16_takes_every_shape_fits_admits(card, B, N, C, H, F):
+@pytest.mark.parametrize("B,N,C,H,F,dtype", EDGE_CASES)
+def test_bf16_takes_every_shape_fits_admits(card, B, N, C, H, F, dtype):
+    """K1 (and K3 where its heads fit) at each edge shape, in bf16 and f32
+    (both instances of K1 run on the tensor cores)."""
     from probpose_code_torch.ops.kernels.vit_layer import vit_layer, vit_layer_plain
 
-    x, p = layer_inputs(B, N, C, F, torch.bfloat16, seed=B + N + F)
-    kw = dict(num_heads=H, dtype=torch.bfloat16)
+    dt = getattr(torch, dtype)
+    f32 = dt == torch.float32
+    x, p = layer_inputs(B, N, C, F, dt, seed=B + N + F)
+    kw = dict(num_heads=H, dtype=dt, approximate_gelu=not f32)
     with torch.inference_mode():
         got = vit_layer(x, *p, **kw).float()
         want = vit_layer_plain(x, *p, **kw).float()
-    assert (got - want).abs().max().item() / want.abs().max().item() < K1_BF16_REL
+    assert (got - want).abs().max().item() / want.abs().max().item() < (K1_F32_REL if f32 else K1_BF16_REL)
     if C // H <= 432:
-        for name, err in k3_errors(B, N, C, H, F, torch.bfloat16, B > 1, seed=B + N + F).items():
-            assert err < K3_BF16_REL, (name, err)
+        for name, err in k3_errors(B, N, C, H, F, dt, B > 1, seed=B + N + F).items():
+            assert err < (K3_BF16_REL if not f32 else K3_F32_FWD if name == "out" else K3_F32_GRAD), (name, err)
 
 
 def test_bf16_heads_beyond_shared_memory_raise(card):
-    """A head wider than one block's shared memory takes (K1 896, K3 432) is
-    refused in bf16, which has no other path."""
+    """A head wider than one block's shared memory takes (K1 and K4 896 in
+    bf16 and f32, K3 432 in bf16) is refused, as there is no other path; K4
+    runs the widest f32 head it takes."""
+    from probpose_code_torch.ops.kernels.attention import attention_kernel, fused_attention_plain
     from probpose_code_torch.ops.kernels.vit_layer import vit_layer
     from probpose_code_torch.ops.kernels.vit_layer_train import vit_layer_train
 
-    x, p = layer_inputs(1, 8, 904, 16, torch.bfloat16, seed=5)
-    with pytest.raises(ValueError, match="shared memory"):
-        vit_layer(x, *p, num_heads=1, dtype=torch.bfloat16)
+    for dt in (torch.bfloat16, torch.float32):
+        x, p = layer_inputs(1, 8, 904, 16, dt, seed=5)
+        with pytest.raises(ValueError, match="shared memory"):
+            vit_layer(x, *p, num_heads=1, dtype=dt)
+        with pytest.raises(ValueError, match="shared memory"):
+            attention_kernel(*qkv_views(1, 8, 1, 904, dt, seed=5), 904 ** -0.5)
+    q, k, v = qkv_views(1, 24, 1, 896, torch.float32, seed=7)
+    got = attention_kernel(q, k, v, 896 ** -0.5)
+    assert (got - fused_attention_plain(q, k, v, 896 ** -0.5)).abs().max().item() < K4_F32_ATOL
     x, p = layer_inputs(1, 8, 440, 16, torch.bfloat16, seed=6)
     with pytest.raises(ValueError, match="shared memory"):
         vit_layer_train(x, *p, num_heads=1, dtype=torch.bfloat16)
@@ -245,7 +262,11 @@ def test_one_train_step_goes_through_k3(card):
     assert model.module.backbone.layers[0].attn.qkv.weight.grad.abs().max() > 0
 
 
-@pytest.mark.parametrize("B,N,H,D", [(2, 192, 12, 64), (3, 37, 5, 8), (1, 200, 2, 160), (2, 16, 3, 36)])
+# one pass (N <= 192, d <= 64); two passes with K and V whole in shared memory
+# (1, 200, 2, 160) or streamed: keys beyond it (1, 1024, 2, 64), and a head
+# of 824 (1, 40, 1, 824)
+@pytest.mark.parametrize("B,N,H,D", [(2, 192, 12, 64), (3, 37, 5, 8), (1, 200, 2, 160), (2, 16, 3, 36),
+                                     (1, 1024, 2, 64), (1, 40, 1, 824)])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_attention_matches_plain(card, B, N, H, D, dtype):
     from probpose_code_torch.ops.kernels.attention import attention_kernel, fused_attention_plain
@@ -264,6 +285,18 @@ def test_attention_matches_plain(card, B, N, H, D, dtype):
     # the same values laid out contiguously give the same result
     again = attention_kernel(*(t.contiguous() for t in (q, k, v)), D ** -0.5).float()
     assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attention_repeats_bit_for_bit(card, dtype):
+    """K4 at the ViTPose-B train step's shape gives the same bits on every
+    launch: a race between the warps of a block would show as a change."""
+    from probpose_code_torch.ops.kernels.attention import attention_kernel
+
+    q, k, v = qkv_views(4, 192, 12, 64, getattr(torch, dtype), seed=3)
+    first = attention_kernel(q, k, v, 0.125)
+    for _ in range(50):
+        assert torch.equal(attention_kernel(q, k, v, 0.125), first)
 
 
 def test_attention_rejects_what_it_does_not_take(card):
