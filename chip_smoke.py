@@ -13,35 +13,41 @@ card and the CUDA toolkit (nvcc); it builds the port's kernels from
    bf16 with stochastic-depth masks that drop some images;
 5. the golden tiny ProbPose fixture end to end through ``init_model`` and
    ``inference_topdown``, against the reference keypoints;
-6. the flagship ProbPose-S predict at full width (random weights, seed 0),
+6. ``checkpoint_file``: the golden weights written as mmpose's runner writes
+   a checkpoint (``state_dict`` plus ``meta.dataset_meta`` with numpy
+   arrays), loaded through ``init_model``: the same weights and bitwise the
+   same golden predictions as the bare state dict;
+7. the flagship ProbPose-S predict at full width (random weights, seed 0),
    64 boxes with flip-TTA: the kernels' launch counts in one call, then
    crops/s;
-7. the flagship training recipe at full width (random weights, seed 0, a
+8. the flagship training recipe at full width (random weights, seed 0, a
    synthetic batch of 64 crops, targets encoded on the card, drop_path 0.1)
    through ``make_train_step``: the kernels' launch counts in one step, the
    losses, lr and gradient norm of each step, train crops/s and a profile;
-8. ``k4_parity``: K4 (the attention core) against its plain twin at the
+9. ``k4_parity``: K4 (the attention core) against its plain twin at the
    ViTPose-B training shape in f32 and the ProbPose-S shape in bf16, and one
    gradient through its autograd Function against autograd through
    ``xla_attention``;
-9. ``vitpose_predict``: ViTPose-B-simple (ViT-B/16, f32, erf GELU, x4 neck,
+10. ``vitpose_predict``: ViTPose-B-simple (ViT-B/16, f32, erf GELU, x4 neck,
    HeatmapHead, UDP decode) at full width through ``init_model`` /
    ``inference_topdown``, 64 boxes with flip-TTA: K1's launches in one call
    (12), the outputs finite, every positive heatmap peak inside its crop's
    padded box, two crops' heatmaps and scores against the same model on the
    CPU, then crops/s and a profile;
-10. ``vitpose_train``: the ViTPose-B-simple recipe (drop_path 0.3, UDP
+11. ``vitpose_train``: the ViTPose-B-simple recipe (drop_path 0.3, UDP
    targets encoded on the card, AdamW with layer decay 0.75) through
    ``make_train_step`` on 64 crops: K4's launches in one step (12, and K3's
    0), the losses, lr and gradient norm of each step, train crops/s, peak
    memory and a profile;
-11. ``timings``: each kernel's time beside its plain twin's, a PyTorch
+12. ``timings``: each kernel's time beside its plain twin's, a PyTorch
    library call's where one computes the same function, and its bound from
    this run's shapes; K1 also at the ViT-B predict shape (f32), K4 also at
    the ProbPose-S shape in bf16. For K1 (bf16 and f32) and K3 (forward,
    backward) also the time over the bound and the rate of the layer's
    products: their operations over the device time of the GEMM kernels in a
-   profile of a few calls.
+   profile of a few calls. For K2 and K2b also the kernel's device time from
+   a profile beside the call time, and the wrapper's host cost a call; K2b's
+   yardstick is cuDNN's depthwise convolution of the padded maps.
 
 The line before the last holds the kernels' record as JSON, the last line
 ``{"ok": true, "device": ...}``. Any failure exits non-zero without them.
@@ -98,6 +104,8 @@ K3_BF16_REL = 5e-2
 K4_F32_ATOL = 1e-4
 K4_BF16_REL = 3e-2
 K4_GRAD_ATOL = 1e-4
+# the keys of a kernel's record that K2 and K2b fill from ``k2_timings``
+K2_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 K3_NAMES = ("out", "dx", "ln1_scale", "ln1_bias", "w_qkv", "b_qkv", "w_proj", "b_proj",
             "ln2_scale", "ln2_bias", "w_fc1", "b_fc1", "w_fc2", "b_fc2")
 # COCO train2017 person instances with keypoints over the recipe's batch of 64
@@ -437,6 +445,52 @@ class Smoke:
         if k1 == 0 or k2 == 0:
             raise AssertionError("the golden run did not go through both kernels")
 
+    def checkpoint_file(self):
+        """A checkpoint as mmpose's runner writes it (the golden tiny weights
+        under ``state_dict``, ``meta.dataset_meta`` with numpy arrays) loads
+        through ``init_model`` on the card with no key missing and the file's
+        metainfo, and gives the same state and bitwise the same predictions
+        on the golden fixture as the bare state dict."""
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from probpose_code_torch.apis import init_model
+        from probpose_code_torch.datasets.metainfo import parse_pose_metainfo
+
+        bare = GOLDEN / "e2e_weights.pth"
+        meta = parse_pose_metainfo({"dataset_name": "coco"})
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "epoch_210.pth"
+            torch.save({"meta": {"dataset_meta": meta, "epoch": 210, "iter": 491400, "seed": 0},
+                        "state_dict": torch.load(bare, map_location="cpu", weights_only=True)}, path)
+            model = init_model(TINY_CFG, checkpoint=str(path), device="cuda")
+        ref = init_model(TINY_CFG, checkpoint=str(bare), device="cuda")
+        if not np.array_equal(model.metainfo["sigmas"], meta["sigmas"]):
+            raise AssertionError("the model did not take the file's dataset_meta")
+        got_sd, want_sd = model.module.state_dict(), ref.module.state_dict()
+        if set(got_sd) != set(want_sd) or not all(torch.equal(got_sd[k], want_sd[k]) for k in want_sd):
+            raise AssertionError("the runner-style file gave other weights than the bare state dict")
+        # cuDNN's default algorithms for the head's transposed convolutions
+        # add in no fixed order (one model's two runs differ by up to 6e-5 px
+        # on the H100), so the bitwise comparison runs with deterministic ones
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            (_, got), (_, want) = golden_samples(model), golden_samples(ref)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        fields = ("keypoints", "keypoint_scores") + tuple(f for f, _ in GOLDEN_AUX)
+        diff = max(float(np.abs(g.pred_instances[f] - w.pred_instances[f]).max())
+                   for g, w in zip(got, want) for f in fields)
+        same = diff == 0
+        print(f"checkpoint_file: runner-style .pth (state_dict + meta.dataset_meta with numpy sigmas) -> "
+              f"{len(got)} golden instances, predictions bitwise equal to the bare state dict's: {same} "
+              f"(max abs difference {diff:.3e})")
+        if len(got) != len(want) or not same:
+            raise AssertionError("the runner-style checkpoint's predictions differ from the bare state dict's")
+
     def flagship(self):
         import numpy as np
         import torch
@@ -604,7 +658,7 @@ class Smoke:
         # random-weight maps, which may carry a keypoint out of the box (as
         # the JAX decode does); how far is printed, and the refined values are
         # held against the CPU twin below.
-        crops, centers, scales = crop_batch(img, boxes, model.input_size, model.device)
+        crops, centers, scales = crop_batch(img, boxes, model.input_size, model.device, model.cfg_full)
         hm = model.predict(crops)["heatmaps"]
         peaks, vals = (t.cpu().numpy() for t in heatmap_maximum_batch(hm))
         hm_wh = np.asarray([hm.shape[3] - 1, hm.shape[2] - 1], np.float32)  # UDP: the map's ends are the crop's
@@ -708,7 +762,8 @@ class Smoke:
     @staticmethod
     def profile(fn, calls: int, what: str = "flagship calls"):
         """Device time by kernel over a few calls, and the device's busy
-        share of the wall time (torch.profiler's CUDA activity)."""
+        share of the wall time (torch.profiler's CUDA activity); where K2 ran,
+        also its share."""
         import torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -734,6 +789,10 @@ class Smoke:
               f"{100 * (1 - busy / wall_us):.1f}% idle), {launched // calls} kernels per call")
         for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
             print(f"  {100 * t / busy:5.1f}%  {t / calls / 1e3:8.3f} ms/call  x{n // calls:<4d} {name[:110]}")
+        k2 = sum(t for name, (t, _) in by_name.items() if "expected_oks_kernel" in name)
+        if k2:
+            print(f"  expected_oks_kernel: {100 * k2 / busy:.2f}% of device time, {k2 / calls / 1e3:.4f} ms/call, "
+                  f"{100 * k2 / wall_us:.2f}% of the wall time")
 
     @staticmethod
     def products_rate(fn, flops, calls=3):
@@ -764,12 +823,120 @@ class Smoke:
         ms = us / calls / 1e3
         return ms, flops / (ms * 1e-3) / 1e12
 
+    @staticmethod
+    def kernel_device_ms(fn, name, calls=20):
+        """Device ms a launch of the kernels whose name holds ``name``, over a
+        profile of ``calls`` calls of fn, traced as ``profile`` traces. A
+        trace that recorded no device time at all is taken once more; if that
+        one is empty too, the result is NaN (not measured)."""
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            if device:
+                break
+        else:
+            print(f"{name}: the profiler recorded no device time (not measured)")
+            return float("nan")
+        mine = [e.time_range.elapsed_us() for e in device if name in e.name]
+        if not mine:
+            raise AssertionError(f"the profiler saw device time but no {name}")
+        return sum(mine) / len(mine) / 1e3
+
+    @staticmethod
+    def host_us(fn, calls=200):
+        """The host's time to issue one call of fn: ``calls`` calls with no
+        synchronize in between, on the host clock, then one synchronize."""
+        import torch
+
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / calls * 1e6
+
+    @staticmethod
+    def k2_timings(B=64, K=17, H=64, W=48):
+        """K2 (decode) and K2b (conv-only) at the flagship decode shape, 64
+        crops x 17 keypoints of 64 x 48: the error against the plain twin, the
+        call time (CUDA events over back-to-back wrapper calls), the kernel's
+        device time from a profiler trace, the wrapper's host cost a call,
+        the plain twin's time, and the bound. K2b's library yardstick is one
+        cuDNN depthwise convolution (f32, TF32 off) of the symmetric-padded
+        maps with the (K, 1, D, D) outer products of the taps; the pad is
+        timed on its own. No single PyTorch call computes K2's function (an
+        argmax and a Taylor step after the convolution)."""
+        import torch
+        import torch.nn.functional as F_
+
+        from probpose_code_torch.ops.decode import (
+            expected_oks_decode_to_input_space, oks_convolve_plain, oks_filter_taps, symmetric_pad,
+        )
+        from probpose_code_torch.ops.kernels.expected_oks import expected_oks_decode, oks_convolve
+
+        hm = torch.from_numpy(peaked_heatmaps(B, K, H, W, seed=3)).cuda()
+        size = (192, 256)
+        taps = torch.from_numpy(oks_filter_taps(K, H, W)).cuda()
+        D = taps.shape[1]
+        locs, vals = expected_oks_decode(hm, size)
+        locs_p, vals_p = expected_oks_decode_to_input_space(hm, size)
+        conv_p = oks_convolve_plain(hm)
+        weight = (taps[:, :, None] * taps[:, None, :])[:, None]
+        padded = symmetric_pad(hm, D // 2)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            lib_err = (F_.conv2d(padded, weight, groups=K) - conv_p).abs().max().item()
+            if not lib_err < K2_CONV_ATOL:
+                raise AssertionError(f"the cuDNN yardstick computes another function: {lib_err:.3e}")
+            lib_ms = cuda_time_ms(lambda: F_.conv2d(padded, weight, groups=K), 50)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        pad_ms = cuda_time_ms(lambda: symmetric_pad(hm, D // 2), 50)
+
+        # two passes of D multiply-adds over the H x W map
+        ops = B * K * 2 * D * 2 * H * W
+        out = {}
+        for entry, fn, plain, err, nbytes, libms in (
+            ("decode", lambda: expected_oks_decode(hm, size), lambda: expected_oks_decode_to_input_space(hm, size),
+             max((locs - locs_p).abs().max().item(), (vals - vals_p).abs().max().item()),
+             hm.numel() * 4 + B * K * 3 * 4 + K * D * 4, None),
+            ("conv", lambda: oks_convolve(hm), lambda: oks_convolve_plain(hm),
+             (oks_convolve(hm) - conv_p).abs().max().item(), 2 * hm.numel() * 4 + K * D * 4, lib_ms),
+        ):
+            out[entry] = dict(
+                max_abs_err=err, ms=cuda_time_ms(fn, 50), device_ms=Smoke.kernel_device_ms(fn, "expected_oks_kernel"),
+                host_us=Smoke.host_us(fn), plain_ms=cuda_time_ms(plain, 10),
+                bound_ms=max(ops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3,
+                bound_by="operations" if ops / PEAK_F32 >= nbytes / PEAK_BYTES else "bytes",
+                library_ms=libms, mb=nbytes / 1e6,
+            )
+        for entry, name in (("decode", "K2 expected_oks"), ("conv", "K2b oks_convolve (conv-only entry)")):
+            t = out[entry]
+            print(f"{name} B={B} K={K} {H}x{W} D={D}: call {t['ms']:.4f} ms, device {t['device_ms']:.4f} ms, "
+                  f"host {t['host_us']:.1f} us a call, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms, "
+                  f"{t['bound_by']} ({t['mb']:.2f} MB, {ops / 1e9:.3f} GFLOP), device time "
+                  f"{t['device_ms'] / t['bound_ms']:.2f}x its bound, max abs err {t['max_abs_err']:.3e}")
+        print(f"K2b yardstick: F.conv2d on the padded maps, groups={K}, ({K}, 1, {D}, {D}) f32 weights, TF32 off: "
+              f"{lib_ms:.4f} ms (max abs err {lib_err:.3e}); symmetric pad {pad_ms:.4f} ms; K2b device time "
+              f"{out['conv']['device_ms'] / lib_ms:.2f}x the convolution")
+        return out
+
     def timings(self):
         import torch
         import torch.nn as nn
 
-        from probpose_code_torch.ops.decode import expected_oks_decode_to_input_space, oks_convolve_plain
-        from probpose_code_torch.ops.kernels.expected_oks import expected_oks_decode, oks_convolve
         from probpose_code_torch.ops.kernels.vit_layer import (
             layer_flops, prepare_weights, vit_layer_plain, vit_layer_prepared,
         )
@@ -814,25 +981,7 @@ class Smoke:
         k1_ops = layer_flops(B, N, C, F)
         k1_bound = max(k1_ops / PEAK_BF16, k1_bytes / PEAK_BYTES) * 1e3
 
-        # K2 at the flagship shape: 64 crops x 17 keypoints, 64 x 48 maps
-        Bk, K, Hh, Wh = 64, 17, 64, 48
-        hm = torch.from_numpy(peaked_heatmaps(Bk, K, Hh, Wh, seed=3)).cuda()
-        size = (192, 256)
-        locs, vals = expected_oks_decode(hm, size)
-        locs_p, vals_p = expected_oks_decode_to_input_space(hm, size)
-        k2_err = max((locs - locs_p).abs().max().item(), (vals - vals_p).abs().max().item())
-        k2_ms = cuda_time_ms(lambda: expected_oks_decode(hm, size), 50)
-        k2_plain = cuda_time_ms(lambda: expected_oks_decode_to_input_space(hm, size), 10)
-        conv_err = (oks_convolve(hm) - oks_convolve_plain(hm)).abs().max().item()
-        conv_ms = cuda_time_ms(lambda: oks_convolve(hm), 50)
-        conv_plain = cuda_time_ms(lambda: oks_convolve_plain(hm), 10)
-        D = 19
-        k2_bytes = hm.numel() * 4 + Bk * K * 3 * 4 + K * D * 4
-        # along W over the Hh + D - 1 padded rows, then along H over Hh x Wh
-        k2_ops = Bk * K * 2 * D * ((Hh + D - 1) * Wh + Hh * Wh)
-        k2_bound = max(k2_ops / PEAK_F32, k2_bytes / PEAK_BYTES) * 1e3
-        conv_bytes = 2 * hm.numel() * 4 + K * D * 4  # the conv-only entry writes the maps back
-        conv_bound = max(k2_ops / PEAK_F32, conv_bytes / PEAK_BYTES) * 1e3
+        k2 = self.k2_timings()
         # K3 at the flagship training shape: 64 crops, bf16, masks that drop some images
         Bt = 64
         kt = self.k3_timings(Bt, N, C, H, F)
@@ -860,14 +1009,10 @@ class Smoke:
                  library_ms=k1_lib),
             dict(name="expected_oks", route="cuda", source="probpose_code_torch/csrc/expected_oks.cu",
                  replaces="probpose_code_tpu/ops/pallas/expected_oks.py:158", launches=launches["expected_oks"],
-                 max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound,
-                 bound_by="operations" if k2_ops / PEAK_F32 >= k2_bytes / PEAK_BYTES else "bytes",
-                 library_ms=None),
+                 **{key: k2["decode"][key] for key in K2_KEYS}),
             dict(name="oks_convolve", route="cuda", source="probpose_code_torch/csrc/expected_oks.cu",
                  replaces="probpose_code_tpu/ops/pallas/expected_oks.py:51", launches=launches["oks_convolve"],
-                 max_abs_err=conv_err, ms=conv_ms, plain_ms=conv_plain, bound_ms=conv_bound,
-                 bound_by="operations" if k2_ops / PEAK_F32 >= conv_bytes / PEAK_BYTES else "bytes",
-                 library_ms=None),
+                 **{key: k2["conv"][key] for key in K2_KEYS}),
         ] + [
             dict(name=f"vit_layer_train_{part}", route="cuda", source="probpose_code_torch/csrc/vit_layer_train.cu",
                  replaces=f"probpose_code_tpu/ops/pallas/vit_layer_train.py:{line}",
@@ -888,10 +1033,6 @@ class Smoke:
               f"{k1_ops / (k1_ms * 1e-3) / 1e12:.1f} TFLOP/s, {k1_ms / k1_bound:.1f}x its bound, "
               f"{k1_ms / k1_lib:.2f}x the library; its products ({k1_prod_flops / 1e9:.1f} GFLOP) "
               f"{k1_prod_ms:.3f} ms of GEMM device time, {k1_prod_rate:.1f} TFLOP/s")
-        print(f"K2 expected_oks B={Bk} K={K} {Hh}x{Wh}: {k2_ms:.4f} ms, plain {k2_plain:.4f} ms, "
-              f"bound {k2_bound:.4f} ms ({k2_bytes / 1e6:.2f} MB, {k2_ops / 1e9:.3f} GFLOP)")
-        print(f"K2b oks_convolve (conv-only entry of expected_oks.cu): {conv_ms:.4f} ms, plain {conv_plain:.4f} ms, "
-              f"bound {conv_bound:.4f} ms ({conv_bytes / 1e6:.2f} MB, {k2_ops / 1e9:.3f} GFLOP)")
         for part in ("fwd", "bwd"):
             t = kt[part]
             print(f"K3 vit_layer_train {part} B={Bt} N={N} C={C} bf16: {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
@@ -1099,6 +1240,7 @@ def main() -> int:
         smoke.phase("k2_parity", smoke.k2_parity)
         smoke.phase("k3_parity", smoke.k3_parity)
         smoke.phase("golden", smoke.golden)
+        smoke.phase("checkpoint_file", smoke.checkpoint_file)
         smoke.phase("flagship", smoke.flagship)
         smoke.phase("train", smoke.train)
         smoke.phase("k4_parity", smoke.k4_parity)

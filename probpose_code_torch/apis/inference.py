@@ -1,16 +1,18 @@
 """User-facing inference API of the port.
 
-Port of ``probpose_code_tpu/apis/inference.py``: ``init_model`` (``:29``)
-and ``inference_topdown`` (``:130``). Every crop of a call is cut on the
-device (``ops/warp.py``, no OpenCV), and all crops go through one predict
-call; the keypoints are mapped back to the image as in
+Port of ``probpose_code_tpu/apis/inference.py``: ``init_model`` (``:29``,
+with ``load_weights``, ``:77``) and ``inference_topdown`` (``:130``). Every
+crop of a call is cut on the device (``ops/warp.py``, no OpenCV) as the
+``TopdownAffine`` of the config's test pipeline sets it (``use_udp``,
+``input_padding``; ``_default_val_pipeline``, ``:115``), and all crops go
+through one predict call; the keypoints are mapped back to the image as in
 ``engine/runner.py:attach_predictions`` (``:389-418``).
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -25,10 +27,10 @@ from probpose_code_torch.structures.bbox import (
     bbox_xyxy2cs,
     fix_aspect_ratio,
     get_udp_warp_matrix,
+    get_warp_matrix,
 )
 from probpose_code_torch.structures.data_sample import InstanceData, PoseDataSample
 
-INPUT_PADDING = 1.25  # the top-down recipes' bbox padding (GetBBoxCenterScale / TopdownAffine)
 PROBMAP_FIELDS = ("keypoints_probs", "keypoints_visible", "keypoints_oks", "keypoints_error", "keypoints_conf")
 
 
@@ -42,7 +44,11 @@ def init_model(
 
     ``device=None`` means the card: it raises when CUDA is absent, and never
     falls back to the CPU on its own; pass ``device="cpu"`` for the CPU.
-    Without a checkpoint the weights are random, drawn from seed 0.
+    The weights are random, drawn from seed 0, and then the checkpoint's,
+    where one is given (``engine.checkpoint.load_checkpoint``: keys it lacks
+    keep their random values); its ``meta.dataset_meta``, where present,
+    becomes the model's metainfo. The config stays on the model as
+    ``cfg_full``, from which ``inference_topdown`` reads its crop.
     """
     if device is None:
         if not torch.cuda.is_available():
@@ -61,22 +67,43 @@ def init_model(
 
     model_cfg = config["model"] if "model" in config else config
     model = PoseModel(model_cfg, metainfo=metainfo, device=device)
+    model.init_weights(seed=0)
     if checkpoint is not None:
-        load_checkpoint(model, checkpoint)
-    else:
-        model.init_weights(seed=0)
+        dataset_meta = load_checkpoint(model, checkpoint)["meta"].get("dataset_meta")
+        if dataset_meta:
+            model.metainfo = dataset_meta
+    model.cfg_full = config
     return model
 
 
-def crop_batch(image: np.ndarray, bboxes: np.ndarray, input_size, device):
-    """UDP crops of ``bboxes`` (N, 4 xyxy) from one (H, W, 3) image at
+def topdown_affine(config) -> Tuple[bool, float]:
+    """``(use_udp, input_padding)`` of the ``TopdownAffine`` in the test
+    pipeline of ``config`` (``test_dataloader``, else ``val_dataloader``),
+    with the transform's defaults (False, 1.25) for a field it leaves out;
+    (True, 1.25) when the config has no such pipeline, as the JAX package's
+    ``_default_val_pipeline``."""
+    loader = (config or {}).get("test_dataloader", (config or {}).get("val_dataloader")) or {}
+    pipeline = (loader.get("dataset") or {}).get("pipeline")
+    if not pipeline:
+        return True, 1.25
+    for t in pipeline:
+        if t.get("type") == "TopdownAffine":
+            return bool(t.get("use_udp", False)), float(t.get("input_padding", 1.25))
+    raise ValueError("the config's test pipeline has no TopdownAffine to crop with")
+
+
+def crop_batch(image: np.ndarray, bboxes: np.ndarray, input_size, device, config=None):
+    """Crops of ``bboxes`` (N, 4 xyxy) from one (H, W, 3) image at
     ``input_size`` (w, h), cut on ``device`` and rounded to uint8 values like
-    cv2.warpAffine. Returns (crops (N, h, w, 3) float32, centers (N, 2),
-    scales (N, 2))."""
+    cv2.warpAffine, with the warp (UDP or not) and the box padding of the
+    ``TopdownAffine`` of ``config`` (``topdown_affine``), rotation 0.
+    Returns (crops (N, h, w, 3) float32, centers (N, 2), scales (N, 2))."""
     w, h = input_size
-    center, scale = bbox_xyxy2cs(bboxes.astype(np.float32), padding=INPUT_PADDING)
+    use_udp, padding = topdown_affine(config)
+    center, scale = bbox_xyxy2cs(bboxes.astype(np.float32), padding=padding)
     scale = fix_aspect_ratio(scale, aspect_ratio=w / h)
-    mats = np.stack([get_udp_warp_matrix(c, s, 0.0, output_size=(w, h)) for c, s in zip(center, scale)])
+    warp_matrix = get_udp_warp_matrix if use_udp else get_warp_matrix
+    mats = np.stack([warp_matrix(c, s, 0.0, output_size=(w, h)) for c, s in zip(center, scale)])
     src = torch.from_numpy(np.ascontiguousarray(image)).to(device)[None]
     crops = warp_affine_batch(src, torch.from_numpy(mats), (w, h))
     return crops.round().clamp(0, 255), center, scale
@@ -104,7 +131,7 @@ def inference_topdown(
         if bbox_format == "xywh":
             bboxes = bbox_xywh2xyxy(bboxes)
 
-    crops, centers, scales = crop_batch(img, bboxes, model.input_size, model.device)
+    crops, centers, scales = crop_batch(img, bboxes, model.input_size, model.device, model.cfg_full)
     preds = {k: v.float().cpu().numpy() for k, v in model.predict(crops).items() if k != "heatmaps"}
 
     in_wh = np.asarray(model.input_size, dtype=np.float32)

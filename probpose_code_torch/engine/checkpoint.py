@@ -1,9 +1,16 @@
 """Checkpoints: reference ``.pth`` files, and weights moved from the JAX package.
 
-``load_checkpoint`` loads a reference mmpose state dict straight into the
-port's modules (the names are the reference's). ``state_dict_from_jax``
-turns the JAX package's ``{"params", "batch_stats"}`` tree of numpy arrays
-into the port's state dict: the inverse of
+``load_checkpoint`` loads a reference mmpose checkpoint straight into the
+port's modules (the names are the reference's): a bare state dict, or a file
+written by mmpose's runner, ``{"state_dict": ..., "meta": {"dataset_meta":
+...}, ...}``, whose metainfo holds numpy arrays. Like the JAX package's
+``load_torch_checkpoint`` (``probpose_code_tpu/engine/checkpoint.py:1020``)
+and ``load_weights`` (``apis/inference.py:77-104``), keys the file lacks keep
+their initial values. Unlike the JAX package, it does not unpickle arbitrary
+classes unless told to: tensors, containers and numpy arrays only, and
+``trusted=True`` for a file that carries anything else.
+``state_dict_from_jax`` turns the JAX package's ``{"params", "batch_stats"}``
+tree of numpy arrays into the port's state dict: the inverse of
 ``probpose_code_tpu/engine/checkpoint.py:convert_torch_state_dict``
 (``:680-836``) for the ViT + ProbMapHead and ViT + HeatmapHead families (a
 neck has no parameters).
@@ -11,19 +18,71 @@ neck has no parameters).
 
 from __future__ import annotations
 
+import logging
+import pickle
 from collections import OrderedDict
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
+logger = logging.getLogger(__name__)
 
-def load_checkpoint(model, path: str) -> None:
-    """Load a reference ``.pth`` (a state dict, or ``{"state_dict": ...}``)
-    into ``model.module``, every key matched. Only tensors and containers are
-    unpickled."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
-    model.module.load_state_dict(obj.get("state_dict", obj), strict=True)
+
+def _numpy_globals() -> List[Any]:
+    """What ``torch.load(weights_only=True)`` must admit to rebuild numpy
+    arrays and scalars: the array reconstructor and ``scalar`` under the names
+    numpy 1.x and 2.x pickle them by, ``ndarray``, ``dtype`` and the dtype
+    classes of every numeric, boolean, string and datetime type."""
+    multiarray = (getattr(np, "_core", None) or np.core).multiarray
+    allowed: List[Any] = [np.ndarray, np.dtype]
+    for fn in (multiarray._reconstruct, multiarray.scalar):
+        allowed += [(fn, f"{module}.{fn.__name__}") for module in ("numpy.core.multiarray", "numpy._core.multiarray")]
+    allowed += sorted({type(np.dtype(code)) for code in "?bBhHiIlLqQefdgFDGSUMm"}, key=str)
+    return allowed
+
+
+def load_checkpoint(model, path: str, trusted: bool = False) -> Dict[str, Any]:
+    """Load a reference ``.pth`` into ``model.module``: a state dict, or a
+    runner's ``{"state_dict": ..., "meta": ...}``.
+
+    Without ``trusted`` only tensors, containers and numpy arrays are
+    unpickled, and a file that holds any other class is refused;
+    ``trusted=True`` unpickles everything, as ``torch.load`` with
+    ``weights_only=False`` does (only for files from a trusted source).
+    Parameters and buffers the file lacks keep their values, and are logged
+    and returned; keys the model lacks are logged and ignored. It raises
+    ``KeyError`` when no key of the file is the model's, or when keys are
+    missing and unknown ones stand beside them (another model, or a
+    ``module.`` prefix), and ``RuntimeError`` on a shape that differs. Returns ``{"missing_keys": [...], "meta": {...}}``, the
+    file's ``meta`` (empty for a bare state dict).
+    """
+    if trusted:
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+    else:
+        try:
+            with torch.serialization.safe_globals(_numpy_globals()):
+                obj = torch.load(path, map_location="cpu", weights_only=True)
+        except pickle.UnpicklingError as err:
+            raise pickle.UnpicklingError(
+                f"{path} holds objects other than tensors, containers and numpy arrays; "
+                f"pass trusted=True to unpickle it fully if its source is trusted.\n{err}"
+            ) from err
+    state = obj.get("state_dict", obj)
+    own = model.module.state_dict()
+    missing = [k for k in own if k not in state]
+    unexpected = [k for k in state if k not in own]
+    if len(unexpected) == len(state) or (missing and unexpected):
+        # a file for another model, or the model's keys under other names
+        # (a ``module.`` prefix): loading it would leave initial weights
+        raise KeyError(f"{path} does not hold this model's weights: {len(missing)} of its keys are missing "
+                       f"(first: {missing[:3]}) and {len(unexpected)} keys are unknown (first: {unexpected[:3]})")
+    model.module.load_state_dict(state, strict=False)
+    if missing:
+        logger.warning("%s lacks %d keys, which keep their initial values: %s", path, len(missing), ", ".join(missing))
+    if unexpected:
+        logger.warning("%s has %d keys the model does not use: %s", path, len(unexpected), ", ".join(unexpected))
+    return dict(missing_keys=missing, meta=obj.get("meta", {}))
 
 
 def _conv(kernel: np.ndarray) -> np.ndarray:  # flax HWIO -> torch OIHW

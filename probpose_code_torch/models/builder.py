@@ -141,10 +141,10 @@ class PoseModel:
         else:
             self.input_size = tuple(self.aux["test_cfg"].get("input_size", (192, 256)))
         self.metainfo = metainfo
+        self.cfg_full = None  # the whole config, set by apis.init_model: the crop reads its test pipeline
         self.device = torch.device(device)
         self.module.to(self.device).eval()
         self.loss_modules = build_loss_modules(head_cfg)
-        self._predict_fn = None
 
     def train(self, mode: bool = True) -> "PoseModel":
         """Training mode: batch statistics in BatchNorm (running statistics
@@ -236,9 +236,10 @@ class PoseModel:
         return predict
 
     def predict(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        if self._predict_fn is None:
-            self._predict_fn = self.make_predict()
-        return self._predict_fn(images)
+        # built per call, not kept on the model: a kept closure over ``self``
+        # would be a reference cycle, and the model (and its device memory)
+        # would outlive its last reference until the garbage collector runs
+        return self.make_predict()(images)
 
     def device_preprocess_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """The device half of the input pipeline: a batch that carries

@@ -1,9 +1,11 @@
 """Bounding-box geometry for the top-down crop (NumPy, host side).
 
 The port's own copy of the parts of ``probpose_code_tpu/structures/bbox.py``
-that the predict path needs: ``bbox_xywh2xyxy``, ``bbox_xyxy2cs`` and the
-UDP warp matrix (``get_udp_warp_matrix``, ``:123``; reference
-``bbox/transforms.py:315-360``), vectorised over boxes.
+that the predict path needs: ``bbox_xywh2xyxy``, ``bbox_xyxy2cs``, the UDP
+warp matrix (``get_udp_warp_matrix``, ``:123``; reference
+``bbox/transforms.py:315-360``) and the standard one (``get_warp_matrix``,
+``:198``; reference ``bbox/transforms.py:362``), for ``TopdownAffine`` with
+and without ``use_udp``.
 """
 
 from __future__ import annotations
@@ -62,3 +64,54 @@ def get_udp_warp_matrix(
     warp_mat[1, 1] = cos_r * scale_y
     warp_mat[1, 2] = scale_y * (-0.5 * input_size[0] * sin_r - 0.5 * input_size[1] * cos_r + 0.5 * scale[1])
     return warp_mat
+
+
+def _rotate_point(pt: np.ndarray, angle_rad: float) -> np.ndarray:
+    sn, cs = np.sin(angle_rad), np.cos(angle_rad)
+    rot_mat = np.array([[cs, -sn], [sn, cs]])
+    return rot_mat @ pt
+
+
+def _get_3rd_point(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    direction = a - b
+    return b + np.r_[-direction[1], direction[0]]
+
+
+def _solve_affine(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """The affine map of three points onto three (cv2.getAffineTransform's
+    system, solved exactly in float64)."""
+    a = np.zeros((6, 6), dtype=np.float64)
+    b = np.zeros(6, dtype=np.float64)
+    for i in range(3):
+        a[2 * i, 0:2] = src[i]
+        a[2 * i, 2] = 1.0
+        a[2 * i + 1, 3:5] = src[i]
+        a[2 * i + 1, 5] = 1.0
+        b[2 * i] = dst[i, 0]
+        b[2 * i + 1] = dst[i, 1]
+    return np.linalg.solve(a, b).reshape(2, 3)
+
+
+def get_warp_matrix(
+    center: np.ndarray,
+    scale: np.ndarray,
+    rot: float,
+    output_size: Tuple[int, int],
+) -> np.ndarray:
+    """Standard (non-UDP) affine matrix mapping the bbox area to the output
+    size, float32: the bbox center, the middle of its left edge (rotated by
+    ``rot`` degrees about the center) and a third point at a right angle go
+    to the output's center, left-edge middle and third point."""
+    center = np.asarray(center, dtype=np.float64)
+    scale = np.asarray(scale, dtype=np.float64)
+    dst_w, dst_h = output_size[:2]
+    src_dir = _rotate_point(np.array([scale[0] * -0.5, 0.0]), np.deg2rad(rot))
+    src = np.zeros((3, 2), dtype=np.float64)
+    src[0] = center
+    src[1] = center + src_dir
+    src[2] = _get_3rd_point(src[0], src[1])
+    dst = np.zeros((3, 2), dtype=np.float64)
+    dst[0] = [dst_w * 0.5, dst_h * 0.5]
+    dst[1] = dst[0] + np.array([dst_w * -0.5, 0.0])
+    dst[2] = _get_3rd_point(dst[0], dst[1])
+    return _solve_affine(src, dst).astype(np.float32)

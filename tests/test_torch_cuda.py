@@ -7,7 +7,10 @@ They import no JAX, so they run where JAX is absent:
 
 They cover shapes beyond the ones that ``chip_smoke.py`` holds: ragged
 tiles, head widths of 8 and above 128, maps whose filter needs more than
-48 KB of shared memory, and flat maps whose argmax is a tie; K1 and K3
+48 KB of shared memory, maps whose sides are no multiple of K2's strip, a
+filter radius equal to the shorter side, a tap count that runs K2's
+runtime-D instance, flat maps and equal peaks whose argmax is a tie, and
+all-NaN maps; K1 and K3
 forward and backward at those shapes and at the flagship layer's widths,
 with and without stochastic-depth masks; in bf16 and f32 also MLP widths
 that are not a multiple of 8, keys streamed through shared memory and the
@@ -78,7 +81,10 @@ def test_vit_layer_matches_plain(card, B, N, C, H, F, dtype):
     assert (got - want).abs().max().item() / want.abs().max().item() < bar
 
 
-@pytest.mark.parametrize("B,K,H,W", [(5, 17, 64, 48), (2, 17, 128, 96), (3, 4, 32, 24)])
+# the shipped shapes, then maps whose sides are no multiple of K2's 16-output
+# strip, a filter radius equal to the shorter side, and the runtime-D instance
+@pytest.mark.parametrize("B,K,H,W", [(5, 17, 64, 48), (2, 17, 128, 96), (3, 4, 32, 24),
+                                     (2, 17, 50, 37), (1, 17, 9, 148), (2, 17, 16, 12)])
 def test_expected_oks_matches_plain(card, B, K, H, W):
     from probpose_code_torch.ops.decode import expected_oks_decode_to_input_space, oks_convolve_plain
     from probpose_code_torch.ops.kernels.expected_oks import expected_oks_decode, oks_convolve
@@ -101,6 +107,51 @@ def test_expected_oks_flat_maps_take_the_first_index(card):
     locs, vals = expected_oks_decode(hm, (192, 256))
     locs_p, vals_p = expected_oks_decode_to_input_space(hm, (192, 256))
     assert torch.equal(locs, locs_p) and torch.equal(vals, vals_p)
+
+
+def test_expected_oks_instances_of_the_edge_shapes(card):
+    """The edge shapes of ``test_expected_oks_matches_plain``: 9 x 148 has a
+    filter radius equal to its shorter side, 16 x 12 a tap count (D = 9)
+    with no register instance, so it runs the runtime-D instance; the
+    shipped shapes' tap counts have register instances."""
+    from probpose_code_torch.ops.decode import oks_filter_taps
+    from probpose_code_torch.ops.kernels.expected_oks import register_taps
+
+    assert oks_filter_taps(17, 9, 148).shape[1] // 2 == 9
+    assert not register_taps(oks_filter_taps(17, 16, 12).shape[1])
+    assert all(register_taps(oks_filter_taps(K, H, W).shape[1])
+               for K, H, W in ((17, 64, 48), (17, 128, 96), (4, 32, 24), (17, 32, 24)))
+
+
+def test_expected_oks_equal_maxima_take_the_first_index(card):
+    """Equal unit peaks, each farther than the filter radius from the others,
+    at points that fall in different strips, warps and halves of a warp: the
+    convolved maxima are the same bits (one product of two taps), and the
+    first index wins, as torch.argmax's; bitwise equal to the plain twin."""
+    from probpose_code_torch.ops.decode import expected_oks_decode_to_input_space
+    from probpose_code_torch.ops.kernels.expected_oks import expected_oks_decode
+
+    hm = torch.zeros(3, 17, 64, 48)
+    points = [(44, 36), (20, 40), (20, 12), (52, 5), (33, 33), (20, 26)]
+    for k in range(17):
+        for y, x in points[k % 4:]:
+            hm[:, k, y, x] = 1.0
+    hm = hm.cuda()
+    locs, vals = expected_oks_decode(hm, (192, 256))
+    locs_p, vals_p = expected_oks_decode_to_input_space(hm, (192, 256))
+    assert torch.equal(locs, locs_p) and torch.equal(vals, vals_p)
+
+
+def test_expected_oks_all_nan_map_gives_index_0(card):
+    from probpose_code_torch.ops.kernels.expected_oks import expected_oks_decode
+
+    hm = torch.full((2, 17, 64, 48), float("nan"), device="cuda")
+    hm[1, 3] = torch.from_numpy(peaked_heatmaps(1, 1, 64, 48, seed=0))[0, 0].cuda()
+    locs, _ = expected_oks_decode(hm, (192, 256))
+    keep = torch.ones(2, 17, dtype=torch.bool)
+    keep[1, 3] = False
+    assert torch.equal(locs[keep.cuda()], torch.zeros(33, 2, device="cuda"))
+    assert locs[1, 3].abs().sum() > 0
 
 
 def test_kernels_reject_what_they_do_not_take(card):
