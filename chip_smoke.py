@@ -39,7 +39,25 @@ card and the CUDA toolkit (nvcc); it builds the port's kernels from
    ``make_train_step`` on 64 crops: K4's launches in one step (12, and K3's
    0), the losses, lr and gradient norm of each step, train crops/s, peak
    memory and a profile;
-12. ``timings``: each kernel's time beside its plain twin's, a PyTorch
+12. ``val_full``: the evaluation path (``Runner.val``: a CocoDataset of PNG
+   files, the flagship's val pipeline, the loader, the canvas warp on the
+   card, predict, CocoMetric with Ex-OKS) at the golden fixture's full
+   ProbPose-S geometry in f32 (width 384, K1's 3xTF32 instance) with the
+   fixture's weights (``tools/_e2e_torch_model.build_e2e_model(full=True)``,
+   built on the CPU), over its 24 images written as PNG: K1 x12 and K2 x1
+   launched, keypoints p99 < 1.5 px and max < 8 px, AP and Ex-AP within
+   0.02 of the fixture's (the JAX package's bars);
+13. ``val_shipped``: the same under the flagship's shipped bf16 / tanh-GELU
+   settings: p50 < 0.2 px, p90 < 0.75 px, AP and Ex-AP within 0.05;
+14. ``val_flagship``: the flagship config file at full width (random
+   weights, seed 0) through ``Runner.val`` with its own CombinedDataset
+   (CropCOCO + COCO), MultiDatasetEvaluator, batch size 64 and four worker
+   processes, over the golden PNGs with their annotations copied to 512
+   instances: val crops/s from the start of the loader to the metrics, the
+   time split (first batch, later loader waits, device, evaluate), the
+   device's busy share over one batch, K1 and K2 launches a batch, and
+   every metric key present and finite;
+15. ``timings``: each kernel's time beside its plain twin's, a PyTorch
    library call's where one computes the same function, and its bound from
    this run's shapes; K1 also at the ViT-B predict shape (f32), K4 also at
    the ProbPose-S shape in bf16. For K1 (bf16 and f32) and K3 (forward,
@@ -104,6 +122,17 @@ K3_BF16_REL = 5e-2
 K4_F32_ATOL = 1e-4
 K4_BF16_REL = 3e-2
 K4_GRAD_ATOL = 1e-4
+# The val path at full width against the golden fixture, the JAX package's
+# bars: f32 (tests/test_apis/test_e2e_parity_full.py:125-150) and the
+# shipped bf16 / tanh-GELU settings (test_e2e_parity_shipped.py:73-110).
+VAL_BARS = dict(
+    full=dict(p99=1.5, max=8.0, aux=5e-3, ap=0.02),
+    shipped=dict(p50=0.2, p90=0.75, aux=2e-2, ap=0.05),
+)
+VAL_AUX = ("keypoints_probs", "keypoints_visible", "keypoints_oks", "keypoints_error")
+# the kernels' launches of one ProbPose-S predict call (a val batch is one)
+PREDICT_LAUNCHES = dict(vit_layer=12, expected_oks=1, oks_convolve=0, vit_layer_train_fwd=0, vit_layer_train_bwd=0,
+                        attention=0)
 # the keys of a kernel's record that K2 and K2b fill from ``k2_timings``
 K2_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 K3_NAMES = ("out", "dx", "ln1_scale", "ln1_bias", "w_qkv", "b_qkv", "w_proj", "b_proj",
@@ -132,6 +161,22 @@ TINY_CFG = dict(
         test_cfg=dict(flip_test=True, flip_mode="heatmap", shift_heatmap=False),
     )
 )
+
+
+def full_model_cfg(shipped=False):
+    """ProbPose-S at the full geometry of the golden fixture (ViT-S/16,
+    width 384, 12 layers, deconv 256): f32 with exact GELU, as
+    ``tests/test_apis/test_e2e_parity_full.py:MODEL_CFG``, or with the
+    flagship's shipped bf16 / tanh-GELU settings."""
+    import copy
+
+    cfg = copy.deepcopy(TINY_CFG["model"])
+    cfg["backbone"]["arch"] = dict(embed_dims=384, num_layers=12, num_heads=12, feedforward_channels=1536)
+    cfg["head"].update(in_channels=384, deconv_out_channels=(256, 256))
+    if shipped:
+        cfg["backbone"].update(dtype="bfloat16", approximate_gelu=True)
+        cfg["head"]["dtype"] = "bfloat16"
+    return cfg
 
 
 def card_line() -> str:
@@ -289,6 +334,84 @@ def golden_errors(data, samples):
     return err, aux
 
 
+def write_png(path, img):
+    """An (H, W, 3) uint8 BGR image as an 8-bit RGB PNG, every row with
+    filter type 0 (the card's machine has no OpenCV to write one)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    h, w = img.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img[..., ::-1].reshape(h, w * 3)], axis=1)
+    Path(path).write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                          + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def golden_png_set(root, full=False):
+    """The golden fixture's 24 images as PNG files under ``root/imgs`` and a
+    copy of its annotations as ``root/ann.json``, for the val path. Each
+    image gets one zero column and row appended: the dataset clips a box to
+    ``width - 1`` and ``height - 1`` (``base_dataset.py:parse_data_info``)
+    and four of the fixture's 62 boxes end on the image's edge, while the
+    fixture was made on the unclipped boxes; with the zero border (which
+    cv2.warpAffine's constant border reads anyway) the val path sees the
+    fixture's boxes and pixels. Returns (fixture arrays, annotation path)."""
+    import numpy as np
+
+    root = Path(root)
+    (root / "imgs").mkdir(parents=True, exist_ok=True)
+    data = np.load(GOLDEN / ("e2e_full_pipeline.npz" if full else "e2e_pipeline.npz"))
+    gt = json.loads((GOLDEN / ("e2e_full_coco.json" if full else "e2e_coco.json")).read_text())
+    for im in gt["images"]:
+        img = np.pad(data[f"img_{im['id']}"], ((0, 1), (0, 1), (0, 0)))
+        im["file_name"], im["height"], im["width"] = f"{im['id']}.png", img.shape[0], img.shape[1]
+        write_png(root / "imgs" / im["file_name"], img)
+    (root / "ann.json").write_text(json.dumps(gt))
+    return data, root / "ann.json"
+
+
+VAL_PIPELINE = [
+    dict(type="LoadImage"), dict(type="GetBBoxCenterScale"),
+    dict(type="TopdownAffine", input_size=(192, 256), use_udp=True, input_padding=1.25), dict(type="PackPoseInputs"),
+]
+# the flagship's CocoMetric settings (its config's val_evaluator)
+COCO_METRIC = dict(type="CocoMetric", extended=[False, True], match_by_bbox=[False, False],
+                   ignore_border_points=[False, False], padding=1.25, score_thresh_type="prob",
+                   keypoint_score_thr=0.45)
+
+
+def golden_val_cfg(model_cfg, ann_file, batch_size=64, num_workers=0):
+    """A val config over a ``golden_png_set``: the flagship's val pipeline
+    and CocoMetric, the fixture's annotations."""
+    root = Path(ann_file).parent
+    return dict(
+        model=model_cfg,
+        val_dataloader=dict(batch_size=batch_size, num_workers=num_workers, dataset=dict(
+            type="CocoDataset", data_root=str(root), ann_file=Path(ann_file).name, data_prefix=dict(img="imgs/"),
+            test_mode=True, pipeline=VAL_PIPELINE)),
+        val_evaluator=dict(COCO_METRIC, ann_file=str(ann_file)),
+    )
+
+
+class KeepSamples:
+    """An evaluator that keeps every sample it is given, then scores them
+    with ``inner``."""
+
+    def __init__(self, inner):
+        self.inner, self.samples = inner, []
+
+    def process(self, data_samples, data_batch=None):
+        self.samples.extend(data_samples)
+        self.inner.process(data_samples)
+
+    def evaluate(self, size=None):
+        return self.inner.evaluate(size)
+
+
 def kernel_counters():
     """Each kernel wrapper, whose ``launches`` counts its kernel's launches."""
     from probpose_code_torch.ops.kernels.attention import attention_kernel
@@ -307,6 +430,57 @@ def reset_counts():
     for c in counters.values():
         c.launches = 0
     return lambda: {k: c.launches for k, c in counters.items()}
+
+
+def full_fixture_state():
+    """The state dict of ``tools/_e2e_torch_model.build_e2e_model(full=True)``,
+    loaded by file path so that ``tools/`` never joins ``sys.path``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("_e2e_torch_model", ROOT / "tools" / "_e2e_torch_model.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.build_e2e_model(full=True).state_dict()
+
+
+def run_val_golden(variant, device, state_dict):
+    """The val path (``Runner.val``: CocoDataset of PNG files, the flagship's
+    val pipeline, the loader, the canvas warp on ``device``, predict,
+    CocoMetric) at the fixture's full geometry with ``state_dict`` (its
+    ``build_e2e_model(full=True)`` weights), held to the JAX package's bars
+    for ``variant`` (``VAL_BARS``). Returns (report, the kernels' launches)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from probpose_code_torch.engine.checkpoint import load_checkpoint
+    from probpose_code_torch.engine.runner import Runner
+
+    bars = VAL_BARS[variant]
+    with tempfile.TemporaryDirectory() as tmp:
+        data, ann = golden_png_set(tmp, full=True)
+        weights = Path(tmp) / "e2e_full_weights.pth"
+        torch.save(state_dict, weights)
+        runner = Runner.from_cfg(golden_val_cfg(full_model_cfg(variant == "shipped"), ann), device=device)
+        load_checkpoint(runner.model, str(weights))
+        evaluator = KeepSamples(runner.build_evaluator())
+        # the main path: counts set to 0 just before, read just after
+        read_counts = reset_counts()
+        metrics = runner.val(evaluator)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = read_counts()
+    err, aux = golden_errors(data, evaluator.samples)
+    report = dict(instances=len(evaluator.samples), max=float(err.max()), aux={f: aux[f] for f in VAL_AUX},
+                  **{f"p{q}": float(np.percentile(err, q)) for q in (50, 90, 99)})
+    for key, ref in (("AP", data["stats"][0]), ("Ex_AP", data["Ex_stats"][0]), ("prob_thr", data["prob_thr"])):
+        report.update({key: metrics[f"coco/{key}"], f"fixture_{key}": float(ref),
+                       f"d_{key}": abs(metrics[f"coco/{key}"] - float(ref))})
+    within = [report[k] < bar for k, bar in bars.items() if k in ("p50", "p90", "p99", "max")]
+    within += [max(report["aux"].values()) < bars["aux"], report["d_AP"] < bars["ap"], report["d_Ex_AP"] < bars["ap"]]
+    report["ok"] = report["instances"] == len(data["pred_ids"]) and all(within)
+    return report, launches
 
 
 def qkv_views(B, N, H, D, dtype, seed):
@@ -349,10 +523,58 @@ def report_steps(logs):
             raise AssertionError(f"train step {k}: non-finite metrics or zero grad norm")
 
 
+def stop_descendants(grace: float = 10.0) -> list:
+    """Terminate every process this one started that still runs (its
+    children and theirs, read from /proc), reap them, and return their
+    pids: the script leaves no process behind, whichever phase failed."""
+    import os
+    import signal
+
+    parent = {}
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            state, ppid = stat.read_text().rsplit(")", 1)[1].split()[:2]
+        except (OSError, ValueError):
+            continue
+        parent[int(stat.parent.name)] = (int(ppid), state)
+    mine, frontier = set(), {os.getpid()}
+    while frontier:
+        frontier = {pid for pid, (ppid, _) in parent.items() if ppid in frontier} - mine
+        mine |= frontier
+    running = sorted(pid for pid in mine if parent[pid][1] != "Z")
+    for pid in running:
+        try:
+            os.kill(pid, signal.SIGTERM)
+        except ProcessLookupError:
+            pass
+    deadline, killed = time.time() + grace, False
+    for pid in sorted(mine):
+        while time.time() < deadline:
+            try:  # a child is reaped here; a grandchild is gone or a zombie of its own parent
+                if os.waitpid(pid, os.WNOHANG)[0] == pid:
+                    break
+            except ChildProcessError:
+                try:
+                    if Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()[0] == "Z":
+                        break
+                except OSError:
+                    break
+            time.sleep(0.05)
+            if time.time() >= deadline and not killed:  # past the grace: SIGKILL, once
+                for other in running:
+                    try:
+                        os.kill(other, signal.SIGKILL)
+                    except ProcessLookupError:
+                        pass
+                deadline, killed = time.time() + grace, True
+    return running
+
+
 class Smoke:
     def __init__(self):
         self.failures = []
         self.record = {}
+        self._full_state = None
 
     def phase(self, name, fn):
         t0 = time.time()
@@ -514,8 +736,7 @@ class Smoke:
             raise AssertionError(f"flagship output shapes {kpts.shape}, {[f.shape for f in fields]}")
         if not (np.isfinite(kpts).all() and all(np.isfinite(f).all() for f in fields)):
             raise AssertionError("flagship outputs are not finite")
-        if launches != dict(vit_layer=12, expected_oks=1, oks_convolve=0, vit_layer_train_fwd=0, vit_layer_train_bwd=0,
-                            attention=0):
+        if launches != PREDICT_LAUNCHES:
             raise AssertionError(f"expected K1 x12 and K2 x1 per call and no other kernel, got {launches}")
         self.record["launches"] = launches
 
@@ -758,6 +979,109 @@ class Smoke:
             state, _ = run_steps(step, state, batch, gen, lr_fn, 1)
 
         self.profile(one, calls=2, what="vitpose train steps")
+
+    def full_weights(self):
+        """The fixture's full-geometry weights, ``build_e2e_model(full=True)``
+        (seed 7), built on the CPU: the fixture was made from the CPU
+        generator's draws. Built once for both val phases."""
+        if self._full_state is None:
+            self._full_state = full_fixture_state()
+        return self._full_state
+
+    def val_golden(self, variant):
+        report, launches = run_val_golden(variant, "cuda", self.full_weights())
+        print(f"val_{variant}: {report['instances']} instances through Runner.val; keypoint err p50 "
+              f"{report['p50']:.4f}, p90 {report['p90']:.4f}, p99 {report['p99']:.4f}, max {report['max']:.4f} px; "
+              f"aux max err {json.dumps(report['aux'])}; AP {report['AP']:.4f} (fixture {report['fixture_AP']:.4f}, "
+              f"|d| {report['d_AP']:.4f}), Ex_AP {report['Ex_AP']:.4f} (fixture {report['fixture_Ex_AP']:.4f}, "
+              f"|d| {report['d_Ex_AP']:.4f}), prob_thr {report['prob_thr']:.2f} (fixture "
+              f"{report['fixture_prob_thr']:.2f}); launches {json.dumps(launches)}; bars {json.dumps(VAL_BARS[variant])}")
+        if launches != PREDICT_LAUNCHES:
+            raise AssertionError(f"expected K1 x12 and K2 x1 for the one val batch and no other kernel, got {launches}")
+        if not report["ok"]:
+            raise AssertionError(f"val_{variant} out of its bars {VAL_BARS[variant]}")
+
+    def val_full(self):
+        self.val_golden("full")
+
+    def val_shipped(self):
+        self.val_golden("shipped")
+
+    def val_flagship(self):
+        """The flagship config file at full width (random weights, seed 0)
+        through ``Runner.val`` with its own CombinedDataset (CropCOCO + COCO)
+        and MultiDatasetEvaluator, at its batch size and worker count, over
+        a synthetic set: the golden PNGs with their 62 annotations copied to
+        256 instances for each sub-dataset (each copy under a new image id).
+        Crops/s from the start of the loader to the metrics (all crops over
+        the whole window), the time split, the device's busy share over one
+        batch, and K1 / K2 launches a batch."""
+        import contextlib
+        import copy
+        import tempfile
+
+        import torch
+
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.datasets.loader import DataLoader, stop_workers
+        from probpose_code_torch.engine.runner import Runner
+
+        per_set = 256
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+            stack.callback(stop_workers)  # the fork server outlives a pass
+            _, ann = golden_png_set(tmp)
+            gt = json.loads(ann.read_text())
+            anns, images = gt["annotations"], {im["id"]: im for im in gt["images"]}
+            gt["images"], gt["annotations"], seen = [], [], set()
+            for n in range(per_set):
+                a = copy.deepcopy(anns[n % len(anns)])
+                image_id = 1000 * (n // len(anns)) + a["image_id"]
+                if image_id not in seen:
+                    seen.add(image_id)
+                    gt["images"].append(dict(images[a["image_id"]], id=image_id))
+                a.update(id=n + 1, image_id=image_id)
+                gt["annotations"].append(a)
+            Path(tmp, "val.json").write_text(json.dumps(gt))
+            cfg = Config.fromfile(FLAGSHIP)
+            for i in range(2):
+                cfg.merge_from_dict({f"val_dataloader.dataset.datasets.{i}.data_root": tmp,
+                                     f"val_dataloader.dataset.datasets.{i}.ann_file": "val.json",
+                                     f"val_dataloader.dataset.datasets.{i}.data_prefix": dict(img="imgs/"),
+                                     f"val_evaluator.metrics.{i}.ann_file": str(Path(tmp) / "val.json")})
+            runner = Runner.from_cfg(cfg)
+            loader_cfg = cfg["val_dataloader"]
+            # the main path: counts set to 0 just before, read just after
+            read_counts = reset_counts()
+            metrics = runner.val()
+            torch.cuda.synchronize()
+            launches = read_counts()
+            crops, batches = len(runner.val_dataset), len(runner.val_loader)
+            runs = [dict(runner.val_times)]
+            runner.val()  # once more, with the fork server already started
+            runs.append(dict(runner.val_times))
+            # one batch in this process, for the profile
+            batch = next(iter(DataLoader(runner.val_dataset, loader_cfg["batch_size"], num_workers=0)))
+        for k, t in enumerate(runs):
+            total = t["loader"] + t["device"] + t["process"] + t["evaluate"]
+            print(f"val_flagship run {k + 1}: {crops} crops, {batches} batches of {loader_cfg['batch_size']}, "
+                  f"{loader_cfg['num_workers']} workers (forkserver): {crops / total:.1f} crops/s from the start "
+                  f"of the loader to the metrics ({total:.3f} s); split (s): wait for the first batch "
+                  f"{t['first_batch']:.3f}, later loader waits {t['loader'] - t['first_batch']:.3f}, device "
+                  f"{t['device']:.3f}, attach+process {t['process']:.3f}, evaluate {t['evaluate']:.3f}")
+        per_batch = {k: v / batches for k, v in launches.items()}
+        print(f"val_flagship launches a batch: {json.dumps(per_batch)}")
+        keys = [f"{p}/{k}" for p in ("CropCOCO", "COCO") for k in ("AP", "Ex_AP", "AR", "Ex_AR", "OKS", "Ex_OKS")]
+        missing = [k for k in keys if k not in metrics]
+        if crops != 2 * per_set or missing or not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"val_flagship: {crops} crops, metrics missing {missing} or not finite")
+        if per_batch != PREDICT_LAUNCHES:
+            raise AssertionError(f"expected K1 x12 and K2 x1 a val batch and no other kernel, got {per_batch}")
+
+        def one_batch():
+            preds = runner.model.predict(runner.device_batch(batch)["inputs"])
+            return {k: v.cpu() for k, v in preds.items() if k != "heatmaps"}
+
+        self.profile(one_batch, calls=1, what="val batches (canvas copy and warp, predict, outputs back)")
 
     @staticmethod
     def profile(fn, calls: int, what: str = "flagship calls"):
@@ -1246,7 +1570,13 @@ def main() -> int:
         smoke.phase("k4_parity", smoke.k4_parity)
         smoke.phase("vitpose_predict", smoke.vitpose_predict)
         smoke.phase("vitpose_train", smoke.vitpose_train)
+        smoke.phase("val_full", smoke.val_full)
+        smoke.phase("val_shipped", smoke.val_shipped)
+        smoke.phase("val_flagship", smoke.val_flagship)
         smoke.phase("timings", smoke.timings)
+    left = stop_descendants()
+    if left:
+        print(f"chip_smoke: stopped processes left running: {left}", file=sys.stderr)
     if smoke.failures:
         print(f"chip_smoke: failed phases: {', '.join(smoke.failures)}", file=sys.stderr)
         return 1

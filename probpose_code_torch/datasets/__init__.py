@@ -1,1 +1,10 @@
-"""Dataset meta-information."""
+"""Top-down COCO-style datasets, their val transforms, and the loader."""
+
+from .base_dataset import (  # noqa: F401  (registers the datasets and transforms)
+    BaseCocoStyleDataset,
+    CocoCropDataset,
+    CocoDataset,
+    CombinedDataset,
+    Compose,
+)
+from .loader import DataLoader, collate_pose_samples  # noqa: F401

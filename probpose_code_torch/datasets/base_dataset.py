@@ -1,0 +1,308 @@
+"""COCO-style top-down pose datasets (host side).
+
+The port's own copy of ``probpose_code_tpu/datasets/base_dataset.py``
+(``:26-368``; reference ``base_coco_style_dataset.py`` and
+``dataset_wrappers.py``): ``Compose``, ``BaseCocoStyleDataset`` (annotation
+parsing with the ProbPose ``keypoints_visibility`` (v==2) flag and
+``pad_to_contain``, detector boxes from a ``bbox_file``, the top-down
+organization and filters), ``CocoDataset``, ``CocoCropDataset`` and
+``CombinedDataset``. ``data_mode="bottomup"`` comes with the bottom-up slice.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import os.path as osp
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from probpose_code_torch.registry import DATASETS, TRANSFORMS
+from probpose_code_torch.structures.keypoint import find_min_padding_exact
+
+from . import transforms  # noqa: F401  (registers the transforms)
+from .coco_api import COCO
+from .metainfo import parse_pose_metainfo
+
+
+class Compose:
+    """Sequential transform pipeline; a transform returning None drops the sample."""
+
+    def __init__(self, transforms: Sequence):
+        self.transforms = [TRANSFORMS.build(t) if isinstance(t, dict) else t for t in (transforms or [])]
+
+    def __call__(self, results: dict) -> Optional[dict]:
+        for t in self.transforms:
+            results = t(results)
+            if results is None:
+                return None
+        return results
+
+
+@DATASETS.register_module()
+class BaseCocoStyleDataset:
+    METAINFO: dict = dict(dataset_name="coco")
+
+    def __init__(
+        self,
+        ann_file: str = "",
+        bbox_file: Optional[str] = None,
+        data_mode: str = "topdown",
+        metainfo: Optional[dict] = None,
+        data_root: str = "",
+        data_prefix: dict = dict(img=""),
+        filter_cfg: Optional[dict] = None,
+        pipeline: Sequence = (),
+        test_mode: bool = False,
+        sample_interval: int = 1,
+        **kwargs,
+    ):
+        if data_mode != "topdown":
+            raise NotImplementedError(f"data_mode {data_mode!r}: the port's datasets are top-down only")
+        if bbox_file and not test_mode:
+            raise ValueError("bbox_file requires test_mode")
+        self.ann_file = osp.join(data_root, ann_file) if data_root and not osp.isabs(ann_file) else ann_file
+        self.bbox_file = bbox_file
+        self.data_root = data_root
+        self.data_prefix = {k: osp.join(data_root, v) if data_root and not osp.isabs(v) else v
+                            for k, v in data_prefix.items()}
+        self.filter_cfg = filter_cfg
+        self.test_mode = test_mode
+        self.sample_interval = sample_interval
+
+        raw_metainfo = metainfo if metainfo is not None else self.METAINFO
+        self._metainfo = parse_pose_metainfo(dict(raw_metainfo))
+        self.pipeline = Compose(pipeline)
+
+        self.data_list = self.load_data_list()
+
+    # -- metainfo --------------------------------------------------------
+
+    @property
+    def metainfo(self) -> dict:
+        return self._metainfo
+
+    # -- loading ---------------------------------------------------------
+
+    def load_data_list(self) -> List[dict]:
+        if self.bbox_file:
+            instance_list = self._load_detection_results()
+        else:
+            instance_list = self._load_annotations()
+
+        return self.filter_data(self._get_topdown_data_infos(instance_list))
+
+    def _load_annotations(self):
+        assert osp.exists(self.ann_file), f"Annotation file `{self.ann_file}` does not exist"
+        self.coco = COCO(self.ann_file)
+        if "categories" in self.coco.dataset:
+            self._metainfo["CLASSES"] = self.coco.loadCats(self.coco.getCatIds())
+
+        instance_list: List[dict] = []
+        for img_id in self.coco.getImgIds():
+            if img_id % self.sample_interval != 0:
+                continue
+            img = dict(self.coco.loadImgs(img_id)[0])
+            img["img_id"] = img_id
+            img["img_path"] = osp.join(self.data_prefix["img"], img["file_name"])
+
+            for ann in self.coco.loadAnns(self.coco.getAnnIds(imgIds=img_id)):
+                info = self.parse_data_info(dict(raw_ann_info=ann, raw_img_info=img))
+                if info is not None:
+                    instance_list.append(info)
+        return instance_list
+
+    def parse_data_info(self, raw_data_info: dict) -> Optional[dict]:
+        ann = raw_data_info["raw_ann_info"]
+        img = raw_data_info["raw_img_info"]
+        if "bbox" not in ann or "keypoints" not in ann:
+            return None
+
+        img_w, img_h = img["width"], img["height"]
+        x, y, w, h = ann["bbox"]
+        x1 = np.clip(x, 0, img_w - 1)
+        y1 = np.clip(y, 0, img_h - 1)
+        x2 = np.clip(x + w, 0, img_w - 1)
+        y2 = np.clip(y + h, 0, img_h - 1)
+        bbox = np.array([x1, y1, x2, y2], dtype=np.float32).reshape(1, 4)
+
+        _keypoints = np.array(ann["keypoints"], dtype=np.float32).reshape(1, -1, 3)
+        keypoints = _keypoints[..., :2]
+        # visibility semantics: 'keypoints_visible' = annotated (v>0);
+        # 'keypoints_visibility' = actually visible (v==2) — ProbPose flag
+        keypoints_visibility = (_keypoints[..., 2] == 2).astype(np.float32)
+        keypoints_visible = np.minimum(1, _keypoints[..., 2])
+
+        num_keypoints = ann.get("num_keypoints", int(np.count_nonzero(keypoints.max(axis=2))))
+
+        if "area" in ann:
+            area = np.array(ann["area"], dtype=np.float32)
+        else:
+            area = np.array(np.clip((x2 - x1) * (y2 - y1) * 0.53, 1.0, None), dtype=np.float32)
+
+        pad_to_contain = ann.get("pad_to_contain")
+        if pad_to_contain is None:
+            pad_to_contain = find_min_padding_exact(bbox, _keypoints.reshape(-1, 3))
+
+        data_info = {
+            "img_id": ann["image_id"],
+            "img_path": img["img_path"],
+            "bbox": bbox,
+            "bbox_score": np.ones(1, dtype=np.float32),
+            "num_keypoints": num_keypoints,
+            "keypoints": keypoints,
+            "keypoints_visible": keypoints_visible,
+            "keypoints_visibility": keypoints_visibility,
+            "pad_to_contain": pad_to_contain,
+            "area": area,
+            "iscrowd": ann.get("iscrowd", 0),
+            "segmentation": ann.get("segmentation", None),
+            "id": ann["id"],
+            "category_id": np.array(ann["category_id"]),
+            "raw_ann_info": copy.deepcopy(ann),
+            "source_dataset": self._metainfo["dataset_name"],
+        }
+        if "crowdIndex" in img:
+            data_info["crowd_index"] = img["crowdIndex"]
+        return data_info
+
+    def _load_detection_results(self) -> List[dict]:
+        """Load detector bboxes (reference :430) for topdown test."""
+        assert osp.exists(self.bbox_file), f"bbox file {self.bbox_file} missing"
+        self.coco = COCO(self.ann_file)
+        with open(self.bbox_file) as f:
+            det_results = json.load(f)
+
+        num_keypoints = self._metainfo["num_keypoints"]
+        instance_list = []
+        id_ = 0
+        for det in det_results:
+            if det.get("category_id", 1) != 1:
+                continue
+            img = dict(self.coco.loadImgs(det["image_id"])[0])
+            img_path = osp.join(self.data_prefix["img"], img["file_name"])
+            x, y, w, h = det["bbox"]
+            bbox = np.array([x, y, x + w, y + h], dtype=np.float32).reshape(1, 4)
+            instance_list.append(
+                {
+                    "img_id": det["image_id"],
+                    "img_path": img_path,
+                    "img_shape": (img["height"], img["width"]),
+                    "bbox": bbox,
+                    "bbox_score": np.array([det["score"]], dtype=np.float32),
+                    "keypoints": np.zeros((1, num_keypoints, 2), dtype=np.float32),
+                    "keypoints_visible": np.zeros((1, num_keypoints), dtype=np.float32),
+                    "keypoints_visibility": np.zeros((1, num_keypoints), dtype=np.float32),
+                    "pad_to_contain": np.full(num_keypoints, -1.0),
+                    "id": id_,
+                }
+            )
+            id_ += 1
+        return instance_list
+
+    # -- organization ----------------------------------------------------
+
+    @staticmethod
+    def _is_valid_instance(data_info: Dict) -> bool:
+        if data_info.get("iscrowd", 0):
+            return False
+        if data_info.get("num_keypoints", 1) == 0:
+            return False
+        if "bbox" in data_info:
+            bbox = data_info["bbox"][0]
+            w, h = bbox[2:4] - bbox[:2]
+            if w <= 0 or h <= 0:
+                return False
+        if "keypoints" in data_info and np.max(data_info["keypoints"]) <= 0:
+            return False
+        return True
+
+    def _get_topdown_data_infos(self, instance_list: List[Dict]) -> List[Dict]:
+        if self.bbox_file:
+            return instance_list  # detection results: no gt-validity filtering
+        return [d for d in instance_list if self._is_valid_instance(d)]
+
+    def filter_data(self, data_list: List[Dict]) -> List[Dict]:
+        if not self.filter_cfg or self.test_mode:
+            return data_list
+        min_kpt = self.filter_cfg.get("min_keypoints", 0)
+        if min_kpt:
+            data_list = [d for d in data_list if d.get("num_keypoints", min_kpt) >= min_kpt]
+        return data_list
+
+    # -- access ----------------------------------------------------------
+
+    def __len__(self) -> int:
+        return len(self.data_list)
+
+    def get_data_info(self, idx: int) -> dict:
+        info = copy.deepcopy(self.data_list[idx])
+        info["upper_body_ids"] = self._metainfo["upper_body_ids"]
+        info["lower_body_ids"] = self._metainfo["lower_body_ids"]
+        info["flip_pairs"] = self._metainfo["flip_pairs"]
+        info["flip_indices"] = self._metainfo["flip_indices"]
+        info["dataset_keypoint_weights"] = self._metainfo["dataset_keypoint_weights"]
+        info["skeleton_links"] = self._metainfo["skeleton_links"]
+        info["dataset_name"] = self._metainfo["dataset_name"]
+        return info
+
+    def __getitem__(self, idx: int) -> Optional[dict]:
+        return self.prepare_data(idx)
+
+    def prepare_data(self, idx: int) -> Optional[dict]:
+        return self.pipeline(self.get_data_info(idx))
+
+
+@DATASETS.register_module()
+class CocoDataset(BaseCocoStyleDataset):
+    METAINFO: dict = dict(dataset_name="coco")
+
+
+@DATASETS.register_module()
+class CocoCropDataset(BaseCocoStyleDataset):
+    """CropCOCO — the ProbPose cropped-COCO OOI benchmark
+    (reference ``datasets/body/cococrop_dataset.py:7``)."""
+
+    METAINFO: dict = dict(dataset_name="coco_crop")
+
+
+@DATASETS.register_module()
+class CombinedDataset:
+    """Concatenation of sub-datasets under a shared pipeline (reference
+    ``dataset_wrappers.py``). The JAX class's ``sample_ratio_factor``
+    (resampling for training mixes) is set by no config and not ported."""
+
+    def __init__(self, metainfo: dict, datasets: Sequence[dict], pipeline: Sequence = (), test_mode: bool = False,
+                 **kwargs):
+        self.datasets = [DATASETS.build(d) for d in datasets]
+        self._lens = [len(d) for d in self.datasets]
+        self._metainfo = parse_pose_metainfo(dict(metainfo))
+        self.pipeline = Compose(pipeline)
+        self.test_mode = test_mode
+
+    @property
+    def metainfo(self) -> dict:
+        return self._metainfo
+
+    def __len__(self) -> int:
+        return sum(self._lens)
+
+    def _map_index(self, index: int):
+        for i, n in enumerate(self._lens):
+            if index < n:
+                return i, index
+            index -= n
+        raise IndexError(index)
+
+    def get_data_info(self, idx: int) -> dict:
+        ds_idx, sample_idx = self._map_index(idx)
+        info = self.datasets[ds_idx].get_data_info(sample_idx)
+        # shared metainfo keys override per-sub-dataset values (reference)
+        for key in ("upper_body_ids", "lower_body_ids", "flip_pairs", "flip_indices",
+                    "dataset_keypoint_weights", "skeleton_links"):
+            info[key] = self._metainfo[key]
+        return info
+
+    def __getitem__(self, idx: int) -> Optional[dict]:
+        return self.pipeline(self.get_data_info(idx))

@@ -1,7 +1,8 @@
 """Dataset meta-information: keypoint definitions, flip pairs, OKS sigmas.
 
-The port's own copy of ``probpose_code_tpu/datasets/metainfo`` for COCO:
-``parse_pose_metainfo`` (``__init__.py:65``) over the COCO table.
+The port's own copy of ``probpose_code_tpu/datasets/metainfo`` for COCO and
+CropCOCO (``coco_crop.py``: COCO's table under another name):
+``parse_pose_metainfo`` (``__init__.py:65``) over those tables.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ import numpy as np
 
 from .coco import COCO_METAINFO
 
-DATASET_METAINFO = {"coco": COCO_METAINFO}
+DATASET_METAINFO = {"coco": COCO_METAINFO, "coco_crop": {**COCO_METAINFO, "dataset_name": "coco_crop"}}
 
 
 def parse_pose_metainfo(metainfo: dict) -> dict:

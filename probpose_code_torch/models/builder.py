@@ -24,6 +24,7 @@ from probpose_code_torch.ops.encode import (
     generate_udp_gaussian_device,
     probmap_encode_scales,
 )
+from probpose_code_torch.ops.warp import warp_affine_batch
 from probpose_code_torch.registry import MODELS
 
 from . import losses  # noqa: F401  (registers)
@@ -242,19 +243,27 @@ class PoseModel:
         return self.make_predict()(images)
 
     def device_preprocess_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        """The device half of the input pipeline: a batch that carries
-        heatmap-space keypoints (``kpts_hm`` (B, K, 2), ``kpts_visible``
-        (B, K)) instead of target maps gets its maps encoded here, on the
-        batch's device: UDP gaussians for the UDPHeatmap codec, expected-OKS
-        maps for the ProbMap family (``builder.py:392-404``)."""
-        if {"canvas", "canvas_sep"} & set(batch):
-            raise NotImplementedError("the device warp of canvas batches is not ported yet")
+        """The device half of the input pipeline, on the batch's device
+        (``builder.py:363-404``). A canvas batch (``canvas`` / ``warp_mat``
+        from ``TopdownAffine``'s canvas form) is warped into ``inputs`` by
+        the gather and rounded to uint8 values as the JAX pipeline's host
+        warp (cv2.warpAffine) gives them, since the canvas form is the
+        port's only crop. A batch that
+        carries heatmap-space keypoints (``kpts_hm`` (B, K, 2),
+        ``kpts_visible`` (B, K)) instead of target maps gets its maps
+        encoded: UDP gaussians for the UDPHeatmap codec, expected-OKS maps
+        for the ProbMap family."""
+        if not {"canvas", "kpts_hm"} & set(batch):
+            return batch
+        batch = dict(batch)
+        if "canvas" in batch:
+            crops = warp_affine_batch(batch.pop("canvas"), batch.pop("warp_mat"), self.input_size)
+            batch["inputs"] = crops.round().clamp(0, 255)
         if "kpts_hm" not in batch or "heatmaps" in batch:
             return batch
         dc = self.decoder_cfg
         if dc.get("type", "ProbMap") not in ("ProbMap", "ArgMaxProbMap", "UDPHeatmap"):
             raise NotImplementedError(f"device encode for the {dc.get('type')} codec is not ported yet")
-        batch = dict(batch)
         kpts = batch.pop("kpts_hm")
         vis = batch.pop("kpts_visible")
         hm_size = tuple(dc.get("heatmap_size", (48, 64)))

@@ -74,8 +74,14 @@ def build(names: Iterable[str]) -> List[Path]:
     names = list(names)
     with _lock:
         started = [_start(n) for n in names]
-        for s, out in started:
-            _finish(s, out)
+        errors = []
+        for s, out in started:  # every nvcc is waited for, then the first failure raises
+            try:
+                _finish(s, out)
+            except RuntimeError as e:
+                errors.append(e)
+        if errors:
+            raise errors[0]
     return [out for _, out in started]
 
 

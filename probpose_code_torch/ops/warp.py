@@ -1,9 +1,12 @@
 """Batched affine crop-warp on the device (replaces cv2.warpAffine).
 
 Port of ``probpose_code_tpu/ops/warp.py``: ``invert_affine`` (``:21``) and
-``warp_affine_batch`` (``:37``). Bilinear sampling with a constant zero
-border, as cv2.warpAffine's defaults; ``mats`` map source -> crop (the UDP
-warp matrices) and sampling uses their inverse.
+``warp_affine_batch`` (``:37``). Its ``warp_affine_separable`` (``:100``),
+two banded products for rotation-free crops, exists because a TPU runs a
+gather on its scalar unit; it is not ported, and every crop takes the gather.
+Bilinear sampling with a constant zero border, as cv2.warpAffine's
+defaults; ``mats`` map source -> crop (the UDP warp matrices) and sampling
+uses their inverse.
 """
 
 from __future__ import annotations

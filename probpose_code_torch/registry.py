@@ -77,6 +77,11 @@ class Registry:
         return cls(**kwargs)
 
 
-# The port builds models only; codecs, datasets and the rest come with later
+# The port builds models, the top-down datasets and their val transforms,
+# and the COCO metric and evaluators; codecs and the rest come with later
 # slices.
 MODELS = Registry("models")
+DATASETS = Registry("datasets")
+TRANSFORMS = Registry("transforms")
+METRICS = Registry("metrics")
+EVALUATORS = Registry("evaluators")

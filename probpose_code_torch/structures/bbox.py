@@ -1,7 +1,8 @@
 """Bounding-box geometry for the top-down crop (NumPy, host side).
 
 The port's own copy of the parts of ``probpose_code_tpu/structures/bbox.py``
-that the predict path needs: ``bbox_xywh2xyxy``, ``bbox_xyxy2cs``, the UDP
+that the predict and evaluation paths need: ``bbox_xywh2xyxy``,
+``bbox_xyxy2xywh``, ``bbox_xyxy2cs``, the UDP
 warp matrix (``get_udp_warp_matrix``, ``:123``; reference
 ``bbox/transforms.py:315-360``) and the standard one (``get_warp_matrix``,
 ``:198``; reference ``bbox/transforms.py:362``), for ``TopdownAffine`` with
@@ -19,6 +20,13 @@ def bbox_xywh2xyxy(bbox_xywh: np.ndarray) -> np.ndarray:
     out = bbox_xywh.copy()
     out[..., 2] = out[..., 2] + out[..., 0]
     out[..., 3] = out[..., 3] + out[..., 1]
+    return out
+
+
+def bbox_xyxy2xywh(bbox_xyxy: np.ndarray) -> np.ndarray:
+    out = bbox_xyxy.copy()
+    out[..., 2] = out[..., 2] - out[..., 0]
+    out[..., 3] = out[..., 3] - out[..., 1]
     return out
 
 

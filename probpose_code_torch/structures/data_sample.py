@@ -43,11 +43,23 @@ class ElementData:
         else:
             self._fields[name] = value
 
+    def __contains__(self, name: str) -> bool:
+        return name in self._fields or name in self._metainfo
+
     def __getitem__(self, name: str):
         return getattr(self, name)
 
+    def get(self, name: str, default: Any = None) -> Any:
+        try:
+            return getattr(self, name)
+        except AttributeError:
+            return default
+
     def set_field(self, value: Any, name: str) -> None:
         setattr(self, name, value)
+
+    def keys(self):
+        return self._fields.keys()
 
     def items(self):
         return self._fields.items()

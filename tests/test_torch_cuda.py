@@ -10,7 +10,10 @@ tiles, head widths of 8 and above 128, maps whose filter needs more than
 48 KB of shared memory, maps whose sides are no multiple of K2's strip, a
 filter radius equal to the shorter side, a tap count that runs K2's
 runtime-D instance, flat maps and equal peaks whose argmax is a tie, and
-all-NaN maps; K1 and K3
+all-NaN maps; the val path (``Runner.val`` over the golden tiny fixture's
+PNG files with two worker processes started after CUDA, canvases warped on
+the card as on the CPU; ``python -m
+probpose_code_torch.tools.test`` without ``--device``, on the card); K1 and K3
 forward and backward at those shapes and at the flagship layer's widths,
 with and without stochastic-depth masks; in bf16 and f32 also MLP widths
 that are not a multiple of 8, keys streamed through shared memory and the
@@ -22,6 +25,9 @@ and keys beyond the one-pass instance (two passes, streamed); and one
 ViTPose-B-simple train step, whose twelve layers run K4 and not K3.
 Bars are ``chip_smoke.py``'s, with its reasons.
 """
+
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -41,8 +47,11 @@ from chip_smoke import (
     K3_F32_FWD,
     K3_F32_GRAD,
     TINY_CFG,
+    KeepSamples,
     golden_errors,
+    golden_png_set,
     golden_samples,
+    golden_val_cfg,
     k3_errors,
     kernel_counters,
     layer_inputs,
@@ -172,6 +181,48 @@ def test_golden_fixture_on_the_card(card):
     err, aux = golden_errors(*golden_samples(model))
     assert np.percentile(err, 99) < 1.0 and err.max() < 5.0
     assert max(aux.values()) < 2e-3
+
+
+def test_val_path_on_the_card(card, tmp_path):
+    from probpose_code_torch.datasets.loader import DataLoader, stop_workers
+    from probpose_code_torch.engine.checkpoint import load_checkpoint
+    from probpose_code_torch.engine.runner import Runner
+
+    data, ann = golden_png_set(tmp_path)
+    runner = Runner.from_cfg(golden_val_cfg(TINY_CFG["model"], ann, batch_size=16, num_workers=2))
+    load_checkpoint(runner.model, str(GOLDEN / "e2e_weights.pth"))
+    evaluator = KeepSamples(runner.build_evaluator())
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    try:
+        metrics = runner.val(evaluator)
+    finally:
+        stop_workers()
+    assert counters["vit_layer"].launches == 2 * 4 and counters["expected_oks"].launches == 4
+    err, aux = golden_errors(data, evaluator.samples)
+    assert len(evaluator.samples) == 62 and np.percentile(err, 99) < 1.0 and max(aux.values()) < 2e-3
+    assert abs(metrics["coco/AP"] - data["stats"][0]) < 0.01 and abs(metrics["coco/Ex_AP"] - data["Ex_stats"][0]) < 0.01
+
+    batch = next(iter(DataLoader(runner.val_dataset, 16, num_workers=0)))
+    arrays = {k: torch.from_numpy(v) for k, v in batch.items() if isinstance(v, np.ndarray)}
+    want = runner.model.device_preprocess_batch(arrays)["inputs"]
+    got = runner.model.device_preprocess_batch({k: v.cuda() for k, v in arrays.items()})["inputs"]
+    assert got.is_cuda and (got.cpu() - want).abs().max() <= 1.0
+
+
+def test_cli_on_the_card(card, tmp_path):
+    data, ann = golden_png_set(tmp_path)
+    cfg = golden_val_cfg(TINY_CFG["model"], ann, batch_size=32, num_workers=2)
+    (tmp_path / "cfg.py").write_text("".join(f"{k} = {v!r}\n" for k, v in cfg.items()))
+    out = subprocess.run(
+        [sys.executable, "-m", "probpose_code_torch.tools.test", str(tmp_path / "cfg.py"), str(GOLDEN / "e2e_weights.pth")],
+        cwd=GOLDEN.parents[1], capture_output=True, text=True, timeout=600,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    printed = dict(line.rsplit(": ", 1) for line in out.stdout.splitlines() if line.startswith("coco/"))
+    assert abs(float(printed["coco/AP"]) - data["stats"][0]) < 0.01
+    assert abs(float(printed["coco/Ex_AP"]) - data["Ex_stats"][0]) < 0.01
 
 
 @pytest.mark.parametrize("B,N,C,H,F", LAYER_SHAPES)

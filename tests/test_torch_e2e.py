@@ -5,7 +5,8 @@
 bars of ``tests/test_apis/test_e2e_parity.py:121-158``: keypoint error
 p99 < 1 px and max < 5 px against the reference decode, the aux fields
 within atol 2e-3, and COCO AP and Ex-OKS AP within 0.01 of the reference,
-scored with the JAX package's ``CocoMetric``. On the CPU every ViT layer goes
+scored with the port's own ``CocoMetric`` (``tests/test_torch_coco_metric.py``
+holds it equal to the JAX package's). On the CPU every ViT layer goes
 through K1's wrapper to its plain twin, and the decode through K2's.
 """
 
@@ -43,8 +44,8 @@ def test_keypoints_and_aux_fields(run):
 
 
 def test_coco_ap(run):
-    from probpose_code_tpu.datasets.metainfo import parse_pose_metainfo
-    from probpose_code_tpu.evaluation import CocoMetric
+    from probpose_code_torch.datasets.metainfo import parse_pose_metainfo
+    from probpose_code_torch.evaluation import CocoMetric
 
     data, samples = run
     metric = CocoMetric(

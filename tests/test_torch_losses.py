@@ -220,7 +220,11 @@ def test_generate_probmaps_device():
 
 def test_device_preprocess_batch_encodes_targets():
     """A batch with heatmap-space keypoints gets the maps the JAX builder
-    makes; a batch that already has maps passes through."""
+    makes; a batch that already has maps passes through; a canvas batch
+    gets the crops the JAX builder warps (by its gather, or by its banded
+    products for rotation-free ``canvas_sep``), rounded to uint8 values
+    (within one unit: the two sides' float sums may round a value at a half
+    to either neighbour)."""
     from probpose_code_tpu.models import PoseModel as JaxPoseModel
     from tests.test_models.test_probpose_model import TINY_PROBPOSE_CFG
 
@@ -234,5 +238,12 @@ def test_device_preprocess_batch_encodes_targets():
     close(got["heatmaps"], want["heatmaps"])
     batch = dict(heatmaps=torch.zeros(1))
     assert model.device_preprocess_batch(batch) is batch
-    with pytest.raises(NotImplementedError):
-        model.device_preprocess_batch(dict(canvas=torch.zeros(1)))
+    canvas = rng.randint(0, 256, (2, 40, 36, 3)).astype(np.uint8)
+    mats = np.array([[[1.3, 0.0, -4.0], [0.0, 1.1, 2.5]], [[0.8, 0.0, 3.0], [0.0, 0.9, -1.0]]], np.float32)
+    for suffix in ("", "_sep"):
+        want = JaxPoseModel(TINY_PROBPOSE_CFG).device_preprocess_batch(
+            {"canvas" + suffix: jnp.asarray(canvas), "warp_mat" + suffix: jnp.asarray(mats)})
+        got = model.device_preprocess_batch(dict(canvas=torch.from_numpy(canvas), warp_mat=torch.from_numpy(mats)))
+        assert set(got) == set(want) == {"inputs"}
+        assert torch.equal(got["inputs"], got["inputs"].round())
+        np.testing.assert_allclose(got["inputs"].numpy(), np.asarray(want["inputs"]).round().clip(0, 255), atol=1.0)
