@@ -57,7 +57,18 @@ card and the CUDA toolkit (nvcc); it builds the port's kernels from
    time split (first batch, later loader waits, device, evaluate), the
    device's busy share over one batch, K1 and K2 launches a batch, and
    every metric key present and finite;
-15. ``timings``: each kernel's time beside its plain twin's, a PyTorch
+15. ``train_flagship``: the flagship's training entry point at full width,
+   the main of ``python -m probpose_code_torch.tools.train`` on the flagship
+   config file (random weights, seed 0) with its own train pipeline, loader
+   (batch 64, four workers), optimizer, schedules and hooks, over the golden
+   PNGs with the train annotations copied to 256 instances and
+   ``val_flagship``'s val sets: two epochs (a checkpoint each, val after the
+   second), then a third resumed by ``--resume``; K3 x12 forward and
+   backward a step and K1 x12 and K2 x1 a val batch, the first step's loss
+   dict against ``make_train_step``'s, ``epoch_2.pth`` against the live
+   weights bitwise, the resumed state; train crops/s an epoch with the
+   runner's time split, and one step profiled inside the runner;
+16. ``timings``: each kernel's time beside its plain twin's, a PyTorch
    library call's where one computes the same function, and its bound from
    this run's shapes; K1 also at the ViT-B predict shape (f32), K4 also at
    the ProbPose-S shape in bf16. For K1 (bf16 and f32) and K3 (forward,
@@ -137,6 +148,11 @@ PREDICT_LAUNCHES = dict(vit_layer=12, expected_oks=1, oks_convolve=0, vit_layer_
 K2_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 K3_NAMES = ("out", "dx", "ln1_scale", "ln1_bias", "w_qkv", "b_qkv", "w_proj", "b_proj",
             "ln2_scale", "ln2_bias", "w_fc1", "b_fc1", "w_fc2", "b_fc2")
+# ``train_flagship``: the first step's loss dict through Runner.train against
+# make_train_step on the same batch, weights and generator seed. Both run the
+# same kernels on the same inputs (K3 and the head are deterministic), so
+# the bar only leaves room for a reduction that cuDNN orders differently.
+TRAIN_FLAGSHIP_REL = 1e-5
 # COCO train2017 person instances with keypoints over the recipe's batch of 64
 STEPS_PER_EPOCH = 149813 // 64
 
@@ -378,6 +394,14 @@ VAL_PIPELINE = [
     dict(type="LoadImage"), dict(type="GetBBoxCenterScale"),
     dict(type="TopdownAffine", input_size=(192, 256), use_udp=True, input_padding=1.25), dict(type="PackPoseInputs"),
 ]
+# the flagship's train pipeline (its config's ``train_pipeline``)
+TRAIN_PIPELINE = [
+    dict(type="LoadImage"), dict(type="GetBBoxCenterScale"), dict(type="RandomFlip", direction="horizontal"),
+    dict(type="RandomHalfBody"), dict(type="RandomBBoxTransform"),
+    dict(type="TopdownAffine", input_size=(192, 256), use_udp=True, input_padding=1.25),
+    dict(type="GenerateTarget", encoder=dict(type="ProbMap", input_size=(192, 256), heatmap_size=(48, 64), sigma=-1)),
+    dict(type="PackPoseInputs"),
+]
 # the flagship's CocoMetric settings (its config's val_evaluator)
 COCO_METRIC = dict(type="CocoMetric", extended=[False, True], match_by_bbox=[False, False],
                    ignore_border_points=[False, False], padding=1.25, score_thresh_type="prob",
@@ -395,6 +419,122 @@ def golden_val_cfg(model_cfg, ann_file, batch_size=64, num_workers=0):
             test_mode=True, pipeline=VAL_PIPELINE)),
         val_evaluator=dict(COCO_METRIC, ann_file=str(ann_file)),
     )
+
+
+def copy_instances(ann_file, n, out_file):
+    """The annotations of ``ann_file`` copied round-robin to ``n``
+    instances (each copy of an image under a new image id, the files
+    shared), written to ``out_file``."""
+    import copy
+
+    gt = json.loads(Path(ann_file).read_text())
+    anns, images = gt["annotations"], {im["id"]: im for im in gt["images"]}
+    gt["images"], gt["annotations"], seen = [], [], set()
+    for k in range(n):
+        a = copy.deepcopy(anns[k % len(anns)])
+        image_id = 1000 * (k // len(anns)) + a["image_id"]
+        if image_id not in seen:
+            seen.add(image_id)
+            gt["images"].append(dict(images[a["image_id"]], id=image_id))
+        a.update(id=k + 1, image_id=image_id)
+        gt["annotations"].append(a)
+    Path(out_file).write_text(json.dumps(gt))
+
+
+def flagship_data_options(root, train_json=None):
+    """``--cfg-options`` items that point the flagship config's val sets
+    (CropCOCO and COCO, both ``root/val.json``) and, given ``train_json``,
+    its train set at a ``golden_png_set`` under ``root``."""
+    options = []
+    for i in range(2):
+        options += [f"val_dataloader.dataset.datasets.{i}.data_root={root}",
+                    f"val_dataloader.dataset.datasets.{i}.ann_file=val.json",
+                    f"val_dataloader.dataset.datasets.{i}.data_prefix.img=imgs/",
+                    f"val_evaluator.metrics.{i}.ann_file={Path(root) / 'val.json'}"]
+    if train_json:
+        options += [f"train_dataloader.dataset.data_root={root}", f"train_dataloader.dataset.ann_file={train_json}",
+                    "train_dataloader.dataset.data_prefix.img=imgs/"]
+    return options
+
+
+def mini_coco_set(root):
+    """A small COCO-style person set made from seed 0, for training on the
+    CPU: 6 smooth PNG images of about 160-220 x 140-200 pixels under
+    ``root/imgs``, 2 persons each with a box and 17
+    keypoints (some outside the box or the image, some unannotated; COCO's
+    v = 0 / 1 / 2), in ``root/ann.json``. Returns the annotation path."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    root = Path(root)
+    (root / "imgs").mkdir(parents=True, exist_ok=True)
+    gt = dict(images=[], annotations=[], categories=[dict(id=1, name="person", keypoints=[str(k) for k in range(17)],
+                                                          skeleton=[])])
+    for i in range(1, 7):
+        w, h = int(rng.randint(160, 221)), int(rng.randint(140, 201))
+        yy, xx = np.mgrid[:h, :w].astype(np.float64)
+        img = 127.5 + 60 * np.sin(xx[..., None] / rng.uniform(6, 14, 3) + yy[..., None] / rng.uniform(8, 16, 3))
+        img = np.clip(img + rng.uniform(-20, 20, (h, w, 3)) + 30 * np.cos(yy / 23)[..., None], 0, 255).astype(np.uint8)
+        write_png(root / "imgs" / f"{i}.png", img)
+        gt["images"].append(dict(id=i, file_name=f"{i}.png", width=w, height=h))
+        for _ in range(2):
+            x0, y0 = rng.uniform(2, w * 0.45), rng.uniform(2, h * 0.35)
+            bw, bh = rng.uniform(w * 0.25, w * 0.5), rng.uniform(h * 0.35, h * 0.6)
+            kx = rng.uniform(x0 - 0.1 * bw, x0 + 1.15 * bw, 17)
+            ky = rng.uniform(y0 - 0.1 * bh, y0 + 1.3 * bh, 17)
+            v = rng.choice([0, 1, 2], 17, p=[0.15, 0.25, 0.6])
+            kpts = np.stack([np.where(v > 0, kx, 0), np.where(v > 0, ky, 0), v], axis=1)
+            gt["annotations"].append(dict(
+                id=len(gt["annotations"]) + 1, image_id=i, category_id=1, keypoints=kpts.reshape(-1).tolist(),
+                num_keypoints=int((v > 0).sum()), bbox=[x0, y0, bw, bh], area=bw * bh, iscrowd=0))
+    (root / "ann.json").write_text(json.dumps(gt))
+    return root / "ann.json"
+
+
+def tiny_train_cfg(ann_file, batch_size, num_workers=0, approximate_gelu=False):
+    """A train config over a ``mini_coco_set``: the tiny model at f32 with
+    the flagship head's losses and drop_path 0, the flagship's train
+    pipeline, optimizer and schedules (layer decay over 2 layers), the
+    val pipeline and CocoMetric over the same set, a checkpoint and a
+    validation every epoch with the best by ``coco/AP``, a log line every
+    step, and one device for the JAX package's mesh."""
+    import copy
+
+    root = Path(ann_file).parent
+    flagship = json.loads(json.dumps(_flagship_train_parts()))
+    model = copy.deepcopy(TINY_CFG["model"])
+    model["backbone"]["drop_path_rate"] = 0.0
+    if approximate_gelu:
+        model["backbone"]["approximate_gelu"] = True
+    model["head"].update(flagship["head_losses"])
+    dataset = dict(type="CocoDataset", data_root=str(root), ann_file=Path(ann_file).name,
+                   data_prefix=dict(img="imgs/"))
+    flagship["optim_wrapper"]["paramwise_cfg"]["num_layers"] = 2
+    return dict(
+        model=model,
+        train_dataloader=dict(batch_size=batch_size, num_workers=num_workers,
+                              sampler=dict(type="DefaultSampler", shuffle=True),
+                              dataset=dict(dataset, test_mode=False, pipeline=TRAIN_PIPELINE)),
+        val_dataloader=dict(batch_size=16, num_workers=0, dataset=dict(dataset, test_mode=True, pipeline=VAL_PIPELINE)),
+        val_evaluator=dict(COCO_METRIC, ann_file=str(ann_file)),
+        optim_wrapper=flagship["optim_wrapper"], param_scheduler=flagship["param_scheduler"],
+        train_cfg=dict(max_epochs=2, val_interval=1),
+        default_hooks=dict(checkpoint=dict(interval=1, save_best="coco/AP", rule="greater"), logger=dict(interval=1)),
+        custom_hooks=[dict(type="SyncBuffersHook")],
+        visualizer=dict(vis_backends=[dict(type="LocalVisBackend")]),
+        env_cfg=dict(mesh=dict(data=1, model=1)),
+    )
+
+
+def _flagship_train_parts():
+    """The flagship config's head losses, optimizer and schedules."""
+    from probpose_code_torch.config import Config
+
+    cfg = Config.fromfile(FLAGSHIP)
+    keys = ("keypoint_loss", "probability_loss", "visibility_loss", "oks_loss", "error_loss", "detach_probability",
+            "detach_visibility", "freeze_error", "freeze_oks")
+    return dict(head_losses={k: cfg["model"]["head"][k] for k in keys}, optim_wrapper=cfg["optim_wrapper"],
+                param_scheduler=cfg["param_scheduler"])
 
 
 class KeepSamples:
@@ -1017,12 +1157,11 @@ class Smoke:
         the whole window), the time split, the device's busy share over one
         batch, and K1 / K2 launches a batch."""
         import contextlib
-        import copy
         import tempfile
 
         import torch
 
-        from probpose_code_torch.config import Config
+        from probpose_code_torch.config import Config, parse_cfg_option
         from probpose_code_torch.datasets.loader import DataLoader, stop_workers
         from probpose_code_torch.engine.runner import Runner
 
@@ -1030,24 +1169,9 @@ class Smoke:
         with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
             stack.callback(stop_workers)  # the fork server outlives a pass
             _, ann = golden_png_set(tmp)
-            gt = json.loads(ann.read_text())
-            anns, images = gt["annotations"], {im["id"]: im for im in gt["images"]}
-            gt["images"], gt["annotations"], seen = [], [], set()
-            for n in range(per_set):
-                a = copy.deepcopy(anns[n % len(anns)])
-                image_id = 1000 * (n // len(anns)) + a["image_id"]
-                if image_id not in seen:
-                    seen.add(image_id)
-                    gt["images"].append(dict(images[a["image_id"]], id=image_id))
-                a.update(id=n + 1, image_id=image_id)
-                gt["annotations"].append(a)
-            Path(tmp, "val.json").write_text(json.dumps(gt))
+            copy_instances(ann, per_set, Path(tmp, "val.json"))
             cfg = Config.fromfile(FLAGSHIP)
-            for i in range(2):
-                cfg.merge_from_dict({f"val_dataloader.dataset.datasets.{i}.data_root": tmp,
-                                     f"val_dataloader.dataset.datasets.{i}.ann_file": "val.json",
-                                     f"val_dataloader.dataset.datasets.{i}.data_prefix": dict(img="imgs/"),
-                                     f"val_evaluator.metrics.{i}.ann_file": str(Path(tmp) / "val.json")})
+            cfg.merge_from_dict(dict(parse_cfg_option(kv) for kv in flagship_data_options(tmp)))
             runner = Runner.from_cfg(cfg)
             loader_cfg = cfg["val_dataloader"]
             # the main path: counts set to 0 just before, read just after
@@ -1083,13 +1207,205 @@ class Smoke:
 
         self.profile(one_batch, calls=1, what="val batches (canvas copy and warp, predict, outputs back)")
 
+    def train_flagship(self):
+        """The flagship's training entry point at full width: the main of
+        ``python -m probpose_code_torch.tools.train`` on the flagship config
+        file (random weights, seed 0) with its own train pipeline, loader
+        (batch 64, four workers, shuffled), optimizer, schedules, checkpoint
+        hook (best by ``COCO/AP``), ``SyncBuffersHook`` and evaluator, its
+        data roots pointed at the golden PNGs: the train set's 62
+        annotations copied to 256 instances (4 steps an epoch), the val sets
+        ``val_flagship``'s 2 x 256. Two epochs with a checkpoint each and val
+        after the second, then a third resumed by ``--resume``. Fails unless
+        8 steps run; ``epoch_1.pth``, ``epoch_2.pth`` and ``best.pth`` are
+        written; every ``COCO/*`` and ``CropCOCO/*`` metric is present and
+        finite; each step launches K3 x12 forward and x12 backward and no
+        other kernel, each val batch K1 x12 and K2 x1; the first step's loss
+        dict equals ``make_train_step``'s on the same batch from the same
+        weights and generator seed (``TRAIN_FLAGSHIP_REL``); ``epoch_2.pth``
+        in a fresh model equals the live weights bitwise; the resumed run
+        starts at epoch 2, step 8, with the saved Adam moments, and ends at
+        step 12 with ``lr == lr_fn(12)``. Prints each epoch's train crops/s
+        (from the start of its loader to its last step) with the
+        ``train_times`` split, the val inside training, and the device's busy
+        share over one step profiled inside the runner."""
+        import contextlib
+        import tempfile
+
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from probpose_code_torch.datasets.loader import stop_workers
+        from probpose_code_torch.engine.checkpoint import load_checkpoint, read_checkpoint
+        from probpose_code_torch.engine.hooks import Hook
+        from probpose_code_torch.engine.optim import build_optimizer
+        from probpose_code_torch.models.builder import PoseModel
+        from probpose_code_torch.parallel import create_train_state, make_train_step
+        from probpose_code_torch.tools import train as train_cli
+
+        counters = kernel_counters()
+        step_launches = dict(vit_layer=0, expected_oks=0, oks_convolve=0, vit_layer_train_fwd=12,
+                             vit_layer_train_bwd=12, attention=0)
+
+        class Watch(Hook):
+            """The kernels launched by each step and by the val, the val's
+            metrics, the state a run starts from (against a checkpoint's
+            moments), and one step profiled: from the end of the step before
+            it to the end of its own kernels."""
+
+            def __init__(self, resume_from=None, profile_step=None):
+                self.resume_from, self.profile_step = resume_from, profile_step
+                self.steps, self.val, self.metrics, self.start, self.prof = [], None, None, None, None
+                self.profiler_s = 0.0  # the profiler's start and stop inside the epoch's window
+
+            def before_train_epoch(self, runner, epoch):
+                if self.profile_step:  # the tracer's first start is slow: once here, outside the window
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                        torch.cuda.synchronize()
+
+            def delta(self):
+                now = {k: c.launches for k, c in counters.items()}
+                prev, self.last = self.last, now
+                return {k: now[k] - prev[k] for k in now}
+
+            def before_run(self, runner):
+                self.last = {k: c.launches for k, c in counters.items()}
+                state = runner.state
+                self.start = dict(epoch=runner.epoch, step=state.step, count=state.opt_state.count)
+                if self.resume_from:
+                    saved = read_checkpoint(self.resume_from)["optimizer"]
+                    self.start["moments_equal"] = all(
+                        torch.equal(mu.cpu(), saved["mu"][n]) and torch.equal(nu.cpu(), saved["nu"][n])
+                        for n, mu, nu in zip(runner.optimizer.names, state.opt_state.mu, state.opt_state.nu))
+
+            def after_train_iter(self, runner, step, metrics):
+                self.steps.append(self.delta())
+                if self.profile_step and step == self.profile_step - 1:
+                    t = time.perf_counter()
+                    self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    self.prof.start()
+                    self.t0 = time.perf_counter()
+                    self.profiler_s += self.t0 - t
+                elif self.prof is not None and step == self.profile_step:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    wall_us = (t - self.t0) * 1e6
+                    self.prof.stop()
+                    Smoke.report_profile(self.prof, wall_us, 1, "runner steps (the loader wait, the batch moved, "
+                                                                "the step, the hooks)")
+                    self.prof = None
+                    self.profiler_s += time.perf_counter() - t
+
+            def before_eval(self, runner):
+                self.delta()  # nothing launches between the last step and the val
+
+            def after_val_epoch(self, runner, metrics):
+                self.val, self.metrics = self.delta(), metrics
+
+        def report(runner, first_epoch, profiler_s=0.0):
+            for e, t in enumerate(runner.train_times, start=first_epoch + 1):
+                print(f"train_flagship epoch {e}: {t['crops']} crops, {t['crops'] / t['window']:.1f} train crops/s "
+                      f"from the start of its loader to its last step ({t['window']:.3f} s); split (s): wait for "
+                      f"the first batch {t['first_batch']:.3f}, later loader waits "
+                      f"{t['loader'] - t['first_batch']:.3f}, steps {t['step']:.3f}, hooks and logging "
+                      f"{t['hooks']:.3f}" + (f" (the profiler's start and stop {profiler_s:.3f} of it)" if profiler_s
+                                             else "")
+                      + f"; after it: checkpoint writing {t['checkpoint']:.3f}, val {t['val']:.3f}")
+
+        def check_val(runner, watch):
+            keys = [f"{p}/{k}" for p in ("CropCOCO", "COCO") for k in ("AP", "Ex_AP", "AR", "Ex_AR", "OKS", "Ex_OKS")]
+            metrics, batches = watch.metrics or {}, len(runner.val_loader)
+            per_batch = {k: v / batches for k, v in (watch.val or {}).items()}
+            t = runner.val_times
+            print(f"train_flagship val inside training: {len(runner.val_dataset)} crops in {batches} batches, "
+                  f"launches a batch {json.dumps(per_batch)}; split (s): first batch {t['first_batch']:.3f}, later "
+                  f"loader waits {t['loader'] - t['first_batch']:.3f}, device {t['device']:.3f}, attach+process "
+                  f"{t['process']:.3f}, evaluate {t['evaluate']:.3f}; " + " ".join(f"{k} {metrics.get(k, float('nan')):.4f}" for k in keys))
+            missing = [k for k in keys if k not in metrics]
+            if missing or not all(math.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"train_flagship: val metrics missing {missing} or not finite")
+            if per_batch != PREDICT_LAUNCHES:
+                raise AssertionError(f"expected K1 x12 and K2 x1 a val batch and no other kernel, got {per_batch}")
+
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+            stack.callback(stop_workers)
+            _, ann = golden_png_set(tmp)
+            copy_instances(ann, 256, Path(tmp, "train.json"))
+            copy_instances(ann, 256, Path(tmp, "val.json"))
+            wd = Path(tmp, "work")
+            options = flagship_data_options(tmp, "train.json") + [
+                "train_cfg.val_interval=2", "default_hooks.checkpoint.interval=1", "default_hooks.logger.interval=1"]
+            argv = [str(FLAGSHIP), "--work-dir", str(wd), "--cfg-options", *options]
+
+            # the main path: counts set to 0 just before, read just after
+            watch = Watch()
+            read_counts = reset_counts()
+            runner = train_cli.main(argv + ["train_cfg.max_epochs=2"], hooks=[watch])
+            torch.cuda.synchronize()
+            launches = read_counts()
+            print(f"train_flagship main path: {runner.state.step} steps of {runner.train_loader.batch_size}, "
+                  f"launches {json.dumps(launches)}")
+            report(runner, 0)
+            written = sorted(p.name for p in wd.glob("*.pth"))
+            if runner.state.step != 8 or written != ["best.pth", "epoch_1.pth", "epoch_2.pth"]:
+                raise AssertionError(f"train_flagship: {runner.state.step} steps, checkpoints {written}")
+            bad = [i for i, d in enumerate(watch.steps) if d != step_launches]
+            if len(watch.steps) != 8 or bad:
+                raise AssertionError(f"expected K3 x12 forward and x12 backward a step and no other kernel; steps "
+                                     f"{bad} launched {[watch.steps[i] for i in bad]}")
+            check_val(runner, watch)
+
+            # the first step again, through make_train_step on the same batch
+            cfg = runner.cfg
+            model = PoseModel(cfg["model"], metainfo=runner.metainfo, device="cuda")
+            model.init_weights(seed=0)
+            optimizer, _ = build_optimizer(model, cfg["optim_wrapper"], cfg["param_scheduler"],
+                                           len(runner.train_loader), runner.max_epochs)
+            batch = {k: torch.from_numpy(v).cuda() for k, v in runner.train_loader.load(0, 0).items()}
+            _, metrics = make_train_step(model, optimizer)(
+                create_train_state(model, optimizer), batch, torch.Generator(device="cuda").manual_seed(cfg["seed"]))
+            direct = {k: float(v) for k, v in metrics.items()}
+            logged = runner.train_log[0]
+            rel = {k: abs(logged[k] - v) / max(abs(v), 1e-30) for k, v in direct.items()}
+            print(f"train_flagship first step: Runner.train {json.dumps({k: logged[k] for k in direct})}; "
+                  f"make_train_step {json.dumps(direct)}; largest relative difference {max(rel.values()):.3e} "
+                  f"(bar {TRAIN_FLAGSHIP_REL:g}, 1e-7 absolute at 0)")
+            if any(abs(logged[k] - v) > TRAIN_FLAGSHIP_REL * abs(v) + 1e-7 for k, v in direct.items()):
+                raise AssertionError(f"train_flagship: the first step's loss dict differs from make_train_step's: {rel}")
+            del model, optimizer, batch
+
+            fresh = PoseModel(cfg["model"], device="cuda")
+            load_checkpoint(fresh, str(wd / "epoch_2.pth"))
+            live, saved = runner.model.module.state_dict(), fresh.module.state_dict()
+            differ = [k for k in live if not torch.equal(live[k], saved[k])]
+            if differ:
+                raise AssertionError(f"train_flagship: epoch_2.pth differs from the live weights in {differ[:5]}")
+            print(f"train_flagship: epoch_2.pth in a fresh PoseModel equals the live weights bitwise "
+                  f"({len(live)} tensors)")
+            del runner, fresh, live, saved
+
+            # a third epoch, resumed; one of its steps profiled inside the runner
+            watch = Watch(resume_from=str(wd / "epoch_2.pth"), profile_step=10)
+            runner = train_cli.main(argv + ["train_cfg.max_epochs=3", "--resume"], hooks=[watch])
+            report(runner, 2, watch.profiler_s)
+            last = runner.train_log[-1]
+            print(f"train_flagship resumed: started at {json.dumps(watch.start)}; ended at step {runner.state.step} "
+                  f"with lr {last['lr']:.6e} (lr_fn(12) {runner.lr_fn(12):.6e})")
+            if (watch.start != dict(epoch=2, step=8, count=8, moments_equal=True) or runner.state.step != 12
+                    or last["step"] != 12 or last["lr"] != runner.lr_fn(12)):
+                raise AssertionError("train_flagship: the resumed epoch did not start at epoch 2, step 8, with the "
+                                     "saved moments, or did not end at step 12 with lr_fn(12)")
+            bad = [i for i, d in enumerate(watch.steps) if d != step_launches]
+            if len(watch.steps) != 4 or bad:
+                raise AssertionError(f"train_flagship resumed: steps {bad} launched {[watch.steps[i] for i in bad]}")
+            check_val(runner, watch)
+
     @staticmethod
     def profile(fn, calls: int, what: str = "flagship calls"):
         """Device time by kernel over a few calls, and the device's busy
         share of the wall time (torch.profiler's CUDA activity); where K2 ran,
         also its share."""
         import torch
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1098,6 +1414,14 @@ class Smoke:
                 fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+        Smoke.report_profile(prof, wall_us, calls, what)
+
+    @staticmethod
+    def report_profile(prof, wall_us: float, calls: int, what: str):
+        """Print a finished profile: device time by kernel, the busy share of
+        ``wall_us`` and, where K2 ran, its share."""
+        from torch.autograd import DeviceType
+
         by_name = {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
@@ -1573,6 +1897,7 @@ def main() -> int:
         smoke.phase("val_full", smoke.val_full)
         smoke.phase("val_shipped", smoke.val_shipped)
         smoke.phase("val_flagship", smoke.val_flagship)
+        smoke.phase("train_flagship", smoke.train_flagship)
         smoke.phase("timings", smoke.timings)
     left = stop_descendants()
     if left:

@@ -2,11 +2,13 @@
 
 The port's own ``PackPoseInputs`` (``probpose_code_tpu/datasets/transforms/
 formatting.py:23``, reference ``datasets/transforms/formatting.py:61``), with
-the ProbPose instance keys and the canvas passthrough (``:136``): a sample
-from ``TopdownAffine``'s canvas form carries ``canvas`` and ``warp_mat``
-instead of a crop. Images stay NumPy; the loader's
-collate batches them. The label and field tables of training targets come
-with ``GenerateTarget`` in the train half of the pipeline.
+the ProbPose instance keys, the training labels (``gt_instance_labels``
+through the label table, ``:110-117``) and the device passthrough
+(``:136``): a sample from ``TopdownAffine``'s canvas form carries ``canvas``
+and ``warp_mat`` instead of a crop, and one from ``GenerateTarget`` the
+heatmap-space keypoints instead of maps. Images stay NumPy; the loader's
+collate batches them. The JAX transform's ``gt_fields`` hold host-encoded
+maps, which the port never makes.
 """
 
 from __future__ import annotations
@@ -40,6 +42,14 @@ class PackPoseInputs:
         bbox_xyxy_wrt_input="bbox_xyxy_wrt_input",
     )
 
+    label_mapping_table = dict(
+        keypoint_labels="keypoint_labels",
+        keypoint_x_labels="keypoint_x_labels",
+        keypoint_y_labels="keypoint_y_labels",
+        keypoint_weights="keypoint_weights",
+        keypoints_visible_weights="keypoints_visible_weights",
+    )
+
     def __init__(
         self,
         meta_keys=(
@@ -66,18 +76,30 @@ class PackPoseInputs:
 
     def __call__(self, results: Dict) -> Optional[dict]:
         inputs = np.ascontiguousarray(results["img"]) if "img" in results else None  # HWC (BGR)
+        if "in_image" in results:
+            results["keypoints_in_image"] = (np.asarray(results.get("keypoints_in_image", results["in_image"]))
+                                             .astype(bool) & np.asarray(results["in_image"]).astype(bool))
 
         data_sample = PoseDataSample()
         gt_instances = InstanceData()
-        for key, packed_key in self.instance_mapping_table.items():
+        for key, packed_key in results.get("instance_mapping_table", self.instance_mapping_table).items():
             if key in results:
                 gt_instances.set_field(results[key], packed_key)
         data_sample.gt_instances = gt_instances
+
+        gt_instance_labels = InstanceData()
+        for key, packed_key in results.get("label_mapping_table", self.label_mapping_table).items():
+            if key in results:
+                value = results[key]
+                gt_instance_labels.set_field(np.asarray(np.stack(value) if isinstance(value, list) else value),
+                                             packed_key)
+        data_sample.gt_instance_labels = gt_instance_labels
         data_sample.set_metainfo({k: results[k] for k in self.meta_keys if k in results})
 
         packed = dict(inputs=inputs, data_samples=data_sample)
-        # canvas passthrough: the canvas and its geometry instead of a crop
-        for key in ("canvas", "warp_mat"):
+        # device passthrough: the canvas and its geometry instead of a crop,
+        # the heatmap-space keypoints instead of target maps
+        for key in ("canvas", "warp_mat", "device_kpts_hm", "device_kpts_visible"):
             if key in results:
                 packed[key] = results[key]
         return packed

@@ -15,9 +15,10 @@ of interest is pasted into a fixed uint8 ``canvas`` and the composed
 (``ops/warp.py``), where the val path rounds the crops to uint8 values as
 ``cv2.warpAffine`` does. A region larger than the canvas is first downscaled
 as ``cv2.resize(INTER_LINEAR)`` does it (``resize_linear``), with the scale
-folded into the matrix. As in the JAX canvas form, no ``bbox_mask`` is made.
-The keypoints are not warped (``transformed_keypoints``): only the train
-half's ``GenerateTarget`` reads them.
+folded into the matrix; a rotated crop (``bbox_rotation`` from
+``RandomBBoxTransform``) widens the region, and takes that path sooner. As in
+the JAX canvas form, no ``bbox_mask`` is made. The keypoints are warped into
+the crop (``transformed_keypoints``, ``:209-216``) for ``GenerateTarget``.
 """
 
 from __future__ import annotations
@@ -143,6 +144,12 @@ class TopdownAffine:
         warp_mat = warp_matrix(center, scale, rot, output_size=(w, h)).astype(np.float32)
 
         results["canvas"], results["warp_mat"] = self._make_canvas(results.pop("img"), warp_mat, (w, h))
+
+        if results.get("keypoints", None) is not None:
+            transformed = results.get("transformed_keypoints")
+            transformed = (results["keypoints"] if transformed is None else transformed).copy()
+            transformed[..., :2] = transformed[..., :2] @ warp_mat[:, :2].T + warp_mat[:, 2]
+            results["transformed_keypoints"] = transformed
 
         if results.get("bbox_xyxy_wrt_input", None) is not None:
             corners = np.asarray(results["bbox_xyxy_wrt_input"], dtype=np.float64).reshape(2, 2)

@@ -1,5 +1,15 @@
 """Checkpoints: reference ``.pth`` files, and weights moved from the JAX package.
 
+``save_checkpoint`` writes the runner's checkpoints (the port's copy of
+``probpose_code_tpu/engine/checkpoint.py:26-68``, ``save_checkpoint`` and
+``latest_checkpoint``) in mmpose's ``.pth`` layout instead of the JAX
+package's orbax directories: ``state_dict`` under the reference names,
+``meta`` (``epoch``, ``iter`` and ``step``, ``dataset_meta``) and
+``optimizer`` (the AdamW moments by parameter name and their update count),
+written by ``torch.save`` and read back by ``load_checkpoint``, by the JAX
+package's ``load_torch_checkpoint`` (``convert_torch_state_dict``) and by
+mmpose. ``latest_checkpoint`` finds the newest ``epoch_N.pth``.
+
 ``load_checkpoint`` loads a reference mmpose checkpoint straight into the
 port's modules (the names are the reference's): a bare state dict, or a file
 written by mmpose's runner, ``{"state_dict": ..., "meta": {"dataset_meta":
@@ -19,12 +29,17 @@ neck has no parameters).
 from __future__ import annotations
 
 import logging
+import os
+import os.path as osp
 import pickle
+import re
 from collections import OrderedDict
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from probpose_code_torch.engine.optim import AdamState
 
 logger = logging.getLogger(__name__)
 
@@ -42,6 +57,63 @@ def _numpy_globals() -> List[Any]:
     return allowed
 
 
+def read_checkpoint(path: str, trusted: bool = False) -> Dict[str, Any]:
+    """The object a ``.pth`` file holds; see ``load_checkpoint`` for
+    ``trusted``."""
+    if trusted:
+        return torch.load(path, map_location="cpu", weights_only=False)
+    try:
+        with torch.serialization.safe_globals(_numpy_globals()):
+            return torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as err:
+        raise pickle.UnpicklingError(
+            f"{path} holds objects other than tensors, containers and numpy arrays; "
+            f"pass trusted=True to unpickle it fully if its source is trusted.\n{err}"
+        ) from err
+
+
+def save_checkpoint(path: str, model, optimizer, opt_state: AdamState, meta: Dict[str, Any], **extra) -> None:
+    """Write ``model``'s weights, ``optimizer``'s state ``opt_state`` and
+    ``meta`` to ``path`` as one ``.pth`` file (see the module); ``extra``
+    entries are stored beside them. The file is written under a temporary
+    name and renamed, so a reader never sees half of it. The JAX runner
+    ignores ``max_keep_ckpts`` and so does the port: every checkpoint
+    stays."""
+    ckpt = dict(
+        meta=dict(meta),
+        state_dict=OrderedDict((k, v.detach().cpu()) for k, v in model.module.state_dict().items()),
+        optimizer=dict(count=int(opt_state.count),
+                       mu={n: t.cpu() for n, t in zip(optimizer.names, opt_state.mu)},
+                       nu={n: t.cpu() for n, t in zip(optimizer.names, opt_state.nu)}),
+        **extra,
+    )
+    tmp = f"{path}.tmp"
+    torch.save(ckpt, tmp)
+    os.replace(tmp, path)
+
+
+def adam_state_from_checkpoint(optimizer, saved: Dict[str, Any]) -> AdamState:
+    """A checkpoint's ``optimizer`` entry as the AdamState of ``optimizer``,
+    its moments on the parameters' devices; a parameter the file lacks
+    raises."""
+    missing = [n for n in optimizer.names if n not in saved["mu"]]
+    if missing:
+        raise KeyError(f"the checkpoint's optimizer state lacks {len(missing)} parameters (first: {missing[:3]})")
+    return AdamState(
+        count=int(saved["count"]),
+        mu=[saved["mu"][n].to(p.device, p.dtype) for n, p in zip(optimizer.names, optimizer.params)],
+        nu=[saved["nu"][n].to(p.device, p.dtype) for n, p in zip(optimizer.names, optimizer.params)],
+    )
+
+
+def latest_checkpoint(work_dir: str) -> Optional[str]:
+    """The newest ``epoch_N.pth`` in a work dir, or None."""
+    if not osp.isdir(work_dir):
+        return None
+    epochs = [int(m.group(1)) for m in (re.fullmatch(r"epoch_(\d+)\.pth", n) for n in os.listdir(work_dir)) if m]
+    return osp.join(work_dir, f"epoch_{max(epochs)}.pth") if epochs else None
+
+
 def load_checkpoint(model, path: str, trusted: bool = False) -> Dict[str, Any]:
     """Load a reference ``.pth`` into ``model.module``: a state dict, or a
     runner's ``{"state_dict": ..., "meta": ...}``.
@@ -57,17 +129,7 @@ def load_checkpoint(model, path: str, trusted: bool = False) -> Dict[str, Any]:
     ``module.`` prefix), and ``RuntimeError`` on a shape that differs. Returns ``{"missing_keys": [...], "meta": {...}}``, the
     file's ``meta`` (empty for a bare state dict).
     """
-    if trusted:
-        obj = torch.load(path, map_location="cpu", weights_only=False)
-    else:
-        try:
-            with torch.serialization.safe_globals(_numpy_globals()):
-                obj = torch.load(path, map_location="cpu", weights_only=True)
-        except pickle.UnpicklingError as err:
-            raise pickle.UnpicklingError(
-                f"{path} holds objects other than tensors, containers and numpy arrays; "
-                f"pass trusted=True to unpickle it fully if its source is trusted.\n{err}"
-            ) from err
+    obj = read_checkpoint(path, trusted)
     state = obj.get("state_dict", obj)
     own = model.module.state_dict()
     missing = [k for k in own if k not in state]

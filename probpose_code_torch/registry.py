@@ -77,11 +77,13 @@ class Registry:
         return cls(**kwargs)
 
 
-# The port builds models, the top-down datasets and their val transforms,
-# and the COCO metric and evaluators; codecs and the rest come with later
-# slices.
+# The port builds models, the top-down datasets and their transforms, the
+# COCO metric and evaluators, the runner's hooks and its scalar-logging
+# backends; codecs and the rest come with later slices.
 MODELS = Registry("models")
 DATASETS = Registry("datasets")
 TRANSFORMS = Registry("transforms")
 METRICS = Registry("metrics")
 EVALUATORS = Registry("evaluators")
+HOOKS = Registry("hooks")
+VISUALIZERS = Registry("visualizers")

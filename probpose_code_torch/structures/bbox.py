@@ -1,8 +1,9 @@
 """Bounding-box geometry for the top-down crop (NumPy, host side).
 
 The port's own copy of the parts of ``probpose_code_tpu/structures/bbox.py``
-that the predict and evaluation paths need: ``bbox_xywh2xyxy``,
-``bbox_xyxy2xywh``, ``bbox_xyxy2cs``, the UDP
+that the predict, evaluation and training paths need: ``bbox_xywh2xyxy``,
+``bbox_xyxy2xywh``, ``bbox_xyxy2cs``, ``bbox_cs2xyxy`` (``:58``),
+``flip_bbox`` (``:94``), the UDP
 warp matrix (``get_udp_warp_matrix``, ``:123``; reference
 ``bbox/transforms.py:315-360``) and the standard one (``get_warp_matrix``,
 ``:198``; reference ``bbox/transforms.py:362``), for ``TopdownAffine`` with
@@ -11,6 +12,7 @@ and without ``use_udp``.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -42,6 +44,44 @@ def bbox_xyxy2cs(bbox: np.ndarray, padding: float = 1.0) -> Tuple[np.ndarray, np
     return center, scale
 
 
+def bbox_cs2xyxy(center: np.ndarray, scale: np.ndarray, padding: float = 1.0) -> np.ndarray:
+    dim = center.ndim
+    if dim == 1:
+        center, scale = center[None, :], scale[None, :]
+    wh = scale / padding
+    xy = center - 0.5 * wh
+    bbox = np.concatenate((xy, xy + wh), axis=-1)
+    if dim == 1:
+        bbox = bbox[0]
+    return bbox
+
+
+def flip_bbox(bbox: np.ndarray, image_size: Tuple[int, int], bbox_format: str = "xywh",
+              direction: str = "horizontal") -> np.ndarray:
+    """Mirror boxes (xywh, xyxy or centers) in an image of ``image_size`` (w, h)."""
+    assert direction in {"horizontal", "vertical", "diagonal"}
+    assert bbox_format in {"xywh", "xyxy", "center"}
+    out = bbox.copy()
+    w, h = image_size
+    if direction == "horizontal":
+        if bbox_format in ("xywh", "center"):
+            out[..., 0] = w - bbox[..., 0] - 1
+        else:
+            out[..., ::2] = w - bbox[..., -2::-2] - 1
+    elif direction == "vertical":
+        if bbox_format in ("xywh", "center"):
+            out[..., 1] = h - bbox[..., 1] - 1
+        else:
+            out[..., 1::2] = h - bbox[..., ::-2] - 1
+    else:  # diagonal
+        if bbox_format in ("xywh", "center"):
+            out[..., :2] = np.asarray([w, h]) - bbox[..., :2] - 1
+        else:
+            out = np.asarray([w, h, w, h]) - bbox - 1
+            out = np.concatenate((out[..., 2:], out[..., :2]), axis=-1)
+    return out
+
+
 def fix_aspect_ratio(scale: np.ndarray, aspect_ratio: float) -> np.ndarray:
     """Grow (N, 2) box sizes to the model's w/h ratio (``TopdownAffine``)."""
     w, h = np.hsplit(scale, [1])
@@ -64,7 +104,8 @@ def get_udp_warp_matrix(
     warp_mat = np.zeros((2, 3), dtype=np.float32)
     scale_x = (output_size[0] - 1) / scale[0]
     scale_y = (output_size[1] - 1) / scale[1]
-    cos_r, sin_r = np.cos(rot_rad), np.sin(rot_rad)
+    # math's cos and sin in float64, also for a float32 angle, as the JAX package takes them
+    cos_r, sin_r = math.cos(rot_rad), math.sin(rot_rad)
     warp_mat[0, 0] = cos_r * scale_x
     warp_mat[0, 1] = -sin_r * scale_x
     warp_mat[0, 2] = scale_x * (-0.5 * input_size[0] * cos_r + 0.5 * input_size[1] * sin_r + 0.5 * scale[0])

@@ -1,15 +1,40 @@
 """Keypoint geometry of the ProbPose activation window (NumPy, host side).
 
-The port's own copy of ``fix_bbox_aspect_ratio`` (``:90``) and
-``find_min_padding_exact`` (``:140``) from
-``probpose_code_tpu/structures/keypoint.py`` (reference
+The port's own copy of ``flip_keypoints`` (``:20``; reference
+``keypoint/transforms.py:7``), for ``RandomFlip``, and of
+``fix_bbox_aspect_ratio`` (``:90``) and ``find_min_padding_exact``
+(``:140``) from ``probpose_code_tpu/structures/keypoint.py`` (reference
 ``keypoints_min_padding.py:4,68``): the extended-bbox machinery of the
 dataset parser and the Ex-OKS evaluator.
 """
 
 from __future__ import annotations
 
+from typing import List, Optional, Tuple
+
 import numpy as np
+
+
+def flip_keypoints(keypoints: np.ndarray, keypoints_visible: Optional[np.ndarray], image_size: Tuple[int, int],
+                   flip_indices: List[int], direction: str = "horizontal") -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Mirror keypoints (and their visibility) in an image of ``image_size``
+    (w, h), swapping left and right through ``flip_indices``."""
+    ndim = keypoints.ndim
+    assert direction in {"horizontal", "vertical", "diagonal"}
+    if direction in ("horizontal", "vertical"):
+        keypoints = keypoints.take(flip_indices, axis=ndim - 2)
+        if keypoints_visible is not None:
+            keypoints_visible = keypoints_visible.take(flip_indices, axis=ndim - 2)
+    else:
+        keypoints = keypoints.copy()
+    w, h = image_size
+    if direction == "horizontal":
+        keypoints[..., 0] = w - 1 - keypoints[..., 0]
+    elif direction == "vertical":
+        keypoints[..., 1] = h - 1 - keypoints[..., 1]
+    else:
+        keypoints = np.asarray([w, h]) - keypoints - 1
+    return keypoints, keypoints_visible
 
 
 def fix_bbox_aspect_ratio(

@@ -10,7 +10,9 @@ tiles, head widths of 8 and above 128, maps whose filter needs more than
 48 KB of shared memory, maps whose sides are no multiple of K2's strip, a
 filter radius equal to the shorter side, a tap count that runs K2's
 runtime-D instance, flat maps and equal peaks whose argmax is a tie, and
-all-NaN maps; the val path (``Runner.val`` over the golden tiny fixture's
+all-NaN maps; training through the runner (the tiny config's ``Runner.train``
+by ``tools/train.py``'s main, two epochs, K3's launches a step counted, no
+process left running); the val path (``Runner.val`` over the golden tiny fixture's
 PNG files with two worker processes started after CUDA, canvases warped on
 the card as on the CPU; ``python -m
 probpose_code_torch.tools.test`` without ``--device``, on the card); K1 and K3
@@ -362,6 +364,40 @@ def test_one_train_step_goes_through_k3(card):
     assert all(torch.isfinite(v).all() for v in metrics.values())
     assert float(metrics["grad_norm"]) > 0
     assert model.module.backbone.layers[0].attn.qkv.weight.grad.abs().max() > 0
+
+
+def test_runner_trains_on_the_card(card, tmp_path):
+    """The tiny config (tanh-GELU, so every layer trains through K3) through
+    ``python -m probpose_code_torch.tools.train``'s main for two epochs of
+    two steps over a seeded mini set, two loader workers started after CUDA:
+    K3 x2 forward and x2 backward a step, K1 x2 and K2 x1 a val batch, no
+    other kernel; the checkpoints written and the last one equal to the
+    live weights; no worker, fork server or resource tracker left running."""
+    from pathlib import Path
+
+    from chip_smoke import mini_coco_set, stop_descendants, tiny_train_cfg
+    from probpose_code_torch.engine.checkpoint import read_checkpoint
+    from probpose_code_torch.tools import train as train_cli
+
+    ann = mini_coco_set(tmp_path / "data")
+    cfg = tiny_train_cfg(ann, batch_size=6, num_workers=2, approximate_gelu=True)
+    (tmp_path / "cfg.py").write_text("".join(f"{k} = {v!r}\n" for k, v in cfg.items()))
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    runner = train_cli.main([str(tmp_path / "cfg.py"), "--work-dir", str(tmp_path / "wd")])
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    steps, val_batches = runner.state.step, 2  # one val batch of 12 after each epoch
+    assert steps == 4 and len(runner.train_log) == 4
+    assert launches == dict(vit_layer=2 * val_batches, expected_oks=val_batches, oks_convolve=0,
+                            vit_layer_train_fwd=2 * steps, vit_layer_train_bwd=2 * steps, attention=0)
+    assert all(np.isfinite(list(log.values())).all() for log in runner.train_log)
+    ckpt = read_checkpoint(str(tmp_path / "wd" / "epoch_2.pth"))
+    live = runner.model.module.state_dict()
+    assert all(torch.equal(live[k].cpu(), v) for k, v in ckpt["state_dict"].items())
+    assert (tmp_path / "wd" / "best.pth").exists() and (tmp_path / "wd" / "epoch_1.pth").exists()
+    assert stop_descendants(grace=2.0) == []
 
 
 # one pass (N <= 192, d <= 64); two passes with K and V whole in shared memory
