@@ -39,7 +39,15 @@ card and the CUDA toolkit (nvcc); it builds the port's kernels from
    ``make_train_step`` on 64 crops: K4's launches in one step (12, and K3's
    0), the losses, lr and gradient norm of each step, train crops/s, peak
    memory and a profile;
-12. ``val_full``: the evaluation path (``Runner.val``: a CocoDataset of PNG
+12. ``jpeg_decode``: the card's JPEG decode (``ops/kernels/jpeg.py``: host
+   Huffman decode, its own IDCT and pixel kernels) against the plain decoder
+   on every fixture of ``tests/golden_torch`` bit for bit, nvJPEG's batched
+   decode (the yardstick, ``csrc/nvjpeg_batched.cu``) within
+   ``NVJPEG_BARS``, |difference| by sampling mode, zeroed padding, the
+   truncated stream refused; then the decode rate of a batch of 64 golden
+   JPEGs, the port's beside nvJPEG's, and the host half's cost a file, a MB
+   and a megapixel on 1 and 8 threads;
+13. ``val_full``: the evaluation path (``Runner.val``: a CocoDataset of PNG
    files, the flagship's val pipeline, the loader, the canvas warp on the
    card, predict, CocoMetric with Ex-OKS) at the golden fixture's full
    ProbPose-S geometry in f32 (width 384, K1's 3xTF32 instance) with the
@@ -47,28 +55,38 @@ card and the CUDA toolkit (nvcc); it builds the port's kernels from
    built on the CPU), over its 24 images written as PNG: K1 x12 and K2 x1
    launched, keypoints p99 < 1.5 px and max < 8 px, AP and Ex-AP within
    0.02 of the fixture's (the JAX package's bars);
-13. ``val_shipped``: the same under the flagship's shipped bf16 / tanh-GELU
-   settings: p50 < 0.2 px, p90 < 0.75 px, AP and Ex-AP within 0.05;
-14. ``val_flagship``: the flagship config file at full width (random
+14. ``val_full_jpeg``: the same over the golden JPEGs, decoded on the card,
+   against the JAX package's ``Runner.val`` on the same files
+   (``tests/golden_torch/val_reference.npz``) at the same bars; one decode;
+15. ``val_shipped``: ``val_full`` under the flagship's shipped bf16 /
+   tanh-GELU settings: p50 < 0.2 px, p90 < 0.75 px, AP and Ex-AP within 0.05;
+16. ``val_flagship``: the flagship config file at full width (random
    weights, seed 0) through ``Runner.val`` with its own CombinedDataset
    (CropCOCO + COCO), MultiDatasetEvaluator, batch size 64 and four worker
-   processes, over the golden PNGs with their annotations copied to 512
-   instances: val crops/s from the start of the loader to the metrics, the
-   time split (first batch, later loader waits, device, evaluate), the
-   device's busy share over one batch, K1 and K2 launches a batch, and
-   every metric key present and finite;
-15. ``train_flagship``: the flagship's training entry point at full width,
+   processes, over the golden JPEGs (COCO's format) with their annotations
+   copied to 512 instances: val crops/s from the start of the loader to the
+   metrics, the time split (first batch, later loader waits, device with
+   the decode on the card's clock, evaluate), the device's busy share over
+   one batch, K1 and K2 launches and one decode a batch, and every metric
+   key present and finite;
+17. ``train_flagship``: the flagship's training entry point at full width,
    the main of ``python -m probpose_code_torch.tools.train`` on the flagship
    config file (random weights, seed 0) with its own train pipeline, loader
    (batch 64, four workers), optimizer, schedules and hooks, over the golden
-   PNGs with the train annotations copied to 256 instances and
+   JPEGs with the train annotations copied to 256 instances and
    ``val_flagship``'s val sets: two epochs (a checkpoint each, val after the
    second), then a third resumed by ``--resume``; K3 x12 forward and
-   backward a step and K1 x12 and K2 x1 a val batch, the first step's loss
-   dict against ``make_train_step``'s, ``epoch_2.pth`` against the live
-   weights bitwise, the resumed state; train crops/s an epoch with the
-   runner's time split, and one step profiled inside the runner;
-16. ``timings``: each kernel's time beside its plain twin's, a PyTorch
+   backward a step and K1 x12 and K2 x1 a val batch, one decode a step and
+   a val batch, the first step's loss dict against ``make_train_step``'s,
+   ``epoch_2.pth`` against the live weights bitwise, the resumed state;
+   train crops/s an epoch with the runner's time split (the decode apart),
+   and one step profiled inside the runner;
+18. ``serve``: ``tools.serve``'s server for the flagship at full width on an
+   ephemeral 127.0.0.1 port, in a thread: 3 POSTed golden JPEGs answered
+   with ``inference_topdown``'s JSON on the same files (to
+   ``SERVE_KPT_ATOL``), K1 x12, K2 x1 and
+   one decode a request, then the latency of a request;
+19. ``timings``: each kernel's time beside its plain twin's, a PyTorch
    library call's where one computes the same function, and its bound from
    this run's shapes; K1 also at the ViT-B predict shape (f32), K4 also at
    the ProbPose-S shape in bf16. For K1 (bf16 and f32) and K3 (forward,
@@ -78,13 +96,15 @@ card and the CUDA toolkit (nvcc); it builds the port's kernels from
    a profile beside the call time, and the wrapper's host cost a call; K2b's
    yardstick is cuDNN's depthwise convolution of the padded maps.
 
-The line before the last holds the kernels' record as JSON, the last line
+The lines before the last hold the kernels' record as JSON and the JPEG
+decode's (no TPU kernel: its own line, no ``replaces``), the last line
 ``{"ok": true, "device": ...}``. Any failure exits non-zero without them.
 It imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import subprocess
@@ -95,6 +115,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
+GOLDEN_JPEG = ROOT / "tests" / "golden_torch"
 FLAGSHIP = ROOT / "configs/body_2d_keypoint/topdown_probmap/coco/td-pm_ProbPose-small_8xb64-210e_coco-256x192.py"
 VITPOSE = ROOT / "configs/body_2d_keypoint/topdown_heatmap/coco/td-hm_ViTPose-base-simple_8xb64-210e_coco-256x192.py"
 
@@ -141,6 +162,23 @@ VAL_BARS = dict(
     shipped=dict(p50=0.2, p90=0.75, aux=2e-2, ap=0.05),
 )
 VAL_AUX = ("keypoints_probs", "keypoints_visible", "keypoints_oks", "keypoints_error")
+# nvJPEG against the plain decoder (which equals cv2.imread bit for bit), in
+# grey levels of each decoded image: nvJPEG's IDCT and chroma interpolation
+# are not libjpeg-turbo's integer "islow" IDCT and fancy upsampling. Measured
+# on the fixtures (H100 80GB HBM3, 700 W): max 4, p99 3, mean 0.72 at 4:2:0;
+# 4:4:4 max 3, grayscale max 1. The bars leave that room and no more than
+# half a level more on average: a wrong colour table, chroma siting or
+# orientation moves them by tens.
+NVJPEG_BARS = dict(max=6, p99=4, mean=1.0)
+# the port's decode (libjpeg-turbo's integer arithmetic in its kernels) equals the plain decoder bit for bit
+EXACT_BARS = dict(max=0, p99=0, mean=0.0)
+# ``serve``: an answer against ``inference_topdown`` on the same file. The
+# card's predict repeats itself only to the last bits of a keypoint: the tiny
+# f32 config gave two calls 3.1e-5 px apart (H100 80GB HBM3, 700 W; cuDNN
+# picks its transposed convolutions' algorithms freely), so the bar is
+# a thousandth of a pixel and 1e-5 of a score.
+SERVE_KPT_ATOL = 1e-3
+SERVE_SCORE_ATOL = 1e-5
 # the kernels' launches of one ProbPose-S predict call (a val batch is one)
 PREDICT_LAUNCHES = dict(vit_layer=12, expected_oks=1, oks_convolve=0, vit_layer_train_fwd=0, vit_layer_train_bwd=0,
                         attention=0)
@@ -216,6 +254,55 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+class NvjpegBatched:
+    """nvJPEG's batched decode on its GPU-hybrid backend
+    (``probpose_code_torch/csrc/nvjpeg_batched.cu``, linked with nvJPEG):
+    the yardstick of the port's JPEG decode, timed here for its
+    ``library_ms`` and held against the plain decoder at ``NVJPEG_BARS``.
+    The port never calls it. Images come out as stored (no EXIF
+    orientation)."""
+
+    SIGNATURES = {
+        "nvjpeg_batched_create": [ctypes.c_void_p],
+        "nvjpeg_batched_destroy": [ctypes.c_void_p],
+        "nvjpeg_batched_decode": [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5,
+        "nvjpeg_batched_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    }
+
+    def __init__(self):
+        from probpose_code_torch.ops.kernels import _build
+
+        self.lib = _build.load("nvjpeg_batched", self.SIGNATURES)
+        self.ctx = ctypes.c_void_p()
+        self._check(self.lib.nvjpeg_batched_create(ctypes.byref(self.ctx)), "creating a handle")
+
+    def _check(self, code: int, what: str) -> None:
+        if code >= 1000:
+            raise RuntimeError(f"nvjpeg_batched: {what}: CUDA error {code - 1000} "
+                               f"({self.lib.nvjpeg_batched_error_string(code - 1000).decode()})")
+        if code:
+            raise RuntimeError(f"nvjpeg_batched: {what}: nvJPEG status {code}")
+
+    def decode(self, datas, infos):
+        """The streams (with their ``datasets.jpeg.probe`` results) into a
+        new zeroed (B, Hmax, Wmax, 3) uint8 BGR tensor on the card, image i
+        as stored at the top left of slot i."""
+        import torch
+
+        n = len(datas)
+        out = torch.zeros((n, max(i.height for i in infos), max(i.width for i in infos), 3), dtype=torch.uint8,
+                          device="cuda")
+        code = self.lib.nvjpeg_batched_decode(
+            self.ctx, n, (ctypes.c_char_p * n)(*datas), (ctypes.c_size_t * n)(*[len(d) for d in datas]),
+            (ctypes.c_void_p * n)(*[out[i].data_ptr() for i in range(n)]), (ctypes.c_int * n)(*[out.shape[2] * 3] * n),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        self._check(code, "decoding a batch")
+        return out
+
+    def close(self) -> None:
+        self._check(self.lib.nvjpeg_batched_destroy(self.ctx), "destroying its handle")
 
 
 def layer_inputs(B, N, C, F, dtype, seed):
@@ -386,6 +473,28 @@ def golden_png_set(root, full=False):
         img = np.pad(data[f"img_{im['id']}"], ((0, 1), (0, 1), (0, 0)))
         im["file_name"], im["height"], im["width"] = f"{im['id']}.png", img.shape[0], img.shape[1]
         write_png(root / "imgs" / im["file_name"], img)
+    (root / "ann.json").write_text(json.dumps(gt))
+    return data, root / "ann.json"
+
+
+def golden_jpeg_set(root, full=False):
+    """``golden_png_set`` with the committed JPEG copies of the same 24
+    images (``tests/golden_torch/golden/<id>.jpg``: the zero column and row
+    appended, 4:2:0 baseline at quality 95, made by ``cv2.imencode`` in
+    ``tests/golden_torch/make_jpeg_fixtures.py``) copied under
+    ``root/imgs``, COCO's format. Returns (fixture arrays, annotation path)."""
+    import shutil
+
+    import numpy as np
+
+    root = Path(root)
+    (root / "imgs").mkdir(parents=True, exist_ok=True)
+    data = np.load(GOLDEN / ("e2e_full_pipeline.npz" if full else "e2e_pipeline.npz"))
+    gt = json.loads((GOLDEN / ("e2e_full_coco.json" if full else "e2e_coco.json")).read_text())
+    for im in gt["images"]:
+        h, w = data[f"img_{im['id']}"].shape[:2]
+        im["file_name"], im["height"], im["width"] = f"{im['id']}.jpg", h + 1, w + 1
+        shutil.copy(GOLDEN_JPEG / "golden" / im["file_name"], root / "imgs" / im["file_name"])
     (root / "ann.json").write_text(json.dumps(gt))
     return data, root / "ann.json"
 
@@ -565,9 +674,13 @@ def kernel_counters():
 
 
 def reset_counts():
-    """Every kernel's count set to 0; returns a reader of the counts."""
+    """Every kernel's count and the JPEG decode's set to 0; returns a
+    reader of the kernels' counts (``decode_batch.launches`` holds the
+    decode's)."""
+    from probpose_code_torch.ops.kernels.jpeg import decode_batch
+
     counters = kernel_counters()
-    for c in counters.values():
+    for c in (*counters.values(), decode_batch):
         c.launches = 0
     return lambda: {k: c.launches for k, c in counters.items()}
 
@@ -583,6 +696,31 @@ def full_fixture_state():
     return module.build_e2e_model(full=True).state_dict()
 
 
+def val_run(model_cfg, ann, device, state_dict):
+    """``Runner.val`` over the set of ``ann`` (the flagship's val pipeline
+    and CocoMetric) with ``state_dict`` on ``device``. Returns (metrics,
+    samples, the kernels' launches, ``val_times``)."""
+    import tempfile
+
+    import torch
+
+    from probpose_code_torch.engine.checkpoint import load_checkpoint
+    from probpose_code_torch.engine.runner import Runner
+
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = Path(tmp) / "weights.pth"
+        torch.save(state_dict, weights)
+        runner = Runner.from_cfg(golden_val_cfg(model_cfg, ann), device=device)
+        load_checkpoint(runner.model, str(weights))
+    evaluator = KeepSamples(runner.build_evaluator())
+    # the main path: counts set to 0 just before, read just after
+    read_counts = reset_counts()
+    metrics = runner.val(evaluator)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return metrics, evaluator.samples, read_counts(), runner.val_times
+
+
 def run_val_golden(variant, device, state_dict):
     """The val path (``Runner.val``: CocoDataset of PNG files, the flagship's
     val pipeline, the loader, the canvas warp on ``device``, predict,
@@ -592,27 +730,13 @@ def run_val_golden(variant, device, state_dict):
     import tempfile
 
     import numpy as np
-    import torch
-
-    from probpose_code_torch.engine.checkpoint import load_checkpoint
-    from probpose_code_torch.engine.runner import Runner
 
     bars = VAL_BARS[variant]
     with tempfile.TemporaryDirectory() as tmp:
         data, ann = golden_png_set(tmp, full=True)
-        weights = Path(tmp) / "e2e_full_weights.pth"
-        torch.save(state_dict, weights)
-        runner = Runner.from_cfg(golden_val_cfg(full_model_cfg(variant == "shipped"), ann), device=device)
-        load_checkpoint(runner.model, str(weights))
-        evaluator = KeepSamples(runner.build_evaluator())
-        # the main path: counts set to 0 just before, read just after
-        read_counts = reset_counts()
-        metrics = runner.val(evaluator)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        launches = read_counts()
-    err, aux = golden_errors(data, evaluator.samples)
-    report = dict(instances=len(evaluator.samples), max=float(err.max()), aux={f: aux[f] for f in VAL_AUX},
+        metrics, samples, launches, _ = val_run(full_model_cfg(variant == "shipped"), ann, device, state_dict)
+    err, aux = golden_errors(data, samples)
+    report = dict(instances=len(samples), max=float(err.max()), aux={f: aux[f] for f in VAL_AUX},
                   **{f"p{q}": float(np.percentile(err, q)) for q in (50, 90, 99)})
     for key, ref in (("AP", data["stats"][0]), ("Ex_AP", data["Ex_stats"][0]), ("prob_thr", data["prob_thr"])):
         report.update({key: metrics[f"coco/{key}"], f"fixture_{key}": float(ref),
@@ -620,6 +744,37 @@ def run_val_golden(variant, device, state_dict):
     within = [report[k] < bar for k, bar in bars.items() if k in ("p50", "p90", "p99", "max")]
     within += [max(report["aux"].values()) < bars["aux"], report["d_AP"] < bars["ap"], report["d_Ex_AP"] < bars["ap"]]
     report["ok"] = report["instances"] == len(data["pred_ids"]) and all(within)
+    return report, launches
+
+
+def run_val_jpeg(device, state_dict):
+    """``run_val_golden("full")`` over the golden JPEGs (``golden_jpeg_set``,
+    decoded on ``device``), held to the JAX package's ``Runner.val`` on the
+    same files (``tests/golden_torch/val_reference.npz``: ``cv2.imread`` and
+    ``cv2.warpAffine``, f32) at the JAX package's f32 bars: keypoints p99 <
+    1.5 px and max < 8 px, AP and Ex-AP within 0.02. Returns (report, the
+    kernels' launches)."""
+    import tempfile
+
+    import numpy as np
+
+    bars = VAL_BARS["full"]
+    ref = np.load(GOLDEN_JPEG / "val_reference.npz")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, ann = golden_jpeg_set(tmp, full=True)
+        metrics, samples, launches, times = val_run(full_model_cfg(), ann, device, state_dict)
+    by_id = {s.metainfo["id"]: s for s in samples}
+    ours = np.stack([by_id[i].pred_instances.keypoints.reshape(17, 2) for i in ref["ids"]])
+    err = np.linalg.norm(ours - ref["keypoints"], axis=-1)
+    scores = np.stack([by_id[i].pred_instances.keypoint_scores.reshape(17) for i in ref["ids"]])
+    report = dict(instances=len(samples), max=float(err.max()), decode_s=times["decode"],
+                  scores=float(np.abs(scores - ref["keypoint_scores"]).max()),
+                  **{f"p{q}": float(np.percentile(err, q)) for q in (50, 90, 99)})
+    for key in ("AP", "Ex_AP", "prob_thr"):
+        report.update({key: metrics[f"coco/{key}"], f"jax_{key}": float(ref[key]),
+                       f"d_{key}": abs(metrics[f"coco/{key}"] - float(ref[key]))})
+    report["ok"] = (report["instances"] == len(ref["ids"]) and report["p99"] < bars["p99"]
+                    and report["max"] < bars["max"] and report["d_AP"] < bars["ap"] and report["d_Ex_AP"] < bars["ap"])
     return report, launches
 
 
@@ -1141,6 +1296,202 @@ class Smoke:
         if not report["ok"]:
             raise AssertionError(f"val_{variant} out of its bars {VAL_BARS[variant]}")
 
+    def jpeg_decode(self):
+        """The port's decode on the card (``ops/kernels/jpeg.py``) against
+        the plain decoder on every fixture of ``tests/golden_torch``: shapes
+        equal (EXIF orientation applied), |difference| 0 on each image,
+        every slot's padding zero in a batch of mixed sizes decoded after a
+        batch of larger images (the buffer is zeroed for each batch), the
+        truncated stream refused. nvJPEG's batched decode (``NvjpegBatched``,
+        the yardstick) on the same images within ``NVJPEG_BARS``, oriented
+        on the host for the comparison. Both reported by mode (max, mean,
+        p99). Then the decode rate, a batch of 64 golden JPEGs on the card's
+        clock, the port's and nvJPEG's, the host half alone (the Huffman
+        decode on 1 and on ``HOST_THREADS`` threads, host clock, a file, a
+        MB of JPEG data and a megapixel) and the plain decoder's time."""
+        import numpy as np
+        import torch
+
+        from probpose_code_torch.datasets import jpeg
+        from probpose_code_torch.ops.kernels.jpeg import HOST_THREADS, decode_batch, entropy_decode
+
+        formats = sorted((GOLDEN_JPEG / "formats").glob("*.jpg"))
+        golden = sorted((GOLDEN_JPEG / "golden").glob("*.jpg"), key=lambda p: int(p.stem))
+        files = [p for p in formats + golden if p.stem != "truncated"]
+        datas = [p.read_bytes() for p in files]
+        infos = [jpeg.probe(d, str(p)) for d, p in zip(datas, files)]
+        plain = [jpeg.decode(d, str(p)) for d, p in zip(datas, files)]
+
+        def mode(p, info):
+            if info.orientation > 1:
+                return f"exif{info.orientation}"
+            if info.progressive:
+                return "progressive"
+            return "restart" if p.stem == "restart" else info.sampling
+
+        def compare(what, images, bars):
+            """images: each file's (H, W, 3) uint8 array as cv2.imread returns it"""
+            stats = {}
+            for p, info, ref, img in zip(files, infos, plain, images):
+                if img.shape != ref.shape:
+                    raise AssertionError(f"jpeg_decode {what}: {p.name} shape {img.shape} against {ref.shape}")
+                d = np.abs(img.astype(np.int32) - ref).ravel()
+                stats.setdefault(mode(p, info), []).append(d)
+                bad = {k: v for k, v in dict(max=d.max(), p99=np.percentile(d, 99), mean=d.mean()).items()
+                       if v > bars[k]}
+                if bad:
+                    raise AssertionError(f"jpeg_decode {what}: {p.name} against the plain decoder {bad}, bars {bars}")
+            for m, ds in sorted(stats.items()):
+                d = np.concatenate(ds)
+                print(f"jpeg_decode {what}: {m} ({len(ds)} images): |card - plain| max {d.max()}, mean "
+                      f"{d.mean():.4f}, p99 {np.percentile(d, 99):.1f} grey levels")
+            return max(int(np.concatenate(ds).max()) for ds in stats.values())
+
+        decode_batch(datas[-24:], "cuda")  # larger images first: the next buffer reuses their memory
+        out, shapes = decode_batch(datas, "cuda", [str(p) for p in files])
+        slots = out.cpu().numpy()
+        for p, (h, w), slot in zip(files, shapes, slots):
+            if slot[h:].any() or slot[:, w:].any():
+                raise AssertionError(f"jpeg_decode: {p.name}: pixels outside the image in its slot")
+        worst = compare("port", [slot[:h, :w] for (h, w), slot in zip(shapes, slots)], EXACT_BARS)
+        truncated = (GOLDEN_JPEG / "formats" / "truncated.jpg").read_bytes()
+        try:
+            decode_batch([truncated], "cuda", ["truncated.jpg"])
+        except ValueError as e:
+            print(f"jpeg_decode: the truncated stream raises: {e}")
+        else:
+            raise AssertionError("jpeg_decode: the truncated stream decoded without an error")
+
+        yardstick = NvjpegBatched()
+        try:
+            stored = yardstick.decode(datas, infos).cpu().numpy()
+            compare("nvjpeg", [jpeg.orient(slot[:i.height, :i.width], i.orientation)
+                               for i, slot in zip(infos, stored)], NVJPEG_BARS)
+
+            batch = [golden[i % 24].read_bytes() for i in range(64)]
+            binfos = [jpeg.probe(d) for d in batch]
+            ms = cuda_time_ms(lambda: decode_batch(batch, "cuda", infos=binfos), iters=10)
+            library_ms = cuda_time_ms(lambda: yardstick.decode(batch, binfos), iters=10)
+        finally:
+            yardstick.close()
+        for what, t in (("port", ms), ("nvjpeg", library_ms)):
+            print(f"jpeg_decode {what}: {t:.3f} ms a batch of 64 golden JPEGs ({64e3 / t:.1f} images/s, "
+                  f"CUDA events, host waits included)")
+        names = [f"golden {i % 24 + 1}" for i in range(64)]
+        mb, mpix = sum(len(d) for d in batch) / 1e6, sum(i.width * i.height for i in binfos) / 1e6
+        for threads in (1, HOST_THREADS):
+            entropy_decode(batch, names, threads)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                entropy_decode(batch, names, threads)
+            host_ms = (time.perf_counter() - t0) * 200
+            print(f"jpeg_decode host half (Huffman decode into pinned buffers, host clock), {threads} threads: "
+                  f"{host_ms:.3f} ms a batch of 64 golden JPEGs ({mb:.3f} MB, {mpix:.3f} Mpixel): "
+                  f"{host_ms / 64:.4f} ms a file, {host_ms / mb:.3f} ms a MB, {host_ms / mpix:.3f} ms a Mpixel")
+        t0 = time.perf_counter()
+        decode_batch(batch, "cpu", infos=binfos)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        moved = sum(len(d) for d in batch) + sum(3 * i.width * i.height for i in binfos)
+        print(f"jpeg_decode: the plain decoder {plain_ms:.1f} ms for the same batch on the host; bytes in and out "
+              f"{moved / 1e6:.2f} MB")
+        # the port's decode is CUDA (its kernels after a host Huffman decode);
+        # nvJPEG's batched decode, a library call for nearly the same function, is the yardstick
+        self.record["decode"] = dict(
+            name="jpeg_decode", route="cuda", source="probpose_code_torch/csrc/jpeg_decode.cu", launches=0,
+            max_abs_err=float(worst), ms=ms, plain_ms=plain_ms, bound_ms=moved / PEAK_BYTES * 1e3, bound_by="bytes",
+            library_ms=library_ms, library="nvjpegDecodeBatched")
+
+    def val_full_jpeg(self):
+        """``val_full`` over the golden JPEGs decoded on the card,
+        against the JAX package's ``Runner.val`` on the same files
+        (``run_val_jpeg``), at the JAX package's f32 bars; K1 x12, K2 x1
+        and one decode for the one val batch."""
+        from probpose_code_torch.ops.kernels.jpeg import decode_batch
+
+        report, launches = run_val_jpeg("cuda", self.full_weights())
+        decodes = decode_batch.launches
+        print(f"val_full_jpeg: {report['instances']} instances through Runner.val from JPEG files; keypoint err "
+              f"against the JAX Runner.val on the same files: p50 {report['p50']:.4f}, p90 {report['p90']:.4f}, "
+              f"p99 {report['p99']:.4f}, max {report['max']:.4f} px; score max err {report['scores']:.5f}; AP "
+              f"{report['AP']:.4f} (JAX {report['jax_AP']:.4f}, |d| {report['d_AP']:.4f}), Ex_AP "
+              f"{report['Ex_AP']:.4f} (JAX {report['jax_Ex_AP']:.4f}, |d| {report['d_Ex_AP']:.4f}); decode "
+              f"{report['decode_s'] * 1e3:.3f} ms (card clock), {decodes} decode launches; launches "
+              f"{json.dumps(launches)}; bars {json.dumps(VAL_BARS['full'])}")
+        if launches != PREDICT_LAUNCHES or decodes != 1:
+            raise AssertionError(f"expected K1 x12, K2 x1 and one decode for the one val batch, got {launches} and "
+                                 f"{decodes} decodes")
+        if not report["ok"]:
+            raise AssertionError(f"val_full_jpeg out of the bars {VAL_BARS['full']}")
+
+    def serve(self):
+        """``python -m probpose_code_torch.tools.serve``'s server
+        (``tools.serve.make_server``) for the flagship config at full width
+        (random weights, seed 0) on an ephemeral 127.0.0.1 port, in a thread
+        that the phase always stops: 3 golden JPEGs POSTed, each answer
+        equal to ``inference_topdown`` on the same file (within the card's
+        run-to-run variation, ``SERVE_KPT_ATOL``), K1 x12, K2 x1 and
+        one decode a request; then the latency of a request (20 after 3
+        warm-up)."""
+        import threading
+        import urllib.request
+
+        import numpy as np
+        import torch
+
+        from probpose_code_torch.apis import inference_topdown, init_model
+        from probpose_code_torch.ops.kernels.jpeg import decode_batch
+        from probpose_code_torch.tools import serve
+
+        model = init_model(str(FLAGSHIP))
+        server = serve.make_server(model, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+
+        def post(body):
+            req = urllib.request.Request(f"http://127.0.0.1:{server.server_port}/predict", data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read())
+
+        try:
+            paths = [GOLDEN_JPEG / "golden" / f"{i}.jpg" for i in (1, 8, 16)]
+            # the main path: counts set to 0 just before, read just after
+            read_counts = reset_counts()
+            answers = [post(p.read_bytes()) for p in paths]
+            torch.cuda.synchronize()
+            launches, decodes = read_counts(), decode_batch.launches
+            expected = [serve.payload(inference_topdown(model, str(p))) for p in paths]
+            per_request = {k: v / len(paths) for k, v in launches.items()}
+            print(f"serve: {len(paths)} POSTed JPEGs, statuses {[a[0] for a in answers]}, launches a request "
+                  f"{json.dumps(per_request)}, {decodes} decodes")
+            for p, (status, answer), want in zip(paths, answers, expected):
+                if status != 200 or len(answer) != len(want) or set(answer[0]) != set(want[0]):
+                    raise AssertionError(f"serve: {p.name} answered {status}: {str(answer)[:300]}")
+                kd = max(np.abs(np.asarray(a["keypoints"]) - b["keypoints"]).max() for a, b in zip(answer, want))
+                sd = max(np.abs(np.asarray(a["keypoint_scores"]) - b["keypoint_scores"]).max()
+                         for a, b in zip(answer, want))
+                print(f"serve: {p.name}: the answer against inference_topdown on the file: "
+                      f"{'bit-equal' if answer == want else f'keypoints {kd:.3g} px, scores {sd:.3g} apart'}")
+                if kd > SERVE_KPT_ATOL or sd > SERVE_SCORE_ATOL:
+                    raise AssertionError(f"serve: {p.name}'s answer is not inference_topdown's JSON (keypoints "
+                                         f"{kd} px, scores {sd} apart; bars {SERVE_KPT_ATOL}, {SERVE_SCORE_ATOL})")
+            if per_request != PREDICT_LAUNCHES or decodes != len(paths):
+                raise AssertionError(f"serve: expected K1 x12, K2 x1 and one decode a request, got {per_request} "
+                                     f"and {decodes} decodes")
+            body = paths[0].read_bytes()
+            for _ in range(3):
+                post(body)
+            lat = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                post(body)
+                lat.append((time.perf_counter() - t0) * 1e3)
+            print(f"serve: {len(body)} bytes a request, one box: latency p50 {np.percentile(lat, 50):.3f} ms, max "
+                  f"{max(lat):.3f} ms over 20 requests after 3 warm-up (host clock, client to answer)")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+
     def val_full(self):
         self.val_golden("full")
 
@@ -1164,11 +1515,12 @@ class Smoke:
         from probpose_code_torch.config import Config, parse_cfg_option
         from probpose_code_torch.datasets.loader import DataLoader, stop_workers
         from probpose_code_torch.engine.runner import Runner
+        from probpose_code_torch.ops.kernels.jpeg import decode_batch
 
         per_set = 256
         with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
             stack.callback(stop_workers)  # the fork server outlives a pass
-            _, ann = golden_png_set(tmp)
+            _, ann = golden_jpeg_set(tmp)
             copy_instances(ann, per_set, Path(tmp, "val.json"))
             cfg = Config.fromfile(FLAGSHIP)
             cfg.merge_from_dict(dict(parse_cfg_option(kv) for kv in flagship_data_options(tmp)))
@@ -1178,8 +1530,9 @@ class Smoke:
             read_counts = reset_counts()
             metrics = runner.val()
             torch.cuda.synchronize()
-            launches = read_counts()
+            launches, decodes = read_counts(), decode_batch.launches
             crops, batches = len(runner.val_dataset), len(runner.val_loader)
+            self.record["decode_launches"] = decodes
             runs = [dict(runner.val_times)]
             runner.val()  # once more, with the fork server already started
             runs.append(dict(runner.val_times))
@@ -1191,9 +1544,13 @@ class Smoke:
                   f"{loader_cfg['num_workers']} workers (forkserver): {crops / total:.1f} crops/s from the start "
                   f"of the loader to the metrics ({total:.3f} s); split (s): wait for the first batch "
                   f"{t['first_batch']:.3f}, later loader waits {t['loader'] - t['first_batch']:.3f}, device "
-                  f"{t['device']:.3f}, attach+process {t['process']:.3f}, evaluate {t['evaluate']:.3f}")
+                  f"{t['device']:.3f} (JPEG decode {t['decode']:.3f} of it, card clock; the issuing thread "
+                  f"blocked in it {t['decode_host']:.3f}, host clock), attach+process "
+                  f"{t['process']:.3f}, evaluate {t['evaluate']:.3f}")
         per_batch = {k: v / batches for k, v in launches.items()}
-        print(f"val_flagship launches a batch: {json.dumps(per_batch)}")
+        print(f"val_flagship launches a batch: {json.dumps(per_batch)}, decodes {decodes / batches}")
+        if decodes != batches:
+            raise AssertionError(f"val_flagship: {decodes} JPEG decodes for {batches} batches")
         keys = [f"{p}/{k}" for p in ("CropCOCO", "COCO") for k in ("AP", "Ex_AP", "AR", "Ex_AR", "OKS", "Ex_OKS")]
         missing = [k for k in keys if k not in metrics]
         if crops != 2 * per_set or missing or not all(math.isfinite(v) for v in metrics.values()):
@@ -1205,7 +1562,7 @@ class Smoke:
             preds = runner.model.predict(runner.device_batch(batch)["inputs"])
             return {k: v.cpu() for k, v in preds.items() if k != "heatmaps"}
 
-        self.profile(one_batch, calls=1, what="val batches (canvas copy and warp, predict, outputs back)")
+        self.profile(one_batch, calls=1, what="val batches (JPEG decode and warp, predict, outputs back)")
 
     def train_flagship(self):
         """The flagship's training entry point at full width: the main of
@@ -1240,6 +1597,7 @@ class Smoke:
         from probpose_code_torch.engine.hooks import Hook
         from probpose_code_torch.engine.optim import build_optimizer
         from probpose_code_torch.models.builder import PoseModel
+        from probpose_code_torch.ops.kernels.jpeg import decode_batch
         from probpose_code_torch.parallel import create_train_state, make_train_step
         from probpose_code_torch.tools import train as train_cli
 
@@ -1307,7 +1665,9 @@ class Smoke:
                 print(f"train_flagship epoch {e}: {t['crops']} crops, {t['crops'] / t['window']:.1f} train crops/s "
                       f"from the start of its loader to its last step ({t['window']:.3f} s); split (s): wait for "
                       f"the first batch {t['first_batch']:.3f}, later loader waits "
-                      f"{t['loader'] - t['first_batch']:.3f}, steps {t['step']:.3f}, hooks and logging "
+                      f"{t['loader'] - t['first_batch']:.3f}, steps {t['step']:.3f} (JPEG decode {t['decode']:.3f} "
+                      f"of it, card clock; the issuing thread blocked in it {t['decode_host']:.3f}, host clock), "
+                      f"hooks and logging "
                       f"{t['hooks']:.3f}" + (f" (the profiler's start and stop {profiler_s:.3f} of it)" if profiler_s
                                              else "")
                       + f"; after it: checkpoint writing {t['checkpoint']:.3f}, val {t['val']:.3f}")
@@ -1319,8 +1679,9 @@ class Smoke:
             t = runner.val_times
             print(f"train_flagship val inside training: {len(runner.val_dataset)} crops in {batches} batches, "
                   f"launches a batch {json.dumps(per_batch)}; split (s): first batch {t['first_batch']:.3f}, later "
-                  f"loader waits {t['loader'] - t['first_batch']:.3f}, device {t['device']:.3f}, attach+process "
-                  f"{t['process']:.3f}, evaluate {t['evaluate']:.3f}; " + " ".join(f"{k} {metrics.get(k, float('nan')):.4f}" for k in keys))
+                  f"loader waits {t['loader'] - t['first_batch']:.3f}, device {t['device']:.3f} (JPEG decode "
+                  f"{t['decode']:.3f} card clock, {t['decode_host']:.3f} host clock), attach+process {t['process']:.3f}, evaluate {t['evaluate']:.3f}; "
+                  + " ".join(f"{k} {metrics.get(k, float('nan')):.4f}" for k in keys))
             missing = [k for k in keys if k not in metrics]
             if missing or not all(math.isfinite(v) for v in metrics.values()):
                 raise AssertionError(f"train_flagship: val metrics missing {missing} or not finite")
@@ -1329,7 +1690,7 @@ class Smoke:
 
         with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
             stack.callback(stop_workers)
-            _, ann = golden_png_set(tmp)
+            _, ann = golden_jpeg_set(tmp)
             copy_instances(ann, 256, Path(tmp, "train.json"))
             copy_instances(ann, 256, Path(tmp, "val.json"))
             wd = Path(tmp, "work")
@@ -1342,9 +1703,12 @@ class Smoke:
             read_counts = reset_counts()
             runner = train_cli.main(argv + ["train_cfg.max_epochs=2"], hooks=[watch])
             torch.cuda.synchronize()
-            launches = read_counts()
+            launches, decodes = read_counts(), decode_batch.launches
             print(f"train_flagship main path: {runner.state.step} steps of {runner.train_loader.batch_size}, "
-                  f"launches {json.dumps(launches)}")
+                  f"launches {json.dumps(launches)}, JPEG decodes {decodes}")
+            if decodes != runner.state.step + len(runner.val_loader):
+                raise AssertionError(f"train_flagship: {decodes} JPEG decodes for {runner.state.step} steps and "
+                                     f"{len(runner.val_loader)} val batches")
             report(runner, 0)
             written = sorted(p.name for p in wd.glob("*.pth"))
             if runner.state.step != 8 or written != ["best.pth", "epoch_1.pth", "epoch_2.pth"]:
@@ -1361,7 +1725,7 @@ class Smoke:
             model.init_weights(seed=0)
             optimizer, _ = build_optimizer(model, cfg["optim_wrapper"], cfg["param_scheduler"],
                                            len(runner.train_loader), runner.max_epochs)
-            batch = {k: torch.from_numpy(v).cuda() for k, v in runner.train_loader.load(0, 0).items()}
+            batch = runner.to_device(runner.train_loader.load(0, 0))
             _, metrics = make_train_step(model, optimizer)(
                 create_train_state(model, optimizer), batch, torch.Generator(device="cuda").manual_seed(cfg["seed"]))
             direct = {k: float(v) for k, v in metrics.items()}
@@ -1894,10 +2258,13 @@ def main() -> int:
         smoke.phase("k4_parity", smoke.k4_parity)
         smoke.phase("vitpose_predict", smoke.vitpose_predict)
         smoke.phase("vitpose_train", smoke.vitpose_train)
+        smoke.phase("jpeg_decode", smoke.jpeg_decode)
         smoke.phase("val_full", smoke.val_full)
+        smoke.phase("val_full_jpeg", smoke.val_full_jpeg)
         smoke.phase("val_shipped", smoke.val_shipped)
         smoke.phase("val_flagship", smoke.val_flagship)
         smoke.phase("train_flagship", smoke.train_flagship)
+        smoke.phase("serve", smoke.serve)
         smoke.phase("timings", smoke.timings)
     left = stop_descendants()
     if left:
@@ -1907,6 +2274,8 @@ def main() -> int:
         return 1
     print(card)
     print(json.dumps({"kernels": smoke.record["kernels"]}))
+    # the JPEG decode, no TPU kernel: its own line, its launches those of val_flagship's main path
+    print(json.dumps({"decode": dict(smoke.record["decode"], launches=smoke.record["decode_launches"])}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -6,7 +6,12 @@ crop of a call is cut on the device (``ops/warp.py``, no OpenCV) as the
 ``TopdownAffine`` of the config's test pipeline sets it (``use_udp``,
 ``input_padding``; ``_default_val_pipeline``, ``:115``), and all crops go
 through one predict call; the keypoints are mapped back to the image as in
-``engine/runner.py:attach_predictions`` (``:389-418``).
+``engine/runner.py:attach_predictions`` (``:389-418``). The image may be a
+file path, as in the JAX package (``:140-141``, ``cv2.imread``): a JPEG is
+decoded on the model's device (``ops/kernels/jpeg.py`` on the card,
+``datasets/jpeg.py`` on the CPU) and cropped there, never copied back to
+the host; a PNG is read
+by ``datasets/png.py``.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 
 from probpose_code_torch.config import Config
 from probpose_code_torch.datasets.metainfo import parse_pose_metainfo
+from probpose_code_torch.datasets.transforms.loading import read_image_bytes
 from probpose_code_torch.engine.checkpoint import load_checkpoint
 from probpose_code_torch.models.builder import PoseModel
 from probpose_code_torch.ops.warp import warp_affine_batch
@@ -92,8 +98,9 @@ def topdown_affine(config) -> Tuple[bool, float]:
     raise ValueError("the config's test pipeline has no TopdownAffine to crop with")
 
 
-def crop_batch(image: np.ndarray, bboxes: np.ndarray, input_size, device, config=None):
-    """Crops of ``bboxes`` (N, 4 xyxy) from one (H, W, 3) image at
+def crop_batch(image: Union[np.ndarray, torch.Tensor], bboxes: np.ndarray, input_size, device, config=None):
+    """Crops of ``bboxes`` (N, 4 xyxy) from one (H, W, 3) image (an array,
+    or a tensor, which stays where it is when it is on ``device``) at
     ``input_size`` (w, h), cut on ``device`` and rounded to uint8 values like
     cv2.warpAffine, with the warp (UDP or not) and the box padding of the
     ``TopdownAffine`` of ``config`` (``topdown_affine``), rotation 0.
@@ -104,23 +111,31 @@ def crop_batch(image: np.ndarray, bboxes: np.ndarray, input_size, device, config
     scale = fix_aspect_ratio(scale, aspect_ratio=w / h)
     warp_matrix = get_udp_warp_matrix if use_udp else get_warp_matrix
     mats = np.stack([warp_matrix(c, s, 0.0, output_size=(w, h)) for c, s in zip(center, scale)])
-    src = torch.from_numpy(np.ascontiguousarray(image)).to(device)[None]
+    if not isinstance(image, torch.Tensor):
+        image = torch.from_numpy(np.ascontiguousarray(image))
+    src = image.to(device)[None]
     crops = warp_affine_batch(src, torch.from_numpy(mats), (w, h))
     return crops.round().clamp(0, 255), center, scale
 
 
 def inference_topdown(
     model: PoseModel,
-    img: np.ndarray,
+    img: Union[str, os.PathLike, np.ndarray, torch.Tensor],
     bboxes: Optional[Union[List, np.ndarray]] = None,
     bbox_format: str = "xyxy",
 ) -> List[PoseDataSample]:
-    """Estimate one pose per bbox of one (H, W, 3) BGR uint8 image. Each
+    """Estimate one pose per bbox of one image: a file path (a JPEG decoded
+    on the model's device, a PNG on the host; ``read_image_bytes``), or an (H, W, 3) BGR uint8 array or tensor. Each
     sample's ``pred_instances`` holds ``keypoints`` and ``keypoint_scores``,
     and a ProbMapHead's presence, visibility, OKS, error and confidence
-    fields."""
-    if not isinstance(img, np.ndarray):
-        raise TypeError("inference_topdown takes the image as a numpy array (the port reads no files)")
+    fields; its ``img_path`` is the path, where one was given."""
+    img_path = None
+    if isinstance(img, (str, os.PathLike)):
+        img_path = str(img)
+        with open(img_path, "rb") as f:
+            img = read_image_bytes(f.read(), img_path, model.device)
+    elif not isinstance(img, (np.ndarray, torch.Tensor)):
+        raise TypeError("inference_topdown takes a file path or an (H, W, 3) BGR uint8 array or tensor")
     h, w = img.shape[:2]
     if bboxes is None or len(bboxes) == 0:
         bboxes = np.array([[0, 0, w, h]], dtype=np.float32)
@@ -140,7 +155,7 @@ def inference_topdown(
     for i in range(len(bboxes)):
         kpts = preds["keypoints"][i] / in_wh * scales[i] + centers[i] - 0.5 * scales[i]
         sample = PoseDataSample(metainfo=dict(
-            id=i, img_id=0, img_path=None, img_shape=(h, w), ori_shape=(h, w),
+            id=i, img_id=0, img_path=img_path, img_shape=(h, w), ori_shape=(h, w),
             input_size=tuple(model.input_size), input_center=centers[i], input_scale=scales[i],
             flip_indices=metainfo["flip_indices"], dataset_name=metainfo["dataset_name"],
         ))

@@ -2,8 +2,10 @@
 
 The port's own copy of ``probpose_code_tpu/datasets/loader.py``:
 ``collate_pose_samples`` (``:42``) stacks the pipeline's canvases and warp
-matrices into dense NumPy arrays beside the list of PoseDataSamples, and a
-training batch also its heatmap-space keypoints and labels;
+matrices into dense NumPy arrays (a JPEG sample gives its file's bytes
+instead of a canvas: tens to hundreds of KB where a canvas is 1.2 MB) beside the
+list of PoseDataSamples, and a training batch also its heatmap-space
+keypoints and labels;
 ``DataLoader`` (``:254``) yields the JAX loader's batches: the order
 (``RandomState(seed + epoch)`` when shuffled), the last partial batch kept or
 dropped, and the per-batch seeds (``_task_seed``, ``:316-320``): before
@@ -38,6 +40,9 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch.utils.data
 
+# the batch's entries that stay on the host, as lists: the JPEG files, which
+# the model's device decodes (``PoseModel.device_preprocess_batch``)
+HOST_KEYS = ("jpeg", "jpeg_info", "jpeg_path")
 # the training labels a batch stacks, from ``gt_instance_labels`` and from
 # ``gt_instances`` (``:103-107``, ``:190-196``)
 LABELS = ("keypoint_weights", "keypoints_visible_weights")
@@ -53,19 +58,38 @@ def _stacked(values) -> np.ndarray:
 
 
 def collate_pose_samples(samples: List[dict]) -> Dict:
-    """The samples of TopdownAffine's canvas form as one batch: ``canvas``,
-    ``warp_mat`` and ``data_samples``. The JAX collate names a batch of
-    rotation-free crops ``canvas_sep`` / ``warp_mat_sep`` for its separable
-    warp; the port warps every canvas by the gather, so keeps one name. A
-    training batch (from ``GenerateTarget``) adds ``kpts_hm`` (B, K, 2),
-    ``kpts_visible`` (B, K) and the labels: ``keypoint_weights``,
-    ``in_image``, ``annotated`` and ``keypoints_visibility``, all float32."""
+    """The samples of TopdownAffine as one batch, in their order. Those of
+    its canvas form give ``canvas`` and ``warp_mat``; those of its JPEG form
+    give ``jpeg`` (the files' bytes, each file once), ``jpeg_info`` (their
+    headers), ``jpeg_path`` (see ``HOST_KEYS``), and for each crop
+    ``jpeg_image`` (its file), ``jpeg_warp_mat`` (image -> crop) and
+    ``jpeg_index``, its place in the batch (a ``CombinedDataset`` may mix
+    the two forms; the canvases fill the other places, in order).
+    The JAX collate names a batch of rotation-free crops ``canvas_sep`` /
+    ``warp_mat_sep`` for its separable warp; the port warps every canvas by
+    the gather, so keeps one name. A training batch (from
+    ``GenerateTarget``) adds ``kpts_hm`` (B, K, 2), ``kpts_visible`` (B, K)
+    and the labels: ``keypoint_weights``, ``in_image``, ``annotated`` and
+    ``keypoints_visibility``, all float32; every batch ``data_samples``."""
     samples = [s for s in samples if s is not None]
     assert samples, "empty batch after pipeline drops"
-    batch: Dict = {
-        "canvas": np.stack([s["canvas"] for s in samples]),
-        "warp_mat": np.stack([s["warp_mat"] for s in samples]).astype(np.float32),
-    }
+    batch: Dict = {}
+    canvases = [s for s in samples if "canvas" in s]
+    jpegs = [i for i, s in enumerate(samples) if "img_bytes" in s]
+    if canvases:
+        batch["canvas"] = np.stack([s["canvas"] for s in canvases])
+        batch["warp_mat"] = np.stack([s["warp_mat"] for s in canvases]).astype(np.float32)
+    if jpegs:
+        # each file once (persons of one image share it), ``jpeg_image`` the file of each crop
+        files: Dict = {}
+        image = [files.setdefault(samples[i]["data_samples"].metainfo.get("img_path") or i, i) for i in jpegs]
+        first = sorted(set(image))
+        batch["jpeg"] = [samples[i]["img_bytes"] for i in first]
+        batch["jpeg_info"] = [samples[i]["jpeg_info"] for i in first]
+        batch["jpeg_path"] = [samples[i]["data_samples"].metainfo.get("img_path") for i in first]
+        batch["jpeg_image"] = np.searchsorted(first, image).astype(np.int64)
+        batch["jpeg_warp_mat"] = np.stack([samples[i]["warp_mat"] for i in jpegs]).astype(np.float32)
+        batch["jpeg_index"] = np.asarray(jpegs, np.int64)
     data_samples = [s["data_samples"] for s in samples]
     if "device_kpts_hm" in samples[0]:
         batch["kpts_hm"] = np.stack([np.asarray(s["device_kpts_hm"]).reshape(-1, 2) for s in samples]).astype(np.float32)

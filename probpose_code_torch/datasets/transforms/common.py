@@ -43,7 +43,11 @@ class GetBBoxCenterScale:
 
 @TRANSFORMS.register_module()
 class RandomFlip:
-    """Random horizontal/vertical/diagonal flip of image + boxes + keypoints."""
+    """Random horizontal/vertical/diagonal flip of image + boxes + keypoints.
+    A JPEG sample (``img_bytes`` from ``LoadImage``) keeps its pixels: the
+    flip is recorded in ``flip`` / ``flip_direction`` and folded into the
+    warp by ``TopdownAffine``, as the JAX package's lazy path does for the
+    horizontal flip (``loading.py:materialize_image``)."""
 
     def __init__(self, prob: Union[float, List[float]] = 0.5, direction: Union[str, List[str]] = "horizontal"):
         self.prob = prob
@@ -74,7 +78,8 @@ class RandomFlip:
         axes = {"horizontal": 1, "vertical": 0}.get(flip_dir, (0, 1))
         if isinstance(results["img"], list):
             raise NotImplementedError("RandomFlip: multi-frame samples are not ported yet")
-        results["img"] = np.flip(results["img"], axis=axes)
+        if "img_bytes" not in results:  # a JPEG's flip is folded into its warp by TopdownAffine
+            results["img"] = np.flip(results["img"], axis=axes)
 
         for key, fmt in (("bbox", "xyxy"), ("bbox_xyxy_wrt_input", "xyxy"), ("bbox_center", "center")):
             if results.get(key, None) is not None:

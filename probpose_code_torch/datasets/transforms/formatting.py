@@ -5,7 +5,8 @@ formatting.py:23``, reference ``datasets/transforms/formatting.py:61``), with
 the ProbPose instance keys, the training labels (``gt_instance_labels``
 through the label table, ``:110-117``) and the device passthrough
 (``:136``): a sample from ``TopdownAffine``'s canvas form carries ``canvas``
-and ``warp_mat`` instead of a crop, and one from ``GenerateTarget`` the
+and ``warp_mat`` instead of a crop, one from its JPEG form ``img_bytes``,
+``jpeg_info`` and ``warp_mat``, and one from ``GenerateTarget`` the
 heatmap-space keypoints instead of maps. Images stay NumPy; the loader's
 collate batches them. The JAX transform's ``gt_fields`` hold host-encoded
 maps, which the port never makes.
@@ -97,9 +98,10 @@ class PackPoseInputs:
         data_sample.set_metainfo({k: results[k] for k in self.meta_keys if k in results})
 
         packed = dict(inputs=inputs, data_samples=data_sample)
-        # device passthrough: the canvas and its geometry instead of a crop,
-        # the heatmap-space keypoints instead of target maps
-        for key in ("canvas", "warp_mat", "device_kpts_hm", "device_kpts_visible"):
+        # device passthrough: the canvas (or the JPEG file and its header) and
+        # its geometry instead of a crop, the heatmap-space keypoints instead
+        # of target maps
+        for key in ("canvas", "img_bytes", "jpeg_info", "warp_mat", "device_kpts_hm", "device_kpts_visible"):
             if key in results:
                 packed[key] = results[key]
         return packed

@@ -19,6 +19,15 @@ folded into the matrix; a rotated crop (``bbox_rotation`` from
 ``RandomBBoxTransform``) widens the region, and takes that path sooner. As in
 the JAX canvas form, no ``bbox_mask`` is made. The keypoints are warped into
 the crop (``transformed_keypoints``, ``:209-216``) for ``GenerateTarget``.
+
+A JPEG sample (``img_bytes`` from ``LoadImage``) takes no canvas: its
+``warp_mat`` maps the image (as ``cv2.imread`` returns it) to the crop, with
+a recorded flip folded in (``x -> W - 1 - x`` horizontally, ``y -> H - 1 -
+y`` vertically, both for the diagonal flip), and the bytes go on to the
+model's device, which decodes and warps the batch: the JAX ``lazy`` design
+(``topdown.py:124-185``) moved to the card. Its reference is the JAX
+pipeline's ``cv2.imread`` and ``cv2.warpAffine`` of the flipped image with
+a zero border.
 """
 
 from __future__ import annotations
@@ -77,12 +86,21 @@ CANVAS_SIZE = (640, 640)
 
 @TRANSFORMS.register_module()
 class TopdownAffine:
-    """Always the canvas form (see the module). The JAX transform's
-    ``device_warp``, ``canvas_size``, ``with_bbox_mask`` and ``fast_decode``
-    are set by no config and are not ported."""
+    """The canvas form, or the JPEG form (see the module). The JAX
+    transform's ``device_warp`` and ``canvas_size`` are set by no config and
+    are not ported; ``fast_decode`` (its DCT-domain downscale of lazy JPEGs)
+    and ``with_bbox_mask`` (the DoubleProbMap family's coverage mask) raise
+    ``NotImplementedError`` when set."""
 
-    def __init__(self, input_size: Tuple[int, int], input_padding: float = 1.25, use_udp: bool = False):
+    def __init__(self, input_size: Tuple[int, int], input_padding: float = 1.25, use_udp: bool = False,
+                 fast_decode: bool = False, with_bbox_mask: Optional[bool] = None):
         assert len(input_size) == 2
+        if fast_decode:
+            raise NotImplementedError("TopdownAffine: fast_decode (the DCT-domain downscale of JPEGs) is not "
+                                      "ported yet (ROADMAP.md section 1, item 3)")
+        if with_bbox_mask:
+            raise NotImplementedError("TopdownAffine: with_bbox_mask (DoubleProbMap's coverage mask) is not "
+                                      "ported yet (ROADMAP.md section 1, item 5)")
         self.input_size = input_size
         self.use_udp = use_udp
         self.input_padding = input_padding
@@ -125,6 +143,19 @@ class TopdownAffine:
         mat = np.concatenate([R, t[:, None]], axis=1).astype(np.float32)
         return canvas, mat
 
+    @staticmethod
+    def _image_warp(warp_mat: np.ndarray, shape: Tuple[int, int], results: Dict) -> np.ndarray:
+        """The image -> crop affine of a JPEG sample: ``warp_mat`` (flipped
+        image -> crop) after the recorded flip of the (H, W) image."""
+        if not results.get("flip"):
+            return warp_mat
+        H, W = shape
+        direction = results.get("flip_direction") or "horizontal"
+        sx = -1.0 if direction in ("horizontal", "diagonal") else 1.0
+        sy = -1.0 if direction in ("vertical", "diagonal") else 1.0
+        flip = np.array([[sx, 0.0, (W - 1) * (sx < 0)], [0.0, sy, (H - 1) * (sy < 0)], [0.0, 0.0, 1.0]])
+        return (warp_mat.astype(np.float64) @ flip).astype(np.float32)
+
     def __call__(self, results: Dict) -> Optional[dict]:
         w, h = self.input_size
         if isinstance(results["img"], list):
@@ -143,7 +174,11 @@ class TopdownAffine:
         warp_matrix = get_udp_warp_matrix if self.use_udp else get_warp_matrix
         warp_mat = warp_matrix(center, scale, rot, output_size=(w, h)).astype(np.float32)
 
-        results["canvas"], results["warp_mat"] = self._make_canvas(results.pop("img"), warp_mat, (w, h))
+        img = results.pop("img")
+        if "img_bytes" in results:
+            results["warp_mat"] = self._image_warp(warp_mat, img.shape[:2], results)
+        else:
+            results["canvas"], results["warp_mat"] = self._make_canvas(img, warp_mat, (w, h))
 
         if results.get("keypoints", None) is not None:
             transformed = results.get("transformed_keypoints")

@@ -6,8 +6,9 @@ loader (``build_val_loader``, ``:129``) and the evaluator
 (``build_evaluator``, ``:141``) and runs ``val`` (``:252-300``) for top-down
 models: each batch's canvases are moved to the model's device and warped
 there (``PoseModel.device_preprocess_batch``, crops rounded to uint8
-values), the predict program runs, ``attach_predictions`` (``:389``) maps
-the keypoints back to the image, and the evaluator scores them.
+values; a JPEG batch's files are decoded there first), the predict program
+runs, ``attach_predictions`` (``:389``) maps the keypoints back to the
+image, and the evaluator scores them.
 
 Training (``:117-127``, ``:156-249``, ``:302-349``): ``build_train_loader``
 (shuffled, the last partial batch dropped, per-batch seeds, workers kept
@@ -38,7 +39,7 @@ import torch
 import probpose_code_torch.engine.hooks  # noqa: F401  (registers the hooks)
 import probpose_code_torch.evaluation  # noqa: F401  (registers the metric and evaluators)
 from probpose_code_torch.config import Config
-from probpose_code_torch.datasets.loader import DataLoader
+from probpose_code_torch.datasets.loader import HOST_KEYS, DataLoader
 from probpose_code_torch.datasets.metainfo import parse_pose_metainfo
 from probpose_code_torch.engine.checkpoint import (
     adam_state_from_checkpoint,
@@ -78,8 +79,11 @@ class Runner:
         self.val_dataset = None
         # the last ``val`` on the host clock, in seconds: waiting for batches
         # (the first one apart as well), the device (canvases moved and
-        # warped, predict, outputs copied back), attaching and processing
-        # the predictions, and the evaluator's ``evaluate``
+        # warped or JPEGs decoded and warped, predict, outputs copied back),
+        # attaching and processing the predictions, and the evaluator's
+        # ``evaluate``; and the JPEG decodes inside ``device``, ``decode`` on
+        # the card's clock (the host's on the CPU) and ``decode_host`` on the
+        # host's, the issuing thread blocked in the host's Huffman decode
         self.val_times: Dict[str, float] = {}
         # each epoch of the last ``train`` on the host clock (see ``_train_epoch``)
         self.train_times: List[Dict[str, float]] = []
@@ -222,16 +226,19 @@ class Runner:
         steps (``step``: the batch moved to the device, a copy that waits for
         the previous step's kernels, and the step issued; the last one run
         to its end) and the hooks and logging (``hooks``, where the logged
-        metrics are read back); and the epoch's ``crops``."""
+        metrics are read back); the JPEG decodes inside the steps,
+        ``decode`` on the card's clock (the host's on the CPU) and
+        ``decode_host`` on the host's; and the epoch's ``crops``."""
         times = dict(loader=0.0, step=0.0, hooks=0.0, crops=0)
         n = len(self.train_loader)
+        self.model.decode_clock.take()
         start = t0 = time.perf_counter()
         for i, batch in enumerate(self.train_loader):
             t1 = time.perf_counter()
             times.setdefault("first_batch", t1 - t0)
             times["loader"] += t1 - t0
             batch.pop("data_samples", None)
-            times["crops"] += len(batch["canvas"])
+            times["crops"] += sum(len(batch[k]) for k in ("warp_mat", "jpeg_warp_mat") if k in batch)
             self.state, metrics = self.train_step(self.state, self.to_device(batch), self.generator)
             if i + 1 == n and self.model.device.type == "cuda":
                 torch.cuda.synchronize(self.model.device)  # the window ends with the last step's kernels
@@ -252,13 +259,17 @@ class Runner:
             t0 = time.perf_counter()
             times["hooks"] += t0 - t2
         times["window"] = t0 - start
+        times.update(self.model.decode_clock.take())
         return times
 
     def to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """The batch's arrays on the model's device."""
+        """The batch's arrays on the model's device; its JPEG files as they
+        are (the device decodes them in ``device_preprocess_batch``)."""
         device = self.model.device
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()
-                if isinstance(v, np.ndarray)}
+        out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()
+               if isinstance(v, np.ndarray)}
+        out.update({k: batch[k] for k in HOST_KEYS if k in batch})
+        return out
 
     def _maybe_save_best(self, metrics: Dict[str, float]) -> None:
         if not self.save_best:
@@ -329,6 +340,7 @@ class Runner:
         predict = self.model.make_predict()
 
         times = dict(loader=0.0, device=0.0, process=0.0)
+        self.model.decode_clock.take()
         t0 = time.perf_counter()
         for batch in self.val_loader:
             t1 = time.perf_counter()
@@ -346,6 +358,7 @@ class Runner:
             t0 = t3
         metrics = evaluator.evaluate(len(self.val_loader.dataset))
         times["evaluate"] = time.perf_counter() - t0
+        times.update(self.model.decode_clock.take())
         self.val_times = times
         for backend in self.vis_backends:
             backend.add_scalars({f"val/{k}": v for k, v in metrics.items()}, self.state.step if self.state else 0)

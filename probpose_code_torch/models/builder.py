@@ -24,6 +24,7 @@ from probpose_code_torch.ops.encode import (
     generate_udp_gaussian_device,
     probmap_encode_scales,
 )
+from probpose_code_torch.ops.kernels.jpeg import DecodeClock, decode_batch
 from probpose_code_torch.ops.warp import warp_affine_batch
 from probpose_code_torch.registry import MODELS
 
@@ -146,6 +147,7 @@ class PoseModel:
         self.device = torch.device(device)
         self.module.to(self.device).eval()
         self.loss_modules = build_loss_modules(head_cfg)
+        self.decode_clock = DecodeClock()  # the JPEG decodes of device_preprocess_batch
 
     def train(self, mode: bool = True) -> "PoseModel":
         """Training mode: batch statistics in BatchNorm (running statistics
@@ -246,19 +248,42 @@ class PoseModel:
         """The device half of the input pipeline, on the batch's device
         (``builder.py:363-404``). A canvas batch (``canvas`` / ``warp_mat``
         from ``TopdownAffine``'s canvas form) is warped into ``inputs`` by
-        the gather and rounded to uint8 values as the JAX pipeline's host
-        warp (cv2.warpAffine) gives them, since the canvas form is the
-        port's only crop. A batch that
+        the gather; a JPEG batch (``jpeg`` / ``jpeg_info`` / ``jpeg_path`` /
+        ``jpeg_image`` / ``jpeg_warp_mat`` / ``jpeg_index`` from its JPEG
+        form, ``datasets.loader.collate_pose_samples``) is first
+        decoded on that device into one zeroed buffer (``ops.kernels.jpeg.
+        decode_batch``: the port's decode on the card, the plain decoder on
+        the CPU; timed by ``decode_clock``) and warped from it, each crop to its place
+        in the batch. Crops are rounded to uint8 values as the JAX pipeline's
+        host warp (cv2.warpAffine) gives them. A batch that
         carries heatmap-space keypoints (``kpts_hm`` (B, K, 2),
         ``kpts_visible`` (B, K)) instead of target maps gets its maps
         encoded: UDP gaussians for the UDPHeatmap codec, expected-OKS maps
         for the ProbMap family."""
-        if not {"canvas", "kpts_hm"} & set(batch):
+        if not {"canvas", "jpeg", "kpts_hm"} & set(batch):
             return batch
         batch = dict(batch)
+        crops = []  # (places in the batch or None for all, crops)
+        if "jpeg" in batch:
+            mats = batch.pop("jpeg_warp_mat")
+            with self.decode_clock.span(mats.device):
+                images, _ = decode_batch(batch.pop("jpeg"), mats.device, names=batch.pop("jpeg_path"),
+                                         infos=batch.pop("jpeg_info"))
+            crops.append((batch.pop("jpeg_index"),
+                          warp_affine_batch(images, mats, self.input_size, image_index=batch.pop("jpeg_image"))))
         if "canvas" in batch:
-            crops = warp_affine_batch(batch.pop("canvas"), batch.pop("warp_mat"), self.input_size)
-            batch["inputs"] = crops.round().clamp(0, 255)
+            crops.append((None, warp_affine_batch(batch.pop("canvas"), batch.pop("warp_mat"), self.input_size)))
+        if len(crops) == 2:  # a mixed batch: the canvases fill the places the JPEGs leave
+            (index, jpeg_crops), (_, canvas_crops) = crops
+            inputs = jpeg_crops.new_empty((len(index) + len(canvas_crops), *jpeg_crops.shape[1:]))
+            rest = torch.ones(len(inputs), dtype=torch.bool, device=inputs.device)
+            rest[index] = False
+            inputs[index] = jpeg_crops
+            inputs[rest] = canvas_crops
+        elif crops:
+            inputs = crops[0][1]
+        if crops:
+            batch["inputs"] = inputs.round().clamp(0, 255)
         if "kpts_hm" not in batch or "heatmaps" in batch:
             return batch
         dc = self.decoder_cfg

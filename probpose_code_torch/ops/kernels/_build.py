@@ -2,9 +2,11 @@
 
 Each ``probpose_code_torch/csrc/<name>.cu`` compiles, at first use, into a
 shared library with a plain C interface under ``build/torch_kernels/`` at
-the repository root (listed in ``.gitignore``). The file name carries a hash
-of the source, of every shared header ``csrc/*.cuh`` and of the flags, so an
-edited source or header is rebuilt and an unchanged one is reused. Nothing
+the repository root (listed in ``.gitignore``). A source may add flags of its
+own (``SOURCE_FLAGS``: nvJPEG's yardstick links nvJPEG). The file name
+carries a hash of the source, of every shared header ``csrc/*.cuh`` and of
+the flags that nvcc is given (``flags``), so an edited source, header or
+flag is rebuilt and an unchanged one is reused. Nothing
 here touches CUDA when the module is imported: the CPU tests import every
 module of the package.
 """
@@ -27,6 +29,17 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
+
+def _cuda_lib() -> str:
+    """The toolkit's library directory, beside the nvcc that builds."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    return str(Path(nvcc).resolve().parents[1] / "lib64")
+
+
+# flags one source adds after ``NVCC_FLAGS``: nvJPEG, found at run time where
+# it was linked
+SOURCE_FLAGS = {"nvjpeg_batched": ["-lnvjpeg", "-Xlinker", f"-rpath={_cuda_lib()}"]}
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -38,11 +51,17 @@ def _nvcc() -> str:
     return path
 
 
+def flags(name: str) -> List[str]:
+    """nvcc's flags for ``csrc/<name>.cu``, given after the source (the
+    libraries follow it) and hashed into its library's name."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
+
+
 def _target(name: str) -> Path:
     digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -54,7 +73,7 @@ def _start(name: str):
         return None, out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), str(CSRC / f"{name}.cu"), "-o", str(tmp), *flags(name)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return (proc, tmp), out
 

@@ -11,7 +11,7 @@ uses their inverse.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,13 +32,15 @@ def invert_affine(mats: torch.Tensor) -> torch.Tensor:
     return torch.stack([row0, row1], dim=-2)
 
 
-def warp_affine_batch(images: torch.Tensor, mats: torch.Tensor, out_size: Tuple[int, int]) -> torch.Tensor:
+def warp_affine_batch(images: torch.Tensor, mats: torch.Tensor, out_size: Tuple[int, int],
+                      image_index: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Warp (Bi, Hs, Ws, C) images with (B, 2, 3) source -> crop affines to
-    (B, h, w, C) float32; ``out_size`` is (w, h). ``Bi`` is B, or 1 when every
-    crop comes from the same image."""
+    (B, h, w, C) float32; ``out_size`` is (w, h). Crop i comes from image
+    ``image_index[i]`` where it is given, else ``Bi`` is B (crop i from image
+    i), or 1 (every crop from the one image)."""
     Bi, Hs, Ws, C = images.shape
     B = mats.shape[0]
-    if Bi not in (1, B):
+    if image_index is None and Bi not in (1, B):
         raise ValueError(f"warp_affine_batch: {Bi} images for {B} matrices")
     w, h = out_size
     dev = images.device
@@ -58,12 +60,20 @@ def warp_affine_batch(images: torch.Tensor, mats: torch.Tensor, out_size: Tuple[
     fy = (sy - y0)[..., None]
     x0i = x0.to(torch.int64)
     y0i = y0.to(torch.int64)
-    src = images.float()
-    bidx = torch.arange(B, device=dev)[:, None, None] if Bi == B else torch.zeros(1, 1, 1, dtype=torch.int64, device=dev)
+    # gather from the source as it is (a uint8 batch stays 1 byte a value:
+    # a padded 64 x 640 x 640 x 3 batch would be 315 MB in f32), the four
+    # taps then in f32: the same values
+    src = images
+    if image_index is not None:
+        bidx = image_index.to(device=dev, dtype=torch.int64)[:, None, None]
+    elif Bi == B:
+        bidx = torch.arange(B, device=dev)[:, None, None]
+    else:
+        bidx = torch.zeros(1, 1, 1, dtype=torch.int64, device=dev)
 
     def sample(xi, yi):
         valid = (xi >= 0) & (xi < Ws) & (yi >= 0) & (yi < Hs)
-        vals = src[bidx, yi.clamp(0, Hs - 1), xi.clamp(0, Ws - 1)]
+        vals = src[bidx, yi.clamp(0, Hs - 1), xi.clamp(0, Ws - 1)].float()
         return vals * valid[..., None]
 
     v00 = sample(x0i, y0i)

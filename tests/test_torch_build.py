@@ -1,5 +1,6 @@
 """The kernel build cache: a library's name follows its source, every shared
-header and the flags. Runs on the CPU; no nvcc is called."""
+header and the flags, a source's own flags (``SOURCE_FLAGS``) included. Runs
+on the CPU; no nvcc is called."""
 
 import pytest
 
@@ -42,3 +43,33 @@ def test_target_follows_sources_and_headers(csrc, edit):
 def test_sources_lists_only_cu_stems(csrc):
     (csrc / "notes.txt").write_text("")
     assert _build.sources() == ["a", "b"]
+
+
+def test_source_flags_are_part_of_the_hash(csrc, monkeypatch):
+    before = {n: _build._target(n) for n in ("a", "b")}
+    monkeypatch.setattr(_build, "SOURCE_FLAGS", {"a": ["-lnvjpeg"]})
+    assert _build.flags("a") == _build.NVCC_FLAGS + ["-lnvjpeg"] and _build.flags("b") == _build.NVCC_FLAGS
+    after = {n: _build._target(n) for n in ("a", "b")}
+    assert after["a"] != before["a"] and after["b"] == before["b"]
+    monkeypatch.setattr(_build, "SOURCE_FLAGS", {"a": ["-lnvjpeg", "-Xlinker", "-rpath=/elsewhere"]})
+    assert _build._target("a") != after["a"]
+
+
+def test_only_the_nvjpeg_yardstick_links_nvjpeg():
+    assert {"jpeg_decode", "nvjpeg_batched"} <= set(_build.sources())
+    assert "-lnvjpeg" in _build.flags("nvjpeg_batched")
+    assert all("-lnvjpeg" not in _build.flags(n) for n in _build.sources() if n != "nvjpeg_batched")
+
+
+def test_nvcc_is_given_the_hashed_flags(csrc, monkeypatch):
+    """The command that builds a source carries exactly ``flags(name)``,
+    the flags its library's name hashes, after the source."""
+    commands = []
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "Popen", lambda cmd, **kw: commands.append(cmd))
+    monkeypatch.setattr(_build, "SOURCE_FLAGS", {"a": ["-lnvjpeg", "-Xlinker", "-rpath=/elsewhere"]})
+    for name in ("a", "b"):
+        (_, tmp), out = _build._start(name)
+        assert out == _build._target(name)
+        assert commands[-1] == ["nvcc", str(csrc / f"{name}.cu"), "-o", str(tmp), *_build.flags(name)]
+    assert commands[0][-3:] == ["-lnvjpeg", "-Xlinker", "-rpath=/elsewhere"]

@@ -24,7 +24,11 @@ gradients bitwise equal across two runs (no atomics); a bf16 head too wide
 for shared memory refused; one train step of the tiny config through K3;
 K4 on strided and contiguous inputs, ragged N, head widths from 8 to 824,
 and keys beyond the one-pass instance (two passes, streamed); and one
-ViTPose-B-simple train step, whose twelve layers run K4 and not K3.
+ViTPose-B-simple train step, whose twelve layers run K4 and not K3; the
+JPEG decode (bit for bit; nvJPEG's batched decode, the yardstick, within its
+bars) against the plain decoder on every fixture of ``tests/golden_torch``, a fresh zeroed
+buffer for each batch, the truncated stream refused; the val path over JPEG files (decoded on the card, one
+decode a batch) and ``tools.serve`` answering ``inference_topdown``'s JSON.
 Bars are ``chip_smoke.py``'s, with its reasons.
 """
 
@@ -37,6 +41,9 @@ import torch
 
 from chip_smoke import (
     GOLDEN,
+    EXACT_BARS,
+    GOLDEN_JPEG,
+    NVJPEG_BARS,
     K4_BF16_REL,
     K4_F32_ATOL,
     VITPOSE,
@@ -48,9 +55,13 @@ from chip_smoke import (
     K3_BF16_REL,
     K3_F32_FWD,
     K3_F32_GRAD,
+    SERVE_KPT_ATOL,
+    SERVE_SCORE_ATOL,
     TINY_CFG,
     KeepSamples,
+    NvjpegBatched,
     golden_errors,
+    golden_jpeg_set,
     golden_png_set,
     golden_samples,
     golden_val_cfg,
@@ -477,3 +488,113 @@ def test_one_vitpose_train_step_goes_through_k4(card):
     assert all(torch.isfinite(v).all() for v in metrics.values())
     assert float(metrics["grad_norm"]) > 0
     assert model.module.backbone.layers[0].attn.qkv.weight.grad.abs().max() > 0
+
+
+def jpeg_fixtures():
+    paths = sorted((GOLDEN_JPEG / "formats").glob("*.jpg")) + sorted((GOLDEN_JPEG / "golden").glob("*.jpg"))
+    return [p for p in paths if p.stem != "truncated"]
+
+
+def test_card_decode_matches_the_plain_decoder(card):
+    from probpose_code_torch.datasets import jpeg
+    from probpose_code_torch.ops.kernels.jpeg import decode_batch
+
+    paths = jpeg_fixtures()
+    datas = [p.read_bytes() for p in paths]
+    before = decode_batch.launches
+    for order in (datas[::-1], datas):  # the second batch's buffer may reuse the first's memory
+        out, shapes = decode_batch(order, "cuda")
+        for i, ((h, w), data) in enumerate(zip(shapes, order)):
+            slot = out[i].cpu().numpy()
+            ref = jpeg.decode(data)
+            assert (h, w) == ref.shape[:2] and not slot[h:].any() and not slot[:, w:].any()
+            np.testing.assert_array_equal(slot[:h, :w], ref)  # EXACT_BARS: bit for bit
+    assert EXACT_BARS["max"] == 0 and decode_batch.launches == before + 2
+
+
+def test_nvjpeg_yardstick_within_its_bars(card):
+    from probpose_code_torch.datasets import jpeg
+    from probpose_code_torch.ops.kernels.jpeg import decode_batch
+
+    paths = jpeg_fixtures()
+    datas = [p.read_bytes() for p in paths]
+    infos = [jpeg.probe(d) for d in datas]
+    before = decode_batch.launches
+    yardstick = NvjpegBatched()
+    try:
+        out = yardstick.decode(datas, infos).cpu().numpy()
+    finally:
+        yardstick.close()
+    for slot, info, data in zip(out, infos, datas):
+        img = jpeg.orient(slot[:info.height, :info.width], info.orientation)
+        d = np.abs(img.astype(np.int32) - jpeg.decode(data))
+        assert not slot[info.height:].any() and not slot[:, info.width:].any()
+        assert d.max() <= NVJPEG_BARS["max"] and np.percentile(d, 99) <= NVJPEG_BARS["p99"]
+        assert d.mean() <= NVJPEG_BARS["mean"]
+    assert decode_batch.launches == before  # the yardstick is no launch of the port's decode
+
+
+def test_card_decode_refuses_a_truncated_stream(card):
+    from probpose_code_torch.datasets.jpeg import probe
+    from probpose_code_torch.ops.kernels.jpeg import decode_batch
+
+    data = (GOLDEN_JPEG / "formats" / "truncated.jpg").read_bytes()
+    with pytest.raises(ValueError, match="truncated"):
+        decode_batch([data], "cuda", ["truncated.jpg"])
+    whole = probe((GOLDEN_JPEG / "formats" / "restart.jpg").read_bytes())  # the header it was cut from
+    with pytest.raises(ValueError, match="truncated.jpg"):  # past the probe, the host decoder refuses it too
+        decode_batch([data], "cuda", ["truncated.jpg"], infos=[whole])
+
+
+def test_val_path_reads_jpeg_on_the_card(card, tmp_path):
+    from probpose_code_torch.datasets.loader import HOST_KEYS, DataLoader, stop_workers
+    from probpose_code_torch.engine.checkpoint import load_checkpoint
+    from probpose_code_torch.engine.runner import Runner
+    from probpose_code_torch.ops.kernels.jpeg import decode_batch
+
+    _, ann = golden_jpeg_set(tmp_path)
+    runner = Runner.from_cfg(golden_val_cfg(TINY_CFG["model"], ann, batch_size=16, num_workers=2))
+    load_checkpoint(runner.model, str(GOLDEN / "e2e_weights.pth"))
+    before = decode_batch.launches
+    try:
+        metrics = runner.val()
+    finally:
+        stop_workers()
+    assert decode_batch.launches == before + 4 and runner.val_times["decode"] > 0
+    assert np.isfinite(metrics["coco/AP"]) and np.isfinite(metrics["coco/Ex_AP"])
+
+    batch = next(iter(DataLoader(runner.val_dataset, 16, num_workers=0)))
+    on_cpu = {k: torch.from_numpy(v) for k, v in batch.items() if isinstance(v, np.ndarray)}
+    on_cpu.update({k: batch[k] for k in HOST_KEYS if k in batch})
+    want = runner.model.device_preprocess_batch(on_cpu)["inputs"]  # the plain decoder
+    got = runner.device_batch(batch)["inputs"]
+    assert got.is_cuda and (got.cpu() - want).abs().max() <= 1.0  # the same pixels, the warp within one level
+
+
+def test_serve_on_the_card(card):
+    import json
+    import threading
+    import urllib.request
+
+    from probpose_code_torch.apis import inference_topdown, init_model
+    from probpose_code_torch.tools import serve
+
+    model = init_model(TINY_CFG, checkpoint=str(GOLDEN / "e2e_weights.pth"))
+    server = serve.make_server(model, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        path = GOLDEN_JPEG / "golden" / "5.jpg"
+        req = urllib.request.Request(f"http://127.0.0.1:{server.server_port}/predict", data=path.read_bytes())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            assert r.status == 200
+            answer = json.loads(r.read())
+        want = serve.payload(inference_topdown(model, str(path)))
+        for a, b in zip(answer, want, strict=True):  # the card's predict varies in the last bits (chip_smoke)
+            np.testing.assert_allclose(a["keypoints"], b["keypoints"], rtol=0, atol=SERVE_KPT_ATOL)
+            np.testing.assert_allclose(a["keypoint_scores"], b["keypoint_scores"], rtol=0, atol=SERVE_SCORE_ATOL)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+

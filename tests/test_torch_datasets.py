@@ -169,10 +169,13 @@ def test_png_reader_equals_cv2_for_every_filter(tmp_path, color):
 
 
 def test_unread_formats_raise(tmp_path):
-    jpg = tmp_path / "img.jpg"
+    bmp = tmp_path / "img.bmp"
+    cv2.imwrite(str(bmp), smooth_image(8, 8, 3, 0))
+    with pytest.raises(ValueError, match="PNG and JPEG files only"):
+        imread(str(bmp))
+    jpg = tmp_path / "img.jpg"  # read since JPEG decoding was ported (tests/test_torch_jpeg.py)
     cv2.imwrite(str(jpg), smooth_image(8, 8, 3, 0))
-    with pytest.raises(ValueError, match="no JPEG decoder"):
-        imread(str(jpg))
+    np.testing.assert_array_equal(imread(str(jpg)), cv2.imread(str(jpg), cv2.IMREAD_COLOR))
     deep = tmp_path / "deep.png"
     cv2.imwrite(str(deep), smooth_image(8, 8, 3, 0).astype(np.uint16) * 200)
     with pytest.raises(ValueError, match="bit depth 16"):
