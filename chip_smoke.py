@@ -7,7 +7,8 @@ card and the CUDA toolkit (nvcc); it builds the port's kernels from
 
 1. the card's name and power limit, and the kernels' build time;
 2. K1 (whole ViT layer) against its plain twin at the flagship layer shape;
-3. K2 (expected-OKS decode) and its conv-only entry against their plain twin;
+3. K2 (expected-OKS decode) and its conv-only entry against their plain twin,
+   the decode also at the identity scale on DoubleProbPose's (128, 17, 64, 48);
 4. K3 (the differentiable ViT layer): forward and all 13 gradients against
    its plain twin, at a small f32 shape and at the flagship layer shape in
    bf16 with stochastic-depth masks that drop some images;
@@ -86,7 +87,24 @@ card and the CUDA toolkit (nvcc); it builds the port's kernels from
    with ``inference_topdown``'s JSON on the same files (to
    ``SERVE_KPT_ATOL``), K1 x12, K2 x1 and
    one decode a request, then the latency of a request;
-19. ``timings``: each kernel's time beside its plain twin's, a PyTorch
+19. ``dpm_predict``: the DoubleProbPose-S config file (``td-dpm_...``) at
+   full width, random weights seed 0, 64 boxes with flip-TTA through
+   ``inference_topdown``: K1 x12 and K2 x1 (both windows' decode in one
+   launch) a call, two crops against the same model on the CPU, then
+   crops/s beside the flagship's from this run, and a profile;
+20. ``dpm_train``: its training entry point (``tools.train``'s main) over
+   the golden JPEGs, one epoch of 4 steps and val after it: K3 x12 forward
+   and backward a step, K1 x12 and K2 x1 a val batch, the card's bbox mask of
+   the first batch bit for bit against its NumPy version, the first loss
+   dict against ``make_train_step``'s, train crops/s;
+21. ``hrnet_golden``: the HRNet + UDP golden fixture on the card at
+   ``UDP_BARS`` (mmpose's weights loaded strict);
+22. ``hrnet_predict`` and 23. ``hrnet_train``: HRNet-w32 UDP (its config
+   file, random weights, f32) at full width, 64 boxes with flip-TTA and a
+   train step of 64 crops with plain Adam: no kernel of the port launched,
+   outputs finite (predict also against the CPU on two crops), crops/s and
+   peak memory;
+24. ``timings``: each kernel's time beside its plain twin's, a PyTorch
    library call's where one computes the same function, and its bound from
    this run's shapes; K1 also at the ViT-B predict shape (f32), K4 also at
    the ProbPose-S shape in bf16. For K1 (bf16 and f32) and K3 (forward,
@@ -96,10 +114,12 @@ card and the CUDA toolkit (nvcc); it builds the port's kernels from
    a profile beside the call time, and the wrapper's host cost a call; K2b's
    yardstick is cuDNN's depthwise convolution of the padded maps.
 
-The lines before the last hold the kernels' record as JSON and the JPEG
-decode's (no TPU kernel: its own line, no ``replaces``), the last line
-``{"ok": true, "device": ...}``. Any failure exits non-zero without them.
-It imports neither JAX nor the JAX package.
+The lines before the last hold the kernels' record as JSON (each kernel's
+``launches`` from the flagship's paths, and ``launches_by_path`` on every
+main path: K1's one count goes to the record of the instance, bf16 ViT-S
+or f32 ViT-B, that the path's model runs) and the JPEG decode's (no TPU
+kernel: its own line, no ``replaces``), the last line ``{"ok": true,
+"device": ...}``. Any failure exits non-zero without them. It imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -118,6 +138,8 @@ GOLDEN = ROOT / "tests" / "golden"
 GOLDEN_JPEG = ROOT / "tests" / "golden_torch"
 FLAGSHIP = ROOT / "configs/body_2d_keypoint/topdown_probmap/coco/td-pm_ProbPose-small_8xb64-210e_coco-256x192.py"
 VITPOSE = ROOT / "configs/body_2d_keypoint/topdown_heatmap/coco/td-hm_ViTPose-base-simple_8xb64-210e_coco-256x192.py"
+DPM = ROOT / "configs/body_2d_keypoint/topdown_probmap/coco/td-dpm_DoubleProbPose-small_8xb64-210e_coco-256x192.py"
+HRNET = ROOT / "configs/body_2d_keypoint/topdown_heatmap/coco/td-hm_hrnet-w32_udp-8xb64-210e_coco-256x192.py"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them (the FMA units: K2 and K3's f32 instance), and device memory.
@@ -182,6 +204,45 @@ SERVE_SCORE_ATOL = 1e-5
 # the kernels' launches of one ProbPose-S predict call (a val batch is one)
 PREDICT_LAUNCHES = dict(vit_layer=12, expected_oks=1, oks_convolve=0, vit_layer_train_fwd=0, vit_layer_train_bwd=0,
                         attention=0)
+# a path that launches no kernel of the port (HRNet: cuDNN's convolutions)
+NO_LAUNCHES = {k: 0 for k in PREDICT_LAUNCHES}
+# ``dpm_predict``: two crops on the card against the same model on the CPU.
+# The shipped config runs the backbone in bf16 (K1's bf16 instance on the
+# card, its plain twin on the CPU: other rounding points), so the maps are
+# held at K1's bf16 bar and the scalar outputs at the bf16 head bar of
+# tests/test_torch_model.py (3e-2 absolute; both squashed to [0, 1]).
+DPM_SCALAR_ATOL = 3e-2
+# ``hrnet_predict``: the HRNet-w32 maps on the card against the CPU, both f32
+# (TF32 off in predict): summation order only, as K1's f32 bar
+HRNET_REL = 1e-4
+# the HRNet + UDP golden fixture's bars, the JAX package's
+# (tests/test_apis/test_e2e_parity_udp.py:105-124): keypoints p99 < 1 px
+# against the reference, at most one beyond 5 px, scores within 2e-3, AP
+# within 0.01
+UDP_BARS = dict(p99=1.0, over_5px=1, scores=2e-3, ap=0.01)
+# the tiny HRNet of tests/golden/e2e_udp_weights.pth (tools/make_golden_e2e_udp.py)
+UDP_FIXTURE_EXTRA = dict(
+    stage1=dict(num_modules=1, num_branches=1, block="BOTTLENECK", num_blocks=(1,), num_channels=(8,)),
+    stage2=dict(num_modules=1, num_branches=2, block="BASIC", num_blocks=(1, 1), num_channels=(8, 16)),
+    stage3=dict(num_modules=1, num_branches=3, block="BASIC", num_blocks=(1, 1, 1), num_channels=(8, 16, 32)),
+    stage4=dict(num_modules=1, num_branches=4, block="BASIC", num_blocks=(1, 1, 1, 1), num_channels=(8, 16, 32, 64)),
+)
+UDP_FIXTURE_CFG = dict(
+    model=dict(
+        type="TopdownPoseEstimator",
+        data_preprocessor=dict(
+            type="PoseDataPreprocessor", mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
+            bgr_to_rgb=True,
+        ),
+        backbone=dict(type="HRNet", in_channels=3, extra=UDP_FIXTURE_EXTRA),
+        head=dict(
+            type="HeatmapHead", in_channels=8, out_channels=17, deconv_out_channels=None,
+            final_layer=dict(kernel_size=1), loss=dict(type="KeypointMSELoss", use_target_weight=True),
+            decoder=dict(type="UDPHeatmap", input_size=(192, 256), heatmap_size=(48, 64), sigma=2),
+        ),
+        test_cfg=dict(flip_test=True, flip_mode="heatmap", shift_heatmap=False),
+    )
+)
 # the keys of a kernel's record that K2 and K2b fill from ``k2_timings``
 K2_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 K3_NAMES = ("out", "dx", "ln1_scale", "ln1_bias", "w_qkv", "b_qkv", "w_proj", "b_proj",
@@ -380,6 +441,69 @@ def synthetic_train_batch(B, seed):
     return {k: v.cuda() for k, v in batch.items()}
 
 
+# the DoubleProbPose config's codec and head (its config file), at the tiny model's width
+DPM_CODEC = dict(type="DoubleProbMap", input_size=(192, 256), heatmap_size=(48, 64), sigma=-1, in_heatmap_padding=1.0,
+                 out_heatmap_padding=1.25)
+
+
+def tiny_dpm_cfg():
+    """``TINY_CFG`` with the DoubleProbPose head (f32, tanh-GELU, drop_path 0)."""
+    import copy
+
+    cfg = copy.deepcopy(TINY_CFG)
+    cfg["model"]["backbone"].update(approximate_gelu=True, drop_path_rate=0.0)
+    cfg["model"]["head"] = dict(
+        type="DoubleProbMapHead", in_channels=64, out_channels=17, deconv_out_channels=(32, 32),
+        deconv_kernel_sizes=(4, 4), split_heatmaps_by="in/all", freeze_error=True, freeze_oks=False,
+        keypoint_loss=dict(type="OKSHeatmapLoss", use_target_weight=True, smoothing_weight=0.05),
+        probability_loss=dict(type="BCELoss", use_target_weight=True, use_sigmoid=True),
+        visibility_loss=dict(type="BCELoss", use_target_weight=True, use_sigmoid=True),
+        oks_loss=dict(type="MSELoss", use_target_weight=True),
+        error_loss=dict(type="L1LogLoss", use_target_weight=True), decoder=DPM_CODEC,
+    )
+    return cfg
+
+
+def synthetic_dpm_batch(B, seed):
+    """A DoubleProbMap training batch of B crops as its pipeline ships it,
+    NumPy arrays: raw crops, both windows' keypoints from ``GenerateTarget``
+    (some keypoints outside the crop, some unannotated), the labels, and the
+    bbox mask's rectangle and UDP matrix for a box in a 480 x 640 image."""
+    import numpy as np
+
+    from probpose_code_torch.datasets.transforms.common import GenerateTarget
+    from probpose_code_torch.ops.bbox_mask import mask_rect
+    from probpose_code_torch.structures.bbox import bbox_xyxy2cs, fix_aspect_ratio, get_udp_warp_matrix
+
+    rng = np.random.RandomState(seed)
+    target = GenerateTarget(encoder=DPM_CODEC)
+    samples = []
+    for _ in range(B):
+        kpts = np.stack([rng.uniform(-40, 232, (1, 17)), rng.uniform(-50, 306, (1, 17))], -1).astype(np.float32)
+        vis = (rng.rand(1, 17) > 0.15).astype(np.float32)
+        out = target(dict(transformed_keypoints=kpts, keypoints_visible=vis))
+        x0, y0 = rng.uniform(-60, 500), rng.uniform(-60, 380)
+        box = np.array([[x0, y0, x0 + rng.uniform(40, 260), y0 + rng.uniform(60, 300)]])
+        center, scale = bbox_xyxy2cs(box, padding=1.25)
+        scale = fix_aspect_ratio(scale, 192 / 256)
+        out.update(visibility=(rng.rand(17) > 0.3) * vis[0], rect=mask_rect(box, (480, 640)),
+                   mat=get_udp_warp_matrix(center[0], scale[0], rng.uniform(-40, 40), output_size=(192, 256)))
+        samples.append(out)
+
+    def stack(key, dtype, index=0):
+        return np.stack([np.asarray(s[key])[index] if index is not None else s[key] for s in samples]).astype(dtype)
+
+    in_image = stack("in_image", np.float32)
+    return dict(
+        inputs=rng.randint(0, 256, (B, 256, 192, 3)).astype(np.float32),
+        kpts_hm=stack("device_kpts_hm", np.float64), kpts_hm_out=stack("device_kpts_hm_out", np.float64),
+        kpts_visible=stack("device_kpts_visible", np.float32), keypoint_weights=stack("keypoint_weights", np.float32),
+        in_image=in_image, annotated=stack("annotated", np.float32), keypoints_in_image=in_image,
+        keypoints_visibility=stack("visibility", np.float32, None), bbox_mask_rect=stack("rect", np.int32, None),
+        bbox_mask_mat=stack("mat", np.float32, None),
+    )
+
+
 def peaked_heatmaps(B, K, H, W, seed):
     """(B, K, H, W) float32 numpy maps with one gaussian peak each, away
     from the border: argmax ties on flat noise are last-bit behaviour, so the
@@ -435,6 +559,55 @@ def golden_errors(data, samples):
     aux = {f: float(np.abs(np.stack([by_id[i].pred_instances[f].reshape(17) for i in ids]) - data[k]).max())
            for f, k in GOLDEN_AUX}
     return err, aux
+
+
+def udp_fixture_report(model):
+    """The HRNet + UDP golden fixture (``tests/golden/e2e_udp_*``) through
+    ``inference_topdown`` and ``CocoMetric`` with ``model`` (its weights
+    loaded), against the reference's keypoints, scores and AP; the
+    reference's own DARK divergences (coordinates thousands of pixels out,
+    3 of 289) are left out, as the JAX package's test leaves them. Returns
+    a report with ``ok`` against ``UDP_BARS``."""
+    import numpy as np
+
+    from probpose_code_torch.apis import inference_topdown
+    from probpose_code_torch.datasets.metainfo import parse_pose_metainfo
+    from probpose_code_torch.evaluation import CocoMetric
+
+    data = np.load(GOLDEN / "e2e_udp_pipeline.npz")
+    gt = json.loads((GOLDEN / "e2e_udp_coco.json").read_text())
+    anns = {}
+    for a in gt["annotations"]:
+        anns.setdefault(a["image_id"], []).append(a)
+    samples = []
+    for im in gt["images"]:
+        boxes = np.array([[a["bbox"][0], a["bbox"][1], a["bbox"][0] + a["bbox"][2], a["bbox"][1] + a["bbox"][3]]
+                          for a in anns[im["id"]]], np.float32)
+        preds = inference_topdown(model, data[f"img_{im['id']}"], bboxes=boxes)
+        if len(preds) != len(boxes):
+            raise AssertionError(f"{len(preds)} predictions for {len(boxes)} boxes")
+        for a, sample in zip(anns[im["id"]], preds):
+            sample.set_metainfo(dict(id=a["id"], img_id=im["id"]))
+            samples.append(sample)
+    by_id = {s.metainfo["id"]: s for s in samples}
+    ids = data["pred_ids"]
+    ours = np.stack([np.asarray(by_id[i].pred_instances["keypoints"]).reshape(17, 2) for i in ids])
+    ref = data["pred_keypoints"]
+    sane = np.all(np.abs(ref) < 1000.0, axis=-1)
+    err = np.linalg.norm(ours - ref, axis=-1)[sane]
+    scores = np.stack([np.asarray(by_id[i].pred_instances["keypoint_scores"]).reshape(17) for i in ids])
+    metric = CocoMetric(ann_file=str(GOLDEN / "e2e_udp_coco.json"), extended=[False])
+    metric.dataset_meta = parse_pose_metainfo({"dataset_name": "coco"})
+    metric.process(None, samples)
+    ap = metric.compute_metrics(metric.results)["AP"]
+    report = dict(instances=len(samples), sane=float(sane.mean()), p99=float(np.percentile(err, 99)),
+                  max=float(err.max()), over_5px=int((err > 5.0).sum()),
+                  scores=float(np.abs(scores - data["pred_keypoint_scores"]).max()), AP=float(ap),
+                  ref_AP=float(data["stats"][0]), d_AP=abs(float(ap) - float(data["stats"][0])))
+    report["ok"] = (report["sane"] > 0.97 and report["p99"] < UDP_BARS["p99"]
+                    and report["over_5px"] <= UDP_BARS["over_5px"] and report["scores"] < UDP_BARS["scores"]
+                    and report["d_AP"] < UDP_BARS["ap"])
+    return report
 
 
 def write_png(path, img):
@@ -671,6 +844,20 @@ def kernel_counters():
     return dict(vit_layer=vit_layer_prepared, expected_oks=expected_oks_decode, oks_convolve=oks_convolve,
                 vit_layer_train_fwd=vit_layer_train_forward, vit_layer_train_bwd=vit_layer_train_backward,
                 attention=attention_kernel)
+
+
+# the kernels line's two records of K1, by the instance (compute type, width)
+# that a model's backbone runs
+K1_RECORDS = {("torch.bfloat16", 384): "vit_layer", ("torch.float32", 768): "vit_layer_vitb_f32"}
+
+
+def k1_record(model) -> str:
+    """The kernels line's record of the K1 instance that ``model`` runs."""
+    backbone = model.module.backbone
+    key = (str(backbone.dtype), backbone.embed_dims)
+    if key not in K1_RECORDS:
+        raise AssertionError(f"no K1 record in the kernels line for the instance {key}")
+    return K1_RECORDS[key]
 
 
 def reset_counts():
@@ -910,7 +1097,9 @@ class Smoke:
     def k2_parity(self):
         import torch
 
-        from probpose_code_torch.ops.decode import expected_oks_decode_to_input_space, oks_convolve_plain
+        from probpose_code_torch.ops.decode import (
+            expected_oks_decode_to_input_space, heatmap_expected_value_batch, oks_convolve_plain,
+        )
         from probpose_code_torch.ops.kernels.expected_oks import expected_oks_decode, oks_convolve
 
         B, K, H, W = 64, 17, 64, 48
@@ -926,6 +1115,17 @@ class Smoke:
               f"conv-only err {conv_err:.3e} (bar {K2_CONV_ATOL:g})")
         if not (dl < K2_LOCS_ATOL and dv < K2_VALS_ATOL and conv_err < K2_CONV_ATOL):
             raise AssertionError("K2 disagrees with its plain twin")
+        # the identity scale (heatmap pixels) at the DoubleProbPose decode's
+        # shape: both windows of 64 crops, (2B, K, H, W), in one launch
+        hm = torch.from_numpy(peaked_heatmaps(2 * B, K, H, W, seed=2)).cuda()
+        locs, vals = expected_oks_decode(hm, None)
+        locs_p, vals_p = heatmap_expected_value_batch(hm)
+        dl = (locs - locs_p).abs().max().item()
+        dv = (vals - vals_p).abs().max().item()
+        print(f"K2 at the identity scale, ({2 * B}, {K}, {H}, {W}): locs err {dl:.3e} px (bar {K2_LOCS_ATOL:g}), "
+              f"vals err {dv:.3e} (bar {K2_VALS_ATOL:g})")
+        if not (locs.shape == (2 * B, K, 2) and dl < K2_LOCS_ATOL and dv < K2_VALS_ATOL):
+            raise AssertionError("K2 at the identity scale disagrees with its plain twin")
 
     def k3_parity(self):
         import torch
@@ -1034,6 +1234,7 @@ class Smoke:
         if launches != PREDICT_LAUNCHES:
             raise AssertionError(f"expected K1 x12 and K2 x1 per call and no other kernel, got {launches}")
         self.record["launches"] = launches
+        self.record.setdefault("k1_records", {})["flagship_predict"] = k1_record(model)
 
         iters = 10
         for _ in range(3):
@@ -1044,6 +1245,7 @@ class Smoke:
             inference_topdown(model, img, boxes)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        self.record["flagship_crops_s"] = 64 * iters / dt
         print(f"flagship ProbPose-S predict, flip-TTA, B=64: {64 * iters / dt:.1f} crops/s "
               f"({1e3 * dt / iters:.2f} ms per inference_topdown call, {iters} calls after 3 warm-up)")
         self.profile(lambda: inference_topdown(model, img, boxes), calls=3)
@@ -1099,6 +1301,7 @@ class Smoke:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         report_steps(logs)
+        self.record["flagship_train_crops_s"] = B * steps / dt
         print(f"flagship ProbPose-S train step, B={B}, bf16, drop_path 0.1: {B * steps / dt:.1f} crops/s "
               f"({1e3 * dt / steps:.2f} ms per step, {steps} steps after 3 warm-up; the loss dicts are read "
               f"to the host after the timed steps); peak device memory "
@@ -1203,6 +1406,7 @@ class Smoke:
         if launches != want:
             raise AssertionError(f"expected K1 x12 per call and no other kernel, got {launches}")
         self.record["vitpose_launches"] = launches
+        self.record.setdefault("k1_records", {})["vitpose_predict"] = k1_record(model)
 
         iters = 5
         for _ in range(2):
@@ -1764,6 +1968,338 @@ class Smoke:
                 raise AssertionError(f"train_flagship resumed: steps {bad} launched {[watch.steps[i] for i in bad]}")
             check_val(runner, watch)
 
+    def dpm_predict(self):
+        """The DoubleProbPose-S config file at full width (random weights,
+        seed 0; ViT-S/16 in bf16 with tanh-GELU, DoubleProbMapHead in f32)
+        through ``inference_topdown``, 64 boxes with flip-TTA: K1 x12 and K2
+        once (both windows in one launch) a call, the outputs' shapes and
+        finiteness, two crops' maps and scalars against the same model on
+        the CPU (``K1_BF16_REL``, ``DPM_SCALAR_ATOL``), then crops/s beside
+        the flagship's from this run, and a profile."""
+        import numpy as np
+        import torch
+
+        from probpose_code_torch.apis import inference_topdown, init_model
+        from probpose_code_torch.apis.inference import crop_batch
+        from probpose_code_torch.config import Config
+
+        model = init_model(Config.fromfile(DPM), device="cuda")
+        img, boxes = synthetic_boxes(64, seed=2)
+
+        # the main path: counts set to 0 just before, read just after
+        read_counts = reset_counts()
+        samples = inference_topdown(model, img, boxes)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        print(f"dpm_predict main path: {len(samples)} crops, launches {json.dumps(launches)}")
+        kpts = np.stack([s.pred_instances.keypoints for s in samples])
+        fields = [np.stack([s.pred_instances[f] for s in samples]) for f in
+                  ("keypoint_scores", "keypoints_probs", "keypoints_visible", "keypoints_oks", "keypoints_error",
+                   "keypoints_conf")]
+        if kpts.shape != (64, 1, 17, 2) or any(f.shape != (64, 1, 17) for f in fields):
+            raise AssertionError(f"dpm_predict output shapes {kpts.shape}, {[f.shape for f in fields]}")
+        if not (np.isfinite(kpts).all() and all(np.isfinite(f).all() for f in fields)):
+            raise AssertionError("dpm_predict outputs are not finite")
+        if launches != PREDICT_LAUNCHES:
+            raise AssertionError(f"expected K1 x12 and K2 x1 (both windows) per call and no other kernel, got "
+                                 f"{launches}")
+        self.record["dpm_launches"] = launches
+        self.record.setdefault("k1_records", {})["dpm_predict"] = k1_record(model)
+
+        # two crops against the same model (seed-0 weights) on the CPU
+        crops = crop_batch(img, boxes, model.input_size, model.device, model.cfg_full)[0][:2]
+        got = {k: v.float().cpu() for k, v in model.predict(crops).items()}
+        ref = init_model(Config.fromfile(DPM), device="cpu").predict(crops.cpu())
+        maps = {k: ((got[k] - ref[k]).abs().max() / ref[k].abs().max()).item() for k in ("heatmaps", "out_heatmaps")}
+        scalars = {k: (got[k] - ref[k]).abs().max().item() for k in
+                   ("keypoints_probs", "keypoints_visible", "keypoints_oks", "keypoints_error")}
+        kpt = (got["keypoints"] - ref["keypoints"]).abs().max().item()
+        print(f"dpm_predict on 2 crops vs the CPU twin: maps rel max err {json.dumps(maps)} (bar {K1_BF16_REL:g}); "
+              f"scalars max abs err {json.dumps(scalars)} (bar {DPM_SCALAR_ATOL:g}); keypoints max abs diff "
+              f"{kpt:.3f} px (not held, nor the maps' values at them: random-weight maps are flat, and bf16 "
+              f"rounding moves their argmax)")
+        if not (max(maps.values()) < K1_BF16_REL and max(scalars.values()) < DPM_SCALAR_ATOL):
+            raise AssertionError("dpm_predict disagrees with the CPU twin")
+
+        iters = 10
+        for _ in range(3):
+            inference_topdown(model, img, boxes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            inference_topdown(model, img, boxes)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        flagship = self.record.get("flagship_crops_s", float("nan"))
+        print(f"DoubleProbPose-S predict, flip-TTA, B=64: {64 * iters / dt:.1f} crops/s "
+              f"({1e3 * dt / iters:.2f} ms per inference_topdown call, {iters} calls after 3 warm-up); "
+              f"ProbPose-S in this run {flagship:.1f} crops/s ({64 * iters / dt / flagship:.3f}x)")
+        self.profile(lambda: inference_topdown(model, img, boxes), calls=3, what="DoubleProbPose-S predict calls")
+
+    def dpm_train(self):
+        """The DoubleProbPose-S training entry point at full width: the main
+        of ``python -m probpose_code_torch.tools.train`` on its config file
+        (random weights, seed 0) with its own train pipeline (both windows'
+        keypoints and the bbox mask's rectangle and matrix shipped, the maps
+        and the mask rendered on the card), loader, optimizer and hooks over
+        the golden JPEGs, the train annotations copied to 256 instances (4
+        steps), ``val_flagship``'s val sets: one epoch, a checkpoint, val.
+        Fails unless 4 steps run, each launching K3 x12 forward and x12
+        backward and no other kernel, each val batch K1 x12 and K2 x1, the
+        metrics are finite; then the card's bbox mask of the first batch
+        equals its NumPy version bit for bit, and the first step's loss dict
+        equals ``make_train_step``'s on the same batch, weights and
+        generator seed (``TRAIN_FLAGSHIP_REL``). Prints train crops/s."""
+        import contextlib
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from probpose_code_torch.datasets.loader import stop_workers
+        from probpose_code_torch.engine.hooks import Hook
+        from probpose_code_torch.engine.optim import build_optimizer
+        from probpose_code_torch.models.builder import PoseModel
+        from probpose_code_torch.ops.bbox_mask import render_bbox_mask_numpy
+        from probpose_code_torch.ops.kernels.jpeg import decode_batch
+        from probpose_code_torch.parallel import create_train_state, make_train_step
+        from probpose_code_torch.tools import train as train_cli
+
+        counters = kernel_counters()
+        step_launches = dict(NO_LAUNCHES, vit_layer_train_fwd=12, vit_layer_train_bwd=12)
+
+        class Watch(Hook):
+            """The kernels launched by each step and by the val, and the val's metrics."""
+
+            def __init__(self):
+                self.steps, self.val, self.metrics = [], None, None
+
+            def delta(self):
+                now = {k: c.launches for k, c in counters.items()}
+                prev, self.last = self.last, now
+                return {k: now[k] - prev[k] for k in now}
+
+            def before_run(self, runner):
+                self.last = {k: c.launches for k, c in counters.items()}
+
+            def after_train_iter(self, runner, step, metrics):
+                self.steps.append(self.delta())
+
+            def before_eval(self, runner):
+                self.delta()
+
+            def after_val_epoch(self, runner, metrics):
+                self.val, self.metrics = self.delta(), metrics
+
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+            stack.callback(stop_workers)
+            _, ann = golden_jpeg_set(tmp)
+            copy_instances(ann, 256, Path(tmp, "train.json"))
+            copy_instances(ann, 256, Path(tmp, "val.json"))
+            options = flagship_data_options(tmp, "train.json") + [
+                "train_cfg.max_epochs=1", "train_cfg.val_interval=1", "default_hooks.checkpoint.interval=1",
+                "default_hooks.logger.interval=1"]
+            argv = [str(DPM), "--work-dir", str(Path(tmp, "work")), "--cfg-options", *options]
+
+            # the main path: counts set to 0 just before, read just after
+            watch = Watch()
+            read_counts = reset_counts()
+            runner = train_cli.main(argv, hooks=[watch])
+            torch.cuda.synchronize()
+            launches, decodes = read_counts(), decode_batch.launches
+            batches = len(runner.val_loader)
+            per_batch = {k: v / batches for k, v in (watch.val or {}).items()}
+            t = runner.train_times[0]
+            print(f"dpm_train main path: {runner.state.step} steps of {runner.train_loader.batch_size}, launches "
+                  f"{json.dumps(launches)}, JPEG decodes {decodes}; val launches a batch {json.dumps(per_batch)}")
+            print(f"dpm_train epoch 1: {t['crops']} crops, {t['crops'] / t['window']:.1f} train crops/s from the "
+                  f"start of its loader to its last step ({t['window']:.3f} s); split (s): wait for the first batch "
+                  f"{t['first_batch']:.3f}, later loader waits {t['loader'] - t['first_batch']:.3f}, steps "
+                  f"{t['step']:.3f} (JPEG decode {t['decode']:.3f} of it, card clock), hooks and logging "
+                  f"{t['hooks']:.3f}; after it: checkpoint writing {t['checkpoint']:.3f}, val {t['val']:.3f}")
+            bad = [i for i, d in enumerate(watch.steps) if d != step_launches]
+            if runner.state.step != 4 or len(watch.steps) != 4 or bad:
+                raise AssertionError(f"dpm_train: {runner.state.step} steps; expected K3 x12 forward and x12 backward "
+                                     f"a step and no other kernel, steps {bad} launched "
+                                     f"{[watch.steps[i] for i in bad]}")
+            if per_batch != PREDICT_LAUNCHES or decodes != runner.state.step + batches:
+                raise AssertionError(f"dpm_train: val launches a batch {per_batch}, {decodes} JPEG decodes")
+            metrics = watch.metrics or {}
+            keys = [f"{p}/{k}" for p in ("CropCOCO", "COCO") for k in ("AP", "Ex_AP", "AR", "OKS")]
+            if [k for k in keys if k not in metrics] or not all(math.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"dpm_train: val metrics missing or not finite: {metrics}")
+            logged = runner.train_log[0]
+            print("dpm_train first step: " + json.dumps(logged))
+            if not all(math.isfinite(v) for v in logged.values()):
+                raise AssertionError("dpm_train: non-finite first step")
+            self.record["dpm_train_launches"] = watch.steps[0]
+
+            # the bbox mask of the first batch: the card's against its NumPy version
+            raw = runner.train_loader.load(0, 0)
+            batch = runner.model.device_preprocess_batch(runner.to_device(raw))
+            want = render_bbox_mask_numpy(raw["bbox_mask_rect"], raw["bbox_mask_mat"], runner.model.input_size)
+            got = batch["bbox_mask"].cpu().numpy()
+            differ = int((got != want).sum())
+            print(f"dpm_train bbox mask on the card, {got.shape} {got.dtype}: {differ} pixels differ from the NumPy "
+                  f"version ({100 * want.mean():.1f}% of the pixels are 1)")
+            if got.shape != want.shape or got.dtype != np.uint8 or differ or not 0 < want.mean() < 1:
+                raise AssertionError("dpm_train: the card's bbox mask is not its NumPy version bit for bit")
+
+            # the first step again, through make_train_step on the same batch
+            cfg = runner.cfg
+            model = PoseModel(cfg["model"], metainfo=runner.metainfo, device="cuda")
+            model.init_weights(seed=0)
+            optimizer, lr_fn = build_optimizer(model, cfg["optim_wrapper"], cfg["param_scheduler"],
+                                               len(runner.train_loader), runner.max_epochs)
+            state, step = create_train_state(model, optimizer), make_train_step(model, optimizer)
+            gen = torch.Generator(device="cuda").manual_seed(cfg["seed"])
+            state, metrics = step(state, runner.to_device(raw), gen)
+            direct = {k: float(v) for k, v in metrics.items()}
+            rel = {k: abs(logged[k] - v) / max(abs(v), 1e-30) for k, v in direct.items()}
+            print(f"dpm_train first step: make_train_step {json.dumps(direct)}; largest relative difference from "
+                  f"Runner.train's {max(rel.values()):.3e} (bar {TRAIN_FLAGSHIP_REL:g}, 1e-7 absolute at 0)")
+            if any(abs(logged[k] - v) > TRAIN_FLAGSHIP_REL * abs(v) + 1e-7 for k, v in direct.items()):
+                raise AssertionError(f"dpm_train: the first step's loss dict differs from make_train_step's: {rel}")
+            runner.close()
+
+        # the bare step on the prepared batch (crops, both windows' maps and the
+        # mask made once), as the flagship's ``train`` phase times its step
+        B = len(batch["inputs"])
+        state, logs = run_steps(step, state, batch, gen, lr_fn, 2)  # warm-up: 3 steps with the one above
+        report_steps(logs)
+        torch.cuda.synchronize()
+        steps = 5
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, logs = run_steps(step, state, batch, gen, lr_fn, steps)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        report_steps(logs)
+        flagship = self.record.get("flagship_train_crops_s", float("nan"))
+        print(f"DoubleProbPose-S train step, B={B}, bf16 backbone, f32 head, drop_path 0.1: {B * steps / dt:.1f} "
+              f"crops/s ({1e3 * dt / steps:.2f} ms per step, {steps} steps after 3 warm-up); the flagship's step in "
+              f"this run {flagship:.1f} crops/s ({B * steps / dt / flagship:.3f}x); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+        def one():
+            nonlocal state
+            state, _ = run_steps(step, state, batch, gen, lr_fn, 1)
+
+        self.profile(one, calls=2, what="DoubleProbPose-S train steps")
+
+    def hrnet_golden(self):
+        """The HRNet + UDP golden fixture on the card: ``init_model`` with
+        ``tests/golden/e2e_udp_weights.pth`` (mmpose's names, loaded
+        strict), ``inference_topdown``, ``CocoMetric``, at ``UDP_BARS``."""
+        import torch
+
+        from probpose_code_torch.apis import init_model
+
+        model = init_model(UDP_FIXTURE_CFG, checkpoint=str(GOLDEN / "e2e_udp_weights.pth"), device="cuda")
+        missing = set(model.module.state_dict()) ^ set(torch.load(GOLDEN / "e2e_udp_weights.pth", weights_only=True))
+        read_counts = reset_counts()
+        report = udp_fixture_report(model)
+        launches = read_counts()
+        print(f"hrnet_golden: {json.dumps(report)}; launches {json.dumps(launches)}; bars {json.dumps(UDP_BARS)}")
+        if missing or not report["ok"] or launches != NO_LAUNCHES:
+            raise AssertionError(f"hrnet_golden out of its bars (keys not shared: {sorted(missing)[:3]})")
+
+    def hrnet_predict(self):
+        """HRNet-w32 + UDP (its config file, random weights, seed 0, f32) at
+        full width through ``inference_topdown``, 64 boxes with flip-TTA: no
+        kernel of the port launched (cuDNN's convolutions), the outputs
+        finite, two crops' maps against the same model on the CPU
+        (``HRNET_REL``), then crops/s and peak device memory."""
+        import numpy as np
+        import torch
+
+        from probpose_code_torch.apis import inference_topdown, init_model
+        from probpose_code_torch.apis.inference import crop_batch
+        from probpose_code_torch.config import Config
+
+        model = init_model(Config.fromfile(HRNET), device="cuda")
+        img, boxes = synthetic_boxes(64, seed=3)
+        # the main path: counts set to 0 just before, read just after
+        read_counts = reset_counts()
+        samples = inference_topdown(model, img, boxes)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        kpts = np.stack([s.pred_instances.keypoints for s in samples])
+        scores = np.stack([s.pred_instances.keypoint_scores for s in samples])
+        print(f"hrnet_predict main path: {len(samples)} crops, launches {json.dumps(launches)}")
+        if kpts.shape != (64, 1, 17, 2) or not (np.isfinite(kpts).all() and np.isfinite(scores).all()):
+            raise AssertionError(f"hrnet_predict outputs {kpts.shape}, not finite")
+        if launches != NO_LAUNCHES:
+            raise AssertionError(f"hrnet_predict launched a kernel of the port: {launches}")
+        self.record["hrnet_launches"] = launches
+        crops = crop_batch(img, boxes, model.input_size, model.device, model.cfg_full)[0][:2]
+        got = model.predict(crops)["heatmaps"].cpu()
+        ref = init_model(Config.fromfile(HRNET), device="cpu").predict(crops.cpu())["heatmaps"]
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        print(f"hrnet_predict on 2 crops vs the CPU twin: heatmaps rel max err {rel:.3e} (bar {HRNET_REL:g})")
+        if not rel < HRNET_REL:
+            raise AssertionError("hrnet_predict disagrees with the CPU twin")
+        iters = 5
+        for _ in range(2):
+            inference_topdown(model, img, boxes)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            inference_topdown(model, img, boxes)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"HRNet-w32 UDP predict, f32, flip-TTA, B=64: {64 * iters / dt:.1f} crops/s "
+              f"({1e3 * dt / iters:.2f} ms per inference_topdown call, {iters} calls after 2 warm-up); peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        self.profile(lambda: inference_topdown(model, img, boxes), calls=2, what="HRNet-w32 predict calls")
+
+    def hrnet_train(self):
+        """The HRNet-w32 UDP recipe (plain Adam, LinearLR and MultiStepLR;
+        UDP targets encoded on the card) through ``make_train_step`` on 64
+        synthetic crops: no kernel of the port launched, the losses, lr and
+        gradient norm of each step finite, train crops/s and peak memory."""
+        import torch
+
+        from probpose_code_torch.apis import init_model
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.engine.optim import build_optimizer
+        from probpose_code_torch.parallel import create_train_state, make_train_step
+
+        cfg = Config.fromfile(HRNET)
+        model = init_model(cfg, device="cuda")
+        optimizer, lr_fn = build_optimizer(
+            model, cfg["optim_wrapper"], cfg["param_scheduler"], STEPS_PER_EPOCH, cfg["train_cfg"]["max_epochs"],
+        )
+        state = create_train_state(model, optimizer)
+        step = make_train_step(model, optimizer)
+        B = cfg["train_dataloader"]["batch_size"]
+        batch = synthetic_train_batch(B, seed=4)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        # the main path: counts set to 0 just before one step, read just after
+        read_counts = reset_counts()
+        state, logs = run_steps(step, state, batch, gen, lr_fn, 1)
+        report_steps(logs)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        print(f"hrnet_train main path: one step of B={B}, launches {json.dumps(launches)}")
+        if launches != NO_LAUNCHES:
+            raise AssertionError(f"hrnet_train launched a kernel of the port: {launches}")
+        self.record["hrnet_train_launches"] = launches
+        state, logs = run_steps(step, state, batch, gen, lr_fn, 2)  # warm-up: 3 steps with the one above
+        report_steps(logs)
+        torch.cuda.synchronize()
+        steps = 5
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, logs = run_steps(step, state, batch, gen, lr_fn, steps)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        report_steps(logs)
+        print(f"HRNet-w32 UDP train step, B={B}, f32: {B * steps / dt:.1f} crops/s ({1e3 * dt / steps:.2f} ms per "
+              f"step, {steps} steps after 3 warm-up; the loss dicts are read to the host after the timed steps); "
+              f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
     @staticmethod
     def profile(fn, calls: int, what: str = "flagship calls"):
         """Device time by kernel over a few calls, and the device's busy
@@ -2039,6 +2575,31 @@ class Smoke:
                  launches=self.record.get("vitpose_launches", {}).get("vit_layer", 0),
                  **{key: kb[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
         ]
+        # each kernel's launches on every main path of this run (one call, one step, or one val batch)
+        paths = dict(flagship_predict="launches", flagship_train="train_launches", vitpose_predict="vitpose_launches",
+                     vitpose_train="vitpose_train_launches", dpm_predict="dpm_launches", dpm_train="dpm_train_launches",
+                     hrnet_predict="hrnet_launches", hrnet_train="hrnet_train_launches")
+        # K1's one counter read for the record of the instance each path ran
+        k1_records = self.record.get("k1_records", {})
+        for path, key in paths.items():
+            if self.record.get(key, {}).get("vit_layer", 0) and path not in k1_records:
+                raise AssertionError(f"{path} launched K1 but recorded no instance")
+        for entry in self.record["kernels"]:
+            by_path = {}
+            for path, key in paths.items():
+                counts = self.record.get(key, {})
+                if entry["name"] in K1_RECORDS.values():
+                    by_path[path] = counts.get("vit_layer", 0) if k1_records.get(path) == entry["name"] else 0
+                else:
+                    by_path[path] = counts.get(entry["name"], 0)
+            entry["launches_by_path"] = by_path
+        for entry in self.record["kernels"]:
+            if entry["name"] in K1_RECORDS.values():
+                ran = {path for path, n in entry["launches_by_path"].items() if n}
+                want = {path for path, name in k1_records.items() if name == entry["name"]}
+                if ran != want:
+                    raise AssertionError(f"{entry['name']}: launched on {sorted(ran)}, its instance ran on "
+                                         f"{sorted(want)}")
         print(f"K1 vit_layer B={B} N={N} C={C} bf16: {k1_ms:.3f} ms, plain {k1_plain:.3f} ms, "
               f"nn.TransformerEncoderLayer (erf GELU, max-shifted softmax) {k1_lib:.3f} ms, "
               f"bound {k1_bound:.4f} ms ({k1_ops / 1e9:.1f} GFLOP, {k1_bytes / 1e6:.1f} MB), "
@@ -2265,6 +2826,11 @@ def main() -> int:
         smoke.phase("val_flagship", smoke.val_flagship)
         smoke.phase("train_flagship", smoke.train_flagship)
         smoke.phase("serve", smoke.serve)
+        smoke.phase("dpm_predict", smoke.dpm_predict)
+        smoke.phase("dpm_train", smoke.dpm_train)
+        smoke.phase("hrnet_golden", smoke.hrnet_golden)
+        smoke.phase("hrnet_predict", smoke.hrnet_predict)
+        smoke.phase("hrnet_train", smoke.hrnet_train)
         smoke.phase("timings", smoke.timings)
     left = stop_descendants()
     if left:

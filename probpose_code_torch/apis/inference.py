@@ -127,7 +127,7 @@ def inference_topdown(
     """Estimate one pose per bbox of one image: a file path (a JPEG decoded
     on the model's device, a PNG on the host; ``read_image_bytes``), or an (H, W, 3) BGR uint8 array or tensor. Each
     sample's ``pred_instances`` holds ``keypoints`` and ``keypoint_scores``,
-    and a ProbMapHead's presence, visibility, OKS, error and confidence
+    and a ProbMap head's presence, visibility, OKS, error and confidence
     fields; its ``img_path`` is the path, where one was given."""
     img_path = None
     if isinstance(img, (str, os.PathLike)):
@@ -147,7 +147,8 @@ def inference_topdown(
             bboxes = bbox_xywh2xyxy(bboxes)
 
     crops, centers, scales = crop_batch(img, bboxes, model.input_size, model.device, model.cfg_full)
-    preds = {k: v.float().cpu().numpy() for k, v in model.predict(crops).items() if k != "heatmaps"}
+    preds = {k: v.float().cpu().numpy() for k, v in model.predict(crops).items()
+             if k not in ("heatmaps", "out_heatmaps")}
 
     in_wh = np.asarray(model.input_size, dtype=np.float32)
     metainfo = model.metainfo or parse_pose_metainfo({"dataset_name": "coco"})

@@ -70,7 +70,13 @@ def collate_pose_samples(samples: List[dict]) -> Dict:
     the gather, so keeps one name. A training batch (from
     ``GenerateTarget``) adds ``kpts_hm`` (B, K, 2), ``kpts_visible`` (B, K)
     and the labels: ``keypoint_weights``, ``in_image``, ``annotated`` and
-    ``keypoints_visibility``, all float32; every batch ``data_samples``."""
+    ``keypoints_visibility``, all float32. A DoubleProbMap batch's
+    ``kpts_hm`` and ``kpts_hm_out`` are its two windows' keypoints (float64,
+    as the codec computes them), and it carries what its loss reads and the
+    JAX collate drops (``probpose_code_tpu/datasets/loader.py:40-180``):
+    ``keypoints_in_image`` and the bbox mask's ``bbox_mask_rect`` (B, 4) and
+    ``bbox_mask_mat`` (B, 2, 3), which the device renders. Every batch holds
+    ``data_samples``."""
     samples = [s for s in samples if s is not None]
     assert samples, "empty batch after pipeline drops"
     batch: Dict = {}
@@ -92,16 +98,23 @@ def collate_pose_samples(samples: List[dict]) -> Dict:
         batch["jpeg_index"] = np.asarray(jpegs, np.int64)
     data_samples = [s["data_samples"] for s in samples]
     if "device_kpts_hm" in samples[0]:
-        batch["kpts_hm"] = np.stack([np.asarray(s["device_kpts_hm"]).reshape(-1, 2) for s in samples]).astype(np.float32)
+        double = "device_kpts_hm_out" in samples[0]
+        kpts_type = np.float64 if double else np.float32
+        for name, key in (("device_kpts_hm", "kpts_hm"), ("device_kpts_hm_out", "kpts_hm_out")):
+            if name in samples[0]:
+                batch[key] = np.stack([np.asarray(s[name]).reshape(-1, 2) for s in samples]).astype(kpts_type)
         batch["kpts_visible"] = np.stack([np.asarray(s["device_kpts_visible"]).reshape(-1)
                                           for s in samples]).astype(np.float32)
         labels, instances = data_samples[0].gt_instance_labels, data_samples[0].gt_instances
         for name in LABELS:
             if name in labels:
                 batch[name] = _stacked(d.gt_instance_labels[name] for d in data_samples).astype(np.float32)
-        for name, key in INSTANCE_LABELS:
+        for name, key in INSTANCE_LABELS + ((("keypoints_in_image", "keypoints_in_image"),) if double else ()):
             if name in instances:
                 batch[key] = _stacked(d.gt_instances[name] for d in data_samples).astype(np.float32)
+        if double and "bbox_mask_rect" in samples[0]:
+            batch["bbox_mask_rect"] = np.stack([s["bbox_mask_rect"] for s in samples]).astype(np.int32)
+            batch["bbox_mask_mat"] = np.stack([s["bbox_mask_mat"] for s in samples]).astype(np.float32)
     batch["data_samples"] = data_samples
     return batch
 

@@ -237,12 +237,18 @@ class GenerateTarget:
     the batch, and ``PoseModel.device_preprocess_batch`` renders the maps on
     the model's device (expected-OKS maps for the ProbMap family, UDP
     gaussians for ``UDPHeatmap``); every other output of the JAX host codec
-    is made here by its formulas. The JAX transform's host encode (the
-    (K, 64, 48) maps made in the pipeline) is not ported: another encoder,
-    or a list of encoders, raises. Its ``target_type``, ``multilevel`` and
-    ``device`` are set by no config and are not ported."""
+    is made here by its formulas. ``DoubleProbMap`` (``probpose_code_tpu/
+    codecs/double_probmap.py:29-131``, encoded on the host in the JAX
+    package) ships the keypoints in both windows' frames, in float64 as the
+    codec computes them (``device_kpts_hm``: the in-window, padding
+    ``in_heatmap_padding``; ``device_kpts_hm_out``: the out-window), and its
+    ``in_image`` is the out-window keypoint inside the heatmap. The JAX
+    transform's host encode (the (K, 64, 48) maps made in the pipeline) is
+    not ported: another encoder, a list of encoders, or a ``combined``
+    heatmap type raises. Its ``target_type``, ``multilevel`` and ``device``
+    are set by no config and are not ported."""
 
-    DEVICE_ENCODERS = ("ProbMap", "ArgMaxProbMap", "UDPHeatmap")
+    DEVICE_ENCODERS = ("ProbMap", "ArgMaxProbMap", "UDPHeatmap", "DoubleProbMap")
 
     def __init__(self, encoder, use_dataset_keypoint_weights: bool = False):
         if isinstance(encoder, (list, tuple)):
@@ -257,11 +263,36 @@ class GenerateTarget:
         self.sigma = encoder.get("sigma", 2.0)
         self.scale_factor = ((np.array(self.input_size) - 1) / (np.array(self.heatmap_size) - 1)).astype(np.float32)
         self.use_dataset_keypoint_weights = use_dataset_keypoint_weights
+        if self.type == "DoubleProbMap":
+            # the codec's windows (``double_probmap.py:56-68``): top-left and
+            # keypoint -> heatmap scale, in its float64 / float32 types
+            input_wh, hm_wh = np.array(self.input_size), np.array(self.heatmap_size)
+            self.windows = []
+            for pad in (encoder.get("in_heatmap_padding", 1.0), encoder.get("out_heatmap_padding", 1.25)):
+                act_wh = input_wh * pad
+                self.windows.append((input_wh / 2 - act_wh / 2, ((act_wh - 1) / (hm_wh - 1)).astype(np.float32)))
+
+    def _double_probmap(self, keypoints, keypoints_visible) -> Dict:
+        """DoubleProbMap's outputs but its maps (``double_probmap.py:82-131``)."""
+        kpts_in, kpts_out = ((keypoints[..., :2] - tl) / scale for tl, scale in self.windows)
+        weights = np.asarray(keypoints_visible).copy()
+        weights[keypoints_visible >= 0.5] = 1
+        W, H = self.heatmap_size
+        in_image = ((kpts_out[:, :, 0] >= 0) & (kpts_out[:, :, 0] < W)
+                    & (kpts_out[:, :, 1] >= 0) & (kpts_out[:, :, 1] < H))
+        return dict(keypoint_weights=weights, out_kpt_weights=weights.copy(), annotated=keypoints_visible > 0,
+                    in_image=in_image, keypoints_scaled=keypoints, device_kpts_hm=kpts_in,
+                    device_kpts_hm_out=kpts_out)
 
     def _device_defer(self, keypoints, keypoints_visible) -> Dict:
         assert keypoints.shape[0] == 1, "device target generation is per-instance (topdown)"
         if keypoints_visible is None:
             keypoints_visible = np.ones(keypoints.shape[:2], dtype=np.float32)
+        if self.type == "DoubleProbMap":
+            encoded = self._double_probmap(keypoints, keypoints_visible)
+            encoded["device_kpts_visible"] = np.asarray(keypoints_visible, np.float32)
+            encoded["label_mapping_table"] = dict(keypoint_weights="keypoint_weights")
+            return encoded
         kpts_hm = (keypoints[..., :2] / self.scale_factor).astype(np.float32)
         weights = np.asarray(keypoints_visible, np.float32).copy()
         if self.type == "UDPHeatmap":

@@ -7,8 +7,9 @@ through the label table, ``:110-117``) and the device passthrough
 (``:136``): a sample from ``TopdownAffine``'s canvas form carries ``canvas``
 and ``warp_mat`` instead of a crop, one from its JPEG form ``img_bytes``,
 ``jpeg_info`` and ``warp_mat``, and one from ``GenerateTarget`` the
-heatmap-space keypoints instead of maps. Images stay NumPy; the loader's
-collate batches them. The JAX transform's ``gt_fields`` hold host-encoded
+heatmap-space keypoints instead of maps (DoubleProbMap's in both windows)
+and the bbox mask's rectangle and matrix instead of the mask. Images stay
+NumPy; the loader's collate batches them. The JAX transform's ``gt_fields`` hold host-encoded
 maps, which the port never makes.
 """
 
@@ -101,7 +102,8 @@ class PackPoseInputs:
         # device passthrough: the canvas (or the JPEG file and its header) and
         # its geometry instead of a crop, the heatmap-space keypoints instead
         # of target maps
-        for key in ("canvas", "img_bytes", "jpeg_info", "warp_mat", "device_kpts_hm", "device_kpts_visible"):
+        for key in ("canvas", "img_bytes", "jpeg_info", "warp_mat", "device_kpts_hm", "device_kpts_hm_out",
+                    "device_kpts_visible", "bbox_mask_rect", "bbox_mask_mat"):
             if key in results:
                 packed[key] = results[key]
         return packed

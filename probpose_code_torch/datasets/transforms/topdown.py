@@ -16,9 +16,18 @@ of interest is pasted into a fixed uint8 ``canvas`` and the composed
 ``cv2.warpAffine`` does. A region larger than the canvas is first downscaled
 as ``cv2.resize(INTER_LINEAR)`` does it (``resize_linear``), with the scale
 folded into the matrix; a rotated crop (``bbox_rotation`` from
-``RandomBBoxTransform``) widens the region, and takes that path sooner. As in
-the JAX canvas form, no ``bbox_mask`` is made. The keypoints are warped into
-the crop (``transformed_keypoints``, ``:209-216``) for ``GenerateTarget``.
+``RandomBBoxTransform``) widens the region, and takes that path sooner. The
+keypoints are warped into the crop (``transformed_keypoints``, ``:209-216``)
+for ``GenerateTarget``.
+
+The bbox coverage mask (``with_bbox_mask``, ``:203-215``, on as in the JAX
+transform): the JAX route warps a 0/1 image of the clipped box with
+``cv2.warpAffine``; here the sample carries the pixels that image sets
+(``bbox_mask_rect``, ``ops/bbox_mask.py:mask_rect``) and the matrix cv2
+warps it by (``bbox_mask_mat``: the flipped image -> crop, before any flip
+is folded in or any canvas composed), and the device renders the mask
+(``ops/bbox_mask.py``) for a head that reads it: only a DoubleProbMap
+training batch carries them (``datasets/loader.py``).
 
 A JPEG sample (``img_bytes`` from ``LoadImage``) takes no canvas: its
 ``warp_mat`` maps the image (as ``cv2.imread`` returns it) to the crop, with
@@ -36,6 +45,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from probpose_code_torch.ops.bbox_mask import mask_rect
 from probpose_code_torch.registry import TRANSFORMS
 from probpose_code_torch.structures.bbox import (
     bbox_xyxy2cs,
@@ -86,24 +96,22 @@ CANVAS_SIZE = (640, 640)
 
 @TRANSFORMS.register_module()
 class TopdownAffine:
-    """The canvas form, or the JPEG form (see the module). The JAX
-    transform's ``device_warp`` and ``canvas_size`` are set by no config and
-    are not ported; ``fast_decode`` (its DCT-domain downscale of lazy JPEGs)
-    and ``with_bbox_mask`` (the DoubleProbMap family's coverage mask) raise
-    ``NotImplementedError`` when set."""
+    """The canvas form, or the JPEG form, with the bbox mask's rectangle and
+    matrix (see the module). The JAX transform's ``device_warp`` and
+    ``canvas_size`` are set by no config and are not ported; ``fast_decode``
+    (its DCT-domain downscale of lazy JPEGs) raises ``NotImplementedError``
+    when set."""
 
     def __init__(self, input_size: Tuple[int, int], input_padding: float = 1.25, use_udp: bool = False,
-                 fast_decode: bool = False, with_bbox_mask: Optional[bool] = None):
+                 fast_decode: bool = False, with_bbox_mask: bool = True):
         assert len(input_size) == 2
         if fast_decode:
             raise NotImplementedError("TopdownAffine: fast_decode (the DCT-domain downscale of JPEGs) is not "
                                       "ported yet (ROADMAP.md section 1, item 3)")
-        if with_bbox_mask:
-            raise NotImplementedError("TopdownAffine: with_bbox_mask (DoubleProbMap's coverage mask) is not "
-                                      "ported yet (ROADMAP.md section 1, item 5)")
         self.input_size = input_size
         self.use_udp = use_udp
         self.input_padding = input_padding
+        self.with_bbox_mask = with_bbox_mask
 
     @staticmethod
     def _make_canvas(img: np.ndarray, warp_mat: np.ndarray, dst_size: Tuple[int, int]):
@@ -175,6 +183,9 @@ class TopdownAffine:
         warp_mat = warp_matrix(center, scale, rot, output_size=(w, h)).astype(np.float32)
 
         img = results.pop("img")
+        if self.with_bbox_mask:
+            results["bbox_mask_rect"] = mask_rect(results["bbox_xyxy_wrt_input"], img.shape[:2])
+            results["bbox_mask_mat"] = warp_mat
         if "img_bytes" in results:
             results["warp_mat"] = self._image_warp(warp_mat, img.shape[:2], results)
         else:

@@ -22,8 +22,9 @@ classes unless told to: tensors, containers and numpy arrays only, and
 ``state_dict_from_jax`` turns the JAX package's ``{"params", "batch_stats"}``
 tree of numpy arrays into the port's state dict: the inverse of
 ``probpose_code_tpu/engine/checkpoint.py:convert_torch_state_dict``
-(``:680-836``) for the ViT + ProbMapHead and ViT + HeatmapHead families (a
-neck has no parameters).
+(``:680-836``) for the ViT and HRNet backbones with a ProbMapHead, a
+DoubleProbMapHead (its ``first_head`` and ``second_head`` towers under the
+ProbMapHead's tower names) or a HeatmapHead (a neck has no parameters).
 """
 
 from __future__ import annotations
@@ -156,13 +157,7 @@ def _deconv(kernel: np.ndarray) -> np.ndarray:
     return np.transpose(kernel[::-1, ::-1], (2, 3, 0, 1))
 
 
-def state_dict_from_jax(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
-    """JAX ``{"params", "batch_stats"}`` (ViT + ProbMapHead or HeatmapHead)
-    -> torch state dict."""
-    params, stats = variables["params"], variables.get("batch_stats", {})
-    sd: Dict[str, np.ndarray] = {}
-
-    bb = params["backbone"]
+def _vit_from_jax(sd: Dict[str, np.ndarray], bb: Dict[str, Any]) -> None:
     sd["backbone.pos_embed"] = bb["pos_embed"]
     sd["backbone.patch_embed.projection.weight"] = _conv(bb["patch_embed"]["kernel"])
     sd["backbone.patch_embed.projection.bias"] = bb["patch_embed"]["bias"]
@@ -182,42 +177,108 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Te
     sd["backbone.ln1.weight"] = bb["ln_final"]["scale"]
     sd["backbone.ln1.bias"] = bb["ln_final"]["bias"]
 
+
+def _bn_from_jax(sd: Dict[str, np.ndarray], prefix: str, p_node: Dict[str, Any], s_node: Dict[str, Any]) -> None:
+    sd[f"{prefix}.weight"] = p_node["scale"]
+    sd[f"{prefix}.bias"] = p_node["bias"]
+    sd[f"{prefix}.running_mean"] = s_node["mean"]
+    sd[f"{prefix}.running_var"] = s_node["var"]
+    sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
+
+
+_HRNET_FUSE = re.compile(r"fuse(\d+)_(\d+)(?:_down(\d+))?_(conv|bn)$")
+
+
+def _hrnet_from_jax(sd: Dict[str, np.ndarray], bb: Dict[str, Any], bb_s: Dict[str, Any]) -> None:
+    """The inverse of ``probpose_code_tpu/engine/checkpoint.py:
+    convert_torch_hrnet_backbone`` (``:90-180``): flax module names -> mmpose's."""
+
+    def put(prefix, node, stats, name):
+        if name.endswith("conv") or name.startswith("conv"):
+            sd[f"{prefix}.weight"] = _conv(node[name]["kernel"])
+        else:
+            _bn_from_jax(sd, prefix, node[name], stats[name])
+
+    def block(prefix, node, stats):
+        for name in node:
+            torch_name = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}.get(name, name)
+            put(f"{prefix}.{torch_name}", node, stats, name)
+
+    for name in ("conv1", "bn1", "conv2", "bn2"):
+        put(f"backbone.{name}", bb, bb_s, name)
+    for name in bb:
+        m = re.fullmatch(r"layer1_block(\d+)", name)
+        if m:
+            block(f"backbone.layer1.{m.group(1)}", bb[name], bb_s.get(name, {}))
+            continue
+        m = re.fullmatch(r"transition(\d+)_(\d+)_(conv|bn)", name)
+        if m:
+            t, b, kind = int(m.group(1)), int(m.group(2)), m.group(3)
+            # stage t has t branches: branch t is the new one, a nested Sequential
+            nested = ".0" if b == t else ""
+            put(f"backbone.transition{t}.{b}{nested}.{0 if kind == 'conv' else 1}", bb, bb_s, name)
+            continue
+        m = re.fullmatch(r"stage(\d+)_module(\d+)", name)
+        if m:
+            prefix, node, stats = f"backbone.stage{m.group(1)}.{m.group(2)}", bb[name], bb_s.get(name, {})
+            for sub in node:
+                b = re.fullmatch(r"branch(\d+)_block(\d+)", sub)
+                if b:
+                    block(f"{prefix}.branches.{b.group(1)}.{b.group(2)}", node[sub], stats.get(sub, {}))
+                    continue
+                i, j, k, kind = _HRNET_FUSE.match(sub).groups()
+                step = "" if k is None else f".{k}"
+                put(f"{prefix}.fuse_layers.{i}.{j}{step}.{0 if kind == 'conv' else 1}", node, stats, sub)
+
+
+def state_dict_from_jax(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``{"params", "batch_stats"}`` (a ViT or an HRNet; a ProbMapHead,
+    a DoubleProbMapHead or a HeatmapHead) -> torch state dict."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd: Dict[str, np.ndarray] = {}
+
+    bb = params["backbone"]
+    if "patch_embed" in bb:
+        _vit_from_jax(sd, bb)
+    else:
+        _hrnet_from_jax(sd, bb, stats.get("backbone", {}))
+
     head, head_s = params["head"], stats.get("head", {})
 
-    def bn(prefix, p_node, s_node):
-        sd[f"{prefix}.weight"] = p_node["scale"]
-        sd[f"{prefix}.bias"] = p_node["bias"]
-        sd[f"{prefix}.running_mean"] = s_node["mean"]
-        sd[f"{prefix}.running_var"] = s_node["var"]
-        sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
+    def tower(prefix, node, node_s):
+        """A heatmap tower: deconv stack, conv stack, final layer."""
+        deconv = node.get("deconv_layers", {})
+        j = 0
+        while f"deconv{j}" in deconv:
+            sd[f"{prefix}.deconv_layers.{3 * j}.weight"] = _deconv(deconv[f"deconv{j}"]["kernel"])
+            _bn_from_jax(sd, f"{prefix}.deconv_layers.{3 * j + 1}", deconv[f"bn{j}"], node_s["deconv_layers"][f"bn{j}"])
+            j += 1
+        conv = node.get("conv_layers", {})
+        j = 0
+        while f"conv{j}" in conv:  # HeatmapHead's ConvStack
+            sd[f"{prefix}.conv_layers.{3 * j}.weight"] = _conv(conv[f"conv{j}"]["kernel"])
+            sd[f"{prefix}.conv_layers.{3 * j}.bias"] = conv[f"conv{j}"]["bias"]
+            _bn_from_jax(sd, f"{prefix}.conv_layers.{3 * j + 1}", conv[f"bn{j}"], node_s["conv_layers"][f"bn{j}"])
+            j += 1
+        if "final_layer" in node:
+            sd[f"{prefix}.final_layer.weight"] = _conv(node["final_layer"]["kernel"])
+            sd[f"{prefix}.final_layer.bias"] = node["final_layer"]["bias"]
 
-    deconv = head.get("deconv_layers", {})
-    j = 0
-    while f"deconv{j}" in deconv:
-        sd[f"head.deconv_layers.{3 * j}.weight"] = _deconv(deconv[f"deconv{j}"]["kernel"])
-        bn(f"head.deconv_layers.{3 * j + 1}", deconv[f"bn{j}"], head_s["deconv_layers"][f"bn{j}"])
-        j += 1
-    conv = head.get("conv_layers", {})
-    j = 0
-    while f"conv{j}" in conv:  # HeatmapHead's ConvStack
-        sd[f"head.conv_layers.{3 * j}.weight"] = _conv(conv[f"conv{j}"]["kernel"])
-        sd[f"head.conv_layers.{3 * j}.bias"] = conv[f"conv{j}"]["bias"]
-        bn(f"head.conv_layers.{3 * j + 1}", conv[f"bn{j}"], head_s["conv_layers"][f"bn{j}"])
-        j += 1
-    if "final_layer" in head:
-        sd["head.final_layer.weight"] = _conv(head["final_layer"]["kernel"])
-        sd["head.final_layer.bias"] = head["final_layer"]["bias"]
+    tower("head", head, head_s)
+    for name in ("first_head", "second_head"):  # DoubleProbMapHead's two towers
+        if name in head:
+            tower(f"head.{name}", head[name], head_s.get(name, {}))
     for name in ("probability_layers", "visibility_layers", "oks_layers", "error_layers"):
         if name not in head:  # HeatmapHead has no towers
             continue
-        tower, tower_s = head[name], head_s[name]
+        node, node_s = head[name], head_s[name]
         j = 0
-        while f"conv{j}" in tower:
-            sd[f"head.{name}.{4 * j}.weight"] = _conv(tower[f"conv{j}"]["kernel"])
-            sd[f"head.{name}.{4 * j}.bias"] = tower[f"conv{j}"]["bias"]
-            bn(f"head.{name}.{4 * j + 1}", tower[f"bn{j}"], tower_s[f"bn{j}"])
+        while f"conv{j}" in node:
+            sd[f"head.{name}.{4 * j}.weight"] = _conv(node[f"conv{j}"]["kernel"])
+            sd[f"head.{name}.{4 * j}.bias"] = node[f"conv{j}"]["bias"]
+            _bn_from_jax(sd, f"head.{name}.{4 * j + 1}", node[f"bn{j}"], node_s[f"bn{j}"])
             j += 1
-        sd[f"head.{name}.{4 * j}.weight"] = _conv(tower["final"]["kernel"])
-        sd[f"head.{name}.{4 * j}.bias"] = tower["final"]["bias"]
+        sd[f"head.{name}.{4 * j}.weight"] = _conv(node["final"]["kernel"])
+        sd[f"head.{name}.{4 * j}.bias"] = node["final"]["bias"]
 
     return OrderedDict((k, torch.from_numpy(np.array(v, copy=True))) for k, v in sd.items())

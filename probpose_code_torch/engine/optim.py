@@ -1,4 +1,4 @@
-"""AdamW with layer-wise lr decay, gradient clipping and the lr schedules.
+"""AdamW with layer-wise lr decay, plain Adam, gradient clipping and the lr schedules.
 
 Port of ``probpose_code_tpu/engine/optim.py``: the layer-decay scale
 (``:31-61``), the weight-decay mask (``:64-73``), ``build_schedule``
@@ -7,6 +7,10 @@ chain, in its order, written out in torch:
 
     clip by global norm -> Adam moments -> + weight_decay * p (masked)
     -> * layer scale -> * -lr(k)
+
+and, for ``type="Adam"`` (the HRNet recipes), the same without the mask
+(``weight_decay`` applies to every parameter, ``:194-197``) or a layer
+scale.
 
 with ``lr(k)`` for update k counted from 0, as optax counts. Where torch's
 own pieces differ from optax they are not used: ``clip_grad_norm_`` divides
@@ -141,9 +145,11 @@ class AdamState:
 
 
 class LayerDecayAdamW:
-    """AdamW over named parameters, grouped by (lr scale, weight decay). Its
-    state lives in an ``AdamState`` the caller keeps (``init``), so that the
-    train state holds it."""
+    """AdamW over named parameters, grouped by (lr scale, weight decay);
+    ``decay_mask`` picks the parameters that weight decay applies to
+    (``decays``; every one for plain Adam). Its state lives in an
+    ``AdamState`` the caller keeps (``init``), so that the train state
+    holds it."""
 
     eps = 1e-8  # optax.scale_by_adam's
 
@@ -151,6 +157,7 @@ class LayerDecayAdamW:
         self, named_params: Iterable[Tuple[str, torch.Tensor]], lr_fn: Callable[[int], float], *,
         betas=(0.9, 0.999), weight_decay: float = 0.0, max_norm: Optional[float] = None,
         num_layers: int = 12, decay_rate: Optional[float] = None,
+        decay_mask: Callable[[str, torch.Tensor], bool] = decays,
     ):
         self.names, self.params = [], []
         for n, p in named_params:
@@ -163,7 +170,7 @@ class LayerDecayAdamW:
         groups: Dict[Tuple[float, float], List[int]] = {}
         for i, (n, p) in enumerate(zip(self.names, self.params)):
             scale = 1.0 if decay_rate is None else lr_scale(n, num_layers, decay_rate)
-            groups.setdefault((scale, weight_decay if decays(n, p) else 0.0), []).append(i)
+            groups.setdefault((scale, weight_decay if decay_mask(n, p) else 0.0), []).append(i)
         self.groups = [dict(lr_scale=s, weight_decay=wd, index=idx) for (s, wd), idx in groups.items()]
 
     def init(self) -> AdamState:
@@ -219,11 +226,11 @@ def build_optimizer(
 ) -> Tuple[LayerDecayAdamW, Callable[[int], float]]:
     """The optimizer of a reference-style ``optim_wrapper`` config over a
     PoseModel's parameters. Returns (optimizer, lr_fn); lr_fn is for
-    logging. AdamW only: the flagship's optimizer."""
+    logging. AdamW (the ViT recipes') and Adam (the HRNet recipes')."""
     opt_cfg = dict(optim_wrapper.get("optimizer", {}))
     opt_type = opt_cfg.pop("type", "AdamW")
-    if opt_type != "AdamW":
-        raise NotImplementedError(f"optimizer {opt_type} is not ported yet (AdamW is)")
+    if opt_type not in ("AdamW", "Adam"):
+        raise NotImplementedError(f"optimizer {opt_type} is not ported yet (AdamW and Adam are)")
     if int(optim_wrapper.get("accumulative_counts", 1) or 1) > 1:
         raise NotImplementedError("gradient accumulation is not ported yet")
     base_lr = opt_cfg.pop("lr", 1e-3)
@@ -240,5 +247,6 @@ def build_optimizer(
         weight_decay=opt_cfg.pop("weight_decay", 0.0), max_norm=clip_cfg.get("max_norm"),
         num_layers=paramwise.get("num_layers", 12),
         decay_rate=paramwise.get("layer_decay_rate", 0.75) if layer_decay else None,
+        decay_mask=decays if opt_type == "AdamW" else (lambda name, param: True),
     )
     return optimizer, lr_fn

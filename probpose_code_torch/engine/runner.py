@@ -55,6 +55,8 @@ from probpose_code_torch.structures.data_sample import InstanceData
 from probpose_code_torch.visualization import build_vis_backends
 
 PRED_FIELDS = ("keypoints_probs", "keypoints_visible", "keypoints_oks", "keypoints_error", "keypoints_conf")
+# the predict dict's maps, which stay on the device (DoubleProbMapHead's out-window ones too)
+HEATMAP_KEYS = ("heatmaps", "out_heatmaps")
 
 
 class Runner:
@@ -347,7 +349,7 @@ class Runner:
             times.setdefault("first_batch", t1 - t0)
             data_samples = batch["data_samples"]
             preds = predict(self.device_batch(batch)["inputs"])
-            preds = {k: v.float().cpu().numpy() for k, v in preds.items() if k != "heatmaps"}
+            preds = {k: v.float().cpu().numpy() for k, v in preds.items() if k not in HEATMAP_KEYS}
             t2 = time.perf_counter()
             attach_predictions(preds, data_samples, self.model.input_size)
             evaluator.process(data_samples)

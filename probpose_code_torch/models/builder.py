@@ -3,11 +3,12 @@
 Port of ``probpose_code_tpu/models/builder.py``: ``build_pose_estimator``
 (``:39``) reads the same reference-style config dicts, ``build_loss_modules``
 (``:132``) builds the head's losses, and ``PoseModel`` owns the module, its
-predict program for top-down ProbMapHead and HeatmapHead models (preprocess
--> original and mirrored crops as one doubled batch -> flip-TTA average ->
-the expected-OKS decode, ``:815-822``, or argmax + DARK-UDP for the UDP
-codec, ``:870-908``) and its loss (``loss_fn``, ``:406``, with the targets
-encoded on the device by ``device_preprocess_batch``, ``:363``).
+predict program for top-down ProbMapHead, DoubleProbMapHead and HeatmapHead
+models (preprocess -> original and mirrored crops as one doubled batch ->
+flip-TTA average -> the expected-OKS decode, ``:815-832``, or argmax +
+DARK-UDP for the UDP codec, ``:870-908``) and its loss (``loss_fn``,
+``:406``, with the targets and DoubleProbMap's bbox mask made on the device
+by ``device_preprocess_batch``, ``:363``).
 """
 
 from __future__ import annotations
@@ -17,8 +18,10 @@ import copy
 import math
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
+from probpose_code_torch.ops.bbox_mask import render_bbox_mask
 from probpose_code_torch.ops.encode import (
     generate_probmaps_device,
     generate_udp_gaussian_device,
@@ -29,12 +32,15 @@ from probpose_code_torch.ops.warp import warp_affine_batch
 from probpose_code_torch.registry import MODELS
 
 from . import losses  # noqa: F401  (registers)
+from .backbones.hrnet import HRNet  # noqa: F401  (registers)
 from .backbones.vit import VisionTransformer  # noqa: F401  (registers)
 from .heads.heatmap_head import HeatmapHead  # noqa: F401  (registers)
-from .heads.probmap_head import ProbMapHead  # noqa: F401  (registers)
+from .heads.probmap_head import DoubleProbMapHead, ProbMapHead  # noqa: F401  (registers)
 from .necks.necks import FeatureMapProcessor  # noqa: F401  (registers)
 from .pose_estimators.topdown import (
     TopdownPoseEstimator,
+    double_probmap_head_loss,
+    double_probmap_head_predict,
     heatmap_head_loss,
     heatmap_head_predict,
     preprocess_inputs,
@@ -42,13 +48,13 @@ from .pose_estimators.topdown import (
     probmap_head_predict,
 )
 
-HEAD_TYPES = ("ProbMapHead", "HeatmapHead")
+HEAD_TYPES = ("ProbMapHead", "DoubleProbMapHead", "HeatmapHead")
 
 
 def _adapt_backbone_cfg(cfg: Dict[str, Any]) -> Dict[str, Any]:
     """Accept ``type='mmpretrain.VisionTransformer'`` and its kwargs
     (``patch_cfg.padding``); drop the torch-side ``init_cfg`` and the
-    optimizer-side ``frozen_stages``."""
+    optimizer-side ``frozen_stages``. ``HRNet`` takes its config as it is."""
     cfg = copy.deepcopy(dict(cfg))
     if cfg.get("type") in ("mmpretrain.VisionTransformer", "VisionTransformer"):
         cfg["type"] = "VisionTransformer"
@@ -98,7 +104,7 @@ _LOSS_DEFAULTS = dict(
 
 
 def build_loss_modules(head_cfg: Dict[str, Any]) -> Dict[str, Any]:
-    """The ProbMapHead's five loss configs as callables, under the keys
+    """The ProbMap heads' five loss configs as callables, under the keys
     ``keypoint``, ``probability``, ``visibility``, ``oks`` and ``error``; a
     single-loss head's ``loss`` (HeatmapHead) replaces ``keypoint``
     (``builder.py:145-147``)."""
@@ -231,6 +237,11 @@ class PoseModel:
                         outputs, outputs_flipped, flip_indices, self.decoder_cfg, input_size=self.input_size,
                         shift_heatmap=shift_heatmap,
                     )
+                if self.head_type == "DoubleProbMapHead":
+                    return double_probmap_head_predict(
+                        outputs, outputs_flipped, flip_indices, self.decoder_cfg, input_size=self.input_size,
+                        shift_heatmap=shift_heatmap, freeze_oks=freeze_oks,
+                    )
                 return probmap_head_predict(
                     outputs, outputs_flipped, flip_indices, input_size=self.input_size,
                     shift_heatmap=shift_heatmap, freeze_oks=freeze_oks,
@@ -259,7 +270,10 @@ class PoseModel:
         carries heatmap-space keypoints (``kpts_hm`` (B, K, 2),
         ``kpts_visible`` (B, K)) instead of target maps gets its maps
         encoded: UDP gaussians for the UDPHeatmap codec, expected-OKS maps
-        for the ProbMap family."""
+        for the ProbMap family; a DoubleProbMap batch both windows' maps
+        (``heatmaps`` from ``kpts_hm``, ``out_heatmaps`` from
+        ``kpts_hm_out``) and, from ``bbox_mask_rect`` / ``bbox_mask_mat``,
+        the (B, 1, h, w) uint8 ``bbox_mask`` (``ops/bbox_mask.py``)."""
         if not {"canvas", "jpeg", "kpts_hm"} & set(batch):
             return batch
         batch = dict(batch)
@@ -287,13 +301,20 @@ class PoseModel:
         if "kpts_hm" not in batch or "heatmaps" in batch:
             return batch
         dc = self.decoder_cfg
-        if dc.get("type", "ProbMap") not in ("ProbMap", "ArgMaxProbMap", "UDPHeatmap"):
+        if dc.get("type", "ProbMap") not in ("ProbMap", "ArgMaxProbMap", "UDPHeatmap", "DoubleProbMap"):
             raise NotImplementedError(f"device encode for the {dc.get('type')} codec is not ported yet")
         kpts = batch.pop("kpts_hm")
         vis = batch.pop("kpts_visible")
         hm_size = tuple(dc.get("heatmap_size", (48, 64)))
         if dc.get("type") == "UDPHeatmap":
             batch["heatmaps"] = generate_udp_gaussian_device(kpts, vis, hm_size, float(dc.get("sigma", 2.0)))
+        elif dc.get("type") == "DoubleProbMap":
+            scales = probmap_encode_scales(kpts.shape[1], hm_size, float(dc.get("sigma", -1.0)), dtype=np.float64)
+            batch["heatmaps"] = generate_probmaps_device(kpts, vis, hm_size, scales)
+            batch["out_heatmaps"] = generate_probmaps_device(batch.pop("kpts_hm_out"), vis, hm_size, scales)
+            if "bbox_mask_rect" in batch:
+                batch["bbox_mask"] = render_bbox_mask(batch.pop("bbox_mask_rect"), batch.pop("bbox_mask_mat"),
+                                                      self.input_size)
         else:
             scales = probmap_encode_scales(kpts.shape[1], hm_size, float(dc.get("sigma", -1.0)))
             batch["heatmaps"] = generate_probmaps_device(kpts, vis, hm_size, scales)
@@ -312,6 +333,10 @@ class PoseModel:
         outputs = self.module(self.preprocess(batch["inputs"]), generator)
         if self.head_type == "HeatmapHead":
             losses = heatmap_head_loss(outputs, batch, self.loss_modules["keypoint"])
+        elif self.head_type == "DoubleProbMapHead":
+            losses = double_probmap_head_loss(
+                outputs, batch, self.loss_modules, self.aux["head_cfg"], input_size=self.input_size,
+            )
         else:
             losses = probmap_head_loss(
                 outputs, batch, self.loss_modules, self.aux["head_cfg"], input_size=self.input_size,

@@ -1,8 +1,9 @@
-"""ProbMapHead, the ProbPose five-branch head, in PyTorch.
+"""ProbMapHead, the ProbPose five-branch head, and DoubleProbMapHead, in PyTorch.
 
 Port of ``probpose_code_tpu/models/heads/probmap_head.py``: ``ProbMapHead``
-(``:63``) and ``ScalarBranchTower`` (``:37``). From the backbone's (B, C, h, w)
-feature map:
+(``:63``), ``ScalarBranchTower`` (``:37``), ``HeatmapTower`` (``:161``, here a
+``HeatmapHead``) and ``DoubleProbMapHead`` (``:193``). ProbMapHead, from the backbone's
+(B, C, h, w) feature map:
 
 1. heatmaps      deconv stack -> 1x1 conv -> sparsemax(x / T) over H*W,
                  scaled by ``normalize``, clamped to [0, 1]
@@ -16,9 +17,19 @@ The gradient switches are the JAX head's (``probmap_head.py:113-150``):
 towers' input, the oks and error towers always see a detached input, and
 ``freeze_*`` cut it at each output.
 
+DoubleProbMapHead has two heatmap towers, ``first_head`` (the tight "in"
+window) and ``second_head`` (the expanded "out" window), each a deconv
+stack, an optional conv stack, a 1x1 ``final_layer`` and, with
+``normalize``, a sigmoid; and the same four scalar towers.
+``detach_second_heatmaps`` cuts the gradient into the second tower's input
+and ``freeze_second_heatmaps`` at its output. Its windows are merged in the
+loss and predict programs (``models/pose_estimators/topdown.py``).
+
 Module indices follow the reference keys (``head.deconv_layers.{0,1,3,4}``,
-``head.final_layer``, ``head.<tower>.{0,1,4,5,8,9,12}``), so reference
-checkpoints load with ``strict=True``. The loss configs are kept as given:
+``head.final_layer``, ``head.<tower>.{0,1,4,5,8,9,12}``; DoubleProbMapHead's
+``head.first_head.deconv_layers.{0,1,3,4}``, ``head.first_head.final_layer``
+and the same under ``second_head``), so reference checkpoints load with
+``strict=True``. The loss configs are kept as given:
 ``models/builder.py:build_loss_modules`` builds them.
 """
 
@@ -33,7 +44,7 @@ from probpose_code_torch.models.backbones.vit import resolve_dtype
 from probpose_code_torch.ops.sparsemax import sparsemax
 from probpose_code_torch.registry import MODELS
 
-from .heatmap_head import BatchNorm2d, make_deconv_stack, run_sequential
+from .heatmap_head import BatchNorm2d, HeatmapHead, make_deconv_stack, run_sequential
 
 
 class ClampedMaxPool(nn.Module):
@@ -125,10 +136,7 @@ class ProbMapHead(nn.Module):
         else:
             self.deconv_layers = nn.Sequential()
         self.final_layer = nn.Conv2d(head_in, out_channels, 1)
-        self.probability_layers = make_scalar_tower(in_channels, out_channels)
-        self.visibility_layers = make_scalar_tower(in_channels, out_channels)
-        self.oks_layers = make_scalar_tower(in_channels, out_channels)
-        self.error_layers = make_scalar_tower(in_channels, out_channels)
+        add_scalar_towers(self, in_channels, out_channels)
 
     def forward(self, feats) -> Dict[str, torch.Tensor]:
         x = feats[-1] if isinstance(feats, (tuple, list)) else feats  # (B, C, h, w) f32
@@ -141,17 +149,99 @@ class ProbMapHead(nn.Module):
         else:
             h = h / self.temperature
         heatmaps = torch.clamp(h, 0.0, 1.0).reshape(B, K, H, W)
+        return dict(heatmaps=_cut(heatmaps, self.freeze_heatmaps), **scalar_outputs(self, x))
 
-        def cut(t, stop):
-            return t.detach() if stop else t
 
-        x_det = x.detach()
-        return dict(
-            heatmaps=cut(heatmaps, self.freeze_heatmaps),
-            probabilities=cut(torch.sigmoid(run_tower(
-                self.probability_layers, cut(x, self.detach_probability), self.dtype)), self.freeze_probability),
-            visibilities=cut(torch.sigmoid(run_tower(
-                self.visibility_layers, cut(x, self.detach_visibility), self.dtype)), self.freeze_visibility),
-            oks=cut(torch.sigmoid(run_tower(self.oks_layers, x_det, self.dtype)), self.freeze_oks),
-            errors=cut(torch.relu(run_tower(self.error_layers, x_det, self.dtype)), self.freeze_error),
-        )
+def _cut(t: torch.Tensor, stop: bool) -> torch.Tensor:
+    return t.detach() if stop else t
+
+
+def add_scalar_towers(head: nn.Module, in_channels: int, out_channels: int) -> None:
+    """The four scalar towers of the ProbMap heads, in reference order."""
+    head.probability_layers = make_scalar_tower(in_channels, out_channels)
+    head.visibility_layers = make_scalar_tower(in_channels, out_channels)
+    head.oks_layers = make_scalar_tower(in_channels, out_channels)
+    head.error_layers = make_scalar_tower(in_channels, out_channels)
+
+
+def scalar_outputs(head: nn.Module, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The four scalar outputs with the head's detach / freeze switches."""
+    x_det = x.detach()
+    return dict(
+        probabilities=_cut(torch.sigmoid(run_tower(
+            head.probability_layers, _cut(x, head.detach_probability), head.dtype)), head.freeze_probability),
+        visibilities=_cut(torch.sigmoid(run_tower(
+            head.visibility_layers, _cut(x, head.detach_visibility), head.dtype)), head.freeze_visibility),
+        oks=_cut(torch.sigmoid(run_tower(head.oks_layers, x_det, head.dtype)), head.freeze_oks),
+        errors=_cut(torch.relu(run_tower(head.error_layers, x_det, head.dtype)), head.freeze_error),
+    )
+
+
+@MODELS.register_module()
+class DoubleProbMapHead(nn.Module):
+    """The dual-window ProbPose head (see the module). ``split_heatmaps_by``
+    and the loss and decoder configs are read by the loss and predict
+    programs."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        deconv_out_channels: Optional[Sequence[int]] = (256, 256, 256),
+        deconv_kernel_sizes: Optional[Sequence[int]] = (4, 4, 4),
+        conv_out_channels: Optional[Sequence[int]] = None,
+        conv_kernel_sizes: Optional[Sequence[int]] = None,
+        normalize: bool = False,
+        detach_probability: bool = True,
+        detach_visibility: bool = True,
+        detach_second_heatmaps: bool = False,
+        learn_heatmaps_from_zeros: bool = False,
+        split_heatmaps_by: str = "in/all",
+        freeze_heatmaps: bool = False,
+        freeze_second_heatmaps: bool = False,
+        freeze_probability: bool = False,
+        freeze_visibility: bool = False,
+        freeze_oks: bool = False,
+        freeze_error: bool = False,
+        keypoint_loss: Any = None,
+        probability_loss: Any = None,
+        visibility_loss: Any = None,
+        oks_loss: Any = None,
+        error_loss: Any = None,
+        decoder: Any = None,
+        dtype: Any = "float32",
+    ):
+        super().__init__()
+        if split_heatmaps_by not in ("visibility", "in/out", "in/all"):
+            raise ValueError(f"split_heatmaps_by {split_heatmaps_by!r}")
+        self.dtype = resolve_dtype(dtype)
+        self.detach_probability = detach_probability
+        self.detach_visibility = detach_visibility
+        self.detach_second_heatmaps = detach_second_heatmaps
+        self.freeze_heatmaps = freeze_heatmaps
+        self.freeze_second_heatmaps = freeze_second_heatmaps
+        self.freeze_probability = freeze_probability
+        self.freeze_visibility = freeze_visibility
+        self.freeze_oks = freeze_oks
+        self.freeze_error = freeze_error
+        self.decoder = decoder
+        self.normalize = normalize
+        # each tower is a HeatmapHead: deconv stack, conv stack, 1x1 final layer
+        tower = dict(in_channels=in_channels, out_channels=out_channels, deconv_out_channels=deconv_out_channels,
+                     deconv_kernel_sizes=deconv_kernel_sizes, conv_out_channels=conv_out_channels,
+                     conv_kernel_sizes=conv_kernel_sizes, dtype=dtype)
+        self.first_head = HeatmapHead(**tower)
+        self.second_head = HeatmapHead(**tower)
+        add_scalar_towers(self, in_channels, out_channels)
+
+    def forward(self, feats) -> Dict[str, torch.Tensor]:
+        x = feats[-1] if isinstance(feats, (tuple, list)) else feats  # (B, C, h, w) f32
+
+        def tower(head, inputs):
+            h = head(inputs)
+            return torch.sigmoid(h) if self.normalize else h
+
+        heatmaps = _cut(tower(self.first_head, x), self.freeze_heatmaps)
+        out_heatmaps = _cut(tower(self.second_head, _cut(x, self.detach_second_heatmaps)),
+                            self.freeze_second_heatmaps)
+        return dict(heatmaps=heatmaps, out_heatmaps=out_heatmaps, **scalar_outputs(self, x))

@@ -3,7 +3,9 @@
 Port of ``probpose_code_tpu/models/pose_estimators/topdown.py``:
 ``TopdownPoseEstimator`` (``:41``), ``preprocess_inputs`` (``:74``),
 ``probmap_head_predict`` (``:659-703``), the ProbMap loss program
-(``:94-251``) and ``heatmap_head_loss`` (``:637-651``); and the plain
+(``:94-251``), the DoubleProbMap programs (``merge_double_heatmaps_device``,
+``double_probmap_head_loss`` and ``double_probmap_head_predict``,
+``:254-475``) and ``heatmap_head_loss`` (``:637-651``); and the plain
 heatmap head's decode of ``probpose_code_tpu/models/builder.py:make_predict``
 (``:870-908``). ProbMap: the OKS and error targets come from the fast decode
 of the ground-truth and predicted heatmaps on the device, the training
@@ -278,3 +280,175 @@ def probmap_head_loss(
     losses["mae_oks"] = ((dt_oks.detach() - gt_oks).abs() * mask_f).sum() / denom
     losses["mae_err"] = ((dt_errs.detach() - gt_errs).abs() * mask_f).sum() / denom
     return losses
+
+
+# --------------------------------------------------------------------------
+# DoubleProbMap head: the two windows merged, its loss and its predict
+# --------------------------------------------------------------------------
+
+
+def resize_nearest_indices(size_in: int, size_out: int, device=None) -> torch.Tensor:
+    """The rows ``jax.image.resize(..., "nearest")`` samples: the half-pixel
+    centres ``floor((i + 0.5) * size_in / size_out)`` (``F.interpolate``'s
+    "nearest" samples ``floor(i * size_in / size_out)``)."""
+    idx = np.floor((np.arange(size_out) + 0.5) * (size_in / size_out)).astype(np.int64)
+    return torch.as_tensor(np.minimum(idx, size_in - 1), device=device)
+
+
+def merge_double_heatmaps_device(
+    heatmaps1: torch.Tensor, heatmaps2: torch.Tensor, bbox_mask: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per (sample, keypoint): the in-window map where the out-window map's
+    first argmax falls inside ``bbox_mask`` ((B, 1, Hm, Wm) at any size,
+    nearest-resized to the map), else the out-window map; None means the
+    whole crop. Returns (merged (B, K, H, W), hout_in (B, K) bool)."""
+    B, K, H, W = heatmaps1.shape
+    amax = torch.argmax(heatmaps2.reshape(B, K, H * W), dim=-1)
+    if bbox_mask is None:
+        hout_in = torch.ones((B, K), dtype=torch.bool, device=heatmaps1.device)
+    else:
+        mask = bbox_mask.reshape(B, bbox_mask.shape[-2], bbox_mask.shape[-1]).float()
+        rows = resize_nearest_indices(mask.shape[1], H, mask.device)
+        cols = resize_nearest_indices(mask.shape[2], W, mask.device)
+        mask = mask[:, rows][:, :, cols].reshape(B, 1, H * W).expand(B, K, H * W)
+        hout_in = torch.gather(mask, 2, amax[..., None])[..., 0] > 0.5
+    merged = torch.where(hout_in[..., None, None], heatmaps1, heatmaps2)
+    return merged, hout_in
+
+
+def double_probmap_head_loss(
+    outputs: Dict[str, torch.Tensor],
+    batch: Dict[str, torch.Tensor],
+    loss_modules: Dict[str, Any],
+    head_cfg: Dict[str, Any],
+    input_size: Tuple[int, int] = (192, 256),
+) -> Dict[str, torch.Tensor]:
+    """The DoubleProbMapHead loss dict (reference ``DP_head.py:loss:1293``):
+    ``loss_kpt`` (the first tower on the in-window maps), ``loss_kpt2`` (the
+    second on the out-window maps), ``loss_probability``,
+    ``loss_visibility``, ``loss_oks``, ``loss_error`` and the monitors
+    ``acc_pose1``, ``acc_pose2``, ``acc_prob``, ``acc_vis``, ``mae_oks``,
+    ``mae_err``. The OKS and error targets compare the merged prediction with
+    the out-window ground truth. ``split_heatmaps_by`` picks the towers'
+    keypoints: "in/all" (the first the in-window ones, the second all
+    annotated ones), "in/out" or "visibility"."""
+    dt_heatmaps1 = outputs["heatmaps"]
+    dt_heatmaps2 = outputs["out_heatmaps"]
+    B, C, H, W = dt_heatmaps1.shape
+    dt_probs = outputs["probabilities"].reshape(B, C)
+    dt_vis = outputs["visibilities"].reshape(B, C)
+    dt_oks = outputs["oks"].reshape(B, C)
+    dt_errs = outputs["errors"].reshape(B, C)
+
+    gt_in_heatmaps = batch["heatmaps"].reshape(B, C, H, W)
+    gt_out_heatmaps = batch["out_heatmaps"].reshape(B, C, H, W)
+    gt_probs = batch["in_image"].float().reshape(B, C)
+    gt_annotated = batch["annotated"].float().reshape(B, C)
+    gt_vis = batch["keypoints_visibility"].float().reshape(B, C)
+    # keypoints_in_image also knows blackout crops (it is in_image AND-ed with itself otherwise)
+    gt_in_image = batch.get("keypoints_in_image")
+    gt_in_image = gt_probs if gt_in_image is None else gt_in_image.float().reshape(B, C) * gt_probs
+
+    merged_dt, _ = merge_double_heatmaps_device(dt_heatmaps1.detach(), dt_heatmaps2.detach(), batch.get("bbox_mask"))
+
+    freeze_oks = head_cfg.get("freeze_oks", False)
+    freeze_error = head_cfg.get("freeze_error", False)
+    zeros = torch.zeros((B, C), dtype=torch.float32, device=dt_heatmaps1.device)
+    if (not freeze_error) or (not freeze_oks):
+        gt_coords = _fast_decode_to_input_space(gt_out_heatmaps, input_size)
+        dt_coords = _fast_decode_to_input_space(merged_dt, input_size)
+    gt_errs = zeros if freeze_error else torch.linalg.norm(gt_coords - dt_coords, dim=-1)
+    if freeze_oks:
+        gt_oks = zeros
+    else:
+        gt_oks, _ = compute_oks_targets(gt_coords, dt_coords, (gt_probs > 0.5) & (gt_annotated > 0.5))
+
+    annotated_in = (gt_annotated > 0.5) & (gt_probs > 0.5)
+    split = head_cfg.get("split_heatmaps_by", "in/all")
+    if split == "visibility":
+        weights1, weights2 = (gt_vis > 0.5) & annotated_in, (gt_vis <= 0.5) & annotated_in
+    elif split == "in/out":
+        weights1, weights2 = (gt_in_image > 0.5) & annotated_in, (gt_in_image <= 0.5) & annotated_in
+    else:  # in/all
+        weights1, weights2 = (gt_in_image > 0.5) & annotated_in, annotated_in
+
+    mask_f = annotated_in.float()
+    losses: Dict[str, torch.Tensor] = {}
+    losses["loss_kpt"] = loss_modules["keypoint"](dt_heatmaps1, gt_in_heatmaps, weights1.float())
+    losses["loss_kpt2"] = loss_modules["keypoint"](dt_heatmaps2, gt_out_heatmaps, weights2.float())
+    losses["loss_probability"] = loss_modules["probability"](dt_probs, gt_probs, gt_annotated)
+    losses["loss_visibility"] = loss_modules["visibility"](dt_vis, gt_vis, mask_f)
+    losses["loss_oks"] = loss_modules["oks"](dt_oks, gt_oks, mask_f)
+    losses["loss_error"] = loss_modules["error"](dt_errs, gt_errs, mask_f)
+
+    losses["acc_pose1"] = _pose_pck_accuracy(dt_heatmaps1.detach(), gt_in_heatmaps, weights1)
+    losses["acc_pose2"] = _pose_pck_accuracy(dt_heatmaps2.detach(), gt_out_heatmaps, weights2)
+    losses["acc_prob"] = _balanced_binary_accuracy(dt_probs.detach(), gt_probs, gt_annotated > 0.5)
+    losses["acc_vis"] = _balanced_binary_accuracy(dt_vis.detach(), gt_vis, annotated_in)
+    denom = torch.clamp(mask_f.sum(), min=1.0)
+    losses["mae_oks"] = ((dt_oks.detach() - gt_oks).abs() * mask_f).sum() / denom
+    losses["mae_err"] = ((dt_errs.detach() - gt_errs).abs() * mask_f).sum() / denom
+    return losses
+
+
+def double_probmap_head_predict(
+    outputs: Dict[str, torch.Tensor],
+    outputs_flipped: Optional[Dict[str, torch.Tensor]],
+    flip_indices,
+    decoder_cfg: Dict[str, Any],
+    input_size: Tuple[int, int] = (192, 256),
+    shift_heatmap: bool = False,
+    freeze_oks: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """Flip-TTA over both towers and the four scalars, both windows decoded
+    by K2 in one launch at the identity scale (heatmap pixels), each mapped
+    to input space by its window (``locs / (hm - 1) * act_wh + act_tl``, the
+    JAX order of operations); a keypoint keeps its in-window prediction where
+    the out-window one lands inside the crop, else the out-window one
+    (reference ``DP_head.py:_merge_predictions:1460``, without a mask, as
+    ``make_predict`` passes none)."""
+    heatmaps1 = outputs["heatmaps"]
+    heatmaps2 = outputs["out_heatmaps"]
+    probs, vis, oks, errs = (outputs[k] for k in ("probabilities", "visibilities", "oks", "errors"))
+    if outputs_flipped is not None:
+        heatmaps1 = (heatmaps1 + flip_heatmaps(outputs_flipped["heatmaps"], flip_indices=flip_indices,
+                                               shift_heatmap=shift_heatmap)) * 0.5
+        heatmaps2 = (heatmaps2 + flip_heatmaps(outputs_flipped["out_heatmaps"], flip_indices=flip_indices,
+                                               shift_heatmap=shift_heatmap)) * 0.5
+        idx = torch.as_tensor(flip_indices, device=probs.device)
+        probs = (probs + outputs_flipped["probabilities"][:, idx]) * 0.5
+        vis = (vis + outputs_flipped["visibilities"][:, idx]) * 0.5
+        oks = (oks + outputs_flipped["oks"][:, idx]) * 0.5
+        errs = (errs + outputs_flipped["errors"][:, idx]) * 0.5
+
+    B, K, H, W = heatmaps1.shape
+    locs, scores = expected_oks_decode(torch.cat([heatmaps1, heatmaps2]).contiguous(), None)
+    input_wh = torch.tensor(input_size, dtype=torch.float32, device=locs.device)
+    hm_wh = torch.tensor([W - 1, H - 1], dtype=torch.float32, device=locs.device)
+
+    def window_to_input(window_locs, pad):
+        act_wh = input_wh * float(pad)
+        act_tl = input_wh / 2.0 - act_wh / 2.0
+        return window_locs / hm_wh * act_wh + act_tl
+
+    kpts_in = window_to_input(locs[:B], decoder_cfg.get("in_heatmap_padding", 1.0))
+    kpts_out = window_to_input(locs[B:], decoder_cfg.get("out_heatmap_padding", 1.25))
+    scores_in, scores_out = scores[:B], scores[B:]
+    # does the out-window prediction land inside the crop? (round half to even, as jnp.round)
+    xi = torch.round(kpts_out[..., 0]).to(torch.int32)
+    yi = torch.round(kpts_out[..., 1]).to(torch.int32)
+    hout_in = (xi >= 0) & (xi < input_size[0]) & (yi >= 0) & (yi < input_size[1])
+
+    errs = errs / torch.sqrt(torch.tensor(H**2 + W**2, dtype=torch.float32))
+    conf = torch.where(hout_in, scores_in, scores_out)
+    return dict(
+        keypoints=torch.where(hout_in[..., None], kpts_in, kpts_out),
+        keypoint_scores=oks if not freeze_oks else conf,
+        keypoints_conf=conf,
+        keypoints_probs=probs,
+        keypoints_visible=vis,
+        keypoints_oks=oks,
+        keypoints_error=errs,
+        heatmaps=heatmaps1,
+        out_heatmaps=heatmaps2,
+    )

@@ -6,6 +6,9 @@ Port of ``probpose_code_tpu/ops/encode.py``: ``probmap_encode_scales``
 heatmap-space keypoints; the (B, K, H, W) maps are built on the device as two
 separable factors and their outer product, from the same per-keypoint spread
 table as the host encoder (``oks_kernel_scales``) or the UDP codec's sigma.
+The DoubleProbMap codec's two windows (``probpose_code_tpu/codecs/
+double_probmap.py:29-131``, which the JAX package encodes on the host) are
+two such renders of the keypoints in each window's frame.
 """
 
 from __future__ import annotations
@@ -20,13 +23,14 @@ from probpose_code_torch.codecs.utils.oks_map import oks_kernel_scales
 
 def probmap_encode_scales(
     K: int, heatmap_size: Tuple[int, int], sigma: float = -1.0, kpt_sigmas: Optional[np.ndarray] = None,
+    dtype=np.float32,
 ) -> np.ndarray:
     """The per-keypoint spread ``s``: ``sigma`` when it is > 0, else the OKS
-    spread table."""
+    spread table; in ``dtype`` (the host codec's is float64)."""
     W, H = heatmap_size
     if sigma is not None and sigma > 0:
-        return np.full(K, float(sigma), np.float32)
-    return oks_kernel_scales(K, H, W, kpt_sigmas).astype(np.float32)
+        return np.full(K, float(sigma), dtype)
+    return oks_kernel_scales(K, H, W, kpt_sigmas).astype(dtype)
 
 
 def generate_probmaps_device(
@@ -34,17 +38,21 @@ def generate_probmaps_device(
 ) -> torch.Tensor:
     """(B, K, 2) heatmap-space keypoints and a (B, K) visibility gate ->
     (B, K, H, W) f32 maps ``exp(-d^2 / 2s)``, zero for keypoints whose
-    visibility is below 0.5."""
+    visibility is below 0.5. Float64 keypoints (the DoubleProbMap windows,
+    ``datasets/transforms/common.py``) are rendered in float64, as the host
+    codec computes them (``codecs/double_probmap.py:96-101``), and rounded to
+    f32 once."""
     W, H = int(heatmap_size[0]), int(heatmap_size[1])
     dev = kpts_hm.device
-    s2 = torch.as_tensor(2.0 * np.asarray(scales, np.float64), dtype=torch.float32, device=dev)
-    xs = torch.arange(W, dtype=torch.float32, device=dev)
-    ys = torch.arange(H, dtype=torch.float32, device=dev)
-    kpts = kpts_hm.float()
+    dtype = torch.float64 if kpts_hm.dtype == torch.float64 else torch.float32
+    s2 = torch.as_tensor(2.0 * np.asarray(scales, np.float64), dtype=dtype, device=dev)
+    xs = torch.arange(W, dtype=dtype, device=dev)
+    ys = torch.arange(H, dtype=dtype, device=dev)
+    kpts = kpts_hm.to(dtype)
     fx = torch.exp(-((xs[None, None, :] - kpts[..., 0:1]) ** 2) / s2[None, :, None])  # (B, K, W)
     fy = torch.exp(-((ys[None, None, :] - kpts[..., 1:2]) ** 2) / s2[None, :, None])  # (B, K, H)
     maps = fy[..., :, None] * fx[..., None, :]
-    return maps * (visible >= 0.5).float()[..., None, None]
+    return (maps * (visible >= 0.5).to(dtype)[..., None, None]).float()
 
 
 def generate_udp_gaussian_device(

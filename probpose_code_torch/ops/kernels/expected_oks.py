@@ -27,12 +27,13 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from probpose_code_torch.ops.decode import (
     expected_oks_decode_to_input_space,
+    heatmap_expected_value_batch,
     input_space_scale,
     oks_convolve_plain,
     oks_filter_taps,
@@ -91,14 +92,19 @@ def _launch(heatmaps: torch.Tensor, scale, want_decode: bool, want_conv: bool):
 
 
 def expected_oks_decode(
-    heatmaps: torch.Tensor, input_size: Tuple[int, int]
+    heatmaps: torch.Tensor, input_size: Optional[Tuple[int, int]]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, K, H, W) heatmaps -> keypoints in input space (B, K, 2) and the
-    raw-heatmap scores (B, K)."""
+    """(B, K, H, W) heatmaps -> keypoints (B, K, 2) in input space, or in
+    heatmap pixels for ``input_size`` None (the kernel at the identity
+    scale: DoubleProbMap's windows map them to input space with an offset),
+    and the raw-heatmap scores (B, K)."""
     if heatmaps.device.type == "cpu":
+        if input_size is None:
+            return heatmap_expected_value_batch(heatmaps)
         return expected_oks_decode_to_input_space(heatmaps, input_size)
     H, W = heatmaps.shape[-2:]
-    locs, vals, _ = _launch(heatmaps, input_space_scale(input_size, H, W), True, False)
+    scale = (1.0, 1.0) if input_size is None else input_space_scale(input_size, H, W)
+    locs, vals, _ = _launch(heatmaps, scale, True, False)
     expected_oks_decode.launches += 1
     return locs, vals
 

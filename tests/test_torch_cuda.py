@@ -10,7 +10,10 @@ tiles, head widths of 8 and above 128, maps whose filter needs more than
 48 KB of shared memory, maps whose sides are no multiple of K2's strip, a
 filter radius equal to the shorter side, a tap count that runs K2's
 runtime-D instance, flat maps and equal peaks whose argmax is a tie, and
-all-NaN maps; training through the runner (the tiny config's ``Runner.train``
+all-NaN maps; DoubleProbPose (the tiny model with its head) predicting
+and taking one train step on the card against the CPU, its bbox mask on the
+card bit for bit against NumPy, and one HRNet train step against the CPU;
+training through the runner (the tiny config's ``Runner.train``
 by ``tools/train.py``'s main, two epochs, K3's launches a step counted, no
 process left running); the val path (``Runner.val`` over the golden tiny fixture's
 PNG files with two worker processes started after CUDA, canvases warped on
@@ -48,7 +51,6 @@ from chip_smoke import (
     K4_F32_ATOL,
     VITPOSE,
     K1_BF16_REL,
-    K1_F32_REL,
     K2_CONV_ATOL,
     K2_LOCS_ATOL,
     K2_VALS_ATOL,
@@ -57,7 +59,10 @@ from chip_smoke import (
     K3_F32_GRAD,
     SERVE_KPT_ATOL,
     SERVE_SCORE_ATOL,
+    HRNET_REL,
+    K1_F32_REL,
     TINY_CFG,
+    UDP_FIXTURE_CFG,
     KeepSamples,
     NvjpegBatched,
     golden_errors,
@@ -70,7 +75,9 @@ from chip_smoke import (
     layer_inputs,
     peaked_heatmaps,
     qkv_views,
+    synthetic_dpm_batch,
     synthetic_train_batch,
+    tiny_dpm_cfg,
 )
 
 pytestmark = pytest.mark.cuda
@@ -598,3 +605,112 @@ def test_serve_on_the_card(card):
         server.server_close()
         thread.join()
 
+
+
+def _twins(cfg):
+    """The same model (seed-0 weights) on the card and on the CPU."""
+    from probpose_code_torch.apis import init_model
+
+    return init_model(cfg, device="cuda"), init_model(cfg, device="cpu")
+
+
+def test_dpm_predict_on_the_card_matches_the_cpu(card):
+    """Flip-TTA predict of the tiny DoubleProbPose model in f32: K1 x2 and K2
+    once (both windows) a call; the maps at K1's f32 bar, the scalar outputs
+    within 1e-4. The keypoints are not compared (random-weight maps are flat,
+    and the last bits move their argmax): K2's launch at the identity scale,
+    the route that decodes both windows, is held on peaked maps of the
+    predict's (2B, K, H, W) shape instead."""
+    from probpose_code_torch.ops.decode import heatmap_expected_value_batch
+    from probpose_code_torch.ops.kernels.expected_oks import expected_oks_decode
+
+    gpu, cpu = _twins(tiny_dpm_cfg())
+    crops = torch.from_numpy(synthetic_dpm_batch(3, seed=1)["inputs"])
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    got = {k: v.cpu() for k, v in gpu.predict(crops.cuda()).items()}
+    torch.cuda.synchronize()
+    assert {k: c.launches for k, c in counters.items()} == dict(
+        vit_layer=2, expected_oks=1, oks_convolve=0, vit_layer_train_fwd=0, vit_layer_train_bwd=0, attention=0)
+    want = cpu.predict(crops)
+    assert set(got) == set(want)
+    for k in ("heatmaps", "out_heatmaps"):
+        assert ((got[k] - want[k]).abs().max() / want[k].abs().max()).item() < K1_F32_REL, k
+    for k in ("keypoints_probs", "keypoints_visible", "keypoints_oks", "keypoints_error"):
+        assert (got[k] - want[k]).abs().max().item() < 1e-4, k
+    maps = peaked_heatmaps(2 * len(crops), 17, 64, 48, seed=3)
+    locs, vals = expected_oks_decode(torch.from_numpy(maps).cuda(), None)
+    locs_p, vals_p = heatmap_expected_value_batch(torch.from_numpy(maps))
+    assert locs.shape == (2 * len(crops), 17, 2)
+    assert (locs.cpu() - locs_p).abs().max().item() < K2_LOCS_ATOL
+    assert (vals.cpu() - vals_p).abs().max().item() < K2_VALS_ATOL
+
+
+def test_dpm_train_step_on_the_card_matches_the_cpu(card):
+    """One DoubleProbPose step of the tiny model from a batch as its pipeline
+    ships it (both windows' maps and the bbox mask rendered on the device):
+    K3 x2 forward and backward, the loss dict within 1e-3 of the CPU's (the
+    card's convolutions may use TF32), finite, a gradient in both towers."""
+    from probpose_code_torch.engine.optim import build_optimizer
+    from probpose_code_torch.parallel import create_train_state, make_train_step
+
+    batch = synthetic_dpm_batch(4, seed=2)
+    metrics = {}
+    for model in _twins(tiny_dpm_cfg()):
+        device = model.device
+        optimizer, _ = build_optimizer(model, dict(optimizer=dict(type="AdamW", lr=1e-3, weight_decay=0.1)))
+        counters = kernel_counters()
+        for c in counters.values():
+            c.launches = 0
+        _, m = make_train_step(model, optimizer)(
+            create_train_state(model, optimizer), {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+            torch.Generator(device=device).manual_seed(0))
+        metrics[device.type] = {k: float(v) for k, v in m.items()}
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert {k: c.launches for k, c in counters.items()} == dict(
+                vit_layer=0, expected_oks=0, oks_convolve=0, vit_layer_train_fwd=2, vit_layer_train_bwd=2,
+                attention=0)
+            for tower in ("first_head", "second_head"):
+                assert getattr(model.module.head, tower).final_layer.weight.grad.abs().max() > 0
+    assert {"loss_kpt", "loss_kpt2", "acc_pose1", "acc_pose2"} <= set(metrics["cuda"])
+    for k, v in metrics["cpu"].items():
+        assert np.isfinite(metrics["cuda"][k]) and metrics["cuda"][k] == pytest.approx(v, rel=1e-3, abs=1e-5), k
+
+
+def test_bbox_mask_on_the_card_matches_numpy(card):
+    from probpose_code_torch.ops.bbox_mask import render_bbox_mask, render_bbox_mask_numpy
+
+    batch = synthetic_dpm_batch(64, seed=3)
+    rects, mats = batch["bbox_mask_rect"], batch["bbox_mask_mat"]
+    want = render_bbox_mask_numpy(rects, mats, (192, 256))
+    got = render_bbox_mask(torch.from_numpy(rects).cuda(), torch.from_numpy(mats).cuda(), (192, 256))
+    assert got.is_cuda and got.dtype == torch.uint8
+    assert 0 < want.mean() < 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_one_hrnet_train_step_on_the_card(card):
+    """The tiny HRNet + UDP fixture model takes one plain-Adam step on the
+    card (UDP targets encoded there), TF32 off: no kernel of the port, the
+    loss within ``HRNET_REL`` of the CPU's, the gradient norm within 1e-3."""
+    from probpose_code_torch.engine.optim import build_optimizer
+    from probpose_code_torch.models.builder import full_f32_precision
+    from probpose_code_torch.parallel import create_train_state, make_train_step
+
+    metrics = {}
+    for model in _twins(UDP_FIXTURE_CFG):
+        batch = synthetic_train_batch(4, seed=4) if model.device.type == "cuda" else {
+            k: v.cpu() for k, v in synthetic_train_batch(4, seed=4).items()}
+        optimizer, _ = build_optimizer(model, dict(optimizer=dict(type="Adam", lr=5e-4)))
+        counters = kernel_counters()
+        for c in counters.values():
+            c.launches = 0
+        with full_f32_precision():
+            _, m = make_train_step(model, optimizer)(create_train_state(model, optimizer), batch,
+                                                     torch.Generator(device=model.device).manual_seed(0))
+        metrics[model.device.type] = {k: float(v) for k, v in m.items()}
+        assert all(c.launches == 0 for c in counters.values())
+    assert metrics["cuda"]["loss"] == pytest.approx(metrics["cpu"]["loss"], rel=HRNET_REL)
+    assert metrics["cuda"]["grad_norm"] == pytest.approx(metrics["cpu"]["grad_norm"], rel=1e-3)

@@ -64,8 +64,8 @@ def test_init_model_without_cuda_raises(monkeypatch):
         init_model(TINY_CFG)
 
 
-PLAIN = {"vit_layer_plain", "_layer_plain", "expected_oks_decode_to_input_space", "oks_convolve_plain",
-         "vit_layer_train_plain", "decode_plain"}
+PLAIN = {"vit_layer_plain", "_layer_plain", "expected_oks_decode_to_input_space", "heatmap_expected_value_batch",
+         "oks_convolve_plain", "vit_layer_train_plain", "decode_plain"}
 
 
 def _is_cpu_test(node):
@@ -97,7 +97,8 @@ def test_non_cpu_tensor_never_reaches_a_plain_twin(monkeypatch):
         raise AssertionError("a plain twin ran for a tensor off the CPU")
 
     for mod, name in ((vit_layer, "vit_layer_plain"), (vit_layer, "_layer_plain"),
-                      (expected_oks, "expected_oks_decode_to_input_space"), (expected_oks, "oks_convolve_plain"),
+                      (expected_oks, "expected_oks_decode_to_input_space"),
+                      (expected_oks, "heatmap_expected_value_batch"), (expected_oks, "oks_convolve_plain"),
                       (vit_layer_train, "vit_layer_train_plain"), (vit_layer_train, "_layer_plain"),
                       (jpeg, "decode_plain")):
         monkeypatch.setattr(mod, name, boom)
@@ -105,8 +106,9 @@ def test_non_cpu_tensor_never_reaches_a_plain_twin(monkeypatch):
     with pytest.raises(ValueError, match="unsupported device"):
         jpeg.decode_batch([stream], torch.device("meta"))
     hm = torch.empty(2, 17, 64, 48, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        expected_oks.expected_oks_decode(hm, (192, 256))
+    for input_size in ((192, 256), None):  # input space, and heatmap pixels (DoubleProbMap's windows)
+        with pytest.raises(ValueError, match="unsupported device"):
+            expected_oks.expected_oks_decode(hm, input_size)
     with pytest.raises(ValueError, match="unsupported device"):
         expected_oks.oks_convolve(hm)
     C, F = 64, 128

@@ -197,8 +197,8 @@ def test_unported_options_raise_and_lazy_is_accepted():
     LoadImage(lazy=True)  # the JAX key is taken: the port's JPEG path is always the deferred one
     with pytest.raises(NotImplementedError, match="item 3"):
         TopdownAffine(input_size=(192, 256), fast_decode=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TopdownAffine(input_size=(192, 256), with_bbox_mask=True)
+    # the bbox mask is ported (on by default, as in the JAX transform)
+    assert TopdownAffine(input_size=(192, 256)).with_bbox_mask is True
     with pytest.raises(NotImplementedError, match="pad_to_aspect_ratio"):
         LoadImage(pad_to_aspect_ratio=True)
 
