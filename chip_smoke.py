@@ -104,7 +104,26 @@ card and the CUDA toolkit (nvcc); it builds the port's kernels from
    train step of 64 crops with plain Adam: no kernel of the port launched,
    outputs finite (predict also against the CPU on two crops), crops/s and
    peak memory;
-24. ``timings``: each kernel's time beside its plain twin's, a PyTorch
+24. ``classic_golden`` and 25. ``rtmpose_golden``: the model fixtures of
+   ``tests/golden_torch/`` (a narrow ResNet-50 with the DARK codec, a
+   narrow CSPNeXt + RTMCCHead with SimCC; the JAX package's outputs made by
+   ``make_model_fixtures.py``) through ``init_model`` and
+   ``inference_topdown`` at ``UDP_BARS``, their maps or SimCC vectors on two
+   crops at ``FIXTURE_OUTPUT_REL``;
+26. ``res50_predict`` (``td-hm_res50_dark``), 27. ``hrnet_msra_predict``
+   (``td-hm_hrnet-w32``, MSRA) and 29. ``rtmpose_predict`` (RTMPose-m) at
+   full width, as ``hrnet_predict``: no kernel launched, two crops' maps or
+   both SimCC vectors against the CPU (``HRNET_REL``), crops/s, peak memory
+   and a profile (HRNet MSRA's short: its backbone is timed above);
+28. ``res50_train``: the ResNet-50 recipe's bare step on 64 crops (MSRA
+   targets rendered on the card, its lr schedule), then ``tools.train`` on
+   its config file over the golden JPEGs (256 instances, one epoch and
+   val): no kernel launched, the first loss dict equal to
+   ``make_train_step``'s, train crops/s;
+30. ``rtmpose_train``: RTMPose-m's bare step on 64 crops (SimCC labels
+   rendered on the card), then ``Runner.val`` as ``tools.test`` builds it
+   over the golden JPEGs: the SimCC predictions reach ``CocoMetric``;
+31. ``timings``: each kernel's time beside its plain twin's, a PyTorch
    library call's where one computes the same function, and its bound from
    this run's shapes; K1 also at the ViT-B predict shape (f32), K4 also at
    the ProbPose-S shape in bf16. For K1 (bf16 and f32) and K3 (forward,
@@ -140,6 +159,13 @@ FLAGSHIP = ROOT / "configs/body_2d_keypoint/topdown_probmap/coco/td-pm_ProbPose-
 VITPOSE = ROOT / "configs/body_2d_keypoint/topdown_heatmap/coco/td-hm_ViTPose-base-simple_8xb64-210e_coco-256x192.py"
 DPM = ROOT / "configs/body_2d_keypoint/topdown_probmap/coco/td-dpm_DoubleProbPose-small_8xb64-210e_coco-256x192.py"
 HRNET = ROOT / "configs/body_2d_keypoint/topdown_heatmap/coco/td-hm_hrnet-w32_udp-8xb64-210e_coco-256x192.py"
+# the classic heatmap recipes (MSRA codec, DARK with ``unbiased``) and RTMPose-m
+CLASSIC_RECIPES = {
+    name: ROOT / f"configs/body_2d_keypoint/topdown_heatmap/coco/td-hm_{stem}-210e_coco-256x192.py"
+    for name, stem in (("res50", "res50_8xb64"), ("res50_dark", "res50_dark-8xb64"),
+                       ("hrnet_w32", "hrnet-w32_8xb64"), ("hrnet_w32_dark", "hrnet-w32_dark-8xb64"))
+}
+RTMPOSE = ROOT / "configs/body_2d_keypoint/rtmpose/coco/rtmpose-m_8xb256-420e_coco-256x192.py"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them (the FMA units: K2 and K3's f32 instance), and device memory.
@@ -242,6 +268,50 @@ UDP_FIXTURE_CFG = dict(
         ),
         test_cfg=dict(flip_test=True, flip_mode="heatmap", shift_heatmap=False),
     )
+)
+# The two model fixtures of ``tests/golden_torch/`` (made by
+# ``make_model_fixtures.py`` with the JAX package on the CPU): narrow models
+# at the full 256 x 192 input, their weights drawn from a seed under mmpose's
+# names, and the JAX package's ``inference_topdown`` over the golden images
+# (keypoints, scores, AP) and its predict on two crops (the heatmaps, or
+# SimCC's vectors). The keypoints, scores and AP are held at ``UDP_BARS``,
+# the outputs on the crops at ``FIXTURE_OUTPUT_REL`` (relative max error:
+# f32 on both sides, summation order, as ``HRNET_REL``).
+FIXTURE_OUTPUT_REL = 1e-4
+_TOPDOWN_TEST = dict(test_dataloader=dict(dataset=dict(pipeline=[
+    dict(type="LoadImage"), dict(type="GetBBoxCenterScale"), dict(type="TopdownAffine", input_size=(192, 256)),
+    dict(type="PackPoseInputs")])))
+_PREPROCESSOR = dict(type="PoseDataPreprocessor", mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
+                     bgr_to_rgb=True)
+CLASSIC_FIXTURE = dict(
+    name="classic",
+    cfg=dict(_TOPDOWN_TEST, model=dict(
+        type="TopdownPoseEstimator", data_preprocessor=_PREPROCESSOR,
+        backbone=dict(type="ResNet", depth=50, stem_channels=16, base_channels=4, out_indices=(3,)),
+        head=dict(type="HeatmapHead", in_channels=128, out_channels=17, deconv_out_channels=(8, 8, 8),
+                  deconv_kernel_sizes=(4, 4, 4), loss=dict(type="KeypointMSELoss", use_target_weight=True),
+                  decoder=dict(type="MSRAHeatmap", input_size=(192, 256), heatmap_size=(48, 64), sigma=2,
+                               unbiased=True)),
+        test_cfg=dict(flip_test=True))),
+    weights=GOLDEN_JPEG / "classic_weights.pth", outputs=GOLDEN_JPEG / "classic_fixture.npz",
+    keys=("heatmaps",),
+)
+RTMPOSE_FIXTURE = dict(
+    name="rtmpose",
+    cfg=dict(_TOPDOWN_TEST, model=dict(
+        type="TopdownPoseEstimator", data_preprocessor=_PREPROCESSOR,
+        backbone=dict(type="CSPNeXt", arch="P5", expand_ratio=0.5, deepen_factor=0.167, widen_factor=0.0625,
+                      out_indices=(4,), channel_attention=True),
+        head=dict(type="RTMCCHead", in_channels=64, out_channels=17, input_size=(192, 256), in_featuremap_size=(6, 8),
+                  simcc_split_ratio=2.0, final_layer_kernel_size=7,
+                  gau_cfg=dict(hidden_dims=32, s=16, expansion_factor=2, dropout_rate=0.0, drop_path=0.0,
+                               act_fn="SiLU", use_rel_bias=False, pos_enc=False),
+                  loss=dict(type="KLDiscretLoss", use_target_weight=True, beta=10.0, label_softmax=True),
+                  decoder=dict(type="SimCCLabel", input_size=(192, 256), sigma=(4.9, 5.66), simcc_split_ratio=2.0,
+                               normalize=False, use_dark=False)),
+        test_cfg=dict(flip_test=True))),
+    weights=GOLDEN_JPEG / "rtmpose_weights.pth", outputs=GOLDEN_JPEG / "rtmpose_fixture.npz",
+    keys=("keypoint_x_labels", "keypoint_y_labels"),
 )
 # the keys of a kernel's record that K2 and K2b fill from ``k2_timings``
 K2_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -441,6 +511,43 @@ def synthetic_train_batch(B, seed):
     return {k: v.cuda() for k, v in batch.items()}
 
 
+def synthetic_codec_batch(B, seed, codec):
+    """A batch of B crops as the config's ``GenerateTarget`` (the port's,
+    deferred) ships it for ``codec``: raw 0-255 crops, input-space
+    keypoints (some outside the crop, some unannotated) turned into what the
+    device encodes (MSRA's float64 heatmap-space keypoints, SimCC's bins)
+    and the codec's weights; on the card."""
+    import numpy as np
+    import torch
+
+    from probpose_code_torch.datasets.transforms.common import GenerateTarget
+
+    rng = np.random.RandomState(seed)
+    W, H = codec["input_size"]
+    target = GenerateTarget(encoder=dict(codec))
+    shipped = [target({"transformed_keypoints": np.stack([rng.uniform(-20, W + 20, (1, 17)),
+                                                          rng.uniform(-20, H + 20, (1, 17))], -1).astype(np.float32),
+                       "keypoints_visible": (rng.rand(1, 17) > 0.15).astype(np.float32)}) for _ in range(B)]
+    batch = dict(inputs=torch.from_numpy(rng.randint(0, 256, (B, H, W, 3)).astype(np.float32)),
+                 kpts_hm=torch.from_numpy(np.stack([s["device_kpts_hm"][0] for s in shipped])),
+                 kpts_visible=torch.from_numpy(np.stack([s["device_kpts_visible"][0] for s in shipped])),
+                 keypoint_weights=torch.from_numpy(np.stack([s["keypoint_weights"][0] for s in shipped])))
+    return {k: v.cuda() for k, v in batch.items()}
+
+
+def coco_data_options(root, train_json=None, workers=4):
+    """``--cfg-options`` items that point a config's single COCO val set
+    (no detector boxes) and, given ``train_json``, its train set at the
+    golden set under ``root`` (``val.json``, ``imgs/``)."""
+    options = [f"val_dataloader.dataset.data_root={root}", "val_dataloader.dataset.ann_file=val.json",
+               "val_dataloader.dataset.data_prefix.img=imgs/", "val_dataloader.dataset.bbox_file=None",
+               f"val_dataloader.num_workers={workers}", f"val_evaluator.ann_file={Path(root) / 'val.json'}"]
+    if train_json:
+        options += [f"train_dataloader.dataset.data_root={root}", f"train_dataloader.dataset.ann_file={train_json}",
+                    "train_dataloader.dataset.data_prefix.img=imgs/", f"train_dataloader.num_workers={workers}"]
+    return options
+
+
 # the DoubleProbPose config's codec and head (its config file), at the tiny model's width
 DPM_CODEC = dict(type="DoubleProbMap", input_size=(192, 256), heatmap_size=(48, 64), sigma=-1, in_heatmap_padding=1.0,
                  out_heatmap_padding=1.25)
@@ -607,6 +714,50 @@ def udp_fixture_report(model):
     report["ok"] = (report["sane"] > 0.97 and report["p99"] < UDP_BARS["p99"]
                     and report["over_5px"] <= UDP_BARS["over_5px"] and report["scores"] < UDP_BARS["scores"]
                     and report["d_AP"] < UDP_BARS["ap"])
+    return report
+
+
+def model_fixture_report(fixture, device):
+    """A model fixture (``CLASSIC_FIXTURE``, ``RTMPOSE_FIXTURE``) through
+    ``init_model`` with its weights (every key the model's, loaded strict),
+    ``inference_topdown`` over the golden images and ``CocoMetric``, against
+    the JAX package's keypoints, scores and AP (``UDP_BARS``); and
+    ``PoseModel.predict`` on the fixture's two crops against the JAX
+    package's heatmaps or SimCC vectors (``FIXTURE_OUTPUT_REL``). Returns a
+    report with ``ok``."""
+    import numpy as np
+    import torch
+
+    from probpose_code_torch.apis import init_model
+    from probpose_code_torch.datasets.metainfo import parse_pose_metainfo
+    from probpose_code_torch.evaluation import CocoMetric
+
+    model = init_model(fixture["cfg"], checkpoint=str(fixture["weights"]), device=device)
+    saved = torch.load(fixture["weights"], map_location="cpu", weights_only=True)
+    if set(saved) != set(model.module.state_dict()):
+        raise AssertionError(f"{fixture['name']} fixture: its keys are not the model's")
+    ref = np.load(fixture["outputs"])
+    _, samples = golden_samples(model)
+    by_id = {s.metainfo["id"]: s for s in samples}
+    ours = np.stack([np.asarray(by_id[i].pred_instances.keypoints).reshape(17, 2) for i in ref["ids"]])
+    scores = np.stack([np.asarray(by_id[i].pred_instances.keypoint_scores).reshape(17) for i in ref["ids"]])
+    # DARK's own divergences (coordinates thousands of pixels out, where the
+    # Hessian is near singular) are left out, as ``udp_fixture_report`` leaves them
+    sane = np.all(np.abs(ref["keypoints"]) < 1000.0, axis=-1)
+    err = np.linalg.norm(ours - ref["keypoints"], axis=-1)[sane]
+    metric = CocoMetric(ann_file=str(GOLDEN / "e2e_coco.json"), extended=[False])
+    metric.dataset_meta = parse_pose_metainfo({"dataset_name": "coco"})
+    metric.process(None, samples)
+    ap = metric.compute_metrics(metric.results)["AP"]
+    preds = model.predict(torch.from_numpy(ref["crops"].astype(np.float32)).to(model.device))
+    rel = max(float(np.abs(preds[k].cpu().numpy() - ref[k]).max() / np.abs(ref[k]).max()) for k in fixture["keys"])
+    report = dict(instances=len(samples), sane=float(sane.mean()), p99=float(np.percentile(err, 99)),
+                  max=float(err.max()),
+                  over_5px=int((err > 5.0).sum()), scores=float(np.abs(scores - ref["scores"]).max()),
+                  AP=float(ap), ref_AP=float(ref["ap"]), d_AP=abs(float(ap) - float(ref["ap"])), outputs_rel=rel)
+    report["ok"] = (report["sane"] > 0.97 and report["p99"] < UDP_BARS["p99"]
+                    and report["over_5px"] <= UDP_BARS["over_5px"] and report["scores"] < UDP_BARS["scores"]
+                    and report["d_AP"] < UDP_BARS["ap"] and rel < FIXTURE_OUTPUT_REL)
     return report
 
 
@@ -2204,12 +2355,13 @@ class Smoke:
         if missing or not report["ok"] or launches != NO_LAUNCHES:
             raise AssertionError(f"hrnet_golden out of its bars (keys not shared: {sorted(missing)[:3]})")
 
-    def hrnet_predict(self):
-        """HRNet-w32 + UDP (its config file, random weights, seed 0, f32) at
-        full width through ``inference_topdown``, 64 boxes with flip-TTA: no
-        kernel of the port launched (cuDNN's convolutions), the outputs
-        finite, two crops' maps against the same model on the CPU
-        (``HRNET_REL``), then crops/s and peak device memory."""
+    def predict_phase(self, config, name, keys, record_key, timed_calls=5, profile_calls=2):
+        """A config file's model at full width (random weights, seed 0, f32)
+        through ``inference_topdown``, 64 boxes with flip-TTA: no kernel of
+        the port launched, the outputs finite, two crops' ``keys`` (heatmaps
+        or SimCC vectors) against the same model on the CPU (``HRNET_REL``),
+        then crops/s over ``timed_calls`` calls after 2 warm-up, peak device
+        memory and a profile of ``profile_calls`` calls."""
         import numpy as np
         import torch
 
@@ -2217,7 +2369,7 @@ class Smoke:
         from probpose_code_torch.apis.inference import crop_batch
         from probpose_code_torch.config import Config
 
-        model = init_model(Config.fromfile(HRNET), device="cuda")
+        model = init_model(Config.fromfile(config), device="cuda")
         img, boxes = synthetic_boxes(64, seed=3)
         # the main path: counts set to 0 just before, read just after
         read_counts = reset_counts()
@@ -2226,39 +2378,41 @@ class Smoke:
         launches = read_counts()
         kpts = np.stack([s.pred_instances.keypoints for s in samples])
         scores = np.stack([s.pred_instances.keypoint_scores for s in samples])
-        print(f"hrnet_predict main path: {len(samples)} crops, launches {json.dumps(launches)}")
+        print(f"{record_key.removesuffix('_launches')} main path: {len(samples)} crops, launches {json.dumps(launches)}")
         if kpts.shape != (64, 1, 17, 2) or not (np.isfinite(kpts).all() and np.isfinite(scores).all()):
-            raise AssertionError(f"hrnet_predict outputs {kpts.shape}, not finite")
+            raise AssertionError(f"{name} outputs {kpts.shape}, not finite")
         if launches != NO_LAUNCHES:
-            raise AssertionError(f"hrnet_predict launched a kernel of the port: {launches}")
-        self.record["hrnet_launches"] = launches
+            raise AssertionError(f"{name} launched a kernel of the port: {launches}")
+        self.record[record_key] = launches
         crops = crop_batch(img, boxes, model.input_size, model.device, model.cfg_full)[0][:2]
-        got = model.predict(crops)["heatmaps"].cpu()
-        ref = init_model(Config.fromfile(HRNET), device="cpu").predict(crops.cpu())["heatmaps"]
-        rel = ((got - ref).abs().max() / ref.abs().max()).item()
-        print(f"hrnet_predict on 2 crops vs the CPU twin: heatmaps rel max err {rel:.3e} (bar {HRNET_REL:g})")
+        got = model.predict(crops)
+        ref = init_model(Config.fromfile(config), device="cpu").predict(crops.cpu())
+        rel = max(((got[k].cpu() - ref[k]).abs().max() / ref[k].abs().max()).item() for k in keys)
+        print(f"{name} on 2 crops vs the CPU twin: {', '.join(keys)} rel max err {rel:.3e} (bar {HRNET_REL:g})")
         if not rel < HRNET_REL:
-            raise AssertionError("hrnet_predict disagrees with the CPU twin")
-        iters = 5
+            raise AssertionError(f"{name} disagrees with the CPU twin")
         for _ in range(2):
             inference_topdown(model, img, boxes)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        for _ in range(iters):
+        for _ in range(timed_calls):
             inference_topdown(model, img, boxes)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        print(f"HRNet-w32 UDP predict, f32, flip-TTA, B=64: {64 * iters / dt:.1f} crops/s "
-              f"({1e3 * dt / iters:.2f} ms per inference_topdown call, {iters} calls after 2 warm-up); peak device "
-              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        self.profile(lambda: inference_topdown(model, img, boxes), calls=2, what="HRNet-w32 predict calls")
+        print(f"{name} predict, f32, flip-TTA, B=64: {64 * timed_calls / dt:.1f} crops/s "
+              f"({1e3 * dt / timed_calls:.2f} ms per inference_topdown call, {timed_calls} calls after 2 warm-up); "
+              f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if profile_calls:
+            self.profile(lambda: inference_topdown(model, img, boxes), calls=profile_calls, what=f"{name} predict calls")
 
-    def hrnet_train(self):
-        """The HRNet-w32 UDP recipe (plain Adam, LinearLR and MultiStepLR;
-        UDP targets encoded on the card) through ``make_train_step`` on 64
-        synthetic crops: no kernel of the port launched, the losses, lr and
-        gradient norm of each step finite, train crops/s and peak memory."""
+    def train_phase(self, config, name, batch, record_key, first_lr=None):
+        """A config file's recipe (its optimizer and schedules; targets
+        encoded on the card from ``batch``) through ``make_train_step`` at
+        full width: no kernel of the port launched, the losses, lr and
+        gradient norm of each step finite (the first step's lr ``first_lr``
+        where given), train crops/s over 5 steps after 3 warm-up, peak memory
+        and a profile of 2 steps. Returns (model, state, step)."""
         import torch
 
         from probpose_code_torch.apis import init_model
@@ -2266,15 +2420,14 @@ class Smoke:
         from probpose_code_torch.engine.optim import build_optimizer
         from probpose_code_torch.parallel import create_train_state, make_train_step
 
-        cfg = Config.fromfile(HRNET)
+        cfg = Config.fromfile(config)
         model = init_model(cfg, device="cuda")
         optimizer, lr_fn = build_optimizer(
             model, cfg["optim_wrapper"], cfg["param_scheduler"], STEPS_PER_EPOCH, cfg["train_cfg"]["max_epochs"],
         )
         state = create_train_state(model, optimizer)
         step = make_train_step(model, optimizer)
-        B = cfg["train_dataloader"]["batch_size"]
-        batch = synthetic_train_batch(B, seed=4)
+        B = len(batch["inputs"])
         gen = torch.Generator(device="cuda").manual_seed(4)
         # the main path: counts set to 0 just before one step, read just after
         read_counts = reset_counts()
@@ -2282,10 +2435,12 @@ class Smoke:
         report_steps(logs)
         torch.cuda.synchronize()
         launches = read_counts()
-        print(f"hrnet_train main path: one step of B={B}, launches {json.dumps(launches)}")
+        print(f"{record_key.removesuffix('_launches')} main path: one step of B={B}, launches {json.dumps(launches)}")
         if launches != NO_LAUNCHES:
-            raise AssertionError(f"hrnet_train launched a kernel of the port: {launches}")
-        self.record["hrnet_train_launches"] = launches
+            raise AssertionError(f"{name} train launched a kernel of the port: {launches}")
+        if first_lr is not None and not math.isclose(logs[0][1], first_lr, rel_tol=1e-6):
+            raise AssertionError(f"{name} train: lr {logs[0][1]} at step 0, the schedule gives {first_lr}")
+        self.record[record_key] = launches
         state, logs = run_steps(step, state, batch, gen, lr_fn, 2)  # warm-up: 3 steps with the one above
         report_steps(logs)
         torch.cuda.synchronize()
@@ -2296,9 +2451,183 @@ class Smoke:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         report_steps(logs)
-        print(f"HRNet-w32 UDP train step, B={B}, f32: {B * steps / dt:.1f} crops/s ({1e3 * dt / steps:.2f} ms per "
-              f"step, {steps} steps after 3 warm-up; the loss dicts are read to the host after the timed steps); "
-              f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        print(f"{name} train step, B={B}, f32 (TF32 convolutions): {B * steps / dt:.1f} crops/s ({1e3 * dt / steps:.2f} "
+              f"ms per step, {steps} steps after 3 warm-up; the loss dicts are read to the host after the timed "
+              f"steps); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+        def one():
+            nonlocal state
+            state, _ = run_steps(step, state, batch, gen, lr_fn, 1)
+
+        self.profile(one, calls=2, what=f"{name} train steps")
+        return model, state, step
+
+    def hrnet_predict(self):
+        """HRNet-w32 + UDP (its config file) through ``predict_phase``."""
+        self.predict_phase(HRNET, "HRNet-w32 UDP", ("heatmaps",), "hrnet_launches")
+
+    def hrnet_train(self):
+        """The HRNet-w32 UDP recipe (plain Adam, LinearLR and MultiStepLR; UDP
+        targets encoded on the card) through ``train_phase`` on 64 synthetic
+        crops."""
+        self.train_phase(HRNET, "HRNet-w32 UDP", synthetic_train_batch(64, seed=4), "hrnet_train_launches")
+
+    def classic_golden(self):
+        """The classic fixture (a narrow ResNet-50 with the DARK codec,
+        ``tests/golden_torch/classic_*``) on the card: ``model_fixture_report``
+        within ``UDP_BARS`` and ``FIXTURE_OUTPUT_REL``, no kernel launched."""
+        self._fixture_phase(CLASSIC_FIXTURE)
+
+    def rtmpose_golden(self):
+        """The RTMPose fixture (a narrow CSPNeXt + RTMCCHead with SimCC,
+        ``tests/golden_torch/rtmpose_*``) on the card, as ``classic_golden``."""
+        self._fixture_phase(RTMPOSE_FIXTURE)
+
+    def _fixture_phase(self, fixture):
+        read_counts = reset_counts()
+        report = model_fixture_report(fixture, device="cuda")
+        launches = read_counts()
+        print(f"{fixture['name']}_golden: {json.dumps(report)}; launches {json.dumps(launches)}; bars "
+              f"{json.dumps(UDP_BARS)}, outputs {FIXTURE_OUTPUT_REL:g}")
+        if not report["ok"] or launches != NO_LAUNCHES:
+            raise AssertionError(f"{fixture['name']}_golden out of its bars")
+
+    def res50_predict(self):
+        """SimpleBaseline ResNet-50 with DARK (``td-hm_res50_dark``) through
+        ``predict_phase``."""
+        self.predict_phase(CLASSIC_RECIPES["res50_dark"], "ResNet-50 DARK", ("heatmaps",), "res50_launches")
+
+    def hrnet_msra_predict(self):
+        """HRNet-w32 with the MSRA codec (``td-hm_hrnet-w32``, not unbiased):
+        the decode on the card against the CPU and a short timing; its
+        backbone is the one ``hrnet_predict`` times and profiles."""
+        self.predict_phase(CLASSIC_RECIPES["hrnet_w32"], "HRNet-w32 MSRA", ("heatmaps",), "hrnet_msra_launches",
+                           timed_calls=2, profile_calls=0)
+
+    def res50_train(self):
+        """The ResNet-50 recipe (``td-hm_res50_8xb64``: plain Adam, LinearLR
+        and MultiStepLR, MSRA targets rendered on the card): the bare step on
+        64 synthetic crops through ``train_phase`` (its first lr the
+        warm-up's 5e-4 x 0.001); then ``tools.train``'s main on the config
+        file over the golden JPEGs, the train annotations copied to 256
+        instances (4 steps) and the val set to 256: one epoch, a checkpoint,
+        val. Fails unless 4 steps run, no kernel of the port launches, the
+        metrics are finite and the first step's loss dict equals
+        ``make_train_step``'s on the same batch, weights and generator seed
+        (``TRAIN_FLAGSHIP_REL``). Prints the epoch's train crops/s."""
+        import contextlib
+        import tempfile
+
+        import torch
+
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.datasets.loader import stop_workers
+        from probpose_code_torch.engine.optim import build_optimizer
+        from probpose_code_torch.models.builder import PoseModel
+        from probpose_code_torch.parallel import create_train_state, make_train_step
+        from probpose_code_torch.tools import train as train_cli
+
+        config = CLASSIC_RECIPES["res50"]
+        codec = Config.fromfile(config)["codec"]
+        self.train_phase(config, "ResNet-50 MSRA", synthetic_codec_batch(64, 5, codec), "res50_train_launches",
+                         first_lr=float(torch.tensor(5e-4 * 0.001, dtype=torch.float32)))
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+            stack.callback(stop_workers)
+            _, ann = golden_jpeg_set(tmp)
+            copy_instances(ann, 256, Path(tmp, "train.json"))
+            copy_instances(ann, 256, Path(tmp, "val.json"))
+            options = coco_data_options(tmp, "train.json") + [
+                "train_cfg.max_epochs=1", "train_cfg.val_interval=1", "default_hooks.checkpoint.interval=1",
+                "default_hooks.logger.interval=1"]
+            argv = [str(config), "--work-dir", str(Path(tmp, "work")), "--cfg-options", *options]
+            # the main path: counts set to 0 just before, read just after
+            read_counts = reset_counts()
+            runner = train_cli.main(argv)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            t = runner.train_times[0]
+            print(f"res50_train tools.train: {runner.state.step} steps of {runner.train_loader.batch_size}, launches "
+                  f"{json.dumps(launches)}; epoch 1: {t['crops']} crops, {t['crops'] / t['window']:.1f} train "
+                  f"crops/s from the start of its loader to its last step ({t['window']:.3f} s; first batch "
+                  f"{t['first_batch']:.3f}, steps {t['step']:.3f}, JPEG decode {t['decode']:.3f} card clock); "
+                  f"checkpoint {t['checkpoint']:.3f}, val {t['val']:.3f}")
+            if runner.state.step != 4 or launches != NO_LAUNCHES:
+                raise AssertionError(f"res50_train: {runner.state.step} steps, launches {launches}")
+            logged = runner.train_log[0]
+            metrics = {k: v for k, v in runner.train_log[-1].items()}
+            print("res50_train first step: " + json.dumps(logged))
+            if not all(math.isfinite(v) for v in (*logged.values(), *metrics.values())):
+                raise AssertionError("res50_train: non-finite metrics")
+            if not Path(tmp, "work", "epoch_1.pth").exists():
+                raise AssertionError("res50_train: no checkpoint written")
+
+            # the first step again, through make_train_step on the same batch
+            cfg, raw = runner.cfg, runner.train_loader.load(0, 0)
+            model = PoseModel(cfg["model"], metainfo=runner.metainfo, device="cuda")
+            model.init_weights(seed=0)
+            optimizer, _ = build_optimizer(model, cfg["optim_wrapper"], cfg["param_scheduler"],
+                                           len(runner.train_loader), runner.max_epochs)
+            gen = torch.Generator(device="cuda").manual_seed(cfg["seed"])
+            _, m = make_train_step(model, optimizer)(create_train_state(model, optimizer), runner.to_device(raw), gen)
+            direct = {k: float(v) for k, v in m.items()}
+            rel = {k: abs(logged[k] - v) / max(abs(v), 1e-30) for k, v in direct.items()}
+            print(f"res50_train first step: make_train_step {json.dumps(direct)}; largest relative difference from "
+                  f"Runner.train's {max(rel.values()):.3e} (bar {TRAIN_FLAGSHIP_REL:g}, 1e-7 absolute at 0)")
+            if any(abs(logged[k] - v) > TRAIN_FLAGSHIP_REL * abs(v) + 1e-7 for k, v in direct.items()):
+                raise AssertionError(f"res50_train: the first step's loss dict differs from make_train_step's: {rel}")
+            runner.close()
+
+    def rtmpose_predict(self):
+        """RTMPose-m (``rtmpose-m_8xb256-420e``) through ``predict_phase``,
+        both SimCC vectors against the CPU."""
+        self.predict_phase(RTMPOSE, "RTMPose-m", ("keypoint_x_labels", "keypoint_y_labels"), "rtmpose_launches")
+
+    def rtmpose_train(self):
+        """The RTMPose-m recipe's bare step (AdamW, its LinearLR warm-up;
+        SimCC labels rendered on the card) through ``train_phase`` on 64
+        synthetic crops; then ``Runner.val`` (the ``tools.test`` path: the
+        config's val pipeline, loader and CocoMetric) over the golden JPEGs:
+        no kernel launched, one decode a batch, every instance predicted,
+        the metrics finite."""
+        import contextlib
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from probpose_code_torch.config import Config, parse_cfg_option
+        from probpose_code_torch.datasets.loader import stop_workers
+        from probpose_code_torch.ops.kernels.jpeg import decode_batch
+        from probpose_code_torch.tools.test import build_runner
+
+        cfg = Config.fromfile(RTMPOSE)
+        self.train_phase(RTMPOSE, "RTMPose-m", synthetic_codec_batch(64, 6, cfg["codec"]), "rtmpose_train_launches",
+                         first_lr=float(torch.tensor(4e-3 * 1e-5, dtype=torch.float32)))
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+            stack.callback(stop_workers)
+            _, ann = golden_jpeg_set(tmp)
+            Path(tmp, "val.json").write_text(Path(ann).read_text())
+            options = [kv.replace("val_", "test_", 1) for kv in coco_data_options(tmp, workers=2)]
+            cfg.merge_from_dict(dict(parse_cfg_option(kv) for kv in options))
+            runner = build_runner(cfg, device="cuda")
+            evaluator = KeepSamples(runner.build_evaluator())
+            # the main path: counts set to 0 just before, read just after
+            read_counts = reset_counts()
+            t0 = time.perf_counter()
+            metrics = runner.val(evaluator)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches, decodes = read_counts(), decode_batch.launches
+            kpts = np.stack([s.pred_instances.keypoints for s in evaluator.samples])
+            print(f"rtmpose_train Runner.val: {len(evaluator.samples)} instances in {dt:.3f} s, launches "
+                  f"{json.dumps(launches)}, JPEG decodes {decodes}; metrics {json.dumps(metrics)}; val_times "
+                  f"{json.dumps(runner.val_times)}")
+            if launches != NO_LAUNCHES or decodes != len(runner.val_loader) or len(evaluator.samples) != 62:
+                raise AssertionError(f"rtmpose_train val: launches {launches}, {decodes} decodes, "
+                                     f"{len(evaluator.samples)} instances")
+            if not (np.isfinite(kpts).all() and metrics and all(math.isfinite(v) for v in metrics.values())):
+                raise AssertionError(f"rtmpose_train val: keypoints or metrics not finite: {metrics}")
+            self.record["rtmpose_val_launches"] = launches
 
     @staticmethod
     def profile(fn, calls: int, what: str = "flagship calls"):
@@ -2578,7 +2907,10 @@ class Smoke:
         # each kernel's launches on every main path of this run (one call, one step, or one val batch)
         paths = dict(flagship_predict="launches", flagship_train="train_launches", vitpose_predict="vitpose_launches",
                      vitpose_train="vitpose_train_launches", dpm_predict="dpm_launches", dpm_train="dpm_train_launches",
-                     hrnet_predict="hrnet_launches", hrnet_train="hrnet_train_launches")
+                     hrnet_predict="hrnet_launches", hrnet_train="hrnet_train_launches", res50_predict="res50_launches",
+                     hrnet_msra_predict="hrnet_msra_launches", res50_train="res50_train_launches",
+                     rtmpose_predict="rtmpose_launches", rtmpose_train="rtmpose_train_launches",
+                     rtmpose_val="rtmpose_val_launches")
         # K1's one counter read for the record of the instance each path ran
         k1_records = self.record.get("k1_records", {})
         for path, key in paths.items():
@@ -2831,6 +3163,13 @@ def main() -> int:
         smoke.phase("hrnet_golden", smoke.hrnet_golden)
         smoke.phase("hrnet_predict", smoke.hrnet_predict)
         smoke.phase("hrnet_train", smoke.hrnet_train)
+        smoke.phase("classic_golden", smoke.classic_golden)
+        smoke.phase("rtmpose_golden", smoke.rtmpose_golden)
+        smoke.phase("res50_predict", smoke.res50_predict)
+        smoke.phase("hrnet_msra_predict", smoke.hrnet_msra_predict)
+        smoke.phase("res50_train", smoke.res50_train)
+        smoke.phase("rtmpose_predict", smoke.rtmpose_predict)
+        smoke.phase("rtmpose_train", smoke.rtmpose_train)
         smoke.phase("timings", smoke.timings)
     left = stop_descendants()
     if left:

@@ -26,6 +26,7 @@ from probpose_code_torch.config import Config
 from probpose_code_torch.datasets.metainfo import parse_pose_metainfo
 from probpose_code_torch.datasets.transforms.loading import read_image_bytes
 from probpose_code_torch.engine.checkpoint import load_checkpoint
+from probpose_code_torch.engine.runner import HEATMAP_KEYS
 from probpose_code_torch.models.builder import PoseModel
 from probpose_code_torch.ops.warp import warp_affine_batch
 from probpose_code_torch.structures.bbox import (
@@ -148,7 +149,7 @@ def inference_topdown(
 
     crops, centers, scales = crop_batch(img, bboxes, model.input_size, model.device, model.cfg_full)
     preds = {k: v.float().cpu().numpy() for k, v in model.predict(crops).items()
-             if k not in ("heatmaps", "out_heatmaps")}
+             if k not in HEATMAP_KEYS}
 
     in_wh = np.asarray(model.input_size, dtype=np.float32)
     metainfo = model.metainfo or parse_pose_metainfo({"dataset_name": "coco"})

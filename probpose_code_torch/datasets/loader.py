@@ -70,7 +70,9 @@ def collate_pose_samples(samples: List[dict]) -> Dict:
     the gather, so keeps one name. A training batch (from
     ``GenerateTarget``) adds ``kpts_hm`` (B, K, 2), ``kpts_visible`` (B, K)
     and the labels: ``keypoint_weights``, ``in_image``, ``annotated`` and
-    ``keypoints_visibility``, all float32. A DoubleProbMap batch's
+    ``keypoints_visibility``, all float32 (``kpts_hm`` float64 where the
+    codec computes in float64: MSRAHeatmap, DoubleProbMap; SimCCLabel's are
+    the keypoints' bins). A DoubleProbMap batch's
     ``kpts_hm`` and ``kpts_hm_out`` are its two windows' keypoints (float64,
     as the codec computes them), and it carries what its loss reads and the
     JAX collate drops (``probpose_code_tpu/datasets/loader.py:40-180``):
@@ -99,7 +101,8 @@ def collate_pose_samples(samples: List[dict]) -> Dict:
     data_samples = [s["data_samples"] for s in samples]
     if "device_kpts_hm" in samples[0]:
         double = "device_kpts_hm_out" in samples[0]
-        kpts_type = np.float64 if double else np.float32
+        # float64 where the codec computes so (DoubleProbMap, MSRAHeatmap), else float32
+        kpts_type = np.float64 if np.asarray(samples[0]["device_kpts_hm"]).dtype == np.float64 else np.float32
         for name, key in (("device_kpts_hm", "kpts_hm"), ("device_kpts_hm_out", "kpts_hm_out")):
             if name in samples[0]:
                 batch[key] = np.stack([np.asarray(s[name]).reshape(-1, 2) for s in samples]).astype(kpts_type)

@@ -17,7 +17,13 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from probpose_code_torch.codecs.msra_heatmap import MSRAHeatmap
+from probpose_code_torch.codecs.simcc_label import SimCCLabel
+from probpose_code_torch.codecs.utils.gaussian_heatmap import gaussian_weights
+from probpose_code_torch.ops.encode import DEVICE_CODECS
 from probpose_code_torch.registry import TRANSFORMS
+
+CODECS = dict(MSRAHeatmap=MSRAHeatmap, SimCCLabel=SimCCLabel)
 from probpose_code_torch.structures.bbox import bbox_cs2xyxy, bbox_xyxy2cs, flip_bbox
 from probpose_code_torch.structures.keypoint import flip_keypoints
 
@@ -236,8 +242,14 @@ class GenerateTarget:
     heatmap-space keypoints (``device_kpts_hm``) and their visibility go to
     the batch, and ``PoseModel.device_preprocess_batch`` renders the maps on
     the model's device (expected-OKS maps for the ProbMap family, UDP
-    gaussians for ``UDPHeatmap``); every other output of the JAX host codec
-    is made here by its formulas. ``DoubleProbMap`` (``probpose_code_tpu/
+    gaussians for ``UDPHeatmap``, MSRA gaussians for ``MSRAHeatmap``, the
+    x and y labels for ``SimCCLabel``); every other output of the JAX host
+    codec is made here by its formulas. ``MSRAHeatmap`` ships its
+    heatmap-space keypoints in float64 (``input / heatmap`` scale, the
+    codec's own, ``codecs/msra_heatmap.py``): its centre is ``trunc(k +
+    0.5)``, which a float32 keypoint can move by a pixel. ``SimCCLabel``
+    ships the keypoints' bins (``around(k * ratio)``). Both take their
+    weights from the port's codec. ``DoubleProbMap`` (``probpose_code_tpu/
     codecs/double_probmap.py:29-131``, encoded on the host in the JAX
     package) ships the keypoints in both windows' frames, in float64 as the
     codec computes them (``device_kpts_hm``: the in-window, padding
@@ -248,21 +260,22 @@ class GenerateTarget:
     heatmap type raises. Its ``target_type``, ``multilevel`` and ``device``
     are set by no config and are not ported."""
 
-    DEVICE_ENCODERS = ("ProbMap", "ArgMaxProbMap", "UDPHeatmap", "DoubleProbMap")
-
     def __init__(self, encoder, use_dataset_keypoint_weights: bool = False):
         if isinstance(encoder, (list, tuple)):
             raise NotImplementedError("GenerateTarget: several encoders are not ported yet")
         self.type = encoder.get("type")
-        if self.type not in self.DEVICE_ENCODERS or encoder.get("heatmap_type", "gaussian") != "gaussian":
+        if self.type not in DEVICE_CODECS or encoder.get("heatmap_type", "gaussian") != "gaussian":
             raise NotImplementedError(
                 f"GenerateTarget: the {self.type} codec (heatmap_type {encoder.get('heatmap_type', 'gaussian')!r}) "
-                f"is not ported; the port encodes {self.DEVICE_ENCODERS} (gaussian) on the device")
-        self.input_size = tuple(encoder["input_size"])
-        self.heatmap_size = tuple(encoder["heatmap_size"])
-        self.sigma = encoder.get("sigma", 2.0)
-        self.scale_factor = ((np.array(self.input_size) - 1) / (np.array(self.heatmap_size) - 1)).astype(np.float32)
+                f"is not ported; the port encodes {DEVICE_CODECS} (gaussian) on the device")
         self.use_dataset_keypoint_weights = use_dataset_keypoint_weights
+        self.input_size = tuple(encoder["input_size"])
+        self.sigma = encoder.get("sigma", 2.0)
+        if self.type in CODECS:  # the port's copy of the codec gives the keypoints and weights
+            self.codec = CODECS[self.type](**{k: v for k, v in encoder.items() if k != "type"})
+            return
+        self.heatmap_size = tuple(encoder["heatmap_size"])
+        self.scale_factor = ((np.array(self.input_size) - 1) / (np.array(self.heatmap_size) - 1)).astype(np.float32)
         if self.type == "DoubleProbMap":
             # the codec's windows (``double_probmap.py:56-68``): top-left and
             # keypoint -> heatmap scale, in its float64 / float32 types
@@ -293,6 +306,17 @@ class GenerateTarget:
             encoded["device_kpts_visible"] = np.asarray(keypoints_visible, np.float32)
             encoded["label_mapping_table"] = dict(keypoint_weights="keypoint_weights")
             return encoded
+        if self.type in CODECS:
+            codec = self.codec
+            if self.type == "MSRAHeatmap":
+                kpts = codec.heatmap_keypoints(keypoints[..., :2])
+                weights = gaussian_weights(codec.heatmap_size, kpts, keypoints_visible, codec.sigma, codec.unbiased)
+            else:
+                kpts = codec.bins(keypoints[..., :2]).astype(np.float32)
+                weights = codec.keypoint_weights(keypoints[..., :2], keypoints_visible)
+            return dict(keypoint_weights=weights, device_kpts_hm=kpts,
+                        device_kpts_visible=np.asarray(keypoints_visible, np.float32),
+                        label_mapping_table=dict(keypoint_weights="keypoint_weights"))
         kpts_hm = (keypoints[..., :2] / self.scale_factor).astype(np.float32)
         weights = np.asarray(keypoints_visible, np.float32).copy()
         if self.type == "UDPHeatmap":

@@ -55,8 +55,9 @@ from probpose_code_torch.structures.data_sample import InstanceData
 from probpose_code_torch.visualization import build_vis_backends
 
 PRED_FIELDS = ("keypoints_probs", "keypoints_visible", "keypoints_oks", "keypoints_error", "keypoints_conf")
-# the predict dict's maps, which stay on the device (DoubleProbMapHead's out-window ones too)
-HEATMAP_KEYS = ("heatmaps", "out_heatmaps")
+# the predict dict's maps and vectors, which stay on the device (DoubleProbMapHead's
+# out-window maps, RTMCCHead's SimCC vectors)
+HEATMAP_KEYS = ("heatmaps", "out_heatmaps", "keypoint_x_labels", "keypoint_y_labels")
 
 
 class Runner:

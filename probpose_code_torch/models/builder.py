@@ -3,12 +3,13 @@
 Port of ``probpose_code_tpu/models/builder.py``: ``build_pose_estimator``
 (``:39``) reads the same reference-style config dicts, ``build_loss_modules``
 (``:132``) builds the head's losses, and ``PoseModel`` owns the module, its
-predict program for top-down ProbMapHead, DoubleProbMapHead and HeatmapHead
-models (preprocess -> original and mirrored crops as one doubled batch ->
-flip-TTA average -> the expected-OKS decode, ``:815-832``, or argmax +
-DARK-UDP for the UDP codec, ``:870-908``) and its loss (``loss_fn``,
-``:406``, with the targets and DoubleProbMap's bbox mask made on the device
-by ``device_preprocess_batch``, ``:363``).
+predict program for top-down ProbMapHead, DoubleProbMapHead, HeatmapHead and
+RTMCCHead models (preprocess -> original and mirrored crops as one doubled
+batch -> flip-TTA average -> the expected-OKS decode, ``:815-832``, argmax
+and DARK-UDP for the UDP codec, argmax and the quarter-pixel step or DARK
+for the MSRA codec, ``:870-908``, or SimCC's joint argmax, ``:833-837``) and
+its loss (``loss_fn``, ``:406``, with the targets and DoubleProbMap's bbox
+mask made on the device by ``device_preprocess_batch``, ``:363``).
 """
 
 from __future__ import annotations
@@ -23,8 +24,12 @@ import torch
 
 from probpose_code_torch.ops.bbox_mask import render_bbox_mask
 from probpose_code_torch.ops.encode import (
+    DEVICE_CODECS,
+    generate_gaussian_device,
     generate_probmaps_device,
+    generate_simcc_labels_device,
     generate_udp_gaussian_device,
+    generate_unbiased_gaussian_device,
     probmap_encode_scales,
 )
 from probpose_code_torch.ops.kernels.jpeg import DecodeClock, decode_batch
@@ -32,10 +37,13 @@ from probpose_code_torch.ops.warp import warp_affine_batch
 from probpose_code_torch.registry import MODELS
 
 from . import losses  # noqa: F401  (registers)
+from .backbones.cspnext import CSPNeXt  # noqa: F401  (registers)
 from .backbones.hrnet import HRNet  # noqa: F401  (registers)
+from .backbones.resnet import ResNet  # noqa: F401  (registers)
 from .backbones.vit import VisionTransformer  # noqa: F401  (registers)
 from .heads.heatmap_head import HeatmapHead  # noqa: F401  (registers)
 from .heads.probmap_head import DoubleProbMapHead, ProbMapHead  # noqa: F401  (registers)
+from .heads.rtmcc_head import RTMCCHead  # noqa: F401  (registers)
 from .necks.necks import FeatureMapProcessor  # noqa: F401  (registers)
 from .pose_estimators.topdown import (
     TopdownPoseEstimator,
@@ -46,15 +54,20 @@ from .pose_estimators.topdown import (
     preprocess_inputs,
     probmap_head_loss,
     probmap_head_predict,
+    simcc_head_loss,
+    simcc_head_predict,
 )
 
-HEAD_TYPES = ("ProbMapHead", "DoubleProbMapHead", "HeatmapHead")
+HEAD_TYPES = ("ProbMapHead", "DoubleProbMapHead", "HeatmapHead", "RTMCCHead")
+# the codecs whose decode a HeatmapHead runs
+HEATMAP_DECODERS = ("UDPHeatmap", "MSRAHeatmap")
 
 
 def _adapt_backbone_cfg(cfg: Dict[str, Any]) -> Dict[str, Any]:
     """Accept ``type='mmpretrain.VisionTransformer'`` and its kwargs
-    (``patch_cfg.padding``); drop the torch-side ``init_cfg`` and the
-    optimizer-side ``frozen_stages``. ``HRNet`` takes its config as it is."""
+    (``patch_cfg.padding``); drop the torch-side ``init_cfg`` and the ViT's
+    and HRNet's optimizer-side ``frozen_stages``. ``ResNet`` refuses frozen
+    stages; the other backbones take their config as it is."""
     cfg = copy.deepcopy(dict(cfg))
     if cfg.get("type") in ("mmpretrain.VisionTransformer", "VisionTransformer"):
         cfg["type"] = "VisionTransformer"
@@ -62,7 +75,8 @@ def _adapt_backbone_cfg(cfg: Dict[str, Any]) -> Dict[str, Any]:
         if patch_cfg and "padding" in patch_cfg:
             cfg["patch_padding"] = patch_cfg["padding"]
     cfg.pop("init_cfg", None)
-    cfg.pop("frozen_stages", None)
+    if cfg.get("type") in ("VisionTransformer", "HRNet"):
+        cfg.pop("frozen_stages", None)
     return cfg
 
 
@@ -172,7 +186,8 @@ class PoseModel:
 
     def init_weights(self, seed: int = 0) -> None:
         """Random weights from a seeded generator: lecun-normal products,
-        pos_embed N(0, 0.02), unit norms, zero biases."""
+        pos_embed N(0, 0.02), unit norms and scales (ScaleNorm's ``g``, the
+        GAU's ``res_scale``), zero biases."""
         gen = torch.Generator().manual_seed(seed)
         with torch.no_grad():
             for name, p in self.module.named_parameters():
@@ -181,7 +196,7 @@ class PoseModel:
                 elif p.dim() >= 2:
                     fan_in = p.shape[1] * math.prod(p.shape[2:])
                     value = torch.randn(p.shape, generator=gen) / math.sqrt(fan_in)
-                elif name.endswith("weight"):
+                elif name.endswith(("weight", ".g", "res_scale.scale")):
                     value = torch.ones(p.shape)
                 else:
                     value = torch.zeros(p.shape)
@@ -212,8 +227,9 @@ class PoseModel:
         shift_heatmap = test_cfg.get("shift_heatmap", False)
         freeze_oks = self.aux["head_cfg"].get("freeze_oks", False)
         flip_indices = self.flip_indices()
-        if self.head_type == "HeatmapHead" and self.decoder_cfg.get("type", "UDPHeatmap") != "UDPHeatmap":
-            raise NotImplementedError(f"the {self.decoder_cfg['type']} decode is not ported yet (UDPHeatmap is)")
+        if self.head_type == "HeatmapHead" and self.decoder_cfg.get("type", "UDPHeatmap") not in HEATMAP_DECODERS:
+            raise NotImplementedError(f"the {self.decoder_cfg['type']} decode is not ported yet "
+                                      f"({', '.join(HEATMAP_DECODERS)} are)")
         precision = contextlib.nullcontext if self.is_low_precision() else full_f32_precision
 
         def predict(images: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -228,10 +244,16 @@ class PoseModel:
                     if isinstance(both, dict):
                         outputs = {k: v[:B] for k, v in both.items()}
                         outputs_flipped = {k: v[B:] for k, v in both.items()}
+                    elif isinstance(both, tuple):  # SimCC's (x, y) vectors
+                        outputs = tuple(v[:B] for v in both)
+                        outputs_flipped = tuple(v[B:] for v in both)
                     else:
                         outputs, outputs_flipped = both[:B], both[B:]
                 else:
                     outputs = self.module(x)
+                if self.head_type == "RTMCCHead":
+                    return simcc_head_predict(outputs, outputs_flipped, flip_indices,
+                                              simcc_split_ratio=self.decoder_cfg.get("simcc_split_ratio", 2.0))
                 if self.head_type == "HeatmapHead":
                     return heatmap_head_predict(
                         outputs, outputs_flipped, flip_indices, self.decoder_cfg, input_size=self.input_size,
@@ -269,8 +291,11 @@ class PoseModel:
         host warp (cv2.warpAffine) gives them. A batch that
         carries heatmap-space keypoints (``kpts_hm`` (B, K, 2),
         ``kpts_visible`` (B, K)) instead of target maps gets its maps
-        encoded: UDP gaussians for the UDPHeatmap codec, expected-OKS maps
-        for the ProbMap family; a DoubleProbMap batch both windows' maps
+        encoded: UDP gaussians for the UDPHeatmap codec, MSRA gaussians
+        (or their unbiased form) for MSRAHeatmap, expected-OKS maps for the
+        ProbMap family, and for SimCCLabel (``kpts_hm`` its bins) the
+        ``keypoint_x_labels`` / ``keypoint_y_labels``; a DoubleProbMap batch
+        both windows' maps
         (``heatmaps`` from ``kpts_hm``, ``out_heatmaps`` from
         ``kpts_hm_out``) and, from ``bbox_mask_rect`` / ``bbox_mask_mat``,
         the (B, 1, h, w) uint8 ``bbox_mask`` (``ops/bbox_mask.py``)."""
@@ -298,15 +323,22 @@ class PoseModel:
             inputs = crops[0][1]
         if crops:
             batch["inputs"] = inputs.round().clamp(0, 255)
-        if "kpts_hm" not in batch or "heatmaps" in batch:
+        if "kpts_hm" not in batch or "heatmaps" in batch or "keypoint_x_labels" in batch:
             return batch
         dc = self.decoder_cfg
-        if dc.get("type", "ProbMap") not in ("ProbMap", "ArgMaxProbMap", "UDPHeatmap", "DoubleProbMap"):
+        if dc.get("type", "ProbMap") not in DEVICE_CODECS:
             raise NotImplementedError(f"device encode for the {dc.get('type')} codec is not ported yet")
         kpts = batch.pop("kpts_hm")
         vis = batch.pop("kpts_visible")
         hm_size = tuple(dc.get("heatmap_size", (48, 64)))
-        if dc.get("type") == "UDPHeatmap":
+        if dc.get("type") == "SimCCLabel":
+            batch["keypoint_x_labels"], batch["keypoint_y_labels"] = generate_simcc_labels_device(
+                kpts, vis, tuple(dc["input_size"]), dc.get("simcc_split_ratio", 2.0), dc.get("sigma", 6.0),
+                dc.get("smoothing_type", "gaussian"), dc.get("normalize", True), dc.get("label_smooth_weight", 0.0))
+        elif dc.get("type") == "MSRAHeatmap":
+            gen = generate_unbiased_gaussian_device if dc.get("unbiased", False) else generate_gaussian_device
+            batch["heatmaps"] = gen(kpts, vis, hm_size, float(dc["sigma"]))
+        elif dc.get("type") == "UDPHeatmap":
             batch["heatmaps"] = generate_udp_gaussian_device(kpts, vis, hm_size, float(dc.get("sigma", 2.0)))
         elif dc.get("type") == "DoubleProbMap":
             scales = probmap_encode_scales(kpts.shape[1], hm_size, float(dc.get("sigma", -1.0)), dtype=np.float64)
@@ -322,7 +354,8 @@ class PoseModel:
 
     def loss_fn(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None):
         """One forward in training mode and the head's loss. ``batch``:
-        ``inputs`` (B, H, W, 3) raw 0-255 crops, ``heatmaps`` or ``kpts_hm`` /
+        ``inputs`` (B, H, W, 3) raw 0-255 crops, ``heatmaps`` (SimCC:
+        ``keypoint_x_labels`` / ``keypoint_y_labels``) or ``kpts_hm`` /
         ``kpts_visible``, and the codec's ``keypoint_weights`` (and, for
         ProbMapHead, ``in_image``, ``annotated``, ``keypoints_visibility``).
         ``generator`` draws the stochastic-depth masks. Returns ``(total, (loss_dict, new_state))``
@@ -333,6 +366,8 @@ class PoseModel:
         outputs = self.module(self.preprocess(batch["inputs"]), generator)
         if self.head_type == "HeatmapHead":
             losses = heatmap_head_loss(outputs, batch, self.loss_modules["keypoint"])
+        elif self.head_type == "RTMCCHead":
+            losses = simcc_head_loss(outputs, batch, self.loss_modules["keypoint"])
         elif self.head_type == "DoubleProbMapHead":
             losses = double_probmap_head_loss(
                 outputs, batch, self.loss_modules, self.aux["head_cfg"], input_size=self.input_size,

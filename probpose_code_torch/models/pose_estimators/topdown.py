@@ -5,14 +5,17 @@ Port of ``probpose_code_tpu/models/pose_estimators/topdown.py``:
 ``probmap_head_predict`` (``:659-703``), the ProbMap loss program
 (``:94-251``), the DoubleProbMap programs (``merge_double_heatmaps_device``,
 ``double_probmap_head_loss`` and ``double_probmap_head_predict``,
-``:254-475``) and ``heatmap_head_loss`` (``:637-651``); and the plain
-heatmap head's decode of ``probpose_code_tpu/models/builder.py:make_predict``
-(``:870-908``). ProbMap: the OKS and error targets come from the fast decode
-of the ground-truth and predicted heatmaps on the device, the training
-monitors (PCK, balanced binary accuracies, MAEs) are computed beside the
-losses, and the predict decode goes through K2
-(``ops/kernels/expected_oks.py``). Plain heatmaps: flip average, then argmax
-and DARK-UDP for the UDP codec.
+``:254-475``), ``heatmap_head_loss`` (``:637-651``) and the SimCC programs
+``simcc_head_loss`` (``:475``) and ``simcc_head_predict`` (``:504``); and
+the plain heatmap head's decode of ``probpose_code_tpu/models/builder.py:
+make_predict`` (``:870-908``). ProbMap: the OKS and error targets come from
+the fast decode of the ground-truth and predicted heatmaps on the device,
+the training monitors (PCK, balanced binary accuracies, MAEs) are computed
+beside the losses, and the predict decode goes through K2
+(``ops/kernels/expected_oks.py``). Plain heatmaps: flip average, then
+argmax and DARK-UDP for the UDP codec, argmax and the quarter-pixel step
+(or DARK with ``unbiased``) for the MSRA codec. SimCC: flip average of
+the vectors, then the joint argmax over the split ratio.
 """
 
 from __future__ import annotations
@@ -24,10 +27,16 @@ import torch
 import torch.nn as nn
 
 from probpose_code_torch.codecs.utils.oks_map import COCO_KPT_SIGMAS
-from probpose_code_torch.ops.decode import argmax_probmap_decode_batch, dark_udp_refine_batch
+from probpose_code_torch.ops.decode import (
+    argmax_probmap_decode_batch,
+    dark_refine_batch,
+    dark_udp_refine_batch,
+    quarter_offset_refine_batch,
+    simcc_maximum_batch,
+)
 from probpose_code_torch.ops.heatmap import heatmap_maximum_batch
 from probpose_code_torch.ops.kernels.expected_oks import expected_oks_decode
-from probpose_code_torch.ops.tta import flip_heatmaps
+from probpose_code_torch.ops.tta import flip_heatmaps, flip_vectors
 from probpose_code_torch.registry import MODELS
 
 
@@ -116,17 +125,27 @@ def heatmap_head_predict(
     input_size: Tuple[int, int] = (192, 256),
     shift_heatmap: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """Flip-TTA average in heatmap mode, then the UDP codec's decode to input
-    space (``builder.py:884-908``): argmax + DARK-UDP, scaled by input /
-    (W - 1). ``PoseModel.make_predict`` refuses the other codecs."""
+    """Flip-TTA average in heatmap mode, then the codec's decode to input
+    space (``builder.py:884-908``): for UDP argmax + DARK-UDP, scaled by
+    input / (W - 1); for MSRA argmax + the quarter-pixel step (DARK with
+    ``unbiased``), scaled by input / W. ``PoseModel.make_predict`` refuses
+    the other codecs."""
     if heatmaps_flipped is not None:
         heatmaps = (heatmaps + flip_heatmaps(heatmaps_flipped, flip_indices=flip_indices,
                                              shift_heatmap=shift_heatmap)) * 0.5
     B, K, H, W = heatmaps.shape
     locs, vals = heatmap_maximum_batch(heatmaps)
-    locs = dark_udp_refine_batch(locs, heatmaps, decoder_cfg.get("blur_kernel_size", 11))
-    scale = torch.tensor([input_size[0] / (W - 1), input_size[1] / (H - 1)], dtype=torch.float32,
-                         device=locs.device)
+    blur = decoder_cfg.get("blur_kernel_size", 11)
+    if decoder_cfg.get("type", "UDPHeatmap") == "MSRAHeatmap":
+        if decoder_cfg.get("unbiased", False):
+            locs = dark_refine_batch(locs, heatmaps, blur)
+        else:
+            locs = quarter_offset_refine_batch(locs, heatmaps)
+        scale = [input_size[0] / W, input_size[1] / H]
+    else:
+        locs = dark_udp_refine_batch(locs, heatmaps, blur)
+        scale = [input_size[0] / (W - 1), input_size[1] / (H - 1)]
+    scale = torch.tensor(scale, dtype=torch.float32, device=locs.device)
     return dict(keypoints=locs * scale, keypoint_scores=vals, heatmaps=heatmaps)
 
 
@@ -141,6 +160,48 @@ def heatmap_head_loss(
         "loss_kpt": loss_module(heatmaps, batch["heatmaps"], batch["keypoint_weights"]),
         "acc_pose": _pose_pck_accuracy(heatmaps.detach(), batch["heatmaps"], batch["keypoint_weights"] > 0.5),
     }
+
+
+def simcc_head_loss(
+    outputs: Tuple[torch.Tensor, torch.Tensor],
+    batch: Dict[str, torch.Tensor],
+    loss_module: Any,
+) -> Dict[str, torch.Tensor]:
+    """The SimCC heads' loss (reference ``rtmcc_head.py:loss``): ``loss_kpt``,
+    the loss module (``KLDiscretLoss``) over both vectors, and the monitor
+    ``acc_pose``: the PCK of the joint argmax at half a tenth of the vector
+    lengths."""
+    pred_x, pred_y = outputs
+    gt_x, gt_y = batch["keypoint_x_labels"], batch["keypoint_y_labels"]
+    weights = batch["keypoint_weights"]
+    dt_locs, _ = simcc_maximum_batch(pred_x.detach(), pred_y.detach())
+    gt_locs, _ = simcc_maximum_batch(gt_x, gt_y)
+    norm = torch.tensor([pred_x.shape[-1], pred_y.shape[-1]], dtype=torch.float32, device=pred_x.device) / 10.0 / 2.0
+    dist = torch.linalg.norm((dt_locs - gt_locs) / norm, dim=-1)
+    valid = (weights > 0.5) & (gt_locs[..., 0] >= 0)
+    correct = (dist < 0.5) & valid
+    return {
+        "loss_kpt": loss_module((pred_x, pred_y), (gt_x, gt_y), weights),
+        "acc_pose": correct.sum() / torch.clamp(valid.sum(), min=1),
+    }
+
+
+def simcc_head_predict(
+    outputs: Tuple[torch.Tensor, torch.Tensor],
+    outputs_flipped: Optional[Tuple[torch.Tensor, torch.Tensor]],
+    flip_indices,
+    simcc_split_ratio: float = 2.0,
+) -> Dict[str, torch.Tensor]:
+    """Flip-TTA average of both vectors (before the argmax), then the joint
+    argmax over the split ratio (reference ``rtmcc_head.py:predict``)."""
+    pred_x, pred_y = outputs
+    if outputs_flipped is not None:
+        fx, fy = flip_vectors(*outputs_flipped, flip_indices)
+        pred_x = (pred_x + fx) * 0.5
+        pred_y = (pred_y + fy) * 0.5
+    locs, scores = simcc_maximum_batch(pred_x, pred_y)
+    return dict(keypoints=locs / simcc_split_ratio, keypoint_scores=scores, keypoint_x_labels=pred_x,
+                keypoint_y_labels=pred_y)
 
 
 # --------------------------------------------------------------------------

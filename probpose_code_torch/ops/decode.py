@@ -3,7 +3,9 @@
 Port of ``probpose_code_tpu/ops/decode.py``: ``subpixel_refine_batch``
 (``:58``), ``heatmap_expected_value_batch`` (``:83``, separable method),
 ``dark_udp_refine_batch`` (``:123``), ``argmax_probmap_decode_batch``
-(``:184``) and ``expected_oks_decode_to_input_space`` (``:257``).
+(``:184``), the MSRA codec's ``quarter_offset_refine_batch`` (``:197``) and
+``dark_refine_batch`` (``:214``), ``simcc_maximum_batch`` (``:244``) and
+``expected_oks_decode_to_input_space`` (``:257``).
 
 The expected-OKS decode is the plain twin of the K2 CUDA kernel
 (``ops/kernels/expected_oks.py``): the CPU path runs it, and the card's
@@ -169,3 +171,61 @@ def argmax_probmap_decode_batch(
     """Fast decode (argmax + DARK-UDP) in heatmap space: locs (B, K, 2), vals."""
     locs, vals = heatmap_maximum_batch(heatmaps)
     return dark_udp_refine_batch(locs, heatmaps, blur_kernel_size), vals
+
+
+def quarter_offset_refine_batch(keypoints: torch.Tensor, heatmaps: torch.Tensor) -> torch.Tensor:
+    """The MSRA step: each peak moves 0.25 px toward its larger neighbour on
+    each axis. The x step needs 1 < x < W - 1 and 0 < y < H, the y step
+    1 < y < H - 1 and 0 < x < W (the codec's own asymmetric test)."""
+    B, K, H, W = heatmaps.shape
+    x = keypoints[..., 0].to(torch.int32)  # truncation toward zero, as astype(int32)
+    y = keypoints[..., 1].to(torch.int32)
+    xc = x.clamp(0, W - 1)
+    yc = y.clamp(0, H - 1)
+    valid_x = (x > 1) & (x < W - 1) & (y > 0) & (y < H)
+    valid_y = (y > 1) & (y < H - 1) & (x > 0) & (x < W)
+    dx = gather_hw(heatmaps, (x + 1).clamp(0, W - 1), yc) - gather_hw(heatmaps, (x - 1).clamp(0, W - 1), yc)
+    dy = gather_hw(heatmaps, xc, (y + 1).clamp(0, H - 1)) - gather_hw(heatmaps, xc, (y - 1).clamp(0, H - 1))
+    shift_x = torch.where(valid_x, torch.sign(dx) * 0.25, 0.0)
+    shift_y = torch.where(valid_y, torch.sign(dy) * 0.25, 0.0)
+    return keypoints + torch.stack([shift_x, shift_y], dim=-1)
+
+
+def dark_refine_batch(keypoints: torch.Tensor, heatmaps: torch.Tensor, blur_kernel_size: int = 11) -> torch.Tensor:
+    """DARK (the MSRA codec's ``unbiased`` decode): the modulation blur, the
+    log of ``max(blur, 1e-10)``, and a full 2x2 Newton step at peaks at least
+    two pixels inside the map, where the Hessian's determinant is not 0."""
+    B, K, H, W = heatmaps.shape
+    hm = torch.log(torch.clamp(gaussian_blur_batch(heatmaps, blur_kernel_size), min=1e-10))
+    x = keypoints[..., 0].to(torch.int32)
+    y = keypoints[..., 1].to(torch.int32)
+    valid = (x > 1) & (x < W - 2) & (y > 1) & (y < H - 2)
+    xc = x.clamp(2, W - 3)
+    yc = y.clamp(2, H - 3)
+
+    def v(dx_, dy_):
+        return gather_hw(hm, xc + dx_, yc + dy_)
+
+    dx = 0.5 * (v(1, 0) - v(-1, 0))
+    dy = 0.5 * (v(0, 1) - v(0, -1))
+    dxx = 0.25 * (v(2, 0) - 2 * v(0, 0) + v(-2, 0))
+    dxy = 0.25 * (v(1, 1) - v(-1, 1) - v(1, -1) + v(-1, -1))
+    dyy = 0.25 * (v(0, 2) - 2 * v(0, 0) + v(0, -2))
+    det = dxx * dyy - dxy * dxy
+    solvable = valid & (det != 0)
+    inv_det = torch.where(det != 0, 1.0 / torch.where(det == 0, 1.0, det), 0.0)
+    off_x = -(dyy * dx - dxy * dy) * inv_det
+    off_y = -(-dxy * dx + dxx * dy) * inv_det
+    shift = torch.stack([off_x, off_y], dim=-1)
+    return keypoints + torch.where(solvable[..., None], shift, 0.0)
+
+
+def simcc_maximum_batch(simcc_x: torch.Tensor, simcc_y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SimCC's joint argmax: (B, K, Wx), (B, K, Wy) -> locs (B, K, 2) in bins
+    (the first maximum of each vector; -1 where the score is <= 0), vals =
+    min(max_x, max_y)."""
+    max_x, x_locs = simcc_x.max(dim=-1)  # documented to return the first maximal index
+    max_y, y_locs = simcc_y.max(dim=-1)
+    vals = torch.minimum(max_x, max_y)
+    locs = torch.stack([x_locs.float(), y_locs.float()], dim=-1)
+    return torch.where((vals <= 0.0)[..., None], -1.0, locs), vals

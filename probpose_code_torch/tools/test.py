@@ -32,17 +32,24 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     return parser.parse_args(argv)
 
 
+def build_runner(cfg: Config, device=None) -> Runner:
+    """The runner that evaluates ``cfg``: its test set and evaluator as the
+    val ones, and none of its ``custom_hooks``, which act only in training
+    (RTMPose's ``PipelineSwitchHook`` is not ported)."""
+    if "test_dataloader" in cfg:
+        cfg.val_dataloader = cfg.test_dataloader
+    if "test_evaluator" in cfg:
+        cfg.val_evaluator = cfg.test_evaluator
+    cfg.custom_hooks = []
+    return Runner.from_cfg(cfg, device=device)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(dict(parse_cfg_option(kv) for kv in args.cfg_options))
-    if "test_dataloader" in cfg:
-        cfg.val_dataloader = cfg.test_dataloader
-    if "test_evaluator" in cfg:
-        cfg.val_evaluator = cfg.test_evaluator
-
-    runner = Runner.from_cfg(cfg, device=args.device)
+    runner = build_runner(cfg, device=args.device)
     if args.checkpoint:
         load_checkpoint(runner.model, args.checkpoint)
     try:

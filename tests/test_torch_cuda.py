@@ -31,7 +31,10 @@ ViTPose-B-simple train step, whose twelve layers run K4 and not K3; the
 JPEG decode (bit for bit; nvJPEG's batched decode, the yardstick, within its
 bars) against the plain decoder on every fixture of ``tests/golden_torch``, a fresh zeroed
 buffer for each batch, the truncated stream refused; the val path over JPEG files (decoded on the card, one
-decode a batch) and ``tools.serve`` answering ``inference_topdown``'s JSON.
+decode a batch) and ``tools.serve`` answering ``inference_topdown``'s JSON;
+the device encodes of the MSRA codec (and its unbiased form) and of the
+SimCC labels against the port's host codecs, and the classic and RTMPose
+model fixtures on the card.
 Bars are ``chip_smoke.py``'s, with its reasons.
 """
 
@@ -714,3 +717,67 @@ def test_one_hrnet_train_step_on_the_card(card):
         assert all(c.launches == 0 for c in counters.values())
     assert metrics["cuda"]["loss"] == pytest.approx(metrics["cpu"]["loss"], rel=HRNET_REL)
     assert metrics["cuda"]["grad_norm"] == pytest.approx(metrics["cpu"]["grad_norm"], rel=1e-3)
+
+
+def _encode_cases(seed, n=8, lo=(-10, -10), hi=(58, 74)):
+    """(n, 17, 2) keypoints (some on .5 boundaries, some outside) and visibility."""
+    rng = np.random.RandomState(seed)
+    kpts = np.stack([rng.uniform(lo[0], hi[0], (n, 17)), rng.uniform(lo[1], hi[1], (n, 17))], -1)
+    kpts[:, :5] = np.round(kpts[:, :5]) + 0.5
+    return kpts, (rng.rand(n, 17) > 0.2).astype(np.float32)
+
+
+@pytest.mark.parametrize("unbiased", [False, True], ids=["msra", "unbiased"])
+def test_msra_gaussians_on_the_card_match_the_codec(card, unbiased):
+    """``generate_gaussian_device`` / ``generate_unbiased_gaussian_device`` on
+    the card against the port's host codec (``codecs/utils/
+    gaussian_heatmap.py``), instance by instance: atol 1e-6 (the last bit
+    of exp), the test's weights equal to the codec's."""
+    from probpose_code_torch.codecs.utils.gaussian_heatmap import (
+        gaussian_weights,
+        generate_gaussian_heatmaps,
+        generate_unbiased_gaussian_heatmaps,
+    )
+    from probpose_code_torch.ops.encode import generate_gaussian_device, generate_unbiased_gaussian_device
+
+    kpts, vis = _encode_cases(seed=1 + unbiased)
+    host = generate_unbiased_gaussian_heatmaps if unbiased else generate_gaussian_heatmaps
+    device = generate_unbiased_gaussian_device if unbiased else generate_gaussian_device
+    got = device(torch.from_numpy(kpts).cuda(), torch.from_numpy(vis).cuda(), (48, 64), 2.0).cpu().numpy()
+    for n in range(len(kpts)):
+        want, weights = host((48, 64), kpts[n:n + 1], vis[n:n + 1], 2.0)
+        np.testing.assert_allclose(got[n], want, atol=1e-6, err_msg=str(n))
+        np.testing.assert_array_equal(weights, gaussian_weights((48, 64), kpts[n:n + 1], vis[n:n + 1], 2.0, unbiased))
+
+
+@pytest.mark.parametrize("smoothing, normalize", [("gaussian", False), ("gaussian", True), ("standard", False)])
+def test_simcc_labels_on_the_card_match_the_codec(card, smoothing, normalize):
+    """``generate_simcc_labels_device`` on the card against the port's host
+    codec (``codecs/simcc_label.py``): atol 1e-6."""
+    from probpose_code_torch.codecs.simcc_label import SimCCLabel
+    from probpose_code_torch.ops.encode import generate_simcc_labels_device
+
+    sigma = (4.9, 5.66) if smoothing == "gaussian" else 6.0
+    codec = SimCCLabel((192, 256), smoothing, sigma, 2.0, normalize=normalize)
+    kpts, vis = _encode_cases(seed=3, lo=(-20, -20), hi=(212, 276))
+    kpts = kpts.astype(np.float32) / 2  # bins on .5: half to even
+    want = codec.encode(kpts, vis)
+    x, y = generate_simcc_labels_device(torch.from_numpy(codec.bins(kpts).astype(np.float32)).cuda(),
+                                        torch.from_numpy(vis).cuda(), (192, 256), 2.0, sigma, smoothing, normalize)
+    np.testing.assert_allclose(x.cpu().numpy(), want["keypoint_x_labels"], atol=1e-6)
+    np.testing.assert_allclose(y.cpu().numpy(), want["keypoint_y_labels"], atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["classic", "rtmpose"])
+def test_model_fixtures_on_the_card(card, name):
+    """``chip_smoke.model_fixture_report`` on the card: the JAX package's
+    keypoints, scores and AP at ``UDP_BARS``, its maps or vectors on the
+    fixture's crops at ``FIXTURE_OUTPUT_REL``; no kernel of the port."""
+    from chip_smoke import CLASSIC_FIXTURE, RTMPOSE_FIXTURE, model_fixture_report
+
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    report = model_fixture_report(CLASSIC_FIXTURE if name == "classic" else RTMPOSE_FIXTURE, device="cuda")
+    assert report["ok"], report
+    assert all(c.launches == 0 for c in counters.values())

@@ -42,6 +42,22 @@ def test_port_imports_nothing_of_jax():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+@pytest.mark.parametrize("module", [
+    "probpose_code_torch.codecs.msra_heatmap", "probpose_code_torch.codecs.simcc_label",
+    "probpose_code_torch.codecs.utils.gaussian_heatmap", "probpose_code_torch.models.backbones.resnet",
+    "probpose_code_torch.models.backbones.cspnext", "probpose_code_torch.models.heads.rtmcc_head",
+    "probpose_code_torch.models.utils.rtmcc_block",
+])
+def test_the_import_check_walks_the_classic_and_rtmpose_modules(module):
+    """The modules of the classic heatmap recipes and of RTMPose are among
+    those ``test_port_imports_nothing_of_jax`` imports."""
+    import pkgutil
+
+    import probpose_code_torch
+
+    assert module in {m.name for m in pkgutil.walk_packages(probpose_code_torch.__path__, "probpose_code_torch.")}
+
+
 def test_sources_name_no_jax():
     for path in [*sorted((ROOT / "probpose_code_torch").rglob("*.py")), ROOT / "chip_smoke.py"]:
         tree = ast.parse(path.read_text())

@@ -172,8 +172,9 @@ def test_shuffled_loader_batches_equal_jax(ann, num_workers):
 
 
 def test_generate_target_takes_only_device_codecs():
-    with pytest.raises(NotImplementedError, match="MSRAHeatmap"):
-        GenerateTarget(encoder=dict(type="MSRAHeatmap", input_size=(192, 256), heatmap_size=(48, 64), sigma=2))
+    with pytest.raises(NotImplementedError, match="MegviiHeatmap"):
+        GenerateTarget(encoder=dict(type="MegviiHeatmap", input_size=(192, 256), heatmap_size=(48, 64),
+                                    kernel_size=11))
     with pytest.raises(NotImplementedError, match="combined"):
         GenerateTarget(encoder=dict(type="UDPHeatmap", input_size=(192, 256), heatmap_size=(48, 64),
                                     heatmap_type="combined"))

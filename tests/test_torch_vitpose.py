@@ -228,11 +228,12 @@ def test_inference_topdown_gives_heatmap_fields_only(setup):
 
 
 def test_other_heatmap_codecs_are_refused():
-    """Only the UDP decode of a plain heatmap head is ported: another codec
-    is refused when the predict program is made, not decoded as UDP."""
+    """Only the UDP and MSRA decodes of a plain heatmap head are ported:
+    another codec is refused when the predict program is made, not decoded
+    as UDP."""
     cfg = _cfg()
-    cfg["head"]["decoder"] = dict(type="MSRAHeatmap", input_size=(192, 256), heatmap_size=(48, 64), sigma=2)
-    with pytest.raises(NotImplementedError, match="MSRAHeatmap"):
+    cfg["head"]["decoder"] = dict(type="MegviiHeatmap", input_size=(192, 256), heatmap_size=(48, 64), kernel_size=11)
+    with pytest.raises(NotImplementedError, match="MegviiHeatmap"):
         PoseModel(cfg, metainfo=META, device="cpu").make_predict()
 
 
