@@ -123,7 +123,25 @@ card and the CUDA toolkit (nvcc); it builds the port's kernels from
 30. ``rtmpose_train``: RTMPose-m's bare step on 64 crops (SimCC labels
    rendered on the card), then ``Runner.val`` as ``tools.test`` builds it
    over the golden JPEGs: the SimCC predictions reach ``CocoMetric``;
-31. ``timings``: each kernel's time beside its plain twin's, a PyTorch
+31. ``rtmpose_augment``: RTMPose's photometric augmentations on the card
+   (the median kernel of ``csrc/photometric.cu``, the HSV jitter through
+   its tables, the blur and the dropout in PyTorch) bit for bit against
+   cv2's fixture (``tests/golden_torch/augment_fixture.npz``): a batch of
+   256 crops, every op and kernel size, every colour and HSV triple, every
+   window sum; the kernel against its plain version at the main path's
+   shapes; the time of the kernel, of the HSV jitter and of a batch's whole
+   augment;
+32. ``rtmpose_train_runner``: RTMPose-m's own recipe through
+   ``tools.train`` at its batch of 256 over 512 golden JPEG instances, two
+   epochs across the stage-2 switch (``PipelineSwitchHook``, the loader's
+   workers restarted), the EMA hook, val, then a resumed third epoch: no
+   kernel of the TPU list, the augment on every step, the first
+   loss dict against ``make_train_step``'s, crops/s an epoch with the
+   decode and the augment apart, peak memory and one step profiled;
+33. ``rtmpose_aic_train``: the AIC+COCO recipe's epoch at its batch of 128
+   (``CombinedDataset``, AIC through ``KeypointConverter``): every batch's
+   keypoint weights (B, 17) as the workers made them equal the CPU's;
+34. ``timings``: each kernel's time beside its plain twin's, a PyTorch
    library call's where one computes the same function, and its bound from
    this run's shapes; K1 also at the ViT-B predict shape (f32), K4 also at
    the ProbPose-S shape in bf16. For K1 (bf16 and f32) and K3 (forward,
@@ -137,7 +155,10 @@ The lines before the last hold the kernels' record as JSON (each kernel's
 ``launches`` from the flagship's paths, and ``launches_by_path`` on every
 main path: K1's one count goes to the record of the instance, bf16 ViT-S
 or f32 ViT-B, that the path's model runs) and the JPEG decode's (no TPU
-kernel: its own line, no ``replaces``), the last line ``{"ok": true,
+kernel: its own line, no ``replaces``) and the photometric median
+kernel's (no TPU kernel either: the ``augment`` line, its ``ports`` the JAX
+transform it ports, its ``launches`` from ``rtmpose_train_runner``'s main
+path), the last line ``{"ok": true,
 "device": ...}``. Any failure exits non-zero without them. It imports neither JAX nor the JAX package.
 """
 
@@ -172,6 +193,10 @@ RTMPOSE = ROOT / "configs/body_2d_keypoint/rtmpose/coco/rtmpose-m_8xb256-420e_co
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+# 32-bit integer operations: 64 lanes an SM, half the f32 lanes, and one
+# operation an instruction where PEAK_F32 counts an FMA as two (132 SMs x 64
+# x 1.98 GHz, the data sheet's boost clock)
+PEAK_INT32 = PEAK_F32 / 4
 # f32-accurate products on the tensor cores: 3xTF32 issues three TF32
 # products (hi.hi, hi.lo, lo.hi) for each one, so a third of the 495 TFLOP/s
 # TF32 peak. It bounds the f32 products of K1 and K4, which run so.
@@ -761,6 +786,120 @@ def model_fixture_report(fixture, device):
     return report
 
 
+# ``tests/golden_torch/augment_fixture.npz`` (``make_augment_fixtures.py``,
+# cv2 on the CPU): input crops cut from the golden images by cv2, a batch of
+# ``AUGMENT_B`` parameter sets over them (``augment_fixture_params``), and
+# the SHA-256 of cv2's uint8 result after each of the four ops of each
+# sample; the SHA-256 of cv2's BGR -> HSV of every colour
+# (``all_bgr_colours``), of its HSV -> BGR of every HSV triple
+# (``all_hsv_triples``), and of its blur and median of the window-sum tiles
+# (``window_sum_tiles``) for each kernel size. The card's machine has no
+# OpenCV: the digests hold it to cv2's bytes exactly.
+AUGMENT_FIXTURE = GOLDEN_JPEG / "augment_fixture.npz"
+AUGMENT_B = 256
+AUGMENT_KSIZES = (3, 5, 7)
+AUGMENT_STAGES = ("hsv_gains", "blur_ksize", "median_ksize", "dropout_rects")
+
+
+def all_bgr_colours():
+    """Every 8-bit BGR colour once, (65536, 256, 3) uint8: rows as wide as a
+    multiple of cv2's vector lanes, which every pixel of a crop of width 192
+    goes through."""
+    import numpy as np
+
+    c = np.arange(1 << 24, dtype=np.uint32)
+    return np.stack([c & 255, (c >> 8) & 255, c >> 16], -1).astype(np.uint8).reshape(-1, 256, 3)
+
+
+def all_hsv_triples():
+    """Every 8-bit HSV triple with a hue below 180, (61440, 192, 3) uint8."""
+    import numpy as np
+
+    h, s, v = np.meshgrid(np.arange(180), np.arange(256), np.arange(256), indexing="ij")
+    return np.stack([h, s, v], -1).astype(np.uint8).reshape(-1, 192, 3)
+
+
+def window_sum_tiles(k):
+    """A grey (H, W, 3) uint8 image of k x k tiles, one for each window sum
+    s = 0 .. 255 k² (its pixels ``s // k²``, one more on the first ``s %
+    k²``), inside a border of empty tiles: a k x k blur at a tile's centre
+    sums exactly that tile."""
+    import numpy as np
+
+    sums = np.arange(255 * k * k + 1)
+    side = int(np.ceil(np.sqrt(len(sums))))
+    tiles = np.zeros((side * side, k * k), np.uint8)
+    tiles[: len(sums)] = sums[:, None] // (k * k) + (np.arange(k * k) < sums[:, None] % (k * k))
+    img = tiles.reshape(side, side, k, k).transpose(0, 2, 1, 3).reshape(side * k, side * k)
+    img = np.pad(img, k)
+    return np.repeat(img[..., None], 3, axis=-1)
+
+
+def augment_fixture_params(n, crops, seed=0):
+    """``n`` samples' parameters over ``crops`` input crops: the input of
+    each, HSV gains drawn as ``YOLOXHSVRandomAug`` draws them, the blur and
+    median kernel sizes cycling through every pair of 0 (not fired), 3, 5
+    and 7, and one CoarseDropout hole of the RTMPose recipe's sizes on two
+    samples in three (zero size on the third). Returns a dict of arrays."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    i = np.arange(n)
+    ks = np.array((0,) + AUGMENT_KSIZES, np.int32)
+    gains = rng.uniform(-1, 1, (n, 3)) * [5, 30, 30] * rng.randint(0, 2, (n, 3))
+    hh, ww = rng.randint(51, 103, n), rng.randint(38, 78, n)
+    rects = np.stack([rng.randint(0, 257 - hh), rng.randint(0, 193 - ww), hh, ww], -1) * (i % 3 != 0)[:, None]
+    return dict(index=i % crops, hsv_gains=gains.astype(np.int16), blur_ksize=ks[i % 4],
+                median_ksize=ks[(i // 4) % 4], dropout_rects=rects.astype(np.int32)[:, None])
+
+
+def sha256(arr) -> bytes:
+    import hashlib
+
+    return hashlib.sha256(arr.tobytes()).digest()
+
+
+def augment_fixture_report(device, limit=None):
+    """``ops/kernels/photometric.py`` on ``device`` (the card's forms, or
+    the plain versions on the CPU) against ``AUGMENT_FIXTURE``: the four ops
+    in turn on its batch (its first ``limit`` samples), each sample's result
+    after each op against cv2's digest; the HSV tables that the plain
+    conversions fill on ``device`` (every colour and HSV triple), and the
+    blur and median on the window-sum tiles for each kernel size, against
+    cv2's digests. Returns a report with ``ok``."""
+    import numpy as np
+    import torch
+
+    from probpose_code_torch.ops import photometric as plain
+    from probpose_code_torch.ops.kernels import photometric
+
+    fx = dict(np.load(AUGMENT_FIXTURE))
+    for key in ("index", "digests", *AUGMENT_STAGES):
+        fx[key] = fx[key][:limit]
+    img = torch.from_numpy(fx["crops"][fx["index"]]).to(device).float()
+    stages = {}
+    for i, key in enumerate(AUGMENT_STAGES):
+        img = photometric.augment(img, **{key: torch.from_numpy(fx[key]).to(device)})
+        got = img.to(torch.uint8).cpu().numpy()
+        stages[key] = int(sum(sha256(got[j]) != fx["digests"][j, i].tobytes() for j in range(len(got))))
+
+    def digest(tensor):
+        return sha256(tensor.to(torch.uint8).cpu().numpy())
+
+    def on_device(arr):
+        return torch.from_numpy(arr).to(device)
+
+    exhaustive = {name: digest(table) == fx[name].tobytes()
+                  for name, table in zip(("bgr_to_hsv", "hsv_to_bgr"), plain.hsv_tables(device))}
+    for k in AUGMENT_KSIZES:
+        tiles = on_device(window_sum_tiles(k)).float()[None]
+        exhaustive[f"blur_{k}"] = digest(plain.box_blur(tiles, k)[0]) == fx[f"blur_{k}"].tobytes()
+        exhaustive[f"median_{k}"] = digest(photometric.median_blur(tiles, k)[0]) == fx[f"median_{k}"].tobytes()
+    fired = {k: int((fx[k] > 0).sum()) for k in ("blur_ksize", "median_ksize")}
+    return dict(samples=len(fx["index"]), fired=fired, mismatched=stages, exhaustive=exhaustive,
+                ok=not any(stages.values()) and all(exhaustive.values()))
+
+
 def write_png(path, img):
     """An (H, W, 3) uint8 BGR image as an 8-bit RGB PNG, every row with
     filter type 0 (the card's machine has no OpenCV to write one)."""
@@ -924,6 +1063,28 @@ def mini_coco_set(root):
     return root / "ann.json"
 
 
+# the RTMPose AIC+COCO recipe's KeypointConverter: (AIC keypoint, COCO keypoint)
+AIC_TO_COCO = ((0, 6), (1, 8), (2, 10), (3, 5), (4, 7), (5, 9), (6, 12), (7, 14), (8, 16), (9, 11), (10, 13),
+               (11, 15))
+
+
+def aic_from_coco(ann_file, out_file):
+    """A COCO keypoint annotation file mapped back to AI Challenger's 14
+    keypoints (``AIC_TO_COCO``; head top and neck, which COCO lacks,
+    unannotated), written to ``out_file``: the AIC half of the AIC+COCO
+    recipe over the same images."""
+    gt = json.loads(Path(ann_file).read_text())
+    for a in gt["annotations"]:
+        coco = [a["keypoints"][3 * k:3 * k + 3] for k in range(17)]
+        aic = [[0, 0, 0] for _ in range(14)]
+        for s, t in AIC_TO_COCO:
+            aic[s] = coco[t]
+        a["keypoints"] = [v for kpt in aic for v in kpt]
+        a["num_keypoints"] = sum(kpt[2] > 0 for kpt in aic)
+    gt["categories"] = [dict(id=1, name="person", keypoints=[str(k) for k in range(14)], skeleton=[])]
+    Path(out_file).write_text(json.dumps(gt))
+
+
 def tiny_train_cfg(ann_file, batch_size, num_workers=0, approximate_gelu=False):
     """A train config over a ``mini_coco_set``: the tiny model at f32 with
     the flagship head's losses and drop_path 0, the flagship's train
@@ -1011,14 +1172,23 @@ def k1_record(model) -> str:
     return K1_RECORDS[key]
 
 
+def augment_counters():
+    """The photometric kernel's wrapper (no TPU kernel: its own line), whose
+    ``launches`` counts its kernel's launches."""
+    from probpose_code_torch.ops.kernels import photometric
+
+    return dict(photometric_median=photometric.median_blur)
+
+
 def reset_counts():
-    """Every kernel's count and the JPEG decode's set to 0; returns a
-    reader of the kernels' counts (``decode_batch.launches`` holds the
-    decode's)."""
+    """Every kernel's count, the JPEG decode's and the photometric
+    kernels' set to 0; returns a reader of the kernels' counts
+    (``decode_batch.launches`` holds the decode's, ``augment_counters``
+    the others)."""
     from probpose_code_torch.ops.kernels.jpeg import decode_batch
 
     counters = kernel_counters()
-    for c in (*counters.values(), decode_batch):
+    for c in (*counters.values(), *augment_counters().values(), decode_batch):
         c.launches = 0
     return lambda: {k: c.launches for k, c in counters.items()}
 
@@ -1201,6 +1371,128 @@ def stop_descendants(grace: float = 10.0) -> list:
                         pass
                 deadline, killed = time.time() + grace, True
     return running
+
+
+def recipe_augment_params(n, seed):
+    """The photometric parameters of ``n`` crops drawn by the RTMPose-m
+    recipe's own ``YOLOXHSVRandomAug`` and ``Albumentation`` (its train
+    pipeline) from NumPy's generator seeded with ``seed``, stacked as a
+    batch carries them."""
+    import numpy as np
+
+    import probpose_code_torch.datasets  # noqa: F401  (registers the transforms)
+    from probpose_code_torch.config import Config
+    from probpose_code_torch.ops.photometric import AUGMENT_KEYS
+    from probpose_code_torch.registry import TRANSFORMS
+
+    pipeline = Config.fromfile(RTMPOSE)["train_pipeline"]
+    transforms = [TRANSFORMS.build(json.loads(json.dumps(t))) for t in pipeline
+                  if t["type"] in ("YOLOXHSVRandomAug", "Albumentation")]
+    state = np.random.get_state()
+    np.random.seed(seed)
+    samples = []
+    for _ in range(n):
+        results = dict(warp_mat=np.eye(2, 3, dtype=np.float32), input_size=(192, 256))
+        for t in transforms:
+            results = t(results)
+        samples.append(results)
+    np.random.set_state(state)
+    return {k: np.stack([r[k] for r in samples]) for k in AUGMENT_KEYS}
+
+
+def report_runner_epochs(name, runner, first_epoch, profiler_s=0.0):
+    """Each epoch of a ``Runner.train``: its train crops/s over its window
+    and the ``train_times`` split."""
+    for e, t in enumerate(runner.train_times, start=first_epoch + 1):
+        print(f"{name} epoch {e}: {t['crops']} crops, {t['crops'] / t['window']:.1f} train crops/s from the start "
+              f"of its loader to its last step ({t['window']:.3f} s); split (s): wait for the first batch "
+              f"{t['first_batch']:.3f}, later loader waits {t['loader'] - t['first_batch']:.3f}, steps "
+              f"{t['step']:.3f} (JPEG decode {t['decode']:.3f} card clock, {t['decode_host']:.3f} host clock; "
+              f"augment {t['augment']:.3f} card clock, {t['augment_host']:.3f} host clock), hooks and logging "
+              f"{t['hooks']:.3f}" + (f" (the profiler's start and stop {profiler_s:.3f} of it)" if profiler_s else "")
+              + f"; after it: checkpoint writing {t['checkpoint']:.3f}, val {t['val']:.3f}; steady "
+              f"{t['crops'] / max(t['window'] - t['first_batch'], 1e-9):.1f} crops/s without the first batch's wait")
+
+
+def first_step_check(name, runner):
+    """The first step of ``runner``'s training again, through
+    ``make_train_step`` on the same batch (made by a new loader: a
+    pipeline switch changed the runner's dataset), weights and generator
+    seed: every metric within ``TRAIN_FLAGSHIP_REL``."""
+    import torch
+
+    from probpose_code_torch.engine.optim import build_optimizer
+    from probpose_code_torch.models.builder import PoseModel
+    from probpose_code_torch.parallel import create_train_state, make_train_step
+
+    cfg = runner.cfg
+    model = PoseModel(cfg["model"], metainfo=runner.metainfo, device=runner.model.device)
+    model.init_weights(seed=0)
+    optimizer, _ = build_optimizer(model, cfg["optim_wrapper"], cfg["param_scheduler"], len(runner.train_loader),
+                                   runner.max_epochs)
+    batch = runner.to_device(runner.build_train_loader().load(0, 0))
+    _, metrics = make_train_step(model, optimizer)(create_train_state(model, optimizer), batch,
+                                                   torch.Generator(device=model.device).manual_seed(cfg["seed"]))
+    direct = {k: float(v) for k, v in metrics.items()}
+    logged = runner.train_log[0]
+    rel = {k: abs(logged[k] - v) / max(abs(v), 1e-30) for k, v in direct.items()}
+    print(f"{name} first step: Runner.train {json.dumps({k: logged[k] for k in direct})}; make_train_step "
+          f"{json.dumps(direct)}; largest relative difference {max(rel.values()):.3e} (bar {TRAIN_FLAGSHIP_REL:g}, "
+          f"1e-7 absolute at 0)")
+    if any(abs(logged[k] - v) > TRAIN_FLAGSHIP_REL * abs(v) + 1e-7 for k, v in direct.items()):
+        raise AssertionError(f"{name}: the first step's loss dict differs from make_train_step's: {rel}")
+
+
+def _runner_watch():
+    """``RunnerWatch``, defined once the port's ``Hook`` can be imported."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from probpose_code_torch.engine.checkpoint import read_checkpoint
+    from probpose_code_torch.engine.hooks import Hook
+
+    class RunnerWatch(Hook):
+        """The val's metrics, the state a resumed run starts from (against
+        the checkpoint's EMA average), and the step ``profile_step``
+        profiled: from the end of the step before it to the end of its
+        own kernels."""
+
+        def __init__(self, resume_from=None, profile_step=None):
+            self.resume_from, self.profile_step = resume_from, profile_step
+            self.metrics, self.start, self.prof, self.profiler_s = None, None, None, 0.0
+
+        def before_run(self, runner):
+            self.start = dict(epoch=runner.epoch, step=runner.state.step)
+            if self.resume_from:
+                saved = read_checkpoint(self.resume_from)["state_dict"]
+                names = [n for n, _ in runner.model.module.named_parameters()]
+                self.start["average_equal"] = all(torch.equal(p.cpu(), saved[n])
+                                                  for n, p in zip(names, runner.hooks[0].ema_params))
+            if self.profile_step:  # the tracer's first start is slow: once here, outside the window
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                    torch.cuda.synchronize()
+
+        def after_train_iter(self, runner, step, metrics):
+            if self.profile_step and step == self.profile_step - 1:
+                t = time.perf_counter()
+                self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                self.prof.start()
+                self.t0 = time.perf_counter()
+                self.profiler_s += self.t0 - t
+            elif self.prof is not None and step == self.profile_step:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                wall_us = (t - self.t0) * 1e6
+                self.prof.stop()
+                Smoke.report_profile(self.prof, wall_us, 1, "runner steps (the loader wait, the batch moved, the "
+                                                            "decode and augment, the step, the hooks)")
+                self.prof = None
+                self.profiler_s += time.perf_counter() - t
+
+        def after_val_epoch(self, runner, metrics):
+            self.metrics = metrics
+
+    return RunnerWatch
 
 
 class Smoke:
@@ -1950,10 +2242,8 @@ class Smoke:
         from probpose_code_torch.datasets.loader import stop_workers
         from probpose_code_torch.engine.checkpoint import load_checkpoint, read_checkpoint
         from probpose_code_torch.engine.hooks import Hook
-        from probpose_code_torch.engine.optim import build_optimizer
         from probpose_code_torch.models.builder import PoseModel
         from probpose_code_torch.ops.kernels.jpeg import decode_batch
-        from probpose_code_torch.parallel import create_train_state, make_train_step
         from probpose_code_torch.tools import train as train_cli
 
         counters = kernel_counters()
@@ -2074,25 +2364,9 @@ class Smoke:
                                      f"{bad} launched {[watch.steps[i] for i in bad]}")
             check_val(runner, watch)
 
-            # the first step again, through make_train_step on the same batch
-            cfg = runner.cfg
-            model = PoseModel(cfg["model"], metainfo=runner.metainfo, device="cuda")
-            model.init_weights(seed=0)
-            optimizer, _ = build_optimizer(model, cfg["optim_wrapper"], cfg["param_scheduler"],
-                                           len(runner.train_loader), runner.max_epochs)
-            batch = runner.to_device(runner.train_loader.load(0, 0))
-            _, metrics = make_train_step(model, optimizer)(
-                create_train_state(model, optimizer), batch, torch.Generator(device="cuda").manual_seed(cfg["seed"]))
-            direct = {k: float(v) for k, v in metrics.items()}
-            logged = runner.train_log[0]
-            rel = {k: abs(logged[k] - v) / max(abs(v), 1e-30) for k, v in direct.items()}
-            print(f"train_flagship first step: Runner.train {json.dumps({k: logged[k] for k in direct})}; "
-                  f"make_train_step {json.dumps(direct)}; largest relative difference {max(rel.values()):.3e} "
-                  f"(bar {TRAIN_FLAGSHIP_REL:g}, 1e-7 absolute at 0)")
-            if any(abs(logged[k] - v) > TRAIN_FLAGSHIP_REL * abs(v) + 1e-7 for k, v in direct.items()):
-                raise AssertionError(f"train_flagship: the first step's loss dict differs from make_train_step's: {rel}")
-            del model, optimizer, batch
+            first_step_check("train_flagship", runner)
 
+            cfg = runner.cfg
             fresh = PoseModel(cfg["model"], device="cuda")
             load_checkpoint(fresh, str(wd / "epoch_2.pth"))
             live, saved = runner.model.module.state_dict(), fresh.module.state_dict()
@@ -2522,9 +2796,6 @@ class Smoke:
 
         from probpose_code_torch.config import Config
         from probpose_code_torch.datasets.loader import stop_workers
-        from probpose_code_torch.engine.optim import build_optimizer
-        from probpose_code_torch.models.builder import PoseModel
-        from probpose_code_torch.parallel import create_train_state, make_train_step
         from probpose_code_torch.tools import train as train_cli
 
         config = CLASSIC_RECIPES["res50"]
@@ -2561,20 +2832,7 @@ class Smoke:
             if not Path(tmp, "work", "epoch_1.pth").exists():
                 raise AssertionError("res50_train: no checkpoint written")
 
-            # the first step again, through make_train_step on the same batch
-            cfg, raw = runner.cfg, runner.train_loader.load(0, 0)
-            model = PoseModel(cfg["model"], metainfo=runner.metainfo, device="cuda")
-            model.init_weights(seed=0)
-            optimizer, _ = build_optimizer(model, cfg["optim_wrapper"], cfg["param_scheduler"],
-                                           len(runner.train_loader), runner.max_epochs)
-            gen = torch.Generator(device="cuda").manual_seed(cfg["seed"])
-            _, m = make_train_step(model, optimizer)(create_train_state(model, optimizer), runner.to_device(raw), gen)
-            direct = {k: float(v) for k, v in m.items()}
-            rel = {k: abs(logged[k] - v) / max(abs(v), 1e-30) for k, v in direct.items()}
-            print(f"res50_train first step: make_train_step {json.dumps(direct)}; largest relative difference from "
-                  f"Runner.train's {max(rel.values()):.3e} (bar {TRAIN_FLAGSHIP_REL:g}, 1e-7 absolute at 0)")
-            if any(abs(logged[k] - v) > TRAIN_FLAGSHIP_REL * abs(v) + 1e-7 for k, v in direct.items()):
-                raise AssertionError(f"res50_train: the first step's loss dict differs from make_train_step's: {rel}")
+            first_step_check("res50_train", runner)
             runner.close()
 
     def rtmpose_predict(self):
@@ -2628,6 +2886,257 @@ class Smoke:
             if not (np.isfinite(kpts).all() and metrics and all(math.isfinite(v) for v in metrics.values())):
                 raise AssertionError(f"rtmpose_train val: keypoints or metrics not finite: {metrics}")
             self.record["rtmpose_val_launches"] = launches
+
+    def rtmpose_augment(self):
+        """RTMPose's photometric augmentations on the card
+        (``ops/kernels/photometric.py``: the median kernel of
+        ``csrc/photometric.cu``, the HSV jitter through its tables, the blur
+        and dropout in PyTorch) against ``AUGMENT_FIXTURE`` bit for bit: the
+        fixture's batch of ``AUGMENT_B`` crops (every op, every kernel size),
+        both HSV tables (every colour and HSV triple), and the window-sum
+        tiles of each kernel size (``augment_fixture_report``); no kernel of
+        the port's TPU list launched. Then, at the main path's shapes (a batch
+        of 256 crops, parameters drawn by the recipe's own worker halves,
+        ``recipe_augment_params``: its rates, blur and median 0.1 each, a hole
+        on every crop), the median kernel against its plain version on the
+        same inputs (exactly), its time beside the plain version's and its
+        bound, the HSV jitter's time by the tables and by the plain
+        conversions, and the whole augment's time by the card's forms and by
+        the plain versions."""
+        import numpy as np
+        import torch
+
+        from probpose_code_torch.ops import photometric as plain
+        from probpose_code_torch.ops.kernels import photometric
+
+        read_counts = reset_counts()
+        t0 = time.perf_counter()
+        report = augment_fixture_report("cuda")
+        torch.cuda.synchronize()
+        launches = read_counts()
+        print(f"rtmpose_augment against cv2's fixture ({time.perf_counter() - t0:.1f} s): {json.dumps(report)}; "
+              f"launches {json.dumps(launches)}")
+        if not report["ok"] or launches != NO_LAUNCHES:
+            raise AssertionError("rtmpose_augment: the card's augmentations differ from cv2's bytes, or launched a "
+                                 "kernel of the port's TPU list")
+        crops = np.load(AUGMENT_FIXTURE)["crops"]
+        img = torch.from_numpy(crops[np.arange(AUGMENT_B) % len(crops)]).cuda().float()
+        params = {k: torch.from_numpy(v).cuda() for k, v in recipe_augment_params(AUGMENT_B, seed=0).items()}
+        gains = params["hsv_gains"]
+        hsv_equal = torch.equal(photometric.yolox_hsv(img, gains), plain.yolox_hsv(img, gains))
+        hsv_ms = cuda_time_ms(lambda: photometric.yolox_hsv(img, gains), iters=20)
+        hsv_plain_ms = cuda_time_ms(lambda: plain.yolox_hsv(img, gains), iters=5)
+        fired = params["median_ksize"]
+        median = dict(name="photometric_median", route="cuda", source="probpose_code_torch/csrc/photometric.cu",
+                      ports="probpose_code_tpu/datasets/transforms/common.py:797", max_abs_err=0.0, ms=0.0,
+                      plain_ms=0.0, bound_ms=0.0, library_ms=None)
+        need = dict(bytes=0.0, operations=0.0)
+        for k in sorted(set(fired.tolist()) - {0}):
+            crops_k = img[(fired == k).nonzero()[:, 0]]
+            median["max_abs_err"] = max(median["max_abs_err"], float(
+                (photometric.median_blur(crops_k, k) - plain.median_blur(crops_k, k)).abs().max()))
+            median["ms"] += cuda_time_ms(lambda: photometric.median_blur(crops_k, k), iters=20)
+            median["plain_ms"] += cuda_time_ms(lambda: plain.median_blur(crops_k, k), iters=3)
+            # this batch's need: each float read once and written once, and the fewest comparisons any
+            # selection of the median of k² values makes, 3 (k² - 1) / 2 (the adversary bound), at the int32 rate
+            seconds = dict(bytes=8 * crops_k.numel() / PEAK_BYTES,
+                           operations=1.5 * (k * k - 1) * crops_k.numel() / PEAK_INT32)
+            median["bound_ms"] += max(seconds.values()) * 1e3
+            need = {key: need[key] + seconds[key] for key in need}
+        median["bound_by"] = max(need, key=need.get)
+        if not hsv_equal or median["max_abs_err"]:
+            raise AssertionError(f"rtmpose_augment: the card's HSV jitter equals the plain one {hsv_equal}; the "
+                                 f"median kernel's largest difference from its plain version {median['max_abs_err']}")
+
+        def plain_augment():
+            out = plain.yolox_hsv(img, gains)
+            for key, op in (("blur_ksize", plain.box_blur), ("median_ksize", plain.median_blur)):
+                out = photometric._per_ksize(out, params[key], op)
+            return plain.coarse_dropout(out, params["dropout_rects"])
+
+        equal = torch.equal(photometric.augment(img, **params), plain_augment())
+        ms = cuda_time_ms(lambda: photometric.augment(img, **params), iters=20)
+        plain_ms = cuda_time_ms(plain_augment, iters=5)
+        counts = {k: int((params[k] > 0).sum()) for k in ("blur_ksize", "median_ksize")}
+        print(f"rtmpose_augment: a batch of {AUGMENT_B} crops under the recipe's draws ({json.dumps(counts)} crops "
+              f"blurred / median-filtered, kernel sizes {sorted(set(fired.tolist()) - {0})}): {ms:.3f} ms on the "
+              f"card by its forms, {plain_ms:.3f} ms by the plain versions (CUDA events, each including the launch "
+              f"gaps after its per-kernel-size host syncs); equal {equal}")
+        print(f"  the HSV jitter by its tables: {hsv_ms:.4f} ms, by the plain conversions {hsv_plain_ms:.4f} ms "
+              f"(bound {24 * img.numel() // 3 / PEAK_BYTES * 1e3:.4f} ms: 3 floats read and 3 written a pixel)")
+        print(f"  {median['name']}: {median['ms']:.4f} ms, plain {median['plain_ms']:.4f} ms, bound "
+              f"{median['bound_ms']:.4f} ms ({median['bound_by']}), {median['ms'] / median['bound_ms']:.1f}x its "
+              f"bound, max abs error {median['max_abs_err']}")
+        if not equal:
+            raise AssertionError("rtmpose_augment: the card's augment differs from the plain versions'")
+        self.record["augment"] = [median]
+
+    def rtmpose_train_runner(self):
+        """RTMPose-m's own training recipe through ``tools.train``'s main on
+        its config file (random weights, seed 0) at the recipe's batch of
+        256 with eight worker processes, over the golden JPEGs with their
+        annotations copied to 512 train instances (2 steps an epoch) and the
+        62 golden instances as the val set: two epochs with ``switch_epoch=1``
+        (the stage-2 pipeline from the second, its workers restarted), the
+        EMA hook, a checkpoint each epoch and val after the second; then a
+        third epoch resumed by ``--resume``. Fails unless 4 steps run, no
+        kernel of the port launches, one JPEG decode runs a step and a val
+        batch, the crops are augmented on the card, the metrics are finite,
+        ``epoch_2.pth`` holds the EMA's average as its weights and the live
+        weights as ``ema_state_dict``, the first loss dict equals
+        ``make_train_step``'s on the same batch, weights and generator seed
+        (``TRAIN_FLAGSHIP_REL``), and the resumed run starts at epoch 2,
+        step 4, with the saved average and ends at step 6. Prints each
+        epoch's train crops/s with the ``train_times`` split (the decode and
+        the augment apart), peak device memory, and one step profiled inside
+        the runner."""
+        import contextlib
+        import tempfile
+
+        import torch
+
+        from probpose_code_torch.datasets.loader import stop_workers
+        from probpose_code_torch.engine.checkpoint import read_checkpoint
+        from probpose_code_torch.ops.kernels.jpeg import decode_batch
+        from probpose_code_torch.tools import train as train_cli
+
+        RunnerWatch = _runner_watch()
+
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+            stack.callback(stop_workers)
+            _, ann = golden_jpeg_set(tmp)
+            copy_instances(ann, 512, Path(tmp, "train.json"))
+            Path(tmp, "val.json").write_text(Path(ann).read_text())
+            wd = Path(tmp, "work")
+            argv = [str(RTMPOSE), "--work-dir", str(wd), "--cfg-options",
+                    *coco_data_options(tmp, "train.json", workers=8), "train_cfg.val_interval=2",
+                    "default_hooks.checkpoint.interval=1", "default_hooks.logger.interval=1",
+                    "custom_hooks.1.switch_epoch=1"]
+
+            # the main path: counts set to 0 just before, read just after
+            watch = RunnerWatch(profile_step=4)  # the second step of the second epoch
+            torch.cuda.reset_peak_memory_stats()
+            read_counts = reset_counts()
+            runner = train_cli.main(argv + ["train_cfg.max_epochs=2"], hooks=[watch])
+            torch.cuda.synchronize()
+            launches, decodes = read_counts(), decode_batch.launches
+            augments = {k: c.launches for k, c in augment_counters().items()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            B, steps, val_batches = runner.train_loader.batch_size, runner.state.step, len(runner.val_loader)
+            print(f"rtmpose_train_runner main path: {steps} steps of {B}, launches {json.dumps(launches)}, JPEG "
+                  f"decodes {decodes}, photometric kernel {json.dumps(augments)}, peak device memory {peak:.2f} GiB")
+            report_runner_epochs("rtmpose_train_runner", runner, 0, watch.profiler_s)
+            log = (wd / "train.log").read_text()
+            written = sorted(p.name for p in wd.glob("*.pth"))
+            metrics = watch.metrics or {}
+            print(f"rtmpose_train_runner val inside training: {len(runner.val_dataset)} instances, "
+                  f"{json.dumps(metrics)}; val_times {json.dumps(runner.val_times)}")
+            if (B != 256 or steps != 4 or launches != NO_LAUNCHES or decodes != steps + val_batches
+                    or written != ["epoch_1.pth", "epoch_2.pth"] or "pipeline switch at epoch 1" not in log
+                    or not metrics or not all(math.isfinite(v) for v in metrics.values())
+                    or not all(t["augment"] > 0 for t in runner.train_times)
+                    or not augments["photometric_median"]):
+                raise AssertionError(f"rtmpose_train_runner: batch {B}, {steps} steps, launches {launches}, "
+                                     f"{decodes} decodes, checkpoints {written}, metrics {metrics}")
+            self.record["rtmpose_runner_launches"] = launches
+            self.record["augment_launches"] = augments
+            ckpt = read_checkpoint(str(wd / "epoch_2.pth"))
+            live = runner.model.module.state_dict()
+            ema = runner.hooks[0]
+            average = dict(zip([n for n, _ in runner.model.module.named_parameters()], ema.ema_params))
+            if not (all(torch.equal(ckpt["ema_state_dict"][k], live[k].cpu()) for k in ckpt["ema_state_dict"])
+                    and all(torch.equal(ckpt["state_dict"][k], v.cpu()) for k, v in average.items())):
+                raise AssertionError("rtmpose_train_runner: epoch_2.pth does not hold the average as its weights "
+                                     "and the live weights as ema_state_dict")
+            first_step_check("rtmpose_train_runner", runner)
+            del runner, ckpt, live, average, ema
+
+            watch = RunnerWatch(resume_from=str(wd / "epoch_2.pth"))
+            runner = train_cli.main(argv + ["train_cfg.max_epochs=3", "--resume"], hooks=[watch])
+            report_runner_epochs("rtmpose_train_runner", runner, 2)
+            print(f"rtmpose_train_runner resumed: started at {json.dumps(watch.start)}; ended at step "
+                  f"{runner.state.step}")
+            if (watch.start != dict(epoch=2, step=steps, average_equal=True) or runner.state.step != 3 * steps // 2
+                    or "pipeline switch at epoch 2" not in (wd / "train.log").read_text()):
+                raise AssertionError("rtmpose_train_runner: the resumed epoch did not start at epoch 2, step 4, "
+                                     "with the saved average and the stage-2 pipeline, or did not end at step 6")
+
+    def rtmpose_aic_train(self):
+        """The AIC+COCO recipe (``rtmpose-m_8xb256-420e_aic-coco``) through
+        ``tools.train``'s main at its batch of 128 with four workers: its
+        ``CombinedDataset`` over the golden JPEGs, the COCO half their
+        annotations copied to 256 instances and the AIC half the same mapped
+        back to AIC's 14 keypoints (``aic_from_coco``), each AIC sample
+        through its ``KeypointConverter`` to COCO's 17; one epoch (4 steps)
+        and val. Fails unless no kernel of the port launches, the metrics are
+        finite, and every batch's keypoint weights (B, 17) as the step
+        received them from the workers equal that batch made in this process
+        on the CPU (``DataLoader.load``), the first loss dict equals
+        ``make_train_step``'s (``TRAIN_FLAGSHIP_REL``). Prints the epoch's
+        train crops/s and its split."""
+        import contextlib
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from probpose_code_torch.datasets.loader import stop_workers
+        from probpose_code_torch.engine.hooks import Hook
+        from probpose_code_torch.tools import train as train_cli
+
+        class Weights(Hook):
+            """The keypoint weights of each batch the step receives."""
+
+            def __init__(self):
+                self.seen = []
+
+            def before_run(self, runner):
+                step = runner.train_step
+
+                def recording(state, batch, generator):
+                    self.seen.append(batch["keypoint_weights"].cpu().numpy())
+                    return step(state, batch, generator)
+
+                runner.train_step = recording
+
+        config = RTMPOSE.parent / "rtmpose-m_8xb256-420e_aic-coco-256x192.py"
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+            stack.callback(stop_workers)
+            _, ann = golden_jpeg_set(tmp)
+            copy_instances(ann, 256, Path(tmp, "train.json"))
+            aic_from_coco(Path(tmp, "train.json"), Path(tmp, "aic.json"))
+            Path(tmp, "val.json").write_text(Path(ann).read_text())
+            options = coco_data_options(tmp)
+            for i, name in enumerate(("train.json", "aic.json")):
+                options += [f"train_dataloader.dataset.datasets.{i}.data_root={tmp}",
+                            f"train_dataloader.dataset.datasets.{i}.ann_file={name}",
+                            f"train_dataloader.dataset.datasets.{i}.data_prefix.img=imgs/"]
+            options += ["train_cfg.max_epochs=1", "train_cfg.val_interval=1", "default_hooks.checkpoint.interval=1",
+                        "default_hooks.logger.interval=1"]
+            weights = Weights()
+            # the main path: counts set to 0 just before, read just after
+            read_counts = reset_counts()
+            runner = train_cli.main([str(config), "--work-dir", str(Path(tmp, "work")), "--cfg-options", *options],
+                                    hooks=[weights])
+            torch.cuda.synchronize()
+            launches = read_counts()
+            B, steps = runner.train_loader.batch_size, runner.state.step
+            print(f"rtmpose_aic_train main path: {steps} steps of {B} over {len(runner.train_loader.dataset)} "
+                  f"instances (COCO and AIC), launches {json.dumps(launches)}")
+            report_runner_epochs("rtmpose_aic_train", runner, 0)
+            here = [runner.train_loader.load(0, i)["keypoint_weights"] for i in range(steps)]
+            equal = len(here) == len(weights.seen) and all(np.array_equal(a, b) for a, b in zip(here, weights.seen))
+            aic_rows = sum(int((w[:, :5] == 0).all(axis=1).sum()) for w in weights.seen)
+            print(f"rtmpose_aic_train: the weights of {len(weights.seen)} batches ({weights.seen[0].shape} each) "
+                  f"{'equal' if equal else 'differ from'} the CPU's; {aic_rows} rows with no face keypoint weight")
+            metrics = runner.train_log[-1]
+            if (B != 128 or steps != 4 or launches != NO_LAUNCHES or not equal
+                    or weights.seen[0].shape != (B, 17) or not all(math.isfinite(v) for v in metrics.values())):
+                raise AssertionError(f"rtmpose_aic_train: batch {B}, {steps} steps, launches {launches}, weights "
+                                     f"equal {equal}, metrics {metrics}")
+            self.record["rtmpose_aic_launches"] = launches
+            first_step_check("rtmpose_aic_train", runner)
+            runner.close()
 
     @staticmethod
     def profile(fn, calls: int, what: str = "flagship calls"):
@@ -2910,7 +3419,8 @@ class Smoke:
                      hrnet_predict="hrnet_launches", hrnet_train="hrnet_train_launches", res50_predict="res50_launches",
                      hrnet_msra_predict="hrnet_msra_launches", res50_train="res50_train_launches",
                      rtmpose_predict="rtmpose_launches", rtmpose_train="rtmpose_train_launches",
-                     rtmpose_val="rtmpose_val_launches")
+                     rtmpose_val="rtmpose_val_launches", rtmpose_train_runner="rtmpose_runner_launches",
+                     rtmpose_aic_train="rtmpose_aic_launches")
         # K1's one counter read for the record of the instance each path ran
         k1_records = self.record.get("k1_records", {})
         for path, key in paths.items():
@@ -3170,6 +3680,9 @@ def main() -> int:
         smoke.phase("res50_train", smoke.res50_train)
         smoke.phase("rtmpose_predict", smoke.rtmpose_predict)
         smoke.phase("rtmpose_train", smoke.rtmpose_train)
+        smoke.phase("rtmpose_augment", smoke.rtmpose_augment)
+        smoke.phase("rtmpose_train_runner", smoke.rtmpose_train_runner)
+        smoke.phase("rtmpose_aic_train", smoke.rtmpose_aic_train)
         smoke.phase("timings", smoke.timings)
     left = stop_descendants()
     if left:
@@ -3181,6 +3694,9 @@ def main() -> int:
     print(json.dumps({"kernels": smoke.record["kernels"]}))
     # the JPEG decode, no TPU kernel: its own line, its launches those of val_flagship's main path
     print(json.dumps({"decode": dict(smoke.record["decode"], launches=smoke.record["decode_launches"])}))
+    # the photometric kernel, no TPU kernel: its own line, its launches those of rtmpose_train_runner's main path
+    print(json.dumps({"augment": [dict(rec, launches=smoke.record["augment_launches"][rec["name"]])
+                                  for rec in smoke.record["augment"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

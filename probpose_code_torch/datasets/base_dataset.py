@@ -5,8 +5,9 @@ The port's own copy of ``probpose_code_tpu/datasets/base_dataset.py``
 ``dataset_wrappers.py``): ``Compose``, ``BaseCocoStyleDataset`` (annotation
 parsing with the ProbPose ``keypoints_visibility`` (v==2) flag and
 ``pad_to_contain``, detector boxes from a ``bbox_file``, the top-down
-organization and filters), ``CocoDataset``, ``CocoCropDataset`` and
-``CombinedDataset``. ``data_mode="bottomup"`` comes with the bottom-up slice.
+organization and filters), ``CocoDataset``, ``CocoCropDataset``,
+``AicDataset`` (``datasets/zoo.py:28``) and ``CombinedDataset``.
+``data_mode="bottomup"`` comes with the bottom-up slice.
 """
 
 from __future__ import annotations
@@ -268,10 +269,24 @@ class CocoCropDataset(BaseCocoStyleDataset):
 
 
 @DATASETS.register_module()
+class AicDataset(BaseCocoStyleDataset):
+    """AI Challenger: 14 body keypoints in COCO's annotation format
+    (reference ``datasets/body/aic_dataset.py``)."""
+
+    METAINFO: dict = dict(dataset_name="aic")
+
+
+@DATASETS.register_module()
 class CombinedDataset:
     """Concatenation of sub-datasets under a shared pipeline (reference
-    ``dataset_wrappers.py``). The JAX class's ``sample_ratio_factor``
-    (resampling for training mixes) is set by no config and not ported."""
+    ``dataset_wrappers.py``). A sample goes through its sub-dataset's own
+    pipeline first (such as AIC's ``KeypointConverter`` to COCO's 17
+    keypoints), then takes the shared metainfo keys, then the shared
+    pipeline, as mmpose's ``CombinedDataset.get_data_info`` does
+    (``self.datasets[i][j]``). The JAX class reads the sub-dataset's
+    ``get_data_info``, which skips the sub-pipeline. Its
+    ``sample_ratio_factor`` (resampling for training mixes) is set by no
+    config and not ported."""
 
     def __init__(self, metainfo: dict, datasets: Sequence[dict], pipeline: Sequence = (), test_mode: bool = False,
                  **kwargs):
@@ -295,9 +310,13 @@ class CombinedDataset:
             index -= n
         raise IndexError(index)
 
-    def get_data_info(self, idx: int) -> dict:
+    def get_data_info(self, idx: int) -> Optional[dict]:
+        """Sample ``idx`` through its sub-dataset's pipeline (None where that
+        drops it), with the shared metainfo keys."""
         ds_idx, sample_idx = self._map_index(idx)
-        info = self.datasets[ds_idx].get_data_info(sample_idx)
+        info = self.datasets[ds_idx][sample_idx]
+        if info is None:
+            return None
         # shared metainfo keys override per-sub-dataset values (reference)
         for key in ("upper_body_ids", "lower_body_ids", "flip_pairs", "flip_indices",
                     "dataset_keypoint_weights", "skeleton_links"):
@@ -305,4 +324,5 @@ class CombinedDataset:
         return info
 
     def __getitem__(self, idx: int) -> Optional[dict]:
-        return self.pipeline(self.get_data_info(idx))
+        info = self.get_data_info(idx)
+        return None if info is None else self.pipeline(info)

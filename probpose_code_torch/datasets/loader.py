@@ -40,6 +40,8 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch.utils.data
 
+from probpose_code_torch.ops.photometric import AUGMENT_KEYS
+
 # the batch's entries that stay on the host, as lists: the JPEG files, which
 # the model's device decodes (``PoseModel.device_preprocess_batch``)
 HOST_KEYS = ("jpeg", "jpeg_info", "jpeg_path")
@@ -77,8 +79,11 @@ def collate_pose_samples(samples: List[dict]) -> Dict:
     as the codec computes them), and it carries what its loss reads and the
     JAX collate drops (``probpose_code_tpu/datasets/loader.py:40-180``):
     ``keypoints_in_image`` and the bbox mask's ``bbox_mask_rect`` (B, 4) and
-    ``bbox_mask_mat`` (B, 2, 3), which the device renders. Every batch holds
-    ``data_samples``."""
+    ``bbox_mask_mat`` (B, 2, 3), which the device renders. A batch from the
+    photometric transforms carries their parameters, stacked in the
+    batch's order: ``hsv_gains`` (B, 3) int16, ``blur_ksize`` and
+    ``median_ksize`` (B,) int32 (0: the op did not fire), ``dropout_rects``
+    (B, max_holes, 4) int32. Every batch holds ``data_samples``."""
     samples = [s for s in samples if s is not None]
     assert samples, "empty batch after pipeline drops"
     batch: Dict = {}
@@ -98,6 +103,9 @@ def collate_pose_samples(samples: List[dict]) -> Dict:
         batch["jpeg_image"] = np.searchsorted(first, image).astype(np.int64)
         batch["jpeg_warp_mat"] = np.stack([samples[i]["warp_mat"] for i in jpegs]).astype(np.float32)
         batch["jpeg_index"] = np.asarray(jpegs, np.int64)
+    for key in AUGMENT_KEYS:
+        if key in samples[0]:
+            batch[key] = np.stack([s[key] for s in samples])
     data_samples = [s["data_samples"] for s in samples]
     if "device_kpts_hm" in samples[0]:
         double = "device_kpts_hm_out" in samples[0]

@@ -1,17 +1,20 @@
 """Dataset meta-information: keypoint definitions, flip pairs, OKS sigmas.
 
-The port's own copy of ``probpose_code_tpu/datasets/metainfo`` for COCO and
-CropCOCO (``coco_crop.py``: COCO's table under another name):
-``parse_pose_metainfo`` (``__init__.py:65``) over those tables.
+The port's own copy of ``probpose_code_tpu/datasets/metainfo`` for COCO,
+CropCOCO (``coco_crop.py``: COCO's table under another name) and AI
+Challenger (``data/aic.json``): ``parse_pose_metainfo`` (``__init__.py:65``)
+over those tables.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .aic import AIC_METAINFO
 from .coco import COCO_METAINFO
 
-DATASET_METAINFO = {"coco": COCO_METAINFO, "coco_crop": {**COCO_METAINFO, "dataset_name": "coco_crop"}}
+DATASET_METAINFO = {"coco": COCO_METAINFO, "coco_crop": {**COCO_METAINFO, "dataset_name": "coco_crop"},
+                    "aic": AIC_METAINFO}
 
 
 def parse_pose_metainfo(metainfo: dict) -> dict:

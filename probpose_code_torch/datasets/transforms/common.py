@@ -3,12 +3,16 @@
 The port's own copy of ``probpose_code_tpu/datasets/transforms/common.py``
 (reference ``common_transforms.py``): ``GetBBoxCenterScale`` (``:28``) and
 the train transforms ``RandomFlip`` (``:47``), ``RandomHalfBody``
-(``:124``), ``RandomBBoxTransform`` (``:206``) and ``GenerateTarget``
-(``:569``). The random transforms draw from NumPy's global generator in the
-JAX transforms' order, so that the loader's per-batch seed gives the JAX
+(``:124``), ``RandomBBoxTransform`` (``:206``), ``YOLOXHSVRandomAug``
+(``:490``), ``GenerateTarget`` (``:569``) and ``Albumentation`` (``:749``).
+The random transforms draw from NumPy's global generator in the JAX
+transforms' order, so that the loader's per-batch seed gives the JAX
 pipeline's draws. ``GenerateTarget`` takes only the JAX transform's
 device-deferred form (``_device_defer``, ``:603-650``): the maps are
-rendered on the device by ``PoseModel.device_preprocess_batch``.
+rendered on the device by ``PoseModel.device_preprocess_batch``. The
+photometric transforms act on the crop, which exists only on the device:
+here they make exactly the JAX draws and record the parameters, and
+``ops/kernels/photometric.py:augment`` applies them to the batch's crops.
 """
 
 from __future__ import annotations
@@ -236,6 +240,42 @@ class RandomBBoxTransform:
         return results
 
 
+def _after_crop(results: Dict, name: str) -> None:
+    """The photometric transforms act on the crop that ``TopdownAffine``
+    defines (its ``warp_mat``), which the device cuts after every host
+    transform: one placed before it would act on the whole image in the
+    JAX pipeline, which the port does not do. The device applies them in the
+    shipped configs' order, the HSV gains and then Albumentation's ops: a
+    pipeline in another order, or with one of them twice, raises."""
+    if "warp_mat" not in results:
+        raise NotImplementedError(f"{name}: the port applies it to the crop on the device; it must follow "
+                                  "TopdownAffine in the pipeline")
+    # the device applies each transform's parameters once, the HSV gains first (``augment``)
+    if "blur_ksize" in results or (name == "YOLOXHSVRandomAug" and "hsv_gains" in results):
+        raise NotImplementedError(f"{name}: the port applies YOLOXHSVRandomAug and then Albumentation, each at "
+                                  "most once; the pipeline has another order")
+
+
+@TRANSFORMS.register_module()
+class YOLOXHSVRandomAug:
+    """HSV gain jitter of the crop (reference ``common_transforms.py:1472``).
+    The worker half: the JAX draws (``uniform(-1, 1, 3)`` times the deltas,
+    then ``randint(0, 2, 3)``) cast to int16 as ``hsv_gains``; the device
+    applies them (``ops/kernels/photometric.py:yolox_hsv``)."""
+
+    def __init__(self, hue_delta: int = 5, saturation_delta: int = 30, value_delta: int = 30):
+        self.hue_delta = hue_delta
+        self.saturation_delta = saturation_delta
+        self.value_delta = value_delta
+
+    def __call__(self, results: Dict) -> Optional[dict]:
+        _after_crop(results, "YOLOXHSVRandomAug")
+        hsv_gains = np.random.uniform(-1, 1, 3) * [self.hue_delta, self.saturation_delta, self.value_delta]
+        hsv_gains *= np.random.randint(0, 2, 3)
+        results["hsv_gains"] = hsv_gains.astype(np.int16)
+        return results
+
+
 @TRANSFORMS.register_module()
 class GenerateTarget:
     """The training targets of one instance, deferred to the device: the
@@ -349,10 +389,87 @@ class GenerateTarget:
             raise ValueError("GenerateTarget requires 'transformed_keypoints' or 'keypoints'")
         keypoints_visible = results["keypoints_visible"]
         if keypoints_visible.ndim == 3 and keypoints_visible.shape[2] == 2:
-            keypoints_visible, results["keypoints_visible_weights"] = keypoints_visible[..., 0], keypoints_visible[..., 1]
+            results["keypoints_visible_weights"] = keypoints_visible[..., 1]
+            keypoints_visible = keypoints_visible[..., 0]
             results["keypoints_visible"] = keypoints_visible
         encoded = self._device_defer(keypoints, keypoints_visible)
         if self.use_dataset_keypoint_weights:
             encoded["keypoint_weights"] = encoded["keypoint_weights"] * results["dataset_keypoint_weights"]
         results.update(encoded)
+        return results
+
+
+@TRANSFORMS.register_module()
+class Albumentation:
+    """Image-only augmentations of the crop in the albumentations config
+    schema, the JAX transform's native branch (the albumentations package is
+    absent: ``common.py:792-871``) for the three ops that shipped configs
+    set: ``Blur``, ``MedianBlur`` and ``CoarseDropout``, each at most once
+    and in that order. Any other op raises a ``KeyError`` that names it.
+
+    The worker half makes the JAX draws: ``np.random.randint(0, 2**31)``
+    seeds a ``default_rng``, which draws one ``uniform()`` an op and, for an
+    op that fires, its own parameters: an odd kernel size in ``[3,
+    blur_limit]`` (``_odd_ksize``) for the blurs, CoarseDropout's hole count
+    and each hole's size and place (``_px`` of fractional sizes against the
+    crop, ``input_size``). It records ``blur_ksize`` and ``median_ksize``
+    (0: the op did not fire) and ``dropout_rects`` (``max_holes`` rows of y,
+    x, h, w; a hole not drawn has zero size); the device applies them
+    (``ops/kernels/photometric.py:augment``). CoarseDropout's
+    ``fill_value`` other than 0 is set by no config and is not ported."""
+
+    OPS = ("Blur", "MedianBlur", "CoarseDropout")
+
+    def __init__(self, transforms=None, keymap=None):
+        self.transforms = [dict(t) for t in (transforms or [])]
+        kinds = [t["type"] for t in self.transforms]
+        for kind in kinds:
+            if kind not in self.OPS:
+                raise KeyError(f"Albumentation: the {kind} op is not ported; the port runs {list(self.OPS)}")
+        if kinds != sorted(set(kinds), key=self.OPS.index):
+            raise NotImplementedError(f"Albumentation: the port runs each of {list(self.OPS)} at most once, in that "
+                                      f"order; got {kinds}")
+        for t in self.transforms:
+            if t.get("fill_value", 0) != 0:
+                raise NotImplementedError(f"Albumentation: CoarseDropout's fill_value {t['fill_value']} is not ported")
+
+    @staticmethod
+    def _odd_ksize(rng, blur_limit) -> int:
+        lo, hi = (3, blur_limit) if np.isscalar(blur_limit) else blur_limit
+        k = int(rng.integers(lo // 2, hi // 2 + 1)) * 2 + 1
+        return max(3, min(k, hi if hi % 2 else hi - 1))
+
+    @staticmethod
+    def _holes(rng, t: dict, H: int, W: int) -> np.ndarray:
+        def px(v, full):
+            return int(round(v * full)) if isinstance(v, float) and v < 1.0 else int(v)
+
+        max_h, max_w = px(t.get("max_height", 8), H), px(t.get("max_width", 8), W)
+        min_h, min_w = px(t.get("min_height", max_h), H), px(t.get("min_width", max_w), W)
+        max_holes = t.get("max_holes", 8)
+        rects = np.zeros((max_holes, 4), np.int32)
+        for i in range(int(rng.integers(t.get("min_holes", max_holes), max_holes + 1))):
+            hh = int(rng.integers(min_h, max_h + 1))
+            ww = int(rng.integers(min_w, max_w + 1))
+            y = int(rng.integers(0, max(H - hh, 0) + 1))
+            x = int(rng.integers(0, max(W - ww, 0) + 1))
+            rects[i] = (y, x, hh, ww)
+        return rects
+
+    def __call__(self, results: Dict) -> Optional[dict]:
+        _after_crop(results, "Albumentation")
+        W, H = results["input_size"]
+        params = dict(blur_ksize=np.int32(0), median_ksize=np.int32(0), dropout_rects=np.zeros((0, 4), np.int32))
+        rng = np.random.default_rng(np.random.randint(0, 2**31))
+        for t in self.transforms:
+            kind = t["type"]
+            if kind == "CoarseDropout":  # its rows, whether it fires or not
+                params["dropout_rects"] = np.zeros((t.get("max_holes", 8), 4), np.int32)
+            if rng.uniform() < t.get("p", 0.5):
+                if kind == "CoarseDropout":
+                    params["dropout_rects"] = self._holes(rng, t, H, W)
+                else:
+                    key = "blur_ksize" if kind == "Blur" else "median_ksize"
+                    params[key] = np.int32(self._odd_ksize(rng, t.get("blur_limit", 7)))
+        results.update(params)
         return results

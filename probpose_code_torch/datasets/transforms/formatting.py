@@ -7,8 +7,10 @@ through the label table, ``:110-117``) and the device passthrough
 (``:136``): a sample from ``TopdownAffine``'s canvas form carries ``canvas``
 and ``warp_mat`` instead of a crop, one from its JPEG form ``img_bytes``,
 ``jpeg_info`` and ``warp_mat``, and one from ``GenerateTarget`` the
-heatmap-space keypoints instead of maps (DoubleProbMap's in both windows)
-and the bbox mask's rectangle and matrix instead of the mask. Images stay
+heatmap-space keypoints instead of maps (DoubleProbMap's in both windows),
+the bbox mask's rectangle and matrix instead of the mask, and one from the
+photometric transforms their parameters (``hsv_gains``, ``blur_ksize``,
+``median_ksize``, ``dropout_rects``) instead of the changed crop. Images stay
 NumPy; the loader's collate batches them. The JAX transform's ``gt_fields`` hold host-encoded
 maps, which the port never makes.
 """
@@ -19,6 +21,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from probpose_code_torch.ops.photometric import AUGMENT_KEYS
 from probpose_code_torch.registry import TRANSFORMS
 from probpose_code_torch.structures.data_sample import InstanceData, PoseDataSample
 
@@ -101,9 +104,9 @@ class PackPoseInputs:
         packed = dict(inputs=inputs, data_samples=data_sample)
         # device passthrough: the canvas (or the JPEG file and its header) and
         # its geometry instead of a crop, the heatmap-space keypoints instead
-        # of target maps
+        # of target maps, the photometric parameters instead of their result
         for key in ("canvas", "img_bytes", "jpeg_info", "warp_mat", "device_kpts_hm", "device_kpts_hm_out",
-                    "device_kpts_visible", "bbox_mask_rect", "bbox_mask_mat"):
+                    "device_kpts_visible", "bbox_mask_rect", "bbox_mask_mat", *AUGMENT_KEYS):
             if key in results:
                 packed[key] = results[key]
         return packed

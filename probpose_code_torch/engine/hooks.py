@@ -4,8 +4,9 @@ The port's own copy of ``probpose_code_tpu/engine/hooks.py``: the ``Hook``
 protocol (``:33-57``), ``ExpMomentumEMA`` and its mmengine-schema front
 ``EMAHook`` (``:60-150``; reference ``ema_hook.py:14``), and
 ``SyncBuffersHook`` / ``SyncNormHook`` (``:327-340``), which have nothing to
-synchronize on one card, as on the TPU. The mode-switch, visualization,
-bad-case and profiler hooks come with the families and tools that use them.
+synchronize on one card, as on the TPU, and RTMPose's ``PipelineSwitchHook``
+(``:188-206``). The other mode-switch hooks and the visualization, bad-case
+and profiler hooks come with the families and tools that use them.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from probpose_code_torch.datasets.base_dataset import Compose
 from probpose_code_torch.registry import HOOKS
 
 
@@ -40,6 +42,14 @@ class Hook:
 
     def after_eval(self, runner):
         """Restore the live training weights after ``before_eval``."""
+
+    def before_save_checkpoint(self, runner) -> Dict[str, Any]:
+        """Entries to store in the checkpoint beside the weights."""
+        return {}
+
+    def after_load_checkpoint(self, runner, checkpoint: Dict[str, Any]) -> None:
+        """Called when training resumes from ``checkpoint``, its weights
+        already in the model."""
 
     def after_run(self, runner):
         pass
@@ -109,6 +119,33 @@ class ExpMomentumEMA(Hook):
         backup, self._backup = self._backup, None
         self._copy_into(runner, *backup)
 
+    def _names(self, runner):
+        params = [n for n, _ in runner.model.module.named_parameters()]
+        return params, list(runner.model.batch_stats()) if self.update_buffers else []
+
+    def before_save_checkpoint(self, runner) -> Dict[str, Any]:
+        """The runner saves with the average swapped in (``before_eval``), so
+        the file's weights are the averaged ones, as mmengine's EMAHook saves
+        them; the live weights go beside them as ``ema_state_dict``, from
+        which a resumed run continues."""
+        if self._backup is None:
+            return {}
+        params, bufs = self._names(runner)
+        live = [t.detach().cpu() for t in (*self._backup[0], *(self._backup[1] or []))]
+        return dict(ema_state_dict=dict(zip(params + bufs, live)))
+
+    @torch.no_grad()
+    def after_load_checkpoint(self, runner, checkpoint: Dict[str, Any]) -> None:
+        """The file's (averaged) weights become the average again, and its
+        ``ema_state_dict`` the live weights."""
+        if "ema_state_dict" not in checkpoint:
+            return
+        self.ema_params, self.ema_buffers = (None if t is None else [x.clone() for x in t]
+                                             for t in self._tracked(runner))
+        params, bufs = self._names(runner)
+        live = checkpoint["ema_state_dict"]
+        self._copy_into(runner, [live[n] for n in params], [live[n] for n in bufs])
+
 
 @HOOKS.register_module()
 class EMAHook(ExpMomentumEMA):
@@ -138,3 +175,28 @@ class SyncNormHook(Hook):
 
     def __init__(self, priority: int = 48, **_ignored):
         self.priority = priority
+
+
+@HOOKS.register_module()
+class PipelineSwitchHook(Hook):
+    """Swap the train dataset's pipeline for ``switch_pipeline`` before
+    epoch ``switch_epoch`` (the mmdet schema every RTMPose recipe writes:
+    ``switch_epoch=max_epochs - stage2_num_epochs``); a run resumed past
+    that epoch switches before its first. The train loader's workers are
+    kept across epochs, each with its own copy of the dataset, so the hook
+    also ends them: the loader starts new ones, which copy the switched
+    dataset, when the epoch's iteration begins."""
+
+    def __init__(self, switch_epoch: int, switch_pipeline: Optional[list] = None):
+        self.switch_epoch = int(switch_epoch)
+        self.switch_pipeline = switch_pipeline
+        self._switched = False
+
+    def before_train_epoch(self, runner, epoch: int):
+        if self._switched or epoch < self.switch_epoch:
+            return
+        self._switched = True
+        if self.switch_pipeline and runner.train_loader is not None:
+            runner.train_loader.dataset.pipeline = Compose(self.switch_pipeline)
+            runner.train_loader.close()
+            runner.log(f"pipeline switch at epoch {epoch}: stage2 train pipeline active")

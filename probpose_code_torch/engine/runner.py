@@ -231,10 +231,12 @@ class Runner:
         to its end) and the hooks and logging (``hooks``, where the logged
         metrics are read back); the JPEG decodes inside the steps,
         ``decode`` on the card's clock (the host's on the CPU) and
-        ``decode_host`` on the host's; and the epoch's ``crops``."""
+        ``decode_host`` on the host's, and the photometric augmentations
+        alike (``augment``, ``augment_host``); and the epoch's ``crops``."""
         times = dict(loader=0.0, step=0.0, hooks=0.0, crops=0)
         n = len(self.train_loader)
         self.model.decode_clock.take()
+        self.model.augment_clock.take()
         start = t0 = time.perf_counter()
         for i, batch in enumerate(self.train_loader):
             t1 = time.perf_counter()
@@ -263,6 +265,7 @@ class Runner:
             times["hooks"] += t0 - t2
         times["window"] = t0 - start
         times.update(self.model.decode_clock.take())
+        times.update(self.model.augment_clock.take())
         return times
 
     def to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
@@ -293,22 +296,28 @@ class Runner:
         """The training state as a ``.pth`` file: mmpose's ``iter`` and the
         JAX runner's ``step`` are both the updates applied."""
         step = self.state.step
+        extra = {}
+        for hook in self.hooks:
+            extra.update(hook.before_save_checkpoint(self))
         save_checkpoint(path, self.model, self.optimizer, self.state.opt_state,
                         meta=dict(epoch=self.epoch + 1, iter=step, step=step, dataset_meta=self.metainfo,
                                   best_score=float(self.best_metric)),
-                        generator=self.generator.get_state())
+                        generator=self.generator.get_state(), **extra)
         self.log(f"checkpoint saved to {path}")
 
     def try_resume(self, path: Optional[str] = None) -> None:
         """Continue from ``path``, or else the work dir's newest
         ``epoch_N.pth`` (nothing when there is none): the weights, the
-        optimizer's moments, the step, the epoch, the best score and the
-        generator's state."""
+        optimizer's moments, the step, the epoch, the best score, the
+        generator's state, and what the hooks stored (the EMA's live
+        weights)."""
         path = path or latest_checkpoint(self.work_dir)
         if path is None:
             return
         ckpt = read_checkpoint(path)
         self.model.module.load_state_dict(ckpt["state_dict"])
+        for hook in self.hooks:
+            hook.after_load_checkpoint(self, ckpt)
         meta = ckpt.get("meta", {})
         opt_state = self.state.opt_state
         if ckpt.get("optimizer") is not None:

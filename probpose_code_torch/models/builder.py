@@ -17,7 +17,8 @@ from __future__ import annotations
 import contextlib
 import copy
 import math
-from typing import Any, Dict, Optional
+import time
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +33,9 @@ from probpose_code_torch.ops.encode import (
     generate_unbiased_gaussian_device,
     probmap_encode_scales,
 )
-from probpose_code_torch.ops.kernels.jpeg import DecodeClock, decode_batch
+from probpose_code_torch.ops.kernels.jpeg import decode_batch
+from probpose_code_torch.ops.kernels.photometric import augment
+from probpose_code_torch.ops.photometric import AUGMENT_KEYS
 from probpose_code_torch.ops.warp import warp_affine_batch
 from probpose_code_torch.registry import MODELS
 
@@ -145,6 +148,49 @@ def full_f32_precision():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
+class StageClock:
+    """The time one stage of the device's input work takes (``name``: the
+    JPEG decode, the photometric augment), summed over spans, on two
+    clocks: the host's (``<name>_host``: the issuing thread blocked in the
+    stage, work on host threads included) and, for a CUDA device, the
+    card's (``<name>``: CUDA events around the stage's work on the current
+    stream, the host's part included only where the stream waits for it;
+    the host's clock again on the CPU)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._events: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
+        self._host = 0.0
+        self._card = 0.0
+
+    @contextlib.contextmanager
+    def span(self, device: torch.device):
+        events = None
+        if device.type == "cuda":
+            events = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            events[0].record()
+        t0 = time.perf_counter()
+        yield
+        seconds = time.perf_counter() - t0
+        self._host += seconds
+        if events is None:
+            self._card += seconds
+        else:
+            events[1].record()
+            self._events.append(events)
+
+    def take(self) -> Dict[str, float]:
+        """Seconds in the stage since the last ``take``: ``<name>`` (the
+        card's clock; waits for the events) and ``<name>_host``."""
+        card = self._card
+        for start, end in self._events:
+            end.synchronize()
+            card += start.elapsed_time(end) / 1000
+        times = {self.name: card, f"{self.name}_host": self._host}
+        self._events, self._host, self._card = [], 0.0, 0.0
+        return times
+
+
 class PoseModel:
     """Runtime handle: the module on its device, the predict program and the
     loss. ``loss_fn`` runs the module in training mode and ``predict`` in
@@ -167,7 +213,8 @@ class PoseModel:
         self.device = torch.device(device)
         self.module.to(self.device).eval()
         self.loss_modules = build_loss_modules(head_cfg)
-        self.decode_clock = DecodeClock()  # the JPEG decodes of device_preprocess_batch
+        self.decode_clock = StageClock("decode")  # the JPEG decodes of device_preprocess_batch
+        self.augment_clock = StageClock("augment")  # and its photometric augmentations
 
     def train(self, mode: bool = True) -> "PoseModel":
         """Training mode: batch statistics in BatchNorm (running statistics
@@ -288,7 +335,11 @@ class PoseModel:
         decode_batch``: the port's decode on the card, the plain decoder on
         the CPU; timed by ``decode_clock``) and warped from it, each crop to its place
         in the batch. Crops are rounded to uint8 values as the JAX pipeline's
-        host warp (cv2.warpAffine) gives them. A batch that
+        host warp (cv2.warpAffine) gives them; a batch from RTMPose's
+        photometric transforms (``hsv_gains``, ``blur_ksize``,
+        ``median_ksize``, ``dropout_rects``) then has them applied to its
+        crops in the JAX order (``ops/kernels/photometric.py:augment``;
+        timed by ``augment_clock``). A batch that
         carries heatmap-space keypoints (``kpts_hm`` (B, K, 2),
         ``kpts_visible`` (B, K)) instead of target maps gets its maps
         encoded: UDP gaussians for the UDPHeatmap codec, MSRA gaussians
@@ -322,7 +373,11 @@ class PoseModel:
         elif crops:
             inputs = crops[0][1]
         if crops:
-            batch["inputs"] = inputs.round().clamp(0, 255)
+            inputs = inputs.round().clamp(0, 255)
+            if set(AUGMENT_KEYS) & set(batch):
+                with self.augment_clock.span(inputs.device):
+                    inputs = augment(inputs, **{k: batch.pop(k) for k in AUGMENT_KEYS if k in batch})
+            batch["inputs"] = inputs
         if "kpts_hm" not in batch or "heatmaps" in batch or "keypoint_x_labels" in batch:
             return batch
         dc = self.decoder_cfg

@@ -33,10 +33,8 @@ a failure on the card raises with the file's name and the CUDA error.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import os
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -143,44 +141,3 @@ def decode_bytes(data: bytes, device, name: str = "request body") -> torch.Tenso
     """One JPEG stream as an (H, W, 3) uint8 BGR tensor on ``device``."""
     img, ((h, w),) = decode_batch([data], device, [name])
     return img[0, :h, :w]
-
-
-class DecodeClock:
-    """The time spent decoding, summed over spans, on two clocks: the
-    host's (``decode_host``: the issuing thread blocked in the decode, the
-    Huffman decode on host threads included) and, for a CUDA device, the
-    card's (``decode``: CUDA events around the decode's work on the current
-    stream, the host's part included only where the stream waits for it;
-    the host's clock again on the CPU)."""
-
-    def __init__(self):
-        self._events: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
-        self._host = 0.0
-        self._card = 0.0
-
-    @contextlib.contextmanager
-    def span(self, device: torch.device):
-        events = None
-        if device.type == "cuda":
-            events = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            events[0].record()
-        t0 = time.perf_counter()
-        yield
-        seconds = time.perf_counter() - t0
-        self._host += seconds
-        if events is None:
-            self._card += seconds
-        else:
-            events[1].record()
-            self._events.append(events)
-
-    def take(self) -> Dict[str, float]:
-        """Seconds decoding since the last ``take``, ``decode`` (the card's
-        clock; waits for the events) and ``decode_host``."""
-        card = self._card
-        for start, end in self._events:
-            end.synchronize()
-            card += start.elapsed_time(end) / 1000
-        times = dict(decode=card, decode_host=self._host)
-        self._events, self._host, self._card = [], 0.0, 0.0
-        return times

@@ -34,8 +34,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 
 def build_runner(cfg: Config, device=None) -> Runner:
     """The runner that evaluates ``cfg``: its test set and evaluator as the
-    val ones, and none of its ``custom_hooks``, which act only in training
-    (RTMPose's ``PipelineSwitchHook`` is not ported)."""
+    val ones, and none of its ``custom_hooks``, which act only in training."""
     if "test_dataloader" in cfg:
         cfg.val_dataloader = cfg.test_dataloader
     if "test_evaluator" in cfg:

@@ -34,7 +34,8 @@ buffer for each batch, the truncated stream refused; the val path over JPEG file
 decode a batch) and ``tools.serve`` answering ``inference_topdown``'s JSON;
 the device encodes of the MSRA codec (and its unbiased form) and of the
 SimCC labels against the port's host codecs, and the classic and RTMPose
-model fixtures on the card.
+model fixtures on the card; the photometric median kernel and the HSV
+tables against their plain versions and against cv2's fixture.
 Bars are ``chip_smoke.py``'s, with its reasons.
 """
 
@@ -781,3 +782,43 @@ def test_model_fixtures_on_the_card(card, name):
     report = model_fixture_report(CLASSIC_FIXTURE if name == "classic" else RTMPOSE_FIXTURE, device="cuda")
     assert report["ok"], report
     assert all(c.launches == 0 for c in counters.values())
+
+
+@pytest.mark.parametrize("shape", [(3, 256, 192), (2, 17, 13), (1, 1, 5), (4, 7, 300)])
+def test_photometric_kernels_match_plain(card, shape):
+    """The card's photometric forms against their plain versions on noise
+    crops, exactly: the median kernel of ``csrc/photometric.cu`` on the
+    crop's shape and odd sides, one-pixel rows (its replicated border on
+    every side), rows wider than a block, each k it takes and a k it
+    refuses; the HSV jitter through its tables on each shape cut to a width
+    cv2 converts in whole blocks, and its refusal of any other width."""
+    from probpose_code_torch.ops import photometric as plain
+    from probpose_code_torch.ops.kernels import photometric
+
+    rng = np.random.RandomState(sum(shape))
+    img = torch.from_numpy(rng.randint(0, 256, (*shape, 3)).astype(np.float32)).cuda()
+    gains = torch.from_numpy((rng.uniform(-1, 1, (shape[0], 3)) * [5, 30, 30]).astype(np.int16)).cuda()
+    width = shape[2] - shape[2] % plain.HSV_ROW_BLOCK
+    if width:
+        assert torch.equal(photometric.yolox_hsv(img[:, :, :width], gains), plain.yolox_hsv(img[:, :, :width], gains))
+    if width != shape[2]:
+        with pytest.raises(ValueError, match=f"width of {shape[2]}"):
+            photometric.yolox_hsv(img, gains)
+    before = photometric.median_blur.launches
+    for k in photometric.MEDIAN_KSIZES:
+        assert torch.equal(photometric.median_blur(img, k), plain.median_blur(img, k)), k
+    assert photometric.median_blur.launches == before + len(photometric.MEDIAN_KSIZES)
+    with pytest.raises(ValueError, match="k in"):
+        photometric.median_blur(img, 9)
+    with pytest.raises(ValueError, match="float32"):
+        photometric.median_blur(img.double(), 3)
+
+
+def test_augment_fixture_on_the_card(card):
+    """``chip_smoke.augment_fixture_report`` on the card: cv2's bytes for
+    the fixture's batch, every colour, every HSV triple and the window-sum
+    tiles."""
+    from chip_smoke import augment_fixture_report
+
+    report = augment_fixture_report("cuda")
+    assert report["ok"], report

@@ -26,7 +26,8 @@ import pytest
 import torch
 
 from probpose_code_torch.datasets import jpeg
-from probpose_code_torch.ops.kernels.jpeg import DecodeClock, decode_batch, decode_bytes
+from probpose_code_torch.models.builder import StageClock
+from probpose_code_torch.ops.kernels.jpeg import decode_batch, decode_bytes
 
 FIXTURES = Path(__file__).resolve().parent / "golden_torch"
 FORMATS = ["444", "422", "440", "gray", "progressive", "restart", "exif6", "exif8"]
@@ -125,7 +126,7 @@ def test_decode_batch_fills_zeroed_slots():
         np.testing.assert_array_equal(out[i, :h, :w].numpy(), jpeg.decode(datas[i]))
         assert not out[i, h:].any() and not out[i, :, w:].any()
     np.testing.assert_array_equal(decode_bytes(datas[0], "cpu").numpy(), jpeg.decode(datas[0]))
-    clock = DecodeClock()
+    clock = StageClock("decode")
     with clock.span(torch.device("cpu")):
         decode_bytes(datas[2], "cpu")
     first = clock.take()

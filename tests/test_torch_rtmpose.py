@@ -30,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import RTMPOSE, RTMPOSE_FIXTURE, mini_coco_set, model_fixture_report
+from chip_smoke import RTMPOSE, RTMPOSE_FIXTURE, model_fixture_report
 from probpose_code_torch.apis import init_model
 from probpose_code_torch.codecs.simcc_label import SimCCLabel
 from probpose_code_torch.config import Config
@@ -43,7 +43,6 @@ from probpose_code_torch.ops.decode import simcc_maximum_batch
 from probpose_code_torch.ops.encode import generate_simcc_labels_device
 from probpose_code_torch.ops.tta import flip_vectors
 from probpose_code_torch.parallel import create_train_state, make_train_step
-from probpose_code_torch.tools import train as train_cli
 from probpose_code_tpu.codecs import SimCCLabel as JaxSimCCLabel
 from probpose_code_tpu.datasets.transforms.common import GenerateTarget as JaxGenerateTarget
 from probpose_code_tpu.engine.checkpoint import convert_torch_state_dict
@@ -401,25 +400,6 @@ def test_config_builds_on_the_cpu_only_when_asked(monkeypatch):
     preds = model.predict(torch.from_numpy(_crops(1, seed=7)))
     assert preds["keypoints"].shape == (1, 17, 2) and torch.isfinite(preds["keypoints"]).all()
     assert preds["keypoint_x_labels"].shape == (1, 17, 384) and preds["keypoint_y_labels"].shape == (1, 17, 512)
-
-
-@pytest.mark.parametrize("missing", ["PipelineSwitchHook", "YOLOXHSVRandomAug", "Albumentation"])
-def test_tools_train_refuses_the_recipe_by_name(missing, tmp_path):
-    """RTMPose's training needs pieces the port has not ported:
-    ``tools.train`` names the first one it meets: the recipe's
-    ``PipelineSwitchHook``, then (the hooks left out) ``YOLOXHSVRandomAug``,
-    then (that left out too) ``Albumentation``."""
-    ann = mini_coco_set(tmp_path / "data")
-    pipeline = _plain(RECIPE["train_pipeline"])
-    if missing == "Albumentation":
-        pipeline = [t for t in pipeline if t["type"] != "YOLOXHSVRandomAug"]
-    config = tmp_path / "rtmpose.py"
-    config.write_text(f"_base_ = [{str(RTMPOSE)!r}]\n"
-                      f"train_dataloader = dict(num_workers=0, dataset=dict(data_root={str(ann.parent)!r}, "
-                      f"ann_file={ann.name!r}, data_prefix=dict(img='imgs/'), pipeline={pipeline!r}))\n"
-                      + ("" if missing == "PipelineSwitchHook" else "custom_hooks = []\n"))
-    with pytest.raises(KeyError, match=missing):
-        train_cli.main([str(config), "--work-dir", str(tmp_path / "work"), "--device", "cpu"])
 
 
 def test_tools_test_evaluates_the_recipe(tmp_path, capsys):
