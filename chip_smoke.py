@@ -123,14 +123,15 @@ card and the CUDA toolkit (nvcc); it builds the port's kernels from
 30. ``rtmpose_train``: RTMPose-m's bare step on 64 crops (SimCC labels
    rendered on the card), then ``Runner.val`` as ``tools.test`` builds it
    over the golden JPEGs: the SimCC predictions reach ``CocoMetric``;
-31. ``rtmpose_augment``: RTMPose's photometric augmentations on the card
-   (the median kernel of ``csrc/photometric.cu``, the HSV jitter through
-   its tables, the blur and the dropout in PyTorch) bit for bit against
-   cv2's fixture (``tests/golden_torch/augment_fixture.npz``): a batch of
-   256 crops, every op and kernel size, every colour and HSV triple, every
-   window sum; the kernel against its plain version at the main path's
-   shapes; the time of the kernel, of the HSV jitter and of a batch's whole
-   augment;
+31. ``rtmpose_augment``: the RTMPose recipes' photometric augmentations on
+   the card (the median and ``PhotometricDistortion`` kernels of
+   ``csrc/photometric.cu``, the HSV jitter through its tables, the blur and
+   the dropout in PyTorch) bit for bit against cv2's fixture
+   (``tests/golden_torch/augment_fixture.npz``): a batch of 256 crops,
+   every op and kernel size, the distortion in both recipes' orders, every
+   colour and HSV triple (hue 180 too), every window sum; each kernel
+   against its plain version at the main paths' shapes; the time of the
+   kernels, of the HSV jitter and of each recipe's whole augment;
 32. ``rtmpose_train_runner``: RTMPose-m's own recipe through
    ``tools.train`` at its batch of 256 over 512 golden JPEG instances, two
    epochs across the stage-2 switch (``PipelineSwitchHook``, the loader's
@@ -141,7 +142,20 @@ card and the CUDA toolkit (nvcc); it builds the port's kernels from
 33. ``rtmpose_aic_train``: the AIC+COCO recipe's epoch at its batch of 128
    (``CombinedDataset``, AIC through ``KeypointConverter``): every batch's
    keypoint weights (B, 17) as the workers made them equal the CPU's;
-34. ``timings``: each kernel's time beside its plain twin's, a PyTorch
+34. ``body8_train_runner``: RTMPose-m's body8 recipe as
+   ``rtmpose_train_runner`` (eight sub-datasets in their own layouts, 64
+   instances each, YOLOX HSV, the distortion and Albumentation in stage 1):
+   the same checks, the distortion kernel once a stage-1 step, and its
+   share of the profiled step's device time;
+35. ``halpe26_runner``: the halpe26 recipe (its converters repaired,
+   ``halpe26_repair_options``) at its batch of 512, one epoch of 2 steps
+   and val over the eight-way mixed set by PCK and AUC, the best checkpoint
+   by AUC, then ``tools.test`` on it: finite ``pck/PCK`` and ``auc/AUC``,
+   the first loss dict, peak memory;
+36. ``crowdpose_val``: ``tools.test`` on the CrowdPose ResNet-50 recipe
+   over the golden JPEGs in CrowdPose's layout: finite ``crowdpose/``
+   stats from COCOeval's crowd iouType;
+37. ``timings``: each kernel's time beside its plain twin's, a PyTorch
    library call's where one computes the same function, and its bound from
    this run's shapes; K1 also at the ViT-B predict shape (f32), K4 also at
    the ProbPose-S shape in bf16. For K1 (bf16 and f32) and K3 (forward,
@@ -155,10 +169,11 @@ The lines before the last hold the kernels' record as JSON (each kernel's
 ``launches`` from the flagship's paths, and ``launches_by_path`` on every
 main path: K1's one count goes to the record of the instance, bf16 ViT-S
 or f32 ViT-B, that the path's model runs) and the JPEG decode's (no TPU
-kernel: its own line, no ``replaces``) and the photometric median
-kernel's (no TPU kernel either: the ``augment`` line, its ``ports`` the JAX
-transform it ports, its ``launches`` from ``rtmpose_train_runner``'s main
-path), the last line ``{"ok": true,
+kernel: its own line, no ``replaces``) and the photometric kernels' (no
+TPU kernel either: the ``augment`` line, each one's ``ports`` the JAX
+transform it ports, the median's ``launches`` from
+``rtmpose_train_runner``'s main path, the distortion's from
+``body8_train_runner``'s), the last line ``{"ok": true,
 "device": ...}``. Any failure exits non-zero without them. It imports neither JAX nor the JAX package.
 """
 
@@ -187,6 +202,10 @@ CLASSIC_RECIPES = {
                        ("hrnet_w32", "hrnet-w32_8xb64"), ("hrnet_w32_dark", "hrnet-w32_dark-8xb64"))
 }
 RTMPOSE = ROOT / "configs/body_2d_keypoint/rtmpose/coco/rtmpose-m_8xb256-420e_coco-256x192.py"
+# RTMPose-m's body8 recipes (the COCO-17 one and the 26-keypoint halpe26 one) and a CrowdPose recipe
+BODY8 = ROOT / "configs/body_2d_keypoint/rtmpose/body8/rtmpose-m_8xb256-420e_body8-256x192.py"
+HALPE26 = ROOT / "configs/body_2d_keypoint/rtmpose/body8/rtmpose-m_8xb512-700e_body8-halpe26-256x192.py"
+CROWDPOSE = ROOT / "configs/body_2d_keypoint/topdown_heatmap/crowdpose/td-hm_res50_8xb64-210e_crowdpose-256x192.py"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them (the FMA units: K2 and K3's f32 instance), and device memory.
@@ -790,15 +809,20 @@ def model_fixture_report(fixture, device):
 # cv2 on the CPU): input crops cut from the golden images by cv2, a batch of
 # ``AUGMENT_B`` parameter sets over them (``augment_fixture_params``), and
 # the SHA-256 of cv2's uint8 result after each of the four ops of each
-# sample; the SHA-256 of cv2's BGR -> HSV of every colour
+# sample; ``PhotometricDistortion``'s rows (``photometric_fixture_params``)
+# and the SHA-256 of each sample's result by cv2 and NumPy after the HSV
+# jitter and on the crop; the SHA-256 of cv2's BGR -> HSV of every colour
 # (``all_bgr_colours``), of its HSV -> BGR of every HSV triple
-# (``all_hsv_triples``), and of its blur and median of the window-sum tiles
-# (``window_sum_tiles``) for each kernel size. The card's machine has no
+# (``all_hsv_triples``) and of hue 180's, and of its blur and median of the
+# window-sum tiles (``window_sum_tiles``) for each kernel size. The card's machine has no
 # OpenCV: the digests hold it to cv2's bytes exactly.
 AUGMENT_FIXTURE = GOLDEN_JPEG / "augment_fixture.npz"
 AUGMENT_B = 256
 AUGMENT_KSIZES = (3, 5, 7)
 AUGMENT_STAGES = ("hsv_gains", "blur_ksize", "median_ksize", "dropout_rects")
+# cv2's digests of each sample after ``PhotometricDistortion`` (its rows ``photometric``) in the body8 and the
+# halpe26 recipes' order
+PHOTOMETRIC_DIGESTS = ("photometric", "photometric_after_hsv", "photometric_first")
 
 
 def all_bgr_colours():
@@ -811,12 +835,14 @@ def all_bgr_colours():
     return np.stack([c & 255, (c >> 8) & 255, c >> 16], -1).astype(np.uint8).reshape(-1, 256, 3)
 
 
-def all_hsv_triples():
-    """Every 8-bit HSV triple with a hue below 180, (61440, 192, 3) uint8."""
+def all_hsv_triples(hues=range(180)):
+    """Every 8-bit HSV triple with a hue in ``hues``, (-1, 256, 3) uint8
+    (hue, then saturation, then value), 256 a row: a multiple of cv2's
+    vector lanes."""
     import numpy as np
 
-    h, s, v = np.meshgrid(np.arange(180), np.arange(256), np.arange(256), indexing="ij")
-    return np.stack([h, s, v], -1).astype(np.uint8).reshape(-1, 192, 3)
+    h, s, v = np.meshgrid(np.asarray(hues), np.arange(256), np.arange(256), indexing="ij")
+    return np.stack([h, s, v], -1).astype(np.uint8).reshape(-1, 256, 3)
 
 
 def window_sum_tiles(k):
@@ -853,6 +879,25 @@ def augment_fixture_params(n, crops, seed=0):
                 median_ksize=ks[(i // 4) % 4], dropout_rects=rects.astype(np.int32)[:, None])
 
 
+def photometric_fixture_params(n, seed=0):
+    """``n`` rows of ``PhotometricDistortion``'s parameters drawn by the
+    port's worker half (the body8 and halpe26 recipes' settings, its
+    defaults) from NumPy's generator seeded with ``seed``; every 16th row's
+    hue delta set to -1e-6, which turns hue 0 into 180 (NumPy's float32
+    remainder). (n, 8) float32."""
+    import numpy as np
+
+    from probpose_code_torch.datasets.transforms.common import PhotometricDistortion
+
+    state = np.random.get_state()
+    np.random.seed(seed)
+    distortion = PhotometricDistortion()
+    rows = np.stack([distortion(dict(warp_mat=np.eye(2, 3)))["photometric"] for _ in range(n)])
+    np.random.set_state(state)
+    rows[::16, 3] = -1e-6
+    return rows
+
+
 def sha256(arr) -> bytes:
     import hashlib
 
@@ -862,11 +907,13 @@ def sha256(arr) -> bytes:
 def augment_fixture_report(device, limit=None):
     """``ops/kernels/photometric.py`` on ``device`` (the card's forms, or
     the plain versions on the CPU) against ``AUGMENT_FIXTURE``: the four ops
-    in turn on its batch (its first ``limit`` samples), each sample's result
-    after each op against cv2's digest; the HSV tables that the plain
-    conversions fill on ``device`` (every colour and HSV triple), and the
-    blur and median on the window-sum tiles for each kernel size, against
-    cv2's digests. Returns a report with ``ok``."""
+    of the RTMPose recipe in turn on its batch (its first ``limit``
+    samples), each sample's result after each op against cv2's digest;
+    ``PhotometricDistortion`` after the HSV jitter (the body8 recipes'
+    order) and on the crops (the halpe26 recipes'); the HSV tables that the
+    plain conversions fill on ``device`` (every colour and HSV triple, hue
+    180 too), and the blur and median on the window-sum tiles for each
+    kernel size, against cv2's digests. Returns a report with ``ok``."""
     import numpy as np
     import torch
 
@@ -874,14 +921,24 @@ def augment_fixture_report(device, limit=None):
     from probpose_code_torch.ops.kernels import photometric
 
     fx = dict(np.load(AUGMENT_FIXTURE))
-    for key in ("index", "digests", *AUGMENT_STAGES):
+    for key in ("index", "digests", *AUGMENT_STAGES, *PHOTOMETRIC_DIGESTS):
         fx[key] = fx[key][:limit]
-    img = torch.from_numpy(fx["crops"][fx["index"]]).to(device).float()
-    stages = {}
+
+    def mismatched(img, digests):
+        got = img.to(torch.uint8).cpu().numpy()
+        return int(sum(sha256(got[j]) != digests[j].tobytes() for j in range(len(got))))
+
+    crops = torch.from_numpy(fx["crops"][fx["index"]]).to(device).float()
+    rows = torch.from_numpy(fx["photometric"]).to(device)
+    img, stages = crops, {}
     for i, key in enumerate(AUGMENT_STAGES):
         img = photometric.augment(img, **{key: torch.from_numpy(fx[key]).to(device)})
-        got = img.to(torch.uint8).cpu().numpy()
-        stages[key] = int(sum(sha256(got[j]) != fx["digests"][j, i].tobytes() for j in range(len(got))))
+        stages[key] = mismatched(img, fx["digests"][:, i])
+        if key == "hsv_gains":  # the body8 recipes' order, the distortion after the HSV jitter
+            stages["photometric_after_hsv"] = mismatched(photometric.augment(img, photometric=rows),
+                                                         fx["photometric_after_hsv"])
+    # the halpe26 recipes' order, the distortion first
+    stages["photometric_first"] = mismatched(photometric.augment(crops, photometric=rows), fx["photometric_first"])
 
     def digest(tensor):
         return sha256(tensor.to(torch.uint8).cpu().numpy())
@@ -889,8 +946,10 @@ def augment_fixture_report(device, limit=None):
     def on_device(arr):
         return torch.from_numpy(arr).to(device)
 
-    exhaustive = {name: digest(table) == fx[name].tobytes()
-                  for name, table in zip(("bgr_to_hsv", "hsv_to_bgr"), plain.hsv_tables(device))}
+    to_hsv, to_bgr = plain.hsv_tables(device)
+    exhaustive = dict(bgr_to_hsv=digest(to_hsv) == fx["bgr_to_hsv"].tobytes(),
+                      hsv_to_bgr=digest(to_bgr[:180 << 16]) == fx["hsv_to_bgr"].tobytes(),
+                      hsv_to_bgr_180=digest(to_bgr[180 << 16:]) == fx["hsv_to_bgr_180"].tobytes())
     for k in AUGMENT_KSIZES:
         tiles = on_device(window_sum_tiles(k)).float()[None]
         exhaustive[f"blur_{k}"] = digest(plain.box_blur(tiles, k)[0]) == fx[f"blur_{k}"].tobytes()
@@ -1073,16 +1132,75 @@ def aic_from_coco(ann_file, out_file):
     keypoints (``AIC_TO_COCO``; head top and neck, which COCO lacks,
     unannotated), written to ``out_file``: the AIC half of the AIC+COCO
     recipe over the same images."""
+    body_set_from_coco(ann_file, out_file, "AicDataset", AIC_TO_COCO)
+
+
+def body_set_from_coco(ann_file, out_file, dataset_type, mapping=None):
+    """A COCO keypoint annotation file in the layout of the body dataset
+    ``dataset_type`` (``datasets/base_dataset.py:BODY_DATASETS``: its
+    metainfo's keypoints), written to ``out_file``: the inverse of a
+    recipe's ``KeypointConverter`` ``mapping`` of (dataset keypoint, target
+    keypoint) pairs, whose targets below 17 are COCO's (body8's COCO layout,
+    halpe26's first 17); each dataset keypoint takes the COCO keypoint its
+    target is, the rest unannotated. No mapping: COCO's 17 as they are.
+    CrowdPose's images get a ``crowdIndex`` (0 to 0.95)."""
+    from probpose_code_torch.datasets.base_dataset import BODY_DATASETS
+    from probpose_code_torch.datasets.metainfo import DATASET_METAINFO
+
+    num = len(DATASET_METAINFO[BODY_DATASETS[dataset_type]]["keypoint_info"])
     gt = json.loads(Path(ann_file).read_text())
     for a in gt["annotations"]:
         coco = [a["keypoints"][3 * k:3 * k + 3] for k in range(17)]
-        aic = [[0, 0, 0] for _ in range(14)]
-        for s, t in AIC_TO_COCO:
-            aic[s] = coco[t]
-        a["keypoints"] = [v for kpt in aic for v in kpt]
-        a["num_keypoints"] = sum(kpt[2] > 0 for kpt in aic)
-    gt["categories"] = [dict(id=1, name="person", keypoints=[str(k) for k in range(14)], skeleton=[])]
+        kpts = [[0, 0, 0] for _ in range(num)]
+        for s, t in mapping if mapping is not None else zip(range(17), range(17)):
+            if t < 17:
+                kpts[s] = coco[t]
+        a["keypoints"] = [v for kpt in kpts for v in kpt]
+        a["num_keypoints"] = sum(kpt[2] > 0 for kpt in kpts)
+    if dataset_type == "CrowdPoseDataset":
+        for k, im in enumerate(gt["images"]):
+            im["crowdIndex"] = round(0.05 * (k % 20), 2)
+    gt["categories"] = [dict(id=1, name="person", keypoints=[str(k) for k in range(num)], skeleton=[])]
     Path(out_file).write_text(json.dumps(gt))
+
+
+def recipe_sets(cfg, loader, root, ann_file):
+    """The sub-datasets of ``cfg[loader]``'s ``CombinedDataset`` over the
+    images under ``root``: ``ann_file`` (COCO's layout) written in each
+    one's layout through the inverse of its pipeline's ``KeypointConverter``
+    (``body_set_from_coco``) as ``root/<loader>_<i>.json``. Returns the
+    ``--cfg-options`` items that point each sub-dataset at its file."""
+    options = []
+    for i, d in enumerate(cfg[loader]["dataset"]["datasets"]):
+        mapping = next((t["mapping"] for t in d.get("pipeline", []) if t["type"] == "KeypointConverter"), None)
+        name = f"{loader}_{i}.json"
+        body_set_from_coco(ann_file, Path(root) / name, d["type"], mapping)
+        options += [f"{loader}.dataset.datasets.{i}.{key}" for key in (f"data_root={root}", f"ann_file={name}",
+                                                                      "data_prefix.img=imgs/")]
+    return options
+
+
+def halpe26_repair_options(cfg, loaders=("train_dataloader", "val_dataloader")):
+    """``--cfg-options`` items that give the halpe26 recipes' sub-datasets
+    mmpose's converters where the shipped configs' differ from them: Halpe
+    gets ``halpe_halpe26`` (the first 26 of its 136 keypoints; the configs
+    give it ``pipeline=[]``), and COCO and OCHuman, whose files the configs
+    name COCO's 17-keypoint ones, their 17 body keypoints (the configs'
+    mapping also reads COCO-WholeBody's six foot keypoints, 17-22, which
+    mmpose takes from a ``CocoWholeBodyDataset``). Without them the port
+    refuses the recipe's samples by name."""
+    options = []
+    for loader in loaders:
+        for i, d in enumerate(cfg[loader]["dataset"]["datasets"]):
+            if d["type"] == "HalpeDataset":
+                mapping = [(k, k) for k in range(26)]
+            elif d["type"] in ("CocoDataset", "OCHumanDataset"):
+                mapping = [(k, k) for k in range(17)]
+            else:
+                continue
+            converter = [dict(type="KeypointConverter", num_keypoints=26, mapping=mapping)]
+            options.append(f"{loader}.dataset.datasets.{i}.pipeline={converter!r}")
+    return options
 
 
 def tiny_train_cfg(ann_file, batch_size, num_workers=0, approximate_gelu=False):
@@ -1173,11 +1291,11 @@ def k1_record(model) -> str:
 
 
 def augment_counters():
-    """The photometric kernel's wrapper (no TPU kernel: its own line), whose
-    ``launches`` counts its kernel's launches."""
+    """The photometric kernels' wrappers (no TPU kernel: their own line),
+    whose ``launches`` count their kernels' launches."""
     from probpose_code_torch.ops.kernels import photometric
 
-    return dict(photometric_median=photometric.median_blur)
+    return dict(photometric_median=photometric.median_blur, photometric_distortion=photometric.photometric_distortion)
 
 
 def reset_counts():
@@ -1373,21 +1491,23 @@ def stop_descendants(grace: float = 10.0) -> list:
     return running
 
 
-def recipe_augment_params(n, seed):
-    """The photometric parameters of ``n`` crops drawn by the RTMPose-m
-    recipe's own ``YOLOXHSVRandomAug`` and ``Albumentation`` (its train
-    pipeline) from NumPy's generator seeded with ``seed``, stacked as a
-    batch carries them."""
+def recipe_augment_params(n, seed, config=RTMPOSE):
+    """The photometric parameters of ``n`` crops drawn by the photometric
+    transforms of ``config``'s train pipeline (RTMPose-m's:
+    ``YOLOXHSVRandomAug`` and ``Albumentation``; body8's also
+    ``PhotometricDistortion``, halpe26's that and ``Albumentation``) from
+    NumPy's generator seeded with ``seed``, stacked as a batch carries
+    them."""
     import numpy as np
 
     import probpose_code_torch.datasets  # noqa: F401  (registers the transforms)
     from probpose_code_torch.config import Config
+    from probpose_code_torch.datasets.transforms.common import PHOTOMETRIC_ORDER
     from probpose_code_torch.ops.photometric import AUGMENT_KEYS
     from probpose_code_torch.registry import TRANSFORMS
 
-    pipeline = Config.fromfile(RTMPOSE)["train_pipeline"]
-    transforms = [TRANSFORMS.build(json.loads(json.dumps(t))) for t in pipeline
-                  if t["type"] in ("YOLOXHSVRandomAug", "Albumentation")]
+    pipeline = Config.fromfile(config)["train_pipeline"]
+    transforms = [TRANSFORMS.build(json.loads(json.dumps(t))) for t in pipeline if t["type"] in PHOTOMETRIC_ORDER]
     state = np.random.get_state()
     np.random.seed(seed)
     samples = []
@@ -1397,7 +1517,7 @@ def recipe_augment_params(n, seed):
             results = t(results)
         samples.append(results)
     np.random.set_state(state)
-    return {k: np.stack([r[k] for r in samples]) for k in AUGMENT_KEYS}
+    return {k: np.stack([r[k] for r in samples]) for k in AUGMENT_KEYS if k in samples[0]}
 
 
 def report_runner_epochs(name, runner, first_epoch, profiler_s=0.0):
@@ -1459,7 +1579,7 @@ def _runner_watch():
 
         def __init__(self, resume_from=None, profile_step=None):
             self.resume_from, self.profile_step = resume_from, profile_step
-            self.metrics, self.start, self.prof, self.profiler_s = None, None, None, 0.0
+            self.metrics, self.start, self.prof, self.profiler_s, self.busy_ms = None, None, None, 0.0, None
 
         def before_run(self, runner):
             self.start = dict(epoch=runner.epoch, step=runner.state.step)
@@ -1484,8 +1604,9 @@ def _runner_watch():
                 t = time.perf_counter()
                 wall_us = (t - self.t0) * 1e6
                 self.prof.stop()
-                Smoke.report_profile(self.prof, wall_us, 1, "runner steps (the loader wait, the batch moved, the "
-                                                            "decode and augment, the step, the hooks)")
+                self.busy_ms = Smoke.report_profile(self.prof, wall_us, 1, "runner steps (the loader wait, the "
+                                                                           "batch moved, the decode and augment, the "
+                                                                           "step, the hooks)")
                 self.prof = None
                 self.profiler_s += time.perf_counter() - t
 
@@ -2902,7 +3023,7 @@ class Smoke:
         same inputs (exactly), its time beside the plain version's and its
         bound, the HSV jitter's time by the tables and by the plain
         conversions, and the whole augment's time by the card's forms and by
-        the plain versions."""
+        the plain versions; then ``photometric_timings``."""
         import numpy as np
         import torch
 
@@ -2970,96 +3091,319 @@ class Smoke:
         if not equal:
             raise AssertionError("rtmpose_augment: the card's augment differs from the plain versions'")
         self.record["augment"] = [median]
+        self.photometric_timings(img)
+
+    def photometric_timings(self, img):
+        """``PhotometricDistortion`` on the card (the tables and its float32
+        steps) against its plain version at the body8 and halpe26 recipes'
+        shapes: a batch of 256 crops, each recipe's whole augment under its
+        own worker halves' draws (body8: the HSV jitter, the distortion,
+        Albumentation; halpe26: the last two), exactly equal by the card's
+        forms and by the plain versions; the distortion's time by the
+        tables and by the plain conversions, and its bound (bytes: 3 floats
+        read and 3 written a pixel at 3.35 TB/s)."""
+        import torch
+
+        from probpose_code_torch.ops import photometric as plain
+        from probpose_code_torch.ops.kernels import photometric
+
+        # this batch's need: 3 floats read and 3 written a pixel; about 25 float32 operations a pixel
+        need = dict(bytes=24 * img.numel() // 3 / PEAK_BYTES * 1e3, operations=25 * img.numel() // 3 / PEAK_F32 * 1e3)
+        bound = max(need.values())
+        self.record["photometric_ms"] = {}
+        for recipe, config in (("body8", BODY8), ("halpe26", HALPE26)):
+            params = {k: torch.from_numpy(v).cuda() for k, v in recipe_augment_params(AUGMENT_B, 0, config).items()}
+            rows = params["photometric"]
+            before = photometric.yolox_hsv(img, params["hsv_gains"]) if "hsv_gains" in params else img
+
+            def plain_augment():
+                out = plain.yolox_hsv(img, params["hsv_gains"]) if "hsv_gains" in params else img
+                out = plain.photometric_distortion(out, rows)
+                for key, op in (("blur_ksize", plain.box_blur), ("median_ksize", plain.median_blur)):
+                    out = photometric._per_ksize(out, params[key], op)
+                return plain.coarse_dropout(out, params["dropout_rects"])
+
+            err = float((photometric.photometric_distortion(before, rows)
+                         - plain.photometric_distortion(before, rows)).abs().max())
+            equal = not err and torch.equal(photometric.augment(img, **params), plain_augment())
+            ms = cuda_time_ms(lambda: photometric.photometric_distortion(before, rows), iters=20)
+            plain_ms = cuda_time_ms(lambda: plain.photometric_distortion(before, rows), iters=5)
+            augment_ms = cuda_time_ms(lambda: photometric.augment(img, **params), iters=20)
+            augment_plain_ms = cuda_time_ms(plain_augment, iters=5)
+            fired = {name: int((rows[:, i] != neutral).sum()) for i, (name, neutral) in enumerate(
+                (("brightness", 0), ("contrast", 1), ("saturation", 1), ("hue", 0), ("contrast_after", 1)))}
+            fired["order"] = int((rows[:, 5:] != torch.arange(3.0, device=rows.device)).any(1).sum())
+            print(f"rtmpose_augment {recipe}: PhotometricDistortion on {AUGMENT_B} crops {ms:.4f} ms by its kernel, "
+                  f"{plain_ms:.4f} ms by the plain version, bound {bound:.4f} ms ({max(need, key=need.get)}: "
+                  f"{json.dumps(need)}), {ms / bound:.1f}x its "
+                  f"bound, steps fired {json.dumps(fired)}; the recipe's whole augment {augment_ms:.3f} ms, plain "
+                  f"{augment_plain_ms:.3f} ms; equal {equal}")
+            if not equal:
+                raise AssertionError(f"rtmpose_augment {recipe}: the card's PhotometricDistortion or augment differs "
+                                     "from the plain versions'")
+            self.record["photometric_ms"][recipe] = ms
+            if recipe == "body8":
+                self.record["augment"].append(dict(
+                    name="photometric_distortion", route="cuda", source="probpose_code_torch/csrc/photometric.cu",
+                    ports="probpose_code_tpu/datasets/transforms/common.py:384", max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound, bound_by=max(need, key=need.get), library_ms=None))
 
     def rtmpose_train_runner(self):
         """RTMPose-m's own training recipe through ``tools.train``'s main on
         its config file (random weights, seed 0) at the recipe's batch of
         256 with eight worker processes, over the golden JPEGs with their
         annotations copied to 512 train instances (2 steps an epoch) and the
-        62 golden instances as the val set: two epochs with ``switch_epoch=1``
-        (the stage-2 pipeline from the second, its workers restarted), the
-        EMA hook, a checkpoint each epoch and val after the second; then a
-        third epoch resumed by ``--resume``. Fails unless 4 steps run, no
-        kernel of the port launches, one JPEG decode runs a step and a val
-        batch, the crops are augmented on the card, the metrics are finite,
-        ``epoch_2.pth`` holds the EMA's average as its weights and the live
-        weights as ``ema_state_dict``, the first loss dict equals
-        ``make_train_step``'s on the same batch, weights and generator seed
-        (``TRAIN_FLAGSHIP_REL``), and the resumed run starts at epoch 2,
-        step 4, with the saved average and ends at step 6. Prints each
-        epoch's train crops/s with the ``train_times`` split (the decode and
-        the augment apart), peak device memory, and one step profiled inside
-        the runner."""
+        62 golden instances as the val set, as ``switch_runner`` runs it."""
         import contextlib
         import tempfile
 
-        import torch
-
         from probpose_code_torch.datasets.loader import stop_workers
-        from probpose_code_torch.engine.checkpoint import read_checkpoint
-        from probpose_code_torch.ops.kernels.jpeg import decode_batch
-        from probpose_code_torch.tools import train as train_cli
-
-        RunnerWatch = _runner_watch()
 
         with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
             stack.callback(stop_workers)
             _, ann = golden_jpeg_set(tmp)
             copy_instances(ann, 512, Path(tmp, "train.json"))
             Path(tmp, "val.json").write_text(Path(ann).read_text())
-            wd = Path(tmp, "work")
-            argv = [str(RTMPOSE), "--work-dir", str(wd), "--cfg-options",
-                    *coco_data_options(tmp, "train.json", workers=8), "train_cfg.val_interval=2",
-                    "default_hooks.checkpoint.interval=1", "default_hooks.logger.interval=1",
-                    "custom_hooks.1.switch_epoch=1"]
+            launches, augments, _ = self.switch_runner("rtmpose_train_runner", RTMPOSE, tmp,
+                                                       coco_data_options(tmp, "train.json", workers=8))
+            self.record["rtmpose_runner_launches"] = launches
+            self.record["augment_launches"] = augments
 
+    def body8_train_runner(self):
+        """RTMPose-m's body8 recipe (``rtmpose-m_8xb256-420e_body8``) as
+        ``rtmpose_train_runner`` runs the COCO one: its eight-way
+        ``CombinedDataset`` over the golden JPEGs, 64 instances each (512 in
+        all: 2 steps of 256 an epoch), each sub-dataset's annotation file
+        in its own layout (``recipe_sets``: the golden COCO keypoints mapped
+        back through the inverse of the recipe's mapping, CrowdPose's images
+        with a ``crowdIndex``) and through its ``KeypointConverter``; YOLOX
+        HSV, ``PhotometricDistortion`` and Albumentation on the card in
+        stage 1. Also prints ``PhotometricDistortion``'s share of the
+        profiled step's device time: its time on a batch of 256 in
+        ``rtmpose_augment`` over the step's busy time."""
+        import contextlib
+        import tempfile
+
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.datasets.loader import stop_workers
+
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+            stack.callback(stop_workers)
+            _, ann = golden_jpeg_set(tmp)
+            copy_instances(ann, 64, Path(tmp, "train.json"))
+            Path(tmp, "val.json").write_text(Path(ann).read_text())
+            options = coco_data_options(tmp, workers=8) + ["train_dataloader.num_workers=8"] + recipe_sets(
+                Config.fromfile(str(BODY8)), "train_dataloader", tmp, Path(tmp, "train.json"))
+            launches, augments, busy_ms = self.switch_runner("body8_train_runner", BODY8, tmp, options)
+            if augments["photometric_distortion"] != 2:  # one a step of stage 1, none in stage 2
+                raise AssertionError(f"body8_train_runner: the distortion kernel launched {augments} times")
+            self.record["body8_runner_launches"] = launches
+            self.record["body8_augment_launches"] = augments
+            photometric_ms = self.record.get("photometric_ms", {}).get("body8")
+            if busy_ms and photometric_ms:
+                print(f"body8_train_runner: PhotometricDistortion {photometric_ms:.4f} ms a batch of 256 "
+                      f"(rtmpose_augment), {100 * photometric_ms / busy_ms:.2f}% of the profiled step's {busy_ms:.2f} "
+                      f"ms of device time")
+
+    def switch_runner(self, name, config, root, data_options):
+        """An RTMPose recipe through ``tools.train``'s main on its config
+        file (random weights, seed 0) at its batch of 256 over the data of
+        ``data_options`` under ``root`` (2 steps an epoch; ``root/val.json``
+        the val set): two epochs with ``switch_epoch=1`` (the stage-2
+        pipeline from the second, its workers restarted), the EMA hook, a
+        checkpoint each epoch and val after the second; then a third epoch
+        resumed by ``--resume``. Fails unless 4 steps run, no kernel of the
+        port launches, one JPEG decode runs a step and a val batch, the
+        crops are augmented on the card (the median kernel launched), the
+        metrics are finite, ``epoch_2.pth`` holds the EMA's average as its
+        weights and the live weights as ``ema_state_dict``, the first loss
+        dict equals ``make_train_step``'s on the same batch, weights and
+        generator seed (``TRAIN_FLAGSHIP_REL``), and the resumed run starts
+        at epoch 2, step 4, with the saved average and ends at step 6.
+        Prints each epoch's train crops/s with the ``train_times`` split
+        (the decode and the augment apart), peak device memory, and one
+        step profiled inside the runner. Returns the main path's kernel
+        launches, the photometric kernel's, and the profiled step's device
+        busy ms."""
+        import torch
+
+        from probpose_code_torch.engine.checkpoint import read_checkpoint
+        from probpose_code_torch.ops.kernels.jpeg import decode_batch
+        from probpose_code_torch.tools import train as train_cli
+
+        RunnerWatch = _runner_watch()
+        wd = Path(root, "work")
+        argv = [str(config), "--work-dir", str(wd), "--cfg-options", *data_options, "train_cfg.val_interval=2",
+                "default_hooks.checkpoint.interval=1", "default_hooks.logger.interval=1",
+                "custom_hooks.1.switch_epoch=1"]
+
+        # the main path: counts set to 0 just before, read just after
+        watch = RunnerWatch(profile_step=4)  # the second step of the second epoch
+        torch.cuda.reset_peak_memory_stats()
+        read_counts = reset_counts()
+        runner = train_cli.main(argv + ["train_cfg.max_epochs=2"], hooks=[watch])
+        torch.cuda.synchronize()
+        launches, decodes = read_counts(), decode_batch.launches
+        augments = {k: c.launches for k, c in augment_counters().items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        B, steps, val_batches = runner.train_loader.batch_size, runner.state.step, len(runner.val_loader)
+        print(f"{name} main path: {steps} steps of {B} over {len(runner.train_loader.dataset)} instances, launches "
+              f"{json.dumps(launches)}, JPEG decodes {decodes}, photometric kernel {json.dumps(augments)}, peak "
+              f"device memory {peak:.2f} GiB")
+        report_runner_epochs(name, runner, 0, watch.profiler_s)
+        log = (wd / "train.log").read_text()
+        written = sorted(p.name for p in wd.glob("*.pth"))
+        metrics = watch.metrics or {}
+        print(f"{name} val inside training: {len(runner.val_dataset)} instances, {json.dumps(metrics)}; val_times "
+              f"{json.dumps(runner.val_times)}")
+        if (B != 256 or steps != 4 or launches != NO_LAUNCHES or decodes != steps + val_batches
+                or written != ["epoch_1.pth", "epoch_2.pth"] or "pipeline switch at epoch 1" not in log
+                or not metrics or not all(math.isfinite(v) for v in metrics.values())
+                or not all(t["augment"] > 0 for t in runner.train_times)
+                or not augments["photometric_median"]):
+            raise AssertionError(f"{name}: batch {B}, {steps} steps, launches {launches}, {decodes} decodes, "
+                                 f"checkpoints {written}, metrics {metrics}")
+        ckpt = read_checkpoint(str(wd / "epoch_2.pth"))
+        live = runner.model.module.state_dict()
+        ema = runner.hooks[0]
+        average = dict(zip([n for n, _ in runner.model.module.named_parameters()], ema.ema_params))
+        if not (all(torch.equal(ckpt["ema_state_dict"][k], live[k].cpu()) for k in ckpt["ema_state_dict"])
+                and all(torch.equal(ckpt["state_dict"][k], v.cpu()) for k, v in average.items())):
+            raise AssertionError(f"{name}: epoch_2.pth does not hold the average as its weights and the live weights "
+                                 "as ema_state_dict")
+        first_step_check(name, runner)
+        busy_ms = watch.busy_ms
+        del runner, ckpt, live, average, ema
+
+        watch = RunnerWatch(resume_from=str(wd / "epoch_2.pth"))
+        runner = train_cli.main(argv + ["train_cfg.max_epochs=3", "--resume"], hooks=[watch])
+        report_runner_epochs(name, runner, 2)
+        print(f"{name} resumed: started at {json.dumps(watch.start)}; ended at step {runner.state.step}")
+        if (watch.start != dict(epoch=2, step=steps, average_equal=True) or runner.state.step != 3 * steps // 2
+                or "pipeline switch at epoch 2" not in (wd / "train.log").read_text()):
+            raise AssertionError(f"{name}: the resumed epoch did not start at epoch 2, step 4, with the saved average "
+                                 "and the stage-2 pipeline, or did not end at step 6")
+        return launches, augments, busy_ms
+
+    def halpe26_runner(self):
+        """RTMPose-m's halpe26 recipe (``rtmpose-m_8xb512-700e_body8-
+        halpe26``, its sub-datasets' converters repaired as
+        ``halpe26_repair_options`` says) through ``tools.train``'s main at
+        its batch of 512 with eight workers: its seven-way train mix over the
+        golden JPEGs, 147 instances each in its own layout (2 steps), one
+        epoch, then val over the eight-way mixed val set (the 62 golden
+        instances in each of eight layouts) scored by ``PCKAccuracy`` and
+        ``AUC``; then ``tools.test`` on the best checkpoint. Fails unless no
+        kernel of the port launches, one decode runs a step and a val batch,
+        the first loss dict equals ``make_train_step``'s, ``pck/PCK`` and
+        ``auc/AUC`` are finite in both, and the best checkpoint is chosen by
+        ``auc/AUC``. Prints train crops/s with the split and peak device
+        memory."""
+        import contextlib
+        import io
+        import tempfile
+
+        import torch
+
+        from probpose_code_torch.config import Config, parse_cfg_option
+        from probpose_code_torch.datasets.loader import stop_workers
+        from probpose_code_torch.ops.kernels.jpeg import decode_batch
+        from probpose_code_torch.tools import test as test_cli
+        from probpose_code_torch.tools import train as train_cli
+
+        RunnerWatch = _runner_watch()
+        cfg = Config.fromfile(str(HALPE26))
+        repair = halpe26_repair_options(cfg)
+        cfg.merge_from_dict(dict(parse_cfg_option(o) for o in repair))
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+            stack.callback(stop_workers)
+            _, ann = golden_jpeg_set(tmp)
+            copy_instances(ann, 147, Path(tmp, "train.json"))
+            val = [o for o in repair + recipe_sets(cfg, "val_dataloader", tmp, ann) if o.startswith("val_")]
+            options = (repair + recipe_sets(cfg, "train_dataloader", tmp, Path(tmp, "train.json")) + val
+                       + ["train_dataloader.num_workers=8", "val_dataloader.num_workers=8", "train_cfg.max_epochs=1",
+                          "train_cfg.val_interval=1", "default_hooks.logger.interval=1"])
+            wd = Path(tmp, "work")
+            watch = RunnerWatch()
             # the main path: counts set to 0 just before, read just after
-            watch = RunnerWatch(profile_step=4)  # the second step of the second epoch
             torch.cuda.reset_peak_memory_stats()
             read_counts = reset_counts()
-            runner = train_cli.main(argv + ["train_cfg.max_epochs=2"], hooks=[watch])
+            runner = train_cli.main([str(HALPE26), "--work-dir", str(wd), "--cfg-options", *options], hooks=[watch])
             torch.cuda.synchronize()
             launches, decodes = read_counts(), decode_batch.launches
             augments = {k: c.launches for k, c in augment_counters().items()}
             peak = torch.cuda.max_memory_allocated() / 2**30
             B, steps, val_batches = runner.train_loader.batch_size, runner.state.step, len(runner.val_loader)
-            print(f"rtmpose_train_runner main path: {steps} steps of {B}, launches {json.dumps(launches)}, JPEG "
-                  f"decodes {decodes}, photometric kernel {json.dumps(augments)}, peak device memory {peak:.2f} GiB")
-            report_runner_epochs("rtmpose_train_runner", runner, 0, watch.profiler_s)
-            log = (wd / "train.log").read_text()
-            written = sorted(p.name for p in wd.glob("*.pth"))
+            print(f"halpe26_runner main path: {steps} steps of {B} over {len(runner.train_loader.dataset)} instances "
+                  f"(7 datasets), launches {json.dumps(launches)}, JPEG decodes {decodes}, photometric kernels "
+                  f"{json.dumps(augments)}, peak device memory {peak:.2f} GiB")
+            report_runner_epochs("halpe26_runner", runner, 0)
             metrics = watch.metrics or {}
-            print(f"rtmpose_train_runner val inside training: {len(runner.val_dataset)} instances, "
-                  f"{json.dumps(metrics)}; val_times {json.dumps(runner.val_times)}")
-            if (B != 256 or steps != 4 or launches != NO_LAUNCHES or decodes != steps + val_batches
-                    or written != ["epoch_1.pth", "epoch_2.pth"] or "pipeline switch at epoch 1" not in log
-                    or not metrics or not all(math.isfinite(v) for v in metrics.values())
-                    or not all(t["augment"] > 0 for t in runner.train_times)
-                    or not augments["photometric_median"]):
-                raise AssertionError(f"rtmpose_train_runner: batch {B}, {steps} steps, launches {launches}, "
-                                     f"{decodes} decodes, checkpoints {written}, metrics {metrics}")
-            self.record["rtmpose_runner_launches"] = launches
-            self.record["augment_launches"] = augments
-            ckpt = read_checkpoint(str(wd / "epoch_2.pth"))
-            live = runner.model.module.state_dict()
-            ema = runner.hooks[0]
-            average = dict(zip([n for n, _ in runner.model.module.named_parameters()], ema.ema_params))
-            if not (all(torch.equal(ckpt["ema_state_dict"][k], live[k].cpu()) for k in ckpt["ema_state_dict"])
-                    and all(torch.equal(ckpt["state_dict"][k], v.cpu()) for k, v in average.items())):
-                raise AssertionError("rtmpose_train_runner: epoch_2.pth does not hold the average as its weights "
-                                     "and the live weights as ema_state_dict")
-            first_step_check("rtmpose_train_runner", runner)
-            del runner, ckpt, live, average, ema
+            log = (wd / "train.log").read_text()
+            print(f"halpe26_runner val inside training: {len(runner.val_dataset)} instances (8 datasets), "
+                  f"{json.dumps(metrics)}; val_times {json.dumps(runner.val_times)}; best by {runner.save_best}")
+            if (B != 512 or steps != 2 or launches != NO_LAUNCHES or decodes != steps + val_batches
+                    or augments["photometric_distortion"] != steps or set(metrics) != {"pck/PCK", "auc/AUC"}
+                    or not all(math.isfinite(v) for v in metrics.values())
+                    or runner.save_best != "AUC" or "new best auc/AUC" not in log or not (wd / "best.pth").exists()):
+                raise AssertionError(f"halpe26_runner: batch {B}, {steps} steps, launches {launches}, {decodes} "
+                                     f"decodes, metrics {metrics}, best by {runner.save_best}")
+            self.record["halpe26_launches"] = launches
+            first_step_check("halpe26_runner", runner)
+            runner.close()
+            del runner
 
-            watch = RunnerWatch(resume_from=str(wd / "epoch_2.pth"))
-            runner = train_cli.main(argv + ["train_cfg.max_epochs=3", "--resume"], hooks=[watch])
-            report_runner_epochs("rtmpose_train_runner", runner, 2)
-            print(f"rtmpose_train_runner resumed: started at {json.dumps(watch.start)}; ended at step "
-                  f"{runner.state.step}")
-            if (watch.start != dict(epoch=2, step=steps, average_equal=True) or runner.state.step != 3 * steps // 2
-                    or "pipeline switch at epoch 2" not in (wd / "train.log").read_text()):
-                raise AssertionError("rtmpose_train_runner: the resumed epoch did not start at epoch 2, step 4, "
-                                     "with the saved average and the stage-2 pipeline, or did not end at step 6")
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                test_cli.main([str(HALPE26), str(wd / "best.pth"), "--cfg-options",
+                               *["test" + o[3:] for o in val], "test_dataloader.num_workers=8"])
+            tested = dict(line.split(": ", 1) for line in out.getvalue().splitlines() if ": " in line
+                          and line.startswith(("pck/", "auc/")))
+            print(f"halpe26_runner tools.test on best.pth: {json.dumps(tested)}")
+            if set(tested) != {"pck/PCK", "auc/AUC"} or not all(math.isfinite(float(v)) for v in tested.values()):
+                raise AssertionError(f"halpe26_runner: tools.test gave {tested}")
+
+    def crowdpose_val(self):
+        """``tools.test`` on the CrowdPose ResNet-50 recipe (``td-hm_res50_
+        8xb64-210e_crowdpose``, random weights, seed 0) over the golden
+        JPEGs in CrowdPose's layout (14 keypoints through the inverse of the
+        body8 recipe's ``crowdpose_coco``, images with a ``crowdIndex``),
+        the ground-truth boxes: ``CocoMetric`` with the crowd iouType under
+        CrowdPose's sigmas. Fails unless no kernel of the port launches, one
+        decode runs a val batch and every ``crowdpose/`` stat is finite."""
+        import contextlib
+        import io
+        import tempfile
+
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.datasets.loader import stop_workers
+        from probpose_code_torch.ops.kernels.jpeg import decode_batch
+        from probpose_code_torch.tools import test as test_cli
+
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+            stack.callback(stop_workers)
+            _, ann = golden_jpeg_set(tmp)
+            ann_file = Path(tmp, "crowdpose.json")
+            body_set_from_coco(ann, ann_file, "CrowdPoseDataset", Config.fromfile(str(BODY8))["crowdpose_coco"])
+            options = [f"test_dataloader.dataset.data_root={tmp}", "test_dataloader.dataset.ann_file=crowdpose.json",
+                       "test_dataloader.dataset.data_prefix.img=imgs/", "test_dataloader.dataset.bbox_file=None",
+                       "test_dataloader.num_workers=8", f"test_evaluator.ann_file={ann_file}"]
+            out = io.StringIO()
+            # the main path: counts set to 0 just before, read just after
+            read_counts = reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                test_cli.main([str(CROWDPOSE), "--cfg-options", *options])
+            dt = time.perf_counter() - t0
+            launches, decodes = read_counts(), decode_batch.launches
+            stats = dict(line.split(": ", 1) for line in out.getvalue().splitlines() if line.startswith("crowdpose/"))
+            n = sum(a["num_keypoints"] > 0 for a in json.loads(ann_file.read_text())["annotations"])
+            print(f"crowdpose_val: tools.test over {n} instances in {dt:.2f} s, launches {json.dumps(launches)}, JPEG "
+                  f"decodes {decodes}; {json.dumps(stats)}")
+            if (launches != NO_LAUNCHES or decodes != -(-n // 32) or not {"crowdpose/AP", "crowdpose/AR"} <= set(stats)
+                    or not all(math.isfinite(float(v)) for v in stats.values())):
+                raise AssertionError(f"crowdpose_val: launches {launches}, {decodes} decodes, stats {stats}")
+            self.record["crowdpose_launches"] = launches
 
     def rtmpose_aic_train(self):
         """The AIC+COCO recipe (``rtmpose-m_8xb256-420e_aic-coco``) through
@@ -3157,7 +3501,8 @@ class Smoke:
     @staticmethod
     def report_profile(prof, wall_us: float, calls: int, what: str):
         """Print a finished profile: device time by kernel, the busy share of
-        ``wall_us`` and, where K2 ran, its share."""
+        ``wall_us`` and, where K2 ran, its share. Returns the device's busy
+        ms a call (None where the profiler recorded no device time)."""
         from torch.autograd import DeviceType
 
         by_name = {}
@@ -3179,6 +3524,7 @@ class Smoke:
         if k2:
             print(f"  expected_oks_kernel: {100 * k2 / busy:.2f}% of device time, {k2 / calls / 1e3:.4f} ms/call, "
                   f"{100 * k2 / wall_us:.2f}% of the wall time")
+        return busy / calls / 1e3
 
     @staticmethod
     def products_rate(fn, flops, calls=3):
@@ -3420,7 +3766,8 @@ class Smoke:
                      hrnet_msra_predict="hrnet_msra_launches", res50_train="res50_train_launches",
                      rtmpose_predict="rtmpose_launches", rtmpose_train="rtmpose_train_launches",
                      rtmpose_val="rtmpose_val_launches", rtmpose_train_runner="rtmpose_runner_launches",
-                     rtmpose_aic_train="rtmpose_aic_launches")
+                     rtmpose_aic_train="rtmpose_aic_launches", body8_train_runner="body8_runner_launches",
+                     halpe26_runner="halpe26_launches", crowdpose_val="crowdpose_launches")
         # K1's one counter read for the record of the instance each path ran
         k1_records = self.record.get("k1_records", {})
         for path, key in paths.items():
@@ -3683,6 +4030,9 @@ def main() -> int:
         smoke.phase("rtmpose_augment", smoke.rtmpose_augment)
         smoke.phase("rtmpose_train_runner", smoke.rtmpose_train_runner)
         smoke.phase("rtmpose_aic_train", smoke.rtmpose_aic_train)
+        smoke.phase("body8_train_runner", smoke.body8_train_runner)
+        smoke.phase("halpe26_runner", smoke.halpe26_runner)
+        smoke.phase("crowdpose_val", smoke.crowdpose_val)
         smoke.phase("timings", smoke.timings)
     left = stop_descendants()
     if left:
@@ -3694,8 +4044,10 @@ def main() -> int:
     print(json.dumps({"kernels": smoke.record["kernels"]}))
     # the JPEG decode, no TPU kernel: its own line, its launches those of val_flagship's main path
     print(json.dumps({"decode": dict(smoke.record["decode"], launches=smoke.record["decode_launches"])}))
-    # the photometric kernel, no TPU kernel: its own line, its launches those of rtmpose_train_runner's main path
-    print(json.dumps({"augment": [dict(rec, launches=smoke.record["augment_launches"][rec["name"]])
+    # the photometric kernels, no TPU kernel: their own line, the median's launches those of
+    # rtmpose_train_runner's main path, the distortion's of body8_train_runner's
+    paths = dict(photometric_median="augment_launches", photometric_distortion="body8_augment_launches")
+    print(json.dumps({"augment": [dict(rec, launches=smoke.record[paths[rec["name"]]][rec["name"]])
                                   for rec in smoke.record["augment"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -5,8 +5,10 @@ The port's own copy of ``probpose_code_tpu/datasets/base_dataset.py``
 ``dataset_wrappers.py``): ``Compose``, ``BaseCocoStyleDataset`` (annotation
 parsing with the ProbPose ``keypoints_visibility`` (v==2) flag and
 ``pad_to_contain``, detector boxes from a ``bbox_file``, the top-down
-organization and filters), ``CocoDataset``, ``CocoCropDataset``,
-``AicDataset`` (``datasets/zoo.py:28``) and ``CombinedDataset``.
+organization and filters), the body datasets under their metainfo
+(``BODY_DATASETS``: ``CocoDataset``, ``CocoCropDataset`` and those of
+``datasets/zoo.py:24-61`` that the body8 recipes mix) and
+``CombinedDataset``.
 ``data_mode="bottomup"`` comes with the bottom-up slice.
 """
 
@@ -255,25 +257,18 @@ class BaseCocoStyleDataset:
         return self.pipeline(self.get_data_info(idx))
 
 
-@DATASETS.register_module()
-class CocoDataset(BaseCocoStyleDataset):
-    METAINFO: dict = dict(dataset_name="coco")
-
-
-@DATASETS.register_module()
-class CocoCropDataset(BaseCocoStyleDataset):
-    """CropCOCO — the ProbPose cropped-COCO OOI benchmark
-    (reference ``datasets/body/cococrop_dataset.py:7``)."""
-
-    METAINFO: dict = dict(dataset_name="coco_crop")
-
-
-@DATASETS.register_module()
-class AicDataset(BaseCocoStyleDataset):
-    """AI Challenger: 14 body keypoints in COCO's annotation format
-    (reference ``datasets/body/aic_dataset.py``)."""
-
-    METAINFO: dict = dict(dataset_name="aic")
+# class name -> metainfo table: each dataset is the COCO-style parser under its own table, as the JAX
+# package's ``datasets/zoo.py:24-61`` makes them (CropCOCO is the ProbPose cropped-COCO benchmark,
+# reference ``datasets/body/cococrop_dataset.py:7``). The JAX ``MpiiDataset`` reads COCO-style files and
+# sets no ``head_size``; its ``JhmdbDataset`` keeps JHMDB's 1-based coordinates: the port copies both.
+BODY_DATASETS = dict(CocoDataset="coco", CocoCropDataset="coco_crop", AicDataset="aic",
+                     CrowdPoseDataset="crowdpose", MpiiDataset="mpii", JhmdbDataset="jhmdb",
+                     HalpeDataset="halpe", PoseTrack18Dataset="posetrack18", OCHumanDataset="ochuman",
+                     HumanArtDataset="humanart")
+for _name, _table in BODY_DATASETS.items():
+    globals()[_name] = DATASETS.register_module(module=type(_name, (BaseCocoStyleDataset,), dict(
+        METAINFO=dict(dataset_name=_table), __doc__=f"The COCO-style dataset under the {_table!r} metainfo.")))
+del _name, _table
 
 
 @DATASETS.register_module()
@@ -317,6 +312,11 @@ class CombinedDataset:
         info = self.datasets[ds_idx][sample_idx]
         if info is None:
             return None
+        if np.shape(info["keypoints"])[1] != self._metainfo["num_keypoints"]:
+            raise ValueError(
+                f"CombinedDataset ({self._metainfo['dataset_name']}): a sample of sub-dataset {ds_idx} "
+                f"({type(self.datasets[ds_idx]).__name__}) has {np.shape(info['keypoints'])[1]} keypoints, the "
+                f"combined set {self._metainfo['num_keypoints']}; its pipeline needs a KeypointConverter")
         # shared metainfo keys override per-sub-dataset values (reference)
         for key in ("upper_body_ids", "lower_body_ids", "flip_pairs", "flip_indices",
                     "dataset_keypoint_weights", "skeleton_links"):

@@ -81,9 +81,10 @@ def collate_pose_samples(samples: List[dict]) -> Dict:
     ``keypoints_in_image`` and the bbox mask's ``bbox_mask_rect`` (B, 4) and
     ``bbox_mask_mat`` (B, 2, 3), which the device renders. A batch from the
     photometric transforms carries their parameters, stacked in the
-    batch's order: ``hsv_gains`` (B, 3) int16, ``blur_ksize`` and
-    ``median_ksize`` (B,) int32 (0: the op did not fire), ``dropout_rects``
-    (B, max_holes, 4) int32. Every batch holds ``data_samples``."""
+    batch's order: ``hsv_gains`` (B, 3) int16, ``photometric`` (B, 8)
+    float32, ``blur_ksize`` and ``median_ksize`` (B,) int32 (0: the op did
+    not fire), ``dropout_rects`` (B, max_holes, 4) int32. Every batch holds
+    ``data_samples``."""
     samples = [s for s in samples if s is not None]
     assert samples, "empty batch after pipeline drops"
     batch: Dict = {}

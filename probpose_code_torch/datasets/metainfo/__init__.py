@@ -1,20 +1,25 @@
 """Dataset meta-information: keypoint definitions, flip pairs, OKS sigmas.
 
 The port's own copy of ``probpose_code_tpu/datasets/metainfo`` for COCO,
-CropCOCO (``coco_crop.py``: COCO's table under another name) and AI
-Challenger (``data/aic.json``): ``parse_pose_metainfo`` (``__init__.py:65``)
-over those tables.
+CropCOCO (``coco_crop.py``: COCO's table under another name), AI
+Challenger (``data/aic.json``) and the other body datasets of the body8
+recipes (``body.py``, ``halpe.py``: ``data/<name>.json``):
+``parse_pose_metainfo`` (``__init__.py:65``) over those tables.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from . import body
 from .aic import AIC_METAINFO
 from .coco import COCO_METAINFO
+from .halpe import HALPE
 
 DATASET_METAINFO = {"coco": COCO_METAINFO, "coco_crop": {**COCO_METAINFO, "dataset_name": "coco_crop"},
-                    "aic": AIC_METAINFO}
+                    "aic": AIC_METAINFO, "crowdpose": body.CROWDPOSE, "mpii": body.MPII, "jhmdb": body.JHMDB,
+                    "posetrack18": body.POSETRACK18, "ochuman": body.OCHUMAN, "humanart": body.HUMANART,
+                    "halpe": HALPE, "halpe26": body.HALPE26}
 
 
 def parse_pose_metainfo(metainfo: dict) -> dict:

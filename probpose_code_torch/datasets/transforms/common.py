@@ -3,8 +3,9 @@
 The port's own copy of ``probpose_code_tpu/datasets/transforms/common.py``
 (reference ``common_transforms.py``): ``GetBBoxCenterScale`` (``:28``) and
 the train transforms ``RandomFlip`` (``:47``), ``RandomHalfBody``
-(``:124``), ``RandomBBoxTransform`` (``:206``), ``YOLOXHSVRandomAug``
-(``:490``), ``GenerateTarget`` (``:569``) and ``Albumentation`` (``:749``).
+(``:124``), ``RandomBBoxTransform`` (``:206``), ``PhotometricDistortion``
+(``:368``), ``YOLOXHSVRandomAug`` (``:490``), ``GenerateTarget`` (``:569``)
+and ``Albumentation`` (``:749``).
 The random transforms draw from NumPy's global generator in the JAX
 transforms' order, so that the loader's per-batch seed gives the JAX
 pipeline's draws. ``GenerateTarget`` takes only the JAX transform's
@@ -240,20 +241,27 @@ class RandomBBoxTransform:
         return results
 
 
+# the photometric transforms in the order the device applies them (``ops/kernels/photometric.py:augment``),
+# each by the key of the parameters its worker half records
+PHOTOMETRIC_ORDER = dict(YOLOXHSVRandomAug="hsv_gains", PhotometricDistortion="photometric",
+                         Albumentation="blur_ksize")
+
+
 def _after_crop(results: Dict, name: str) -> None:
     """The photometric transforms act on the crop that ``TopdownAffine``
     defines (its ``warp_mat``), which the device cuts after every host
     transform: one placed before it would act on the whole image in the
-    JAX pipeline, which the port does not do. The device applies them in the
-    shipped configs' order, the HSV gains and then Albumentation's ops: a
-    pipeline in another order, or with one of them twice, raises."""
+    JAX pipeline, which the port does not do. The device applies them in
+    the shipped configs' order, ``PHOTOMETRIC_ORDER`` (the body8 recipes
+    run all three, the halpe26 recipes the last two): a pipeline in another
+    order, or with one of them twice, raises."""
     if "warp_mat" not in results:
         raise NotImplementedError(f"{name}: the port applies it to the crop on the device; it must follow "
                                   "TopdownAffine in the pipeline")
-    # the device applies each transform's parameters once, the HSV gains first (``augment``)
-    if "blur_ksize" in results or (name == "YOLOXHSVRandomAug" and "hsv_gains" in results):
-        raise NotImplementedError(f"{name}: the port applies YOLOXHSVRandomAug and then Albumentation, each at "
-                                  "most once; the pipeline has another order")
+    keys = list(PHOTOMETRIC_ORDER.values())
+    if any(k in results for k in keys[keys.index(PHOTOMETRIC_ORDER[name]):]):
+        raise NotImplementedError(f"{name}: the port applies {', '.join(PHOTOMETRIC_ORDER)} in that order, each "
+                                  "at most once; the pipeline has another order")
 
 
 @TRANSFORMS.register_module()
@@ -273,6 +281,46 @@ class YOLOXHSVRandomAug:
         hsv_gains = np.random.uniform(-1, 1, 3) * [self.hue_delta, self.saturation_delta, self.value_delta]
         hsv_gains *= np.random.randint(0, 2, 3)
         results["hsv_gains"] = hsv_gains.astype(np.int16)
+        return results
+
+
+@TRANSFORMS.register_module()
+class PhotometricDistortion:
+    """Random brightness, contrast, saturation, hue and channel order of
+    the crop (reference ``common_transforms.py:1093``, SSD's). The worker
+    half: the JAX transform's draws (``common.py:384-406``), in its order
+    and each only where the JAX code draws it, recorded as one float32 row
+    ``photometric``: the brightness delta, the contrast factor before the
+    HSV step, the saturation factor, the hue delta, the contrast factor
+    after it, and the channel order. A step that does not fire keeps its
+    neutral value (0, 1, or the identity order), which float32 applies
+    exactly; the device applies the row (``ops/photometric.py:
+    photometric_distortion``)."""
+
+    def __init__(self, brightness_delta: int = 32, contrast_range: Tuple[float, float] = (0.5, 1.5),
+                 saturation_range: Tuple[float, float] = (0.5, 1.5), hue_delta: int = 18):
+        self.brightness_delta = brightness_delta
+        self.contrast_lower, self.contrast_upper = contrast_range
+        self.saturation_lower, self.saturation_upper = saturation_range
+        self.hue_delta = hue_delta
+
+    def __call__(self, results: Dict) -> Optional[dict]:
+        _after_crop(results, "PhotometricDistortion")
+        row = [0.0, 1.0, 1.0, 0.0, 1.0, 0, 1, 2]
+        if np.random.randint(2):
+            row[0] = np.random.uniform(-self.brightness_delta, self.brightness_delta)
+        contrast_first = np.random.randint(2)
+        if contrast_first and np.random.randint(2):
+            row[1] = np.random.uniform(self.contrast_lower, self.contrast_upper)
+        if np.random.randint(2):
+            row[2] = np.random.uniform(self.saturation_lower, self.saturation_upper)
+        if np.random.randint(2):
+            row[3] = np.random.uniform(-self.hue_delta, self.hue_delta)
+        if not contrast_first and np.random.randint(2):
+            row[4] = np.random.uniform(self.contrast_lower, self.contrast_upper)
+        if np.random.randint(2):
+            row[5:] = np.random.permutation(3)
+        results["photometric"] = np.array(row, np.float32)
         return results
 
 

@@ -63,6 +63,10 @@ class KeypointConverter:
             results["keypoints_visible"] = results["keypoints_visible"][:, :, 0]
 
         key = "keypoints_3d" if "keypoints_3d" in results else "keypoints"
+        last = max(self.source_index + self.source_index2, default=-1)
+        if last >= results[key].shape[1]:
+            raise ValueError(f"KeypointConverter: the mapping reads keypoint {last}, the sample has "
+                             f"{results[key].shape[1]} ({results.get('dataset_name')})")
         shape = (num_instances, self.num_keypoints)
         keypoints = self._convert(results[key], shape + (results[key].shape[-1],))
         keypoints_visible = self._convert(results["keypoints_visible"], shape)

@@ -9,9 +9,9 @@ and ``warp_mat`` instead of a crop, one from its JPEG form ``img_bytes``,
 ``jpeg_info`` and ``warp_mat``, and one from ``GenerateTarget`` the
 heatmap-space keypoints instead of maps (DoubleProbMap's in both windows),
 the bbox mask's rectangle and matrix instead of the mask, and one from the
-photometric transforms their parameters (``hsv_gains``, ``blur_ksize``,
-``median_ksize``, ``dropout_rects``) instead of the changed crop. Images stay
-NumPy; the loader's collate batches them. The JAX transform's ``gt_fields`` hold host-encoded
+photometric transforms their parameters (``hsv_gains``, ``photometric``,
+``blur_ksize``, ``median_ksize``, ``dropout_rects``) instead of the changed
+crop. Images stay NumPy; the loader's collate batches them. The JAX transform's ``gt_fields`` hold host-encoded
 maps, which the port never makes.
 """
 

@@ -93,8 +93,12 @@ class Runner:
         # the logged steps: step, lr and the step's metrics as floats
         self.train_log: List[Dict[str, float]] = []
 
+        # the train set's metainfo: its config's, else its class's table (mmengine's dataset_meta; the JAX
+        # runner takes COCO's for a dataset that names its table only by its class, such as CrowdPose's)
         train_ds_cfg = (cfg.get("train_dataloader") or {}).get("dataset", {})
-        self.metainfo = parse_pose_metainfo(dict(train_ds_cfg.get("metainfo") or {"dataset_name": "coco"}))
+        train_ds_cls = DATASETS.get(train_ds_cfg.get("type", "CocoDataset"))
+        self.metainfo = parse_pose_metainfo(dict(train_ds_cfg.get("metainfo")
+                                                 or getattr(train_ds_cls, "METAINFO", {"dataset_name": "coco"})))
         self.model = PoseModel(cfg["model"], metainfo=self.metainfo, device=device)
         self.model.init_weights(seed=0)
 

@@ -1,10 +1,13 @@
 """COCO keypoint evaluation with the ProbPose Ex-OKS / Ex-mAP extension.
 
 The port's own copy of ``probpose_code_tpu/evaluation/cocoeval.py``
-(reference ``mmpose/evaluation/metrics/_cocoeval.py``) for the COCO body
-``keypoints`` iouType. The other iouTypes raise: ``segm`` (RLE mask IoU,
-``:339``) and ``bbox`` come with the bottom-up slice, the crowd and
-wholebody keypoint variants with their metrics. Neither are the JAX
+(reference ``mmpose/evaluation/metrics/_cocoeval.py``) for the body
+``keypoints`` iouType and CrowdPose's ``keypoints_crowd`` (``:49``, ``:70``,
+``:213-228``: the same keypoint field, one ignore flag for every
+visibility level, set where the annotation is a crowd and ``ignore``d, or
+has exactly 2 keypoints). The other iouTypes raise: ``segm`` (RLE mask IoU,
+``:339``) and ``bbox`` come with the bottom-up slice, the wholebody
+keypoint variants with their metrics. Neither are the JAX
 package's diagnostic bbox-center pairs (``matched_pairs``) ported: no stat
 reads them.
 
@@ -50,12 +53,15 @@ def _set_keypoint_vis(ann: dict, vis: np.ndarray) -> None:
     ann["keypoints"] = arr
 
 
+IOU_TYPES = ("keypoints", "keypoints_crowd")
+
+
 class Params:
     """Evaluation parameters (the keypoint preset)."""
 
     def __init__(self, iouType: str = "keypoints"):
-        if iouType != "keypoints":
-            raise NotImplementedError(f"iouType {iouType!r}: the port evaluates the COCO body keypoints only")
+        if iouType not in IOU_TYPES:
+            raise NotImplementedError(f"iouType {iouType!r}: the port evaluates the body keypoints only, {IOU_TYPES}")
         self.iouThrs = np.linspace(0.5, 0.95, 10, endpoint=True)
         self.recThrs = np.linspace(0.0, 1.00, 101, endpoint=True)
         self.imgIds: List[int] = []
@@ -161,6 +167,10 @@ class COCOeval:
         # ---- pass 2: per-level ignore flags ----------------------------
         n_levels = len(self.gt_visibilities) + 1
         for gt in gts:
+            if p.iouType == "keypoints_crowd":
+                base_ignore = gt.get("ignore", 0) and gt.get("iscrowd", 0)
+                gt["ignore"] = [bool(base_ignore) or gt["num_keypoints"] == 2] * n_levels
+                continue
             vis = _extract_keypoints(gt)[2::3]
             unique_vis = np.unique(vis[vis > 0].astype(int))
             # level k (k>=1) ignored unless the GT has a keypoint of that

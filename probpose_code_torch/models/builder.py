@@ -336,8 +336,8 @@ class PoseModel:
         the CPU; timed by ``decode_clock``) and warped from it, each crop to its place
         in the batch. Crops are rounded to uint8 values as the JAX pipeline's
         host warp (cv2.warpAffine) gives them; a batch from RTMPose's
-        photometric transforms (``hsv_gains``, ``blur_ksize``,
-        ``median_ksize``, ``dropout_rects``) then has them applied to its
+        photometric transforms (``hsv_gains``, ``photometric``,
+        ``blur_ksize``, ``median_ksize``, ``dropout_rects``) then has them applied to its
         crops in the JAX order (``ops/kernels/photometric.py:augment``;
         timed by ``augment_clock``). A batch that
         carries heatmap-space keypoints (``kpts_hm`` (B, K, 2),

@@ -78,10 +78,18 @@ def find_min_padding_exact(
     bbox: np.ndarray, kpts: np.ndarray, aspect_ratio: float = 3 / 4, bbox_format: str = "xywh"
 ) -> np.ndarray:
     """Per-keypoint padding factor the (aspect-fixed) bbox needs to contain
-    the keypoint; -1 for keypoints that are not annotated."""
+    the keypoint; -1 for keypoints that are not annotated. ``kpts`` is (K,
+    2) or (K, 3) rows, or flat: a flat vector of an even length is read as
+    (x, y) pairs. The JAX function (``structures/keypoint.py:140``) reads
+    rows by their count too, so it takes the (x, y, v) rows of an even
+    number of keypoints (CrowdPose's 14, MPII's 16) for pairs; the port
+    reads rows as rows."""
     assert bbox_format.lower() in ("xywh", "xyxy")
     kpts = np.asarray(kpts, dtype=np.float64)
-    if kpts.size % 2 == 0:
+    if kpts.ndim == 2 and kpts.shape[1] == 3:
+        vis = kpts[:, 2].copy()
+        kpts = kpts[:, :2]
+    elif kpts.size % 2 == 0:
         kpts = kpts.reshape(-1, 2)
         vis = np.ones(kpts.shape[0])
     elif kpts.size % 3 == 0:

@@ -14,9 +14,16 @@ repository root. It holds (see ``chip_smoke.AUGMENT_FIXTURE``):
   (``probpose_code_tpu/datasets/transforms/common.py:490-510, 792-871``):
   ``cv2.cvtColor`` to HSV, the gains, back to BGR; ``cv2.blur``;
   ``cv2.medianBlur``; the hole set to 0;
-- ``bgr_to_hsv``, ``hsv_to_bgr``: the SHA-256 of ``cv2.cvtColor`` over
-  every colour and every HSV triple; ``blur_<k>``, ``median_<k>``: of
-  ``cv2.blur`` and ``cv2.medianBlur`` over the window-sum tiles.
+- ``photometric``: ``chip_smoke.photometric_fixture_params``'s rows of
+  ``PhotometricDistortion``, one a sample; ``photometric_after_hsv`` and
+  ``photometric_first`` (B, 32): the SHA-256 of each sample's result of the
+  distortion as the JAX transform computes it (``common.py:384-406``, NumPy
+  and ``cv2.cvtColor``) after the HSV jitter (the body8 recipes' order) and
+  on the crop (the halpe26 recipes');
+- ``bgr_to_hsv``, ``hsv_to_bgr``, ``hsv_to_bgr_180``: the SHA-256 of
+  ``cv2.cvtColor`` over every colour, every HSV triple with a hue below
+  180, and those of hue 180; ``blur_<k>``, ``median_<k>``: of ``cv2.blur``
+  and ``cv2.medianBlur`` over the window-sum tiles.
 """
 
 import sys
@@ -36,6 +43,7 @@ from chip_smoke import (  # noqa: E402
     all_bgr_colours,
     all_hsv_triples,
     augment_fixture_params,
+    photometric_fixture_params,
     sha256,
     window_sum_tiles,
 )
@@ -67,6 +75,24 @@ def cv2_ops(img, gains, blur_k, median_k, rects):
     return out + [dropped]
 
 
+def cv2_photometric(img, row):
+    """``PhotometricDistortion`` of the JAX package (``probpose_code_tpu/
+    datasets/transforms/common.py:384-406``) with the draws of ``row``
+    (``datasets/transforms/common.py:PhotometricDistortion``'s record)
+    instead of its own; a neutral value does what a step that does not
+    fire does."""
+    brightness, contrast, saturation, hue, contrast_after = (float(v) for v in row[:5])
+    img = img.astype(np.float32)
+    img += brightness
+    img *= contrast
+    hsv = cv2.cvtColor(np.clip(img, 0, 255).astype(np.uint8), cv2.COLOR_BGR2HSV).astype(np.float32)
+    hsv[..., 1] *= saturation
+    hsv[..., 0] = (hsv[..., 0] + hue) % 180
+    img = cv2.cvtColor(np.clip(hsv, 0, 255).astype(np.uint8), cv2.COLOR_HSV2BGR).astype(np.float32)
+    img *= contrast_after
+    return np.clip(img[..., row[5:].astype(int)], 0, 255).astype(np.uint8)
+
+
 def main():
     crops = np.stack([crop(*c) for c in CROPS])
     params = augment_fixture_params(AUGMENT_B, len(crops))
@@ -75,8 +101,16 @@ def main():
             "hsv_gains", "blur_ksize", "median_ksize", "dropout_rects")))]
         for j, i in enumerate(params["index"])])
     arrays = dict(crops=crops, digests=digests, **params)
+    rows = photometric_fixture_params(AUGMENT_B)
+    arrays["photometric"] = rows
+    for name, stage in (("photometric_after_hsv", 0), ("photometric_first", None)):
+        arrays[name] = np.stack([np.frombuffer(sha256(cv2_photometric(
+            crops[i] if stage is None else cv2_ops(crops[i], params["hsv_gains"][j], 0, 0, ())[stage], rows[j])),
+            np.uint8) for j, i in enumerate(params["index"])])
     arrays["bgr_to_hsv"] = np.frombuffer(sha256(cv2.cvtColor(all_bgr_colours(), cv2.COLOR_BGR2HSV)), np.uint8)
     arrays["hsv_to_bgr"] = np.frombuffer(sha256(cv2.cvtColor(all_hsv_triples(), cv2.COLOR_HSV2BGR)), np.uint8)
+    arrays["hsv_to_bgr_180"] = np.frombuffer(sha256(cv2.cvtColor(all_hsv_triples([180]), cv2.COLOR_HSV2BGR)),
+                                             np.uint8)
     for k in AUGMENT_KSIZES:
         tiles = window_sum_tiles(k)
         arrays[f"blur_{k}"] = np.frombuffer(sha256(cv2.blur(tiles, (k, k))), np.uint8)

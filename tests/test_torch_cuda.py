@@ -34,8 +34,9 @@ buffer for each batch, the truncated stream refused; the val path over JPEG file
 decode a batch) and ``tools.serve`` answering ``inference_topdown``'s JSON;
 the device encodes of the MSRA codec (and its unbiased form) and of the
 SimCC labels against the port's host codecs, and the classic and RTMPose
-model fixtures on the card; the photometric median kernel and the HSV
-tables against their plain versions and against cv2's fixture.
+model fixtures on the card; the photometric median kernel, the HSV
+tables and PhotometricDistortion against their plain versions and against
+cv2's fixture.
 Bars are ``chip_smoke.py``'s, with its reasons.
 """
 
@@ -812,6 +813,41 @@ def test_photometric_kernels_match_plain(card, shape):
         photometric.median_blur(img, 9)
     with pytest.raises(ValueError, match="float32"):
         photometric.median_blur(img.double(), 3)
+
+
+@pytest.mark.parametrize("order", ["body8", "halpe26"])
+def test_photometric_distortion_matches_plain(card, order):
+    """``PhotometricDistortion``'s kernel (its float32 steps around the
+    tables) against its plain version on a batch of 64 noise crops with
+    black rows (hue 0), under rows drawn by the worker half, every 16th
+    turning hue 0 into 180, exactly: after the HSV jitter (the body8
+    recipes' order) or on the crops (the halpe26 recipes'), through
+    ``augment``, one launch; a width off cv2's blocks and rows of another
+    shape refused; the hue step's remainder against NumPy's on every
+    integer hue and a sweep of deltas."""
+    from chip_smoke import photometric_fixture_params
+    from probpose_code_torch.ops import photometric as plain
+    from probpose_code_torch.ops.kernels import photometric
+
+    rng = np.random.RandomState(3)
+    crops = rng.randint(0, 256, (64, 256, 192, 3)).astype(np.float32)
+    crops[:, :32] = 0
+    img = torch.from_numpy(crops).cuda()
+    rows = torch.from_numpy(photometric_fixture_params(64, seed=1)).cuda()
+    gains = torch.from_numpy((rng.uniform(-1, 1, (64, 3)) * [5, 30, 30]).astype(np.int16)).cuda()
+    extra = dict(hsv_gains=gains) if order == "body8" else {}
+    want = plain.photometric_distortion(plain.yolox_hsv(img, gains) if extra else img, rows)
+    before = photometric.photometric_distortion.launches
+    assert torch.equal(photometric.augment(img, photometric=rows, **extra), want)
+    assert photometric.photometric_distortion.launches == before + 1
+    with pytest.raises(ValueError, match="width of 190"):
+        photometric.photometric_distortion(img[:, :, :190], rows)
+    with pytest.raises(ValueError, match=r"\(64, 8\) rows"):
+        photometric.photometric_distortion(img, rows[:, :5])
+    hue = np.arange(180, dtype=np.float32)[:, None]
+    deltas = np.concatenate([rng.uniform(-18, 18, 20000).astype(np.float32), np.float32([-1e-6, -7.6e-6, 0, 18])])
+    got = plain.numpy_remainder(torch.from_numpy(hue + deltas).cuda(), 180.0).cpu().numpy()
+    np.testing.assert_array_equal(got, (hue + deltas) % np.float32(180))
 
 
 def test_augment_fixture_on_the_card(card):

@@ -219,7 +219,7 @@ def test_worker_draws_equal_jax(stage, crops):
         chain = cv2_ops(crop, params["hsv_gains"], int(params["blur_ksize"]), int(params["median_ksize"]),
                         params["dropout_rects"])
         np.testing.assert_array_equal(chain[-1], want["img"], err_msg=f"cv2 with the port's draws, seed {seed}")
-        batch = _tensors({k: np.asarray(params[k])[None] for k in photometric.AUGMENT_KEYS})
+        batch = _tensors({k: np.asarray(params[k])[None] for k in photometric.AUGMENT_KEYS if k in params})
         got = augment(torch.from_numpy(crop[None]).float(), **batch)[0].numpy()
         np.testing.assert_array_equal(got, want["img"], err_msg=f"the port's ops, seed {seed}")
         fired.update(k for k in ("blur_ksize", "median_ksize") if params[k])
@@ -246,13 +246,15 @@ def test_albumentation_refuses_another_order_and_a_fill():
 @pytest.mark.parametrize("order", [("Albumentation", "YOLOXHSVRandomAug"), ("YOLOXHSVRandomAug", "YOLOXHSVRandomAug"),
                                    ("Albumentation", "Albumentation")])
 def test_photometric_transforms_refuse_another_order(order):
-    """The device applies the HSV gains and then Albumentation's ops, each
-    once: a pipeline in another order, or with one of them twice, raises
-    at its second transform."""
+    """The device applies the HSV gains, then (in the body8 recipes)
+    PhotometricDistortion, then Albumentation's ops, each once: a pipeline
+    in another order, or with one of them twice, raises at its second
+    transform."""
     build = dict(YOLOXHSVRandomAug=YOLOXHSVRandomAug,
                  Albumentation=lambda: Albumentation([dict(type="Blur", p=1.0)]))
     results = build[order[0]]()(dict(warp_mat=np.eye(2, 3, dtype=np.float32), input_size=(192, 256)))
-    with pytest.raises(NotImplementedError, match="YOLOXHSVRandomAug and then Albumentation"):
+    with pytest.raises(NotImplementedError, match="YOLOXHSVRandomAug, PhotometricDistortion, Albumentation in that "
+                                                  "order"):
         build[order[1]]()(results)
 
 
@@ -293,7 +295,7 @@ def test_recipe_pipeline_equals_jax_on_the_golden_jpegs(golden):
     model = PoseModel(_narrow_model(), device="cpu")
     batch = _tensors({k: v for k, v in collate_pose_samples(packed).items() if isinstance(v, np.ndarray)})
     batch.update({k: v for k, v in collate_pose_samples(packed).items() if k.startswith("jpeg") and k not in batch})
-    params = {k: batch[k] for k in photometric.AUGMENT_KEYS}
+    params = {k: batch[k] for k in photometric.AUGMENT_KEYS if k in batch}
     got = model.device_preprocess_batch(dict(batch))
     before = model.device_preprocess_batch({k: v for k, v in batch.items() if k not in params})["inputs"]
     for key in ("keypoint_x_labels", "keypoint_y_labels"):
