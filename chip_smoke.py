@@ -147,15 +147,38 @@ card and the CUDA toolkit (nvcc); it builds the port's kernels from
    instances each, YOLOX HSV, the distortion and Albumentation in stage 1):
    the same checks, the distortion kernel once a stage-1 step, and its
    share of the profiled step's device time;
-35. ``halpe26_runner``: the halpe26 recipe (its converters repaired,
-   ``halpe26_repair_options``) at its batch of 512, one epoch of 2 steps
+35. ``halpe26_runner``: the halpe26 recipe (its datasets and converters
+   repaired, ``halpe26_repair_options``: COCO through
+   ``CocoWholeBodyDataset`` and the shipped 23-pair mapping, which takes
+   its feet) at its batch of 512, one epoch of 2 steps
    and val over the eight-way mixed set by PCK and AUC, the best checkpoint
    by AUC, then ``tools.test`` on it: finite ``pck/PCK`` and ``auc/AUC``,
    the first loss dict, peak memory;
 36. ``crowdpose_val``: ``tools.test`` on the CrowdPose ResNet-50 recipe
    over the golden JPEGs in CrowdPose's layout: finite ``crowdpose/``
    stats from COCOeval's crowd iouType;
-37. ``timings``: each kernel's time beside its plain twin's, a PyTorch
+37. ``wholebody_golden``: the whole-body model fixture
+   (``tests/golden_torch/wholebody_*``, RTMPose's narrow model with 133
+   outputs) as ``rtmpose_golden``, its AP ``CocoWholeBodyMetric``'s;
+38. ``wholebody_predict``: RTMPose-m, HRNet-w32 and CSPNeXt-m UDP
+   whole-body (133 keypoints) at full width as ``hrnet_predict``: crops/s,
+   the busy share and peak memory of each;
+39. ``wholebody_train``: the HRNet-w32 and CSPNeXt-m UDP whole-body bare
+   steps on 64 crops, then ``tools.test`` on HRNet-w32 whole-body over the
+   golden JPEGs in COCO-WholeBody's layout: the six AP families finite;
+40. ``wholebody_train_runner``: RTMPose-m whole-body through ``tools.train``
+   at B = 64 as ``rtmpose_train_runner`` (512 instances in COCO-WholeBody's
+   layout, the switch, the EMA, a resumed third epoch), val by
+   ``CocoWholeBodyMetric``, the best checkpoint by ``coco/AP``, then
+   ``tools.test`` on ``best.pth``; the ops of 133 keypoints (the SimCC
+   label render, the GAU's attention) each as a share of the step's device
+   time;
+41. ``ubody_train``: the COCO + UBody recipe's epoch (a
+   ``CocoWholeBodyDataset`` and 15 ``UBody2dDataset`` scenes with
+   ``sample_interval=10``) at B = 64 with val;
+42. ``dpm_golden``: the DoubleProbPose-S fixture (its ViT in f32, weights
+   from seeds) at ``UDP_BARS``, K1 and K2 launched;
+43. ``timings``: each kernel's time beside its plain twin's, a PyTorch
    library call's where one computes the same function, and its bound from
    this run's shapes; K1 also at the ViT-B predict shape (f32), K4 also at
    the ProbPose-S shape in bf16. For K1 (bf16 and f32) and K3 (forward,
@@ -173,7 +196,8 @@ kernel: its own line, no ``replaces``) and the photometric kernels' (no
 TPU kernel either: the ``augment`` line, each one's ``ports`` the JAX
 transform it ports, the median's ``launches`` from
 ``rtmpose_train_runner``'s main path, the distortion's from
-``body8_train_runner``'s), the last line ``{"ok": true,
+``body8_train_runner``'s, and each one's ``launches_by_path`` on every path
+that augments on the card), the last line ``{"ok": true,
 "device": ...}``. Any failure exits non-zero without them. It imports neither JAX nor the JAX package.
 """
 
@@ -206,6 +230,16 @@ RTMPOSE = ROOT / "configs/body_2d_keypoint/rtmpose/coco/rtmpose-m_8xb256-420e_co
 BODY8 = ROOT / "configs/body_2d_keypoint/rtmpose/body8/rtmpose-m_8xb256-420e_body8-256x192.py"
 HALPE26 = ROOT / "configs/body_2d_keypoint/rtmpose/body8/rtmpose-m_8xb512-700e_body8-halpe26-256x192.py"
 CROWDPOSE = ROOT / "configs/body_2d_keypoint/topdown_heatmap/crowdpose/td-hm_res50_8xb64-210e_crowdpose-256x192.py"
+# the COCO-WholeBody recipes (133 keypoints) and the COCO + UBody mix
+WHOLEBODY_RECIPES = dict(
+    rtmpose=ROOT / "configs/wholebody_2d_keypoint/rtmpose/coco-wholebody/"
+                   "rtmpose-m_8xb64-270e_coco-wholebody-256x192.py",
+    hrnet=ROOT / "configs/wholebody_2d_keypoint/topdown_heatmap/coco-wholebody/"
+                 "td-hm_hrnet-w32_8xb64-210e_coco-wholebody-256x192.py",
+    cspnext_udp=ROOT / "configs/wholebody_2d_keypoint/topdown_heatmap/coco-wholebody/"
+                       "cspnext-m_udp_8xb64-210e_coco-wholebody-256x192.py",
+)
+UBODY = ROOT / "configs/wholebody_2d_keypoint/rtmpose/ubody/rtmpose-m_8xb64-270e_coco-ubody-wholebody-256x192.py"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them (the FMA units: K2 and K3's f32 instance), and device memory.
@@ -218,7 +252,8 @@ PEAK_BYTES = 3.35e12
 PEAK_INT32 = PEAK_F32 / 4
 # f32-accurate products on the tensor cores: 3xTF32 issues three TF32
 # products (hi.hi, hi.lo, lo.hi) for each one, so a third of the 495 TFLOP/s
-# TF32 peak. It bounds the f32 products of K1 and K4, which run so.
+# TF32 peak. It bounds the f32 products of K1, K4 and the GAU kernels, which
+# run so.
 PEAK_F32_3XTF32 = 495e12 / 3
 
 # Bars. K1 bf16: the JAX package's own (tests/test_ops/test_vit_layer_fused.py:76).
@@ -322,6 +357,24 @@ UDP_FIXTURE_CFG = dict(
 # the outputs on the crops at ``FIXTURE_OUTPUT_REL`` (relative max error:
 # f32 on both sides, summation order, as ``HRNET_REL``).
 FIXTURE_OUTPUT_REL = 1e-4
+# A SimCC fixture's ties: keypoints whose reference x or y vector has its
+# two largest bins within this relative gap. The f32 outputs of the card,
+# the CPU and the JAX package differ by about 2e-6 of their range
+# (``outputs_rel``), so the argmax of such a vector is noise: one whole-body
+# keypoint, 1.2e-6 apart, decoded 165 px away on the CPU and two on the
+# card (H100 80GB HBM3, 700 W). They are left out of the keypoint errors,
+# as DARK's divergences are.
+SIMCC_TIE_REL = 1e-5
+# The GAU kernels against their plain twin (relative max error over the
+# twin's largest magnitude): f32 on both sides, sums in another order; the
+# gradients of gamma and beta sum over every row of the batch (8,512 at the
+# whole-body step), in fixed chunks against cuBLAS's order.
+GAU_REL = 1e-5
+GAU_GRAD_REL = 1e-4
+# The shapes the main paths give the GAU kernels (B, n): the whole-body
+# step's, its predict call's (64 boxes and their flips) and the body
+# recipes' step; e = 512 and s = 128 in every shipped config.
+GAU_SHAPES = ((64, 133), (128, 133), (256, 17))
 _TOPDOWN_TEST = dict(test_dataloader=dict(dataset=dict(pipeline=[
     dict(type="LoadImage"), dict(type="GetBBoxCenterScale"), dict(type="TopdownAffine", input_size=(192, 256)),
     dict(type="PackPoseInputs")])))
@@ -356,6 +409,18 @@ RTMPOSE_FIXTURE = dict(
         test_cfg=dict(flip_test=True))),
     weights=GOLDEN_JPEG / "rtmpose_weights.pth", outputs=GOLDEN_JPEG / "rtmpose_fixture.npz",
     keys=("keypoint_x_labels", "keypoint_y_labels"),
+)
+# ``tests/golden_torch/wholebody_*``: ``RTMPOSE_FIXTURE``'s narrow model with
+# RTMCCHead's 133 outputs under COCO-WholeBody's metainfo (its test set a
+# ``CocoWholeBodyDataset``), its AP ``CocoWholeBodyMetric``'s whole-body AP on
+# the golden annotations in COCO-WholeBody's layout (``golden_fixture_ap``)
+WHOLEBODY_FIXTURE = dict(
+    RTMPOSE_FIXTURE, name="wholebody", dataset="coco_wholebody",
+    cfg=dict(test_dataloader=dict(dataset=dict(_TOPDOWN_TEST["test_dataloader"]["dataset"],
+                                               type="CocoWholeBodyDataset")),
+             model=dict(RTMPOSE_FIXTURE["cfg"]["model"],
+                        head=dict(RTMPOSE_FIXTURE["cfg"]["model"]["head"], out_channels=133))),
+    weights=GOLDEN_JPEG / "wholebody_weights.pth", outputs=GOLDEN_JPEG / "wholebody_fixture.npz",
 )
 # the keys of a kernel's record that K2 and K2b fill from ``k2_timings``
 K2_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -555,12 +620,12 @@ def synthetic_train_batch(B, seed):
     return {k: v.cuda() for k, v in batch.items()}
 
 
-def synthetic_codec_batch(B, seed, codec):
+def synthetic_codec_batch(B, seed, codec, K=17):
     """A batch of B crops as the config's ``GenerateTarget`` (the port's,
-    deferred) ships it for ``codec``: raw 0-255 crops, input-space
+    deferred) ships it for ``codec``: raw 0-255 crops, K input-space
     keypoints (some outside the crop, some unannotated) turned into what the
-    device encodes (MSRA's float64 heatmap-space keypoints, SimCC's bins)
-    and the codec's weights; on the card."""
+    device encodes (MSRA's float64 heatmap-space keypoints, UDP's, SimCC's
+    bins) and the codec's weights; on the card."""
     import numpy as np
     import torch
 
@@ -569,9 +634,9 @@ def synthetic_codec_batch(B, seed, codec):
     rng = np.random.RandomState(seed)
     W, H = codec["input_size"]
     target = GenerateTarget(encoder=dict(codec))
-    shipped = [target({"transformed_keypoints": np.stack([rng.uniform(-20, W + 20, (1, 17)),
-                                                          rng.uniform(-20, H + 20, (1, 17))], -1).astype(np.float32),
-                       "keypoints_visible": (rng.rand(1, 17) > 0.15).astype(np.float32)}) for _ in range(B)]
+    shipped = [target({"transformed_keypoints": np.stack([rng.uniform(-20, W + 20, (1, K)),
+                                                          rng.uniform(-20, H + 20, (1, K))], -1).astype(np.float32),
+                       "keypoints_visible": (rng.rand(1, K) > 0.15).astype(np.float32)}) for _ in range(B)]
     batch = dict(inputs=torch.from_numpy(rng.randint(0, 256, (B, H, W, 3)).astype(np.float32)),
                  kpts_hm=torch.from_numpy(np.stack([s["device_kpts_hm"][0] for s in shipped])),
                  kpts_visible=torch.from_numpy(np.stack([s["device_kpts_visible"][0] for s in shipped])),
@@ -761,47 +826,163 @@ def udp_fixture_report(model):
     return report
 
 
-def model_fixture_report(fixture, device):
-    """A model fixture (``CLASSIC_FIXTURE``, ``RTMPOSE_FIXTURE``) through
-    ``init_model`` with its weights (every key the model's, loaded strict),
-    ``inference_topdown`` over the golden images and ``CocoMetric``, against
-    the JAX package's keypoints, scores and AP (``UDP_BARS``); and
-    ``PoseModel.predict`` on the fixture's two crops against the JAX
-    package's heatmaps or SimCC vectors (``FIXTURE_OUTPUT_REL``). Returns a
-    report with ``ok``."""
+def randomize_batch_stats(module, seed: int) -> None:
+    """Every BatchNorm's running mean in [-0.2, 0.2) and variance in [0.5, 1.5),
+    drawn by NumPy from ``seed``."""
     import numpy as np
     import torch
 
-    from probpose_code_torch.apis import init_model
-    from probpose_code_torch.datasets.metainfo import parse_pose_metainfo
-    from probpose_code_torch.evaluation import CocoMetric
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for name, buf in module.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(torch.from_numpy(rng.uniform(-0.2, 0.2, buf.shape).astype(np.float32)))
+            elif name.endswith("running_var"):
+                buf.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, buf.shape).astype(np.float32)))
 
-    model = init_model(fixture["cfg"], checkpoint=str(fixture["weights"]), device=device)
-    saved = torch.load(fixture["weights"], map_location="cpu", weights_only=True)
+
+def dpm_fixture_cfg():
+    """The DoubleProbPose-S config's model and test pipeline with its ViT in
+    f32: the bf16 backbone's rounding differs between the card's K1 and the
+    JAX package's XLA, and on the flat maps of random weights that moves an
+    argmax by tens of pixels (K1's f32 instance differs from the CPU in the
+    last bits only)."""
+    import copy
+
+    from probpose_code_torch.config import Config
+
+    cfg = Config.fromfile(str(DPM))
+    model = copy.deepcopy(cfg["model"])
+    model["backbone"]["dtype"] = "float32"
+    return dict(model=model, test_dataloader=dict(dataset=dict(pipeline=copy.deepcopy(cfg["val_pipeline"]))))
+
+
+# the DoubleProbMapHead's four scalar towers
+DPM_TOWERS = ("probability_layers", "visibility_layers", "oks_layers", "error_layers")
+
+
+def dpm_fixture_state():
+    """The DoubleProbPose fixture's weights, made on the CPU from seeds as
+    ``tools/_e2e_torch_model.build_e2e_model`` makes the e2e model's:
+    ``PoseModel.init_weights(seed=0)``, the BatchNorm statistics randomized
+    from seed 1, and each scalar tower's last convolution widened 12 times
+    with its bias drawn from N(0, 1) (seed 2) so that the probabilities,
+    visibilities and OKS span (0, 1). Returns the state dict (about 90 MB:
+    made at run time, not kept in the repository)."""
+    import numpy as np
+    import torch
+
+    from probpose_code_torch.datasets.metainfo import parse_pose_metainfo
+    from probpose_code_torch.models.builder import PoseModel
+
+    model = PoseModel(dpm_fixture_cfg()["model"], metainfo=parse_pose_metainfo({"dataset_name": "coco"}),
+                      device="cpu")
+    model.init_weights(seed=0)
+    randomize_batch_stats(model.module, seed=1)
+    rng = np.random.RandomState(2)
+    with torch.no_grad():
+        for tower in DPM_TOWERS:
+            last = [m for m in getattr(model.module.head, tower).modules() if isinstance(m, torch.nn.Conv2d)][-1]
+            last.weight.mul_(12.0)
+            last.bias.copy_(torch.from_numpy(rng.normal(0.0, 1.0, last.bias.shape).astype(np.float32)))
+    return {k: v.clone() for k, v in model.module.state_dict().items()}
+
+
+# ``tests/golden_torch/dpm_fixture.npz``: the DoubleProbPose-S fixture, its
+# weights made at run time (``dpm_fixture_state``), the JAX package's
+# keypoints, scores, the four scalar outputs and AP over the golden boxes,
+# and both windows' maps on two crops
+DPM_FIXTURE = dict(name="dpm", cfg=dpm_fixture_cfg, weights=dpm_fixture_state,
+                   outputs=GOLDEN_JPEG / "dpm_fixture.npz", keys=("heatmaps", "out_heatmaps"),
+                   aux=("keypoints_probs", "keypoints_visible", "keypoints_oks", "keypoints_error"))
+
+
+def golden_fixture_ap(samples, dataset="coco"):
+    """The AP of the predictions ``samples`` on the golden boxes: CocoMetric's
+    on ``tests/golden/e2e_coco.json``, or for ``dataset="coco_wholebody"``
+    CocoWholeBodyMetric's whole-body AP on the same annotations in
+    COCO-WholeBody's layout (``wholebody_set_from_coco``, seed 0)."""
+    import tempfile
+
+    from probpose_code_torch.datasets.metainfo import parse_pose_metainfo
+    from probpose_code_torch.evaluation import CocoMetric, CocoWholeBodyMetric
+
+    with tempfile.TemporaryDirectory() as tmp:
+        if dataset == "coco_wholebody":
+            ann = Path(tmp, "wholebody.json")
+            wholebody_set_from_coco(GOLDEN / "e2e_coco.json", ann)
+            metric = CocoWholeBodyMetric(ann_file=str(ann))
+        else:
+            metric = CocoMetric(ann_file=str(GOLDEN / "e2e_coco.json"), extended=[False])
+        metric.dataset_meta = parse_pose_metainfo({"dataset_name": dataset})
+        metric.process(None, samples)
+        return metric.compute_metrics(metric.results)["AP"]
+
+
+def fixture_model(fixture, device):
+    """``init_model`` on a model fixture's config and weights (a file, or
+    made by a function and written to one), every key the model's."""
+    import tempfile
+
+    import torch
+
+    from probpose_code_torch.apis import init_model
+
+    cfg = fixture["cfg"]() if callable(fixture["cfg"]) else fixture["cfg"]
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = fixture["weights"]
+        if callable(weights):
+            saved, weights = weights(), Path(tmp, "weights.pth")
+            torch.save(saved, weights)
+        else:
+            saved = torch.load(weights, map_location="cpu", weights_only=True)
+        model = init_model(cfg, checkpoint=str(weights), device=device)
     if set(saved) != set(model.module.state_dict()):
         raise AssertionError(f"{fixture['name']} fixture: its keys are not the model's")
+    return model
+
+
+def model_fixture_report(fixture, device):
+    """A model fixture (``CLASSIC_FIXTURE``, ``RTMPOSE_FIXTURE``,
+    ``WHOLEBODY_FIXTURE``, ``DPM_FIXTURE``) through ``init_model`` with its
+    weights (``fixture_model``), ``inference_topdown`` over the golden
+    images and the AP (``golden_fixture_ap``), against the JAX package's
+    keypoints, scores, the fixture's ``aux`` outputs and AP (``UDP_BARS``;
+    the aux outputs at the scores' bar); and ``PoseModel.predict`` on the
+    fixture's two crops against the JAX package's heatmaps or SimCC vectors
+    (``FIXTURE_OUTPUT_REL``). Returns a report with ``ok``."""
+    import numpy as np
+    import torch
+
+    model = fixture_model(fixture, device)
+    K = model.metainfo["num_keypoints"]
     ref = np.load(fixture["outputs"])
     _, samples = golden_samples(model)
     by_id = {s.metainfo["id"]: s for s in samples}
-    ours = np.stack([np.asarray(by_id[i].pred_instances.keypoints).reshape(17, 2) for i in ref["ids"]])
-    scores = np.stack([np.asarray(by_id[i].pred_instances.keypoint_scores).reshape(17) for i in ref["ids"]])
+
+    def ours(field, *shape):
+        return np.stack([np.asarray(by_id[i].pred_instances[field]).reshape(*shape) for i in ref["ids"]])
+
+    kpts = ours("keypoints", K, 2)
+    scores = ours("keypoint_scores", K)
+    aux = max((float(np.abs(ours(f, K) - ref[f]).max()) for f in fixture.get("aux", ())), default=0.0)
     # DARK's own divergences (coordinates thousands of pixels out, where the
-    # Hessian is near singular) are left out, as ``udp_fixture_report`` leaves them
-    sane = np.all(np.abs(ref["keypoints"]) < 1000.0, axis=-1)
-    err = np.linalg.norm(ours - ref["keypoints"], axis=-1)[sane]
-    metric = CocoMetric(ann_file=str(GOLDEN / "e2e_coco.json"), extended=[False])
-    metric.dataset_meta = parse_pose_metainfo({"dataset_name": "coco"})
-    metric.process(None, samples)
-    ap = metric.compute_metrics(metric.results)["AP"]
+    # Hessian is near singular) are left out, as ``udp_fixture_report`` leaves
+    # them, and so are a SimCC fixture's ties (``SIMCC_TIE_REL``)
+    ties = ref["ties"] if "ties" in ref else np.zeros(ref["keypoints"].shape[:2], bool)
+    sane = np.all(np.abs(ref["keypoints"]) < 1000.0, axis=-1) & ~ties
+    err = np.linalg.norm(kpts - ref["keypoints"], axis=-1)[sane]
+    ap = golden_fixture_ap(samples, fixture.get("dataset", "coco"))
     preds = model.predict(torch.from_numpy(ref["crops"].astype(np.float32)).to(model.device))
     rel = max(float(np.abs(preds[k].cpu().numpy() - ref[k]).max() / np.abs(ref[k]).max()) for k in fixture["keys"])
-    report = dict(instances=len(samples), sane=float(sane.mean()), p99=float(np.percentile(err, 99)),
-                  max=float(err.max()),
-                  over_5px=int((err > 5.0).sum()), scores=float(np.abs(scores - ref["scores"]).max()),
+    report = dict(instances=len(samples), keypoints=K, ties=int(ties.sum()), sane=float(sane.mean()),
+                  p99=float(np.percentile(err, 99)),
+                  max=float(err.max()), over_5px=int((err > 5.0).sum()),
+                  scores=float(np.abs(scores - ref["scores"]).max()), aux=aux,
                   AP=float(ap), ref_AP=float(ref["ap"]), d_AP=abs(float(ap) - float(ref["ap"])), outputs_rel=rel)
     report["ok"] = (report["sane"] > 0.97 and report["p99"] < UDP_BARS["p99"]
                     and report["over_5px"] <= UDP_BARS["over_5px"] and report["scores"] < UDP_BARS["scores"]
-                    and report["d_AP"] < UDP_BARS["ap"] and rel < FIXTURE_OUTPUT_REL)
+                    and aux < UDP_BARS["scores"] and report["d_AP"] < UDP_BARS["ap"] and rel < FIXTURE_OUTPUT_REL)
     return report
 
 
@@ -1164,17 +1345,52 @@ def body_set_from_coco(ann_file, out_file, dataset_type, mapping=None):
     Path(out_file).write_text(json.dumps(gt))
 
 
+# COCO-WholeBody's parts after the body, with their keypoint counts
+WHOLEBODY_EXTRA_PARTS = (("foot_kpts", 6), ("face_kpts", 68), ("lefthand_kpts", 21), ("righthand_kpts", 21))
+# the seed of the parts' draws, and the share of the parts left unannotated
+WHOLEBODY_SEED = 0
+WHOLEBODY_MISSING = 0.2
+
+
+def wholebody_set_from_coco(ann_file, out_file):
+    """A COCO keypoint annotation file in COCO-WholeBody's layout, written
+    to ``out_file``: each annotation's 17 body keypoints as they are, and
+    its 6 foot, 68 face and 2 x 21 hand keypoints drawn inside its box from
+    NumPy's generator seeded with ``WHOLEBODY_SEED``, all visible (v = 2),
+    as the JAX package's ``tests/test_evaluation/test_wholebody_metric.py``
+    draws them; each of these four parts is left unannotated (all zeros,
+    mmpose's ``<part>_valid`` false) with probability ``WHOLEBODY_MISSING``,
+    as COCO-WholeBody leaves the hands and faces it cannot see."""
+    import numpy as np
+
+    rng = np.random.RandomState(WHOLEBODY_SEED)
+    gt = json.loads(Path(ann_file).read_text())
+    for a in gt["annotations"]:
+        x0, y0, w, h = a["bbox"]
+        for field, n in WHOLEBODY_EXTRA_PARTS:
+            kpts = np.stack([x0 + rng.rand(n) * w, y0 + rng.rand(n) * h, np.full(n, 2.0)], axis=-1)
+            valid = rng.rand() >= WHOLEBODY_MISSING
+            a[field] = (kpts if valid else np.zeros((n, 3))).reshape(-1).tolist()
+            a[field.replace("_kpts", "_valid")] = bool(valid)
+    gt["categories"] = [dict(id=1, name="person", keypoints=[str(k) for k in range(133)], skeleton=[])]
+    Path(out_file).write_text(json.dumps(gt))
+
+
 def recipe_sets(cfg, loader, root, ann_file):
     """The sub-datasets of ``cfg[loader]``'s ``CombinedDataset`` over the
     images under ``root``: ``ann_file`` (COCO's layout) written in each
     one's layout through the inverse of its pipeline's ``KeypointConverter``
-    (``body_set_from_coco``) as ``root/<loader>_<i>.json``. Returns the
+    (``body_set_from_coco``; a ``CocoWholeBodyDataset``'s by
+    ``wholebody_set_from_coco``) as ``root/<loader>_<i>.json``. Returns the
     ``--cfg-options`` items that point each sub-dataset at its file."""
     options = []
     for i, d in enumerate(cfg[loader]["dataset"]["datasets"]):
         mapping = next((t["mapping"] for t in d.get("pipeline", []) if t["type"] == "KeypointConverter"), None)
         name = f"{loader}_{i}.json"
-        body_set_from_coco(ann_file, Path(root) / name, d["type"], mapping)
+        if d["type"] == "CocoWholeBodyDataset":
+            wholebody_set_from_coco(ann_file, Path(root) / name)
+        else:
+            body_set_from_coco(ann_file, Path(root) / name, d["type"], mapping)
         options += [f"{loader}.dataset.datasets.{i}.{key}" for key in (f"data_root={root}", f"ann_file={name}",
                                                                       "data_prefix.img=imgs/")]
     return options
@@ -1182,25 +1398,59 @@ def recipe_sets(cfg, loader, root, ann_file):
 
 def halpe26_repair_options(cfg, loaders=("train_dataloader", "val_dataloader")):
     """``--cfg-options`` items that give the halpe26 recipes' sub-datasets
-    mmpose's converters where the shipped configs' differ from them: Halpe
-    gets ``halpe_halpe26`` (the first 26 of its 136 keypoints; the configs
-    give it ``pipeline=[]``), and COCO and OCHuman, whose files the configs
-    name COCO's 17-keypoint ones, their 17 body keypoints (the configs'
-    mapping also reads COCO-WholeBody's six foot keypoints, 17-22, which
-    mmpose takes from a ``CocoWholeBodyDataset``). Without them the port
-    refuses the recipe's samples by name."""
+    mmpose's datasets and converters where the shipped configs' differ from
+    them: COCO becomes a ``CocoWholeBodyDataset`` (the configs name
+    ``CocoDataset`` on COCO's 17-keypoint file, and their 23-pair mapping
+    reads COCO-WholeBody's six foot keypoints, 17-22), Halpe gets
+    ``halpe_halpe26`` (the first 26 of its 136 keypoints; the configs give
+    it ``pipeline=[]``), and OCHuman, whose val entry reuses COCO's 23-pair
+    pipeline on a file without feet, its 17 body keypoints. Without them
+    the port refuses the recipe's samples by name."""
     options = []
     for loader in loaders:
         for i, d in enumerate(cfg[loader]["dataset"]["datasets"]):
+            if d["type"] in ("CocoDataset", "CocoWholeBodyDataset"):  # the latter: a repaired config
+                options.append(f"{loader}.dataset.datasets.{i}.type=CocoWholeBodyDataset")
+                continue
             if d["type"] == "HalpeDataset":
                 mapping = [(k, k) for k in range(26)]
-            elif d["type"] in ("CocoDataset", "OCHumanDataset"):
+            elif d["type"] == "OCHumanDataset":
                 mapping = [(k, k) for k in range(17)]
             else:
                 continue
             converter = [dict(type="KeypointConverter", num_keypoints=26, mapping=mapping)]
             options.append(f"{loader}.dataset.datasets.{i}.pipeline={converter!r}")
     return options
+
+
+def ubody_sets(cfg, root, ann_file, loader="train_dataloader"):
+    """The UBody recipe's train mix (``rtmpose-m_8xb64-270e_coco-ubody-
+    wholebody``: a ``CocoWholeBodyDataset`` and 15 ``UBody2dDataset``
+    scenes) over the images under ``root``: ``ann_file`` (COCO's layout)
+    in COCO-WholeBody's layout (``wholebody_set_from_coco``) for COCO, and
+    for scene ``s`` the same with each image ``i`` under the id ``10 i``
+    where ``i % 4 == s % 4`` and ``10 i + 1`` elsewhere, so that the
+    scenes' ``sample_interval=10`` keeps a quarter of the images, a
+    different quarter in turn. Returns the ``--cfg-options`` items that
+    point each sub-dataset at its file and the number of instances the mix
+    keeps."""
+    root = Path(root)
+    wholebody_set_from_coco(ann_file, root / f"{loader}_0.json")
+    base = json.loads((root / f"{loader}_0.json").read_text())
+    options, kept = [], len(base["annotations"])
+    for i, d in enumerate(cfg[loader]["dataset"]["datasets"]):
+        if d["type"] == "UBody2dDataset":
+            scene = json.loads(json.dumps(base))
+            new_id = {im["id"]: 10 * im["id"] + (0 if im["id"] % 4 == i % 4 else 1) for im in scene["images"]}
+            for im in scene["images"]:
+                im["id"] = new_id[im["id"]]
+            for a in scene["annotations"]:
+                a["image_id"] = new_id[a["image_id"]]
+            kept += sum(a["image_id"] % d["sample_interval"] == 0 for a in scene["annotations"])
+            (root / f"{loader}_{i}.json").write_text(json.dumps(scene))
+        options += [f"{loader}.dataset.datasets.{i}.{key}" for key in (
+            f"data_root={root}", f"ann_file={loader}_{i}.json", "data_prefix.img=imgs/")]
+    return options, kept
 
 
 def tiny_train_cfg(ann_file, batch_size, num_workers=0, approximate_gelu=False):
@@ -1298,15 +1548,30 @@ def augment_counters():
     return dict(photometric_median=photometric.median_blur, photometric_distortion=photometric.photometric_distortion)
 
 
+def gau_counters():
+    """The GAU kernels' wrappers (no TPU kernel: their own line), whose
+    ``launches`` count their kernels' launches."""
+    from probpose_code_torch.ops.kernels import gau
+
+    return dict(gau_forward=gau.gau_forward, gau_backward=gau.gau_backward)
+
+
+def has_gau(model) -> bool:
+    """Whether ``model``'s head runs a GAU (RTMPose's ``RTMCCHead``)."""
+    from probpose_code_torch.models.utils.rtmcc_block import RTMCCBlock
+
+    return any(isinstance(m, RTMCCBlock) for m in model.module.modules())
+
+
 def reset_counts():
-    """Every kernel's count, the JPEG decode's and the photometric
-    kernels' set to 0; returns a reader of the kernels' counts
+    """Every kernel's count, the JPEG decode's, the photometric kernels'
+    and the GAU kernels' set to 0; returns a reader of the kernels' counts
     (``decode_batch.launches`` holds the decode's, ``augment_counters``
-    the others)."""
+    and ``gau_counters`` the others)."""
     from probpose_code_torch.ops.kernels.jpeg import decode_batch
 
     counters = kernel_counters()
-    for c in (*counters.values(), *augment_counters().values(), decode_batch):
+    for c in (*counters.values(), *augment_counters().values(), *gau_counters().values(), decode_batch):
         c.launches = 0
     return lambda: {k: c.launches for k, c in counters.items()}
 
@@ -1573,16 +1838,18 @@ def _runner_watch():
 
     class RunnerWatch(Hook):
         """The val's metrics, the state a resumed run starts from (against
-        the checkpoint's EMA average), and the step ``profile_step``
-        profiled: from the end of the step before it to the end of its
-        own kernels."""
+        the checkpoint's EMA average), and with ``profile`` the second step
+        of the second epoch profiled: from the end of the step before it to
+        the end of its own kernels."""
 
-        def __init__(self, resume_from=None, profile_step=None):
-            self.resume_from, self.profile_step = resume_from, profile_step
+        def __init__(self, resume_from=None, profile=False):
+            self.resume_from, self.profile, self.profile_step = resume_from, profile, None
             self.metrics, self.start, self.prof, self.profiler_s, self.busy_ms = None, None, None, 0.0, None
 
         def before_run(self, runner):
             self.start = dict(epoch=runner.epoch, step=runner.state.step)
+            if self.profile:
+                self.profile_step = len(runner.train_loader) + 2
             if self.resume_from:
                 saved = read_checkpoint(self.resume_from)["state_dict"]
                 names = [n for n, _ in runner.model.module.named_parameters()]
@@ -1621,6 +1888,17 @@ class Smoke:
         self.failures = []
         self.record = {}
         self._full_state = None
+
+    def read_gau(self, path, runs, backward=False):
+        """The GAU kernels' launches on ``path``'s main path (their counts set
+        to 0 with the others'), kept for the ``gau`` line. Fails unless the
+        forward launched where the model runs a GAU (``runs``), the backward
+        too where the path trains (``backward``), and neither elsewhere."""
+        launches = {k: c.launches for k, c in gau_counters().items()}
+        self.record.setdefault("gau_launches", {})[path] = launches
+        want = dict(gau_forward=runs, gau_backward=runs and backward)
+        if any(bool(launches[k]) != v for k, v in want.items()):
+            raise AssertionError(f"{path}: GAU kernel launches {launches}, expected launched {want}")
 
     def phase(self, name, fn):
         t0 = time.time()
@@ -2771,10 +3049,12 @@ class Smoke:
         samples = inference_topdown(model, img, boxes)
         torch.cuda.synchronize()
         launches = read_counts()
+        self.read_gau(record_key.removesuffix("_launches"), has_gau(model))
         kpts = np.stack([s.pred_instances.keypoints for s in samples])
         scores = np.stack([s.pred_instances.keypoint_scores for s in samples])
         print(f"{record_key.removesuffix('_launches')} main path: {len(samples)} crops, launches {json.dumps(launches)}")
-        if kpts.shape != (64, 1, 17, 2) or not (np.isfinite(kpts).all() and np.isfinite(scores).all()):
+        K = model.metainfo["num_keypoints"]
+        if kpts.shape != (64, 1, K, 2) or not (np.isfinite(kpts).all() and np.isfinite(scores).all()):
             raise AssertionError(f"{name} outputs {kpts.shape}, not finite")
         if launches != NO_LAUNCHES:
             raise AssertionError(f"{name} launched a kernel of the port: {launches}")
@@ -2795,7 +3075,8 @@ class Smoke:
             inference_topdown(model, img, boxes)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        print(f"{name} predict, f32, flip-TTA, B=64: {64 * timed_calls / dt:.1f} crops/s "
+        flip = "flip-TTA" if model.aux["test_cfg"].get("flip_test") else "no flip-TTA"
+        print(f"{name} predict, f32, {flip}, K={K}, B=64: {64 * timed_calls / dt:.1f} crops/s "
               f"({1e3 * dt / timed_calls:.2f} ms per inference_topdown call, {timed_calls} calls after 2 warm-up); "
               f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         if profile_calls:
@@ -2830,6 +3111,7 @@ class Smoke:
         report_steps(logs)
         torch.cuda.synchronize()
         launches = read_counts()
+        self.read_gau(record_key.removesuffix("_launches"), has_gau(model), backward=True)
         print(f"{record_key.removesuffix('_launches')} main path: one step of B={B}, launches {json.dumps(launches)}")
         if launches != NO_LAUNCHES:
             raise AssertionError(f"{name} train launched a kernel of the port: {launches}")
@@ -2878,14 +3160,104 @@ class Smoke:
         ``tests/golden_torch/rtmpose_*``) on the card, as ``classic_golden``."""
         self._fixture_phase(RTMPOSE_FIXTURE)
 
-    def _fixture_phase(self, fixture):
+    def _fixture_phase(self, fixture, kernels=()):
+        """``model_fixture_report`` on the card: within its bars, the
+        ``kernels`` of the port launched and no other."""
         read_counts = reset_counts()
         report = model_fixture_report(fixture, device="cuda")
         launches = read_counts()
+        self.read_gau(f"{fixture['name']}_golden", "keypoint_x_labels" in fixture["keys"])
         print(f"{fixture['name']}_golden: {json.dumps(report)}; launches {json.dumps(launches)}; bars "
               f"{json.dumps(UDP_BARS)}, outputs {FIXTURE_OUTPUT_REL:g}")
-        if not report["ok"] or launches != NO_LAUNCHES:
-            raise AssertionError(f"{fixture['name']}_golden out of its bars")
+        if not report["ok"] or any(bool(n) != (k in kernels) for k, n in launches.items()):
+            raise AssertionError(f"{fixture['name']}_golden out of its bars, or launched {launches}")
+
+    def gau_parity(self):
+        """The GAU kernels (``ops/kernels/gau.py``, ``csrc/gau.cu``) against
+        their plain twin on the same inputs drawn from a seed, at each of
+        ``GAU_SHAPES`` (e = 512, s = 128): the forward at ``GAU_REL``,
+        and the gradients of z, gamma and beta (torch autograd through the
+        twin) at ``GAU_GRAD_REL``; the backward twice, bit for bit (no
+        atomics). At the whole-body step's shape, each kernel's time beside
+        its twin's and its bound: the multiply-adds of its products at the
+        rate of f32 products in 3xTF32, as they run (``PEAK_F32_3XTF32``),
+        or its inputs read and outputs written once. The times are the
+        kernels' device time a call (profiled, ``kernel_device_ms``) and
+        the twin's, beside the calls' CUDA-event times. No PyTorch call
+        computes the squared-ReLU attention, so there is no library time.
+        Launches made here are not the main path's."""
+        import numpy as np
+        import torch
+
+        from probpose_code_torch.ops.kernels.gau import gau_attention_plain, gau_backward, gau_flops, gau_forward
+
+        e, s = 512, 128
+        records = {}
+        for B, n in GAU_SHAPES:
+            rng = np.random.RandomState(B + n)
+            z = torch.from_numpy(rng.randn(B, n, 2 * e + s).astype(np.float32)).cuda()
+            gamma = torch.from_numpy(rng.rand(2, s).astype(np.float32)).cuda()
+            beta = torch.from_numpy(0.1 * rng.randn(2, s).astype(np.float32)).cuda()
+            dout = torch.from_numpy(rng.randn(B, n, e).astype(np.float32)).cuda()
+            out, saved = gau_forward(z, gamma, beta, e, s)
+            grads = gau_backward(dout, z, gamma, saved, e, s)
+            again = gau_backward(dout, z, gamma, saved, e, s)
+            leaves = [t.clone().requires_grad_() for t in (z, gamma, beta)]
+            ref = gau_attention_plain(*leaves, e, s)
+            ref_grads = torch.autograd.grad(ref, leaves, dout, retain_graph=True)
+
+            def rel(a, b):
+                return float((a - b).abs().max() / b.abs().max())
+
+            err = dict(out=rel(out, ref.detach()), **{name: rel(g, r) for name, g, r in
+                                                       zip(("dz", "dgamma", "dbeta"), grads, ref_grads)})
+            deterministic = all(torch.equal(a, b) for a, b in zip(grads, again))
+            print(f"gau_parity B={B} n={n} e={e} s={s}: rel max err {json.dumps(err)} (bars {GAU_REL:g} forward, "
+                  f"{GAU_GRAD_REL:g} gradients); the backward repeats bit for bit: {deterministic}")
+            if not (err["out"] < GAU_REL and max(err[k] for k in ("dz", "dgamma", "dbeta")) < GAU_GRAD_REL
+                    and deterministic):
+                raise AssertionError(f"gau_parity B={B} n={n}: the kernels disagree with the plain twin: {err}, "
+                                     f"deterministic {deterministic}")
+            if (B, n) != GAU_SHAPES[0]:
+                continue
+            fwd_ops, bwd_ops = gau_flops(B, n, e, s)
+            fwd_bytes = 4 * (z.numel() + gamma.numel() + beta.numel() + out.numel())
+            bwd_bytes = 4 * (2 * z.numel() + dout.numel() + 3 * gamma.numel())  # z, gamma, dout; dz, dgamma, dbeta
+            timed = dict(
+                gau_forward=(lambda: gau_forward(z, gamma, beta, e, s),
+                             lambda: gau_attention_plain(z, gamma, beta, e, s), fwd_ops, fwd_bytes,
+                             float((out - ref.detach()).abs().max())),
+                gau_backward=(lambda: gau_backward(dout, z, gamma, saved, e, s),
+                              lambda: torch.autograd.grad(ref, leaves, dout, retain_graph=True), bwd_ops, bwd_bytes,
+                              max(float((g - r).abs().max()) for g, r in zip(grads, ref_grads))))
+            for name, (fn, plain, ops, nbytes, abs_err) in timed.items():
+                need = dict(operations=ops / PEAK_F32_3XTF32, bytes=nbytes / PEAK_BYTES)
+                records[name] = dict(
+                    name=name, route="cuda", source="probpose_code_torch/csrc/gau.cu",
+                    ports="probpose_code_tpu/models/utils/rtmcc_block.py:99", max_abs_err=abs_err,
+                    ms=Smoke.kernel_device_ms(fn), plain_ms=Smoke.kernel_device_ms(plain, calls=10),
+                    bound_ms=max(need.values()) * 1e3, bound_by=max(need, key=need.get), library_ms=None)
+                r = records[name]
+                print(f"  {name} B={B} n={n}: device {r['ms']:.4f} ms a call (call {cuda_time_ms(fn, 20):.4f} ms by "
+                      f"CUDA events, the wrapper's host work included), plain {r['plain_ms']:.4f} ms device (call "
+                      f"{cuda_time_ms(plain, 10):.4f}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+                      f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB), {r['ms'] / r['bound_ms']:.1f}x its bound, max "
+                      f"abs err {abs_err:.3e}")
+        self.record["gau"] = [records["gau_forward"], records["gau_backward"]]
+
+    def wholebody_golden(self):
+        """The whole-body fixture (``RTMPOSE_FIXTURE``'s narrow model with 133
+        outputs, ``tests/golden_torch/wholebody_*``) on the card, as
+        ``rtmpose_golden``: its AP ``CocoWholeBodyMetric``'s."""
+        self._fixture_phase(WHOLEBODY_FIXTURE)
+
+    def dpm_golden(self):
+        """The DoubleProbPose-S fixture (its ViT in f32, weights from seeds,
+        ``tests/golden_torch/dpm_fixture.npz``) on the card at ``UDP_BARS``,
+        its four scalar outputs within the scores' bar and both windows' maps
+        on two crops at ``FIXTURE_OUTPUT_REL``: K1 (its f32 instance) and K2
+        (both windows in one launch at the identity scale) launched."""
+        self._fixture_phase(DPM_FIXTURE, kernels=("vit_layer", "expected_oks"))
 
     def res50_predict(self):
         """SimpleBaseline ResNet-50 with DARK (``td-hm_res50_dark``) through
@@ -2997,6 +3369,7 @@ class Smoke:
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             launches, decodes = read_counts(), decode_batch.launches
+            self.read_gau("rtmpose_val", True)
             kpts = np.stack([s.pred_instances.keypoints for s in evaluator.samples])
             print(f"rtmpose_train Runner.val: {len(evaluator.samples)} instances in {dt:.3f} s, launches "
                   f"{json.dumps(launches)}, JPEG decodes {decodes}; metrics {json.dumps(metrics)}; val_times "
@@ -3164,7 +3537,7 @@ class Smoke:
             _, ann = golden_jpeg_set(tmp)
             copy_instances(ann, 512, Path(tmp, "train.json"))
             Path(tmp, "val.json").write_text(Path(ann).read_text())
-            launches, augments, _ = self.switch_runner("rtmpose_train_runner", RTMPOSE, tmp,
+            launches, augments, _, _ = self.switch_runner("rtmpose_train_runner", RTMPOSE, tmp,
                                                        coco_data_options(tmp, "train.json", workers=8))
             self.record["rtmpose_runner_launches"] = launches
             self.record["augment_launches"] = augments
@@ -3194,7 +3567,7 @@ class Smoke:
             Path(tmp, "val.json").write_text(Path(ann).read_text())
             options = coco_data_options(tmp, workers=8) + ["train_dataloader.num_workers=8"] + recipe_sets(
                 Config.fromfile(str(BODY8)), "train_dataloader", tmp, Path(tmp, "train.json"))
-            launches, augments, busy_ms = self.switch_runner("body8_train_runner", BODY8, tmp, options)
+            launches, augments, busy_ms, _ = self.switch_runner("body8_train_runner", BODY8, tmp, options)
             if augments["photometric_distortion"] != 2:  # one a step of stage 1, none in stage 2
                 raise AssertionError(f"body8_train_runner: the distortion kernel launched {augments} times")
             self.record["body8_runner_launches"] = launches
@@ -3207,26 +3580,28 @@ class Smoke:
 
     def switch_runner(self, name, config, root, data_options):
         """An RTMPose recipe through ``tools.train``'s main on its config
-        file (random weights, seed 0) at its batch of 256 over the data of
-        ``data_options`` under ``root`` (2 steps an epoch; ``root/val.json``
-        the val set): two epochs with ``switch_epoch=1`` (the stage-2
-        pipeline from the second, its workers restarted), the EMA hook, a
-        checkpoint each epoch and val after the second; then a third epoch
-        resumed by ``--resume``. Fails unless 4 steps run, no kernel of the
-        port launches, one JPEG decode runs a step and a val batch, the
+        file (random weights, seed 0) at its config's batch over the data
+        of ``data_options`` under ``root`` (``root/val.json`` the val set;
+        an epoch the whole batches the data holds): two epochs with
+        ``switch_epoch=1`` (the stage-2 pipeline from the second, its workers
+        restarted), the EMA hook, a checkpoint each epoch and val after the
+        second; then a third epoch resumed by ``--resume``. Fails unless the
+        config's batch and two epochs' steps run, no kernel of the port's
+        TPU list launches, the GAU's kernels launch (``read_gau``), one JPEG decode runs a step and a val batch, the
         crops are augmented on the card (the median kernel launched), the
         metrics are finite, ``epoch_2.pth`` holds the EMA's average as its
         weights and the live weights as ``ema_state_dict``, the first loss
         dict equals ``make_train_step``'s on the same batch, weights and
         generator seed (``TRAIN_FLAGSHIP_REL``), and the resumed run starts
-        at epoch 2, step 4, with the saved average and ends at step 6.
+        at epoch 2 with the saved average and ends a third epoch later.
         Prints each epoch's train crops/s with the ``train_times`` split
-        (the decode and the augment apart), peak device memory, and one
-        step profiled inside the runner. Returns the main path's kernel
-        launches, the photometric kernel's, and the profiled step's device
-        busy ms."""
+        (the decode and the augment apart), peak device memory, and the
+        second step of the second epoch profiled inside the runner. Returns
+        the main path's kernel launches, the photometric kernel's, the
+        profiled step's device busy ms and the val's metrics."""
         import torch
 
+        from probpose_code_torch.config import Config
         from probpose_code_torch.engine.checkpoint import read_checkpoint
         from probpose_code_torch.ops.kernels.jpeg import decode_batch
         from probpose_code_torch.tools import train as train_cli
@@ -3238,31 +3613,36 @@ class Smoke:
                 "custom_hooks.1.switch_epoch=1"]
 
         # the main path: counts set to 0 just before, read just after
-        watch = RunnerWatch(profile_step=4)  # the second step of the second epoch
+        watch = RunnerWatch(profile=True)
         torch.cuda.reset_peak_memory_stats()
         read_counts = reset_counts()
         runner = train_cli.main(argv + ["train_cfg.max_epochs=2"], hooks=[watch])
         torch.cuda.synchronize()
         launches, decodes = read_counts(), decode_batch.launches
         augments = {k: c.launches for k, c in augment_counters().items()}
+        self.read_gau(name, True, backward=True)
         peak = torch.cuda.max_memory_allocated() / 2**30
+        batch = Config.fromfile(str(config))["train_dataloader"]["batch_size"]
         B, steps, val_batches = runner.train_loader.batch_size, runner.state.step, len(runner.val_loader)
+        steps_per_epoch = len(runner.train_loader.dataset) // batch
         print(f"{name} main path: {steps} steps of {B} over {len(runner.train_loader.dataset)} instances, launches "
-              f"{json.dumps(launches)}, JPEG decodes {decodes}, photometric kernel {json.dumps(augments)}, peak "
-              f"device memory {peak:.2f} GiB")
+              f"{json.dumps(launches)}, JPEG decodes {decodes}, photometric kernel {json.dumps(augments)}, GAU "
+              f"kernels {json.dumps(self.record['gau_launches'][name])}, peak device memory {peak:.2f} GiB")
         report_runner_epochs(name, runner, 0, watch.profiler_s)
         log = (wd / "train.log").read_text()
         written = sorted(p.name for p in wd.glob("*.pth"))
         metrics = watch.metrics or {}
         print(f"{name} val inside training: {len(runner.val_dataset)} instances, {json.dumps(metrics)}; val_times "
               f"{json.dumps(runner.val_times)}")
-        if (B != 256 or steps != 4 or launches != NO_LAUNCHES or decodes != steps + val_batches
-                or written != ["epoch_1.pth", "epoch_2.pth"] or "pipeline switch at epoch 1" not in log
+        if (B != batch or not steps_per_epoch or steps != 2 * steps_per_epoch or launches != NO_LAUNCHES
+                or decodes != steps + val_batches
+                or written != sorted(["epoch_1.pth", "epoch_2.pth"] + (["best.pth"] if runner.save_best else []))
+                or "pipeline switch at epoch 1" not in log
                 or not metrics or not all(math.isfinite(v) for v in metrics.values())
                 or not all(t["augment"] > 0 for t in runner.train_times)
                 or not augments["photometric_median"]):
-            raise AssertionError(f"{name}: batch {B}, {steps} steps, launches {launches}, {decodes} decodes, "
-                                 f"checkpoints {written}, metrics {metrics}")
+            raise AssertionError(f"{name}: batch {B} (the config's {batch}), {steps} steps, launches {launches}, "
+                                 f"{decodes} decodes, checkpoints {written}, metrics {metrics}")
         ckpt = read_checkpoint(str(wd / "epoch_2.pth"))
         live = runner.model.module.state_dict()
         ema = runner.hooks[0]
@@ -3281,9 +3661,221 @@ class Smoke:
         print(f"{name} resumed: started at {json.dumps(watch.start)}; ended at step {runner.state.step}")
         if (watch.start != dict(epoch=2, step=steps, average_equal=True) or runner.state.step != 3 * steps // 2
                 or "pipeline switch at epoch 2" not in (wd / "train.log").read_text()):
-            raise AssertionError(f"{name}: the resumed epoch did not start at epoch 2, step 4, with the saved average "
-                                 "and the stage-2 pipeline, or did not end at step 6")
-        return launches, augments, busy_ms
+            raise AssertionError(f"{name}: the resumed epoch did not start at epoch 2, step {steps}, with the saved "
+                                 f"average and the stage-2 pipeline, or did not end at step {3 * steps // 2}")
+        return launches, augments, busy_ms, metrics
+
+    def wholebody_predict(self):
+        """The three whole-body recipes at full width through
+        ``predict_phase``: RTMPose-m (CSPNeXt-m, RTMCCHead's GAU over 133
+        tokens, SimCC), HRNet-w32 (MSRA, 133 maps of 64 x 48) and CSPNeXt-m
+        with UDP (no flip-TTA, as its config says)."""
+        self.predict_phase(WHOLEBODY_RECIPES["rtmpose"], "RTMPose-m whole-body",
+                           ("keypoint_x_labels", "keypoint_y_labels"), "wholebody_rtmpose_launches")
+        self.predict_phase(WHOLEBODY_RECIPES["hrnet"], "HRNet-w32 whole-body", ("heatmaps",),
+                           "wholebody_hrnet_launches", timed_calls=3, profile_calls=1)
+        self.predict_phase(WHOLEBODY_RECIPES["cspnext_udp"], "CSPNeXt-m UDP whole-body", ("heatmaps",),
+                           "wholebody_cspnext_launches", timed_calls=3, profile_calls=1)
+
+    def wholebody_train(self):
+        """The bare train steps of HRNet-w32 whole-body (plain Adam, MSRA
+        targets of 133 keypoints rendered on the card) and CSPNeXt-m UDP
+        whole-body (AdamW, UDP targets) through ``train_phase`` on 64
+        synthetic crops; then ``tools.test`` on the HRNet-w32 whole-body
+        recipe over the golden JPEGs in COCO-WholeBody's layout, the
+        ground-truth boxes: ``CocoWholeBodyMetric``'s six AP families finite,
+        no kernel of the port launched, one decode a val batch."""
+        import contextlib
+        import io
+        import tempfile
+
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.datasets.loader import stop_workers
+        from probpose_code_torch.ops.kernels.jpeg import decode_batch
+        from probpose_code_torch.tools import test as test_cli
+
+        for name, key, seed in (("hrnet", "HRNet-w32 whole-body", 7), ("cspnext_udp", "CSPNeXt-m UDP whole-body", 8)):
+            config = WHOLEBODY_RECIPES[name]
+            self.train_phase(config, key, synthetic_codec_batch(64, seed, Config.fromfile(config)["codec"], K=133),
+                             f"wholebody_{name}_train_launches")
+        families = [f"coco/{part}AP" for part in ("body_", "foot_", "face_", "lefthand_", "righthand_", "")]
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+            stack.callback(stop_workers)
+            _, ann = golden_jpeg_set(tmp)
+            wholebody_set_from_coco(ann, Path(tmp, "val.json"))
+            options = [kv.replace("val_", "test_", 1) for kv in coco_data_options(tmp, workers=8)]
+            out = io.StringIO()
+            # the main path: counts set to 0 just before, read just after
+            read_counts = reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                test_cli.main([str(WHOLEBODY_RECIPES["hrnet"]), "--cfg-options", *options])
+            dt = time.perf_counter() - t0
+            launches, decodes = read_counts(), decode_batch.launches
+            self.read_gau("wholebody_hrnet_val", False)
+            tested = dict(line.split(": ", 1) for line in out.getvalue().splitlines() if line.startswith("coco/"))
+            print(f"wholebody_train: tools.test on HRNet-w32 whole-body over 62 instances in {dt:.2f} s, launches "
+                  f"{json.dumps(launches)}, JPEG decodes {decodes}; {json.dumps({k: tested.get(k) for k in families})}")
+            if (launches != NO_LAUNCHES or decodes != 2
+                    or not all(math.isfinite(float(tested.get(k, "nan"))) for k in families)):
+                raise AssertionError(f"wholebody_train: tools.test gave {tested}, launches {launches}, "
+                                     f"{decodes} decodes")
+            self.record["wholebody_hrnet_val_launches"] = launches
+
+    def wholebody_train_runner(self):
+        """RTMPose-m's whole-body recipe through ``tools.train``'s main at its
+        batch of 64 with eight workers over the golden JPEGs in
+        COCO-WholeBody's layout (``wholebody_set_from_coco``; 512 train
+        instances, 8 steps an epoch; the 62 golden ones as the val set), as
+        ``switch_runner`` runs it, with ``CocoWholeBodyMetric``'s val and the
+        best checkpoint by its whole-body AP (``coco/AP``); then
+        ``tools.test`` on ``best.pth``. Fails unless ``switch_runner``'s
+        checks hold, the six AP families are finite in both, and the best
+        checkpoint was chosen by ``coco/AP``."""
+        import contextlib
+        import io
+        import tempfile
+
+        from probpose_code_torch.datasets.loader import stop_workers
+        from probpose_code_torch.tools import test as test_cli
+
+        families = [f"coco/{part}AP" for part in ("body_", "foot_", "face_", "lefthand_", "righthand_", "")]
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+            stack.callback(stop_workers)
+            _, ann = golden_jpeg_set(tmp)
+            copy_instances(ann, 512, Path(tmp, "coco.json"))
+            wholebody_set_from_coco(Path(tmp, "coco.json"), Path(tmp, "train.json"))
+            wholebody_set_from_coco(ann, Path(tmp, "val.json"))
+            options = coco_data_options(tmp, "train.json", workers=8) + [
+                "default_hooks.checkpoint.save_best=coco/AP", "default_hooks.checkpoint.rule=greater"]
+            launches, augments, busy_ms, metrics = self.switch_runner(
+                "wholebody_train_runner", WHOLEBODY_RECIPES["rtmpose"], tmp, options)
+            log = Path(tmp, "work", "train.log").read_text()
+            print(f"wholebody_train_runner: {json.dumps({k: metrics.get(k) for k in families})}; the profiled step "
+                  f"{busy_ms} ms busy")
+            if (not all(math.isfinite(metrics.get(k, math.nan)) for k in families) or "new best coco/AP" not in log
+                    or not Path(tmp, "work", "best.pth").exists()):
+                raise AssertionError(f"wholebody_train_runner: metrics {metrics}, no best checkpoint by coco/AP")
+            self.record["wholebody_runner_launches"] = launches
+            self.record["wholebody_augment_launches"] = augments
+            self.wholebody_op_shares(busy_ms)
+
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                test_cli.main([str(WHOLEBODY_RECIPES["rtmpose"]), str(Path(tmp, "work", "best.pth")), "--cfg-options",
+                               *[kv.replace("val_", "test_", 1) for kv in coco_data_options(tmp, workers=8)]])
+            tested = dict(line.split(": ", 1) for line in out.getvalue().splitlines() if line.startswith("coco/"))
+            print(f"wholebody_train_runner tools.test on best.pth in {time.perf_counter() - t0:.2f} s: "
+                  f"{json.dumps({k: tested.get(k) for k in families})}")
+            if not all(math.isfinite(float(tested.get(k, "nan"))) for k in families):
+                raise AssertionError(f"wholebody_train_runner: tools.test gave {tested}")
+
+    @staticmethod
+    def wholebody_op_shares(busy_ms):
+        """The ops that grow with the whole-body recipe's 133 keypoints, each
+        run alone on the card at its step's shapes (B = 64) and profiled (the
+        device time of its kernels a call, ``kernel_device_ms``), as a share
+        of the profiled runner step's device time ``busy_ms``: the SimCC label
+        render (``generate_simcc_labels_device``, float64), the GAU's kernels
+        (``gau_attention``, forward and backward), the whole GAU block
+        (ScaleNorm, its two linear layers and the kernels) and, for the
+        comparison, the block with the kernels' plain twin in their place.
+        Returns the shares."""
+        import numpy as np
+        import torch
+
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.datasets.metainfo import parse_pose_metainfo
+        from probpose_code_torch.models.builder import PoseModel
+        from probpose_code_torch.ops.encode import generate_simcc_labels_device
+        from probpose_code_torch.ops.kernels.gau import gau_attention, gau_attention_plain
+
+        cfg = Config.fromfile(str(WHOLEBODY_RECIPES["rtmpose"]))
+        codec, gau_cfg = cfg["codec"], cfg["model"]["head"]["gau_cfg"]
+        model = PoseModel(cfg["model"], metainfo=parse_pose_metainfo({"dataset_name": "coco_wholebody"}),
+                          device="cuda")
+        model.init_weights(seed=0)
+        rng = np.random.RandomState(0)
+        size = np.array(codec["input_size"]) * codec["simcc_split_ratio"]
+        bins = torch.from_numpy(np.round(rng.uniform(-0.05, 1.05, (64, 133, 2)) * size)).cuda()
+        vis = torch.from_numpy((rng.rand(64, 133) > 0.2).astype(np.float32)).cuda()
+        gau, B, K, hidden = model.module.head.gau, 64, 133, gau_cfg["hidden_dims"]
+        x = torch.randn(B, K, hidden, device="cuda", requires_grad=True)
+        z = gau.uv(gau.ln(x)).detach().requires_grad_()
+
+        def block_plain():
+            out = gau.o(gau_attention_plain(gau.uv(gau.ln(x)), gau.gamma, gau.beta, gau.e, gau.s))
+            (gau.res_scale(x) + out).sum().backward()
+
+        ops = dict(
+            simcc_label_render=lambda: generate_simcc_labels_device(
+                bins, vis, tuple(codec["input_size"]), codec["simcc_split_ratio"], codec["sigma"], "gaussian",
+                codec["normalize"]),
+            gau_kernels_fwd_bwd=lambda: gau_attention(z, gau.gamma, gau.beta, gau.e, gau.s).sum().backward(),
+            gau_block_fwd_bwd=lambda: gau(x).sum().backward(),
+            gau_block_fwd_bwd_plain=block_plain)
+        shares = {}
+        for name, fn in ops.items():
+            ms = Smoke.kernel_device_ms(fn, calls=10)
+            shares[name] = dict(device_ms=round(ms, 4), share=round(100 * ms / busy_ms, 2) if busy_ms else None)
+        print(f"wholebody_train_runner: the ops of 133 keypoints alone at B=64, device ms a call and % of the "
+              f"profiled step's {busy_ms:.2f} ms of device time: {json.dumps(shares)}")
+        return shares
+
+    def ubody_train(self):
+        """The COCO + UBody recipe (``rtmpose-m_8xb64-270e_coco-ubody-
+        wholebody``) through ``tools.train``'s main at its batch of 64 with
+        eight workers: its ``CombinedDataset`` of a ``CocoWholeBodyDataset``
+        (the golden JPEGs' annotations copied to 128 instances) and 15
+        ``UBody2dDataset`` scenes (``ubody_sets``: each keeps the quarter of
+        the images that its ``sample_interval=10`` samples), one epoch and
+        val by ``CocoWholeBodyMetric``. Fails unless every scene keeps what
+        ``sample_interval`` samples, the epoch's steps run, no kernel of the
+        port launches, one decode runs a step and a val batch, the metrics
+        are finite and the first loss dict equals ``make_train_step``'s."""
+        import contextlib
+        import tempfile
+
+        import torch
+
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.datasets.loader import stop_workers
+        from probpose_code_torch.ops.kernels.jpeg import decode_batch
+        from probpose_code_torch.tools import train as train_cli
+
+        cfg = Config.fromfile(str(UBODY))
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+            stack.callback(stop_workers)
+            _, ann = golden_jpeg_set(tmp)
+            copy_instances(ann, 128, Path(tmp, "coco.json"))
+            sets, kept = ubody_sets(cfg, tmp, Path(tmp, "coco.json"))
+            wholebody_set_from_coco(ann, Path(tmp, "val.json"))
+            options = sets + coco_data_options(tmp, workers=8) + [
+                "train_dataloader.num_workers=8", "train_cfg.max_epochs=1", "train_cfg.val_interval=1",
+                "default_hooks.logger.interval=1"]
+            # the main path: counts set to 0 just before, read just after
+            read_counts = reset_counts()
+            runner = train_cli.main([str(UBODY), "--work-dir", str(Path(tmp, "work")), "--cfg-options", *options])
+            torch.cuda.synchronize()
+            launches, decodes = read_counts(), decode_batch.launches
+            self.read_gau("ubody_train", True, backward=True)
+            self.record["ubody_augment_launches"] = {k: c.launches for k, c in augment_counters().items()}
+            datasets = runner.train_loader.dataset.datasets
+            B, steps, val_batches = runner.train_loader.batch_size, runner.state.step, len(runner.val_loader)
+            print(f"ubody_train main path: {steps} steps of {B} over {len(runner.train_loader.dataset)} instances "
+                  f"(COCO {len(datasets[0])}, the 15 scenes {[len(d) for d in datasets[1:]]}), launches "
+                  f"{json.dumps(launches)}, JPEG decodes {decodes}")
+            report_runner_epochs("ubody_train", runner, 0)
+            metrics = runner.train_log[-1]
+            if (B != 64 or len(datasets) != 16 or len(runner.train_loader.dataset) != kept or steps != kept // B
+                    or launches != NO_LAUNCHES or decodes != steps + val_batches
+                    or not all(math.isfinite(v) for v in metrics.values())):
+                raise AssertionError(f"ubody_train: batch {B}, {steps} steps over {len(runner.train_loader.dataset)} "
+                                     f"instances ({kept} sampled), launches {launches}, {decodes} decodes")
+            self.record["ubody_launches"] = launches
+            first_step_check("ubody_train", runner)
+            runner.close()
 
     def halpe26_runner(self):
         """RTMPose-m's halpe26 recipe (``rtmpose-m_8xb512-700e_body8-
@@ -3331,6 +3923,7 @@ class Smoke:
             runner = train_cli.main([str(HALPE26), "--work-dir", str(wd), "--cfg-options", *options], hooks=[watch])
             torch.cuda.synchronize()
             launches, decodes = read_counts(), decode_batch.launches
+            self.read_gau("halpe26_runner", True, backward=True)
             augments = {k: c.launches for k, c in augment_counters().items()}
             peak = torch.cuda.max_memory_allocated() / 2**30
             B, steps, val_batches = runner.train_loader.batch_size, runner.state.step, len(runner.val_loader)
@@ -3464,6 +4057,7 @@ class Smoke:
                                     hooks=[weights])
             torch.cuda.synchronize()
             launches = read_counts()
+            self.read_gau("rtmpose_aic_train", True, backward=True)
             B, steps = runner.train_loader.batch_size, runner.state.step
             print(f"rtmpose_aic_train main path: {steps} steps of {B} over {len(runner.train_loader.dataset)} "
                   f"instances (COCO and AIC), launches {json.dumps(launches)}")
@@ -3556,11 +4150,12 @@ class Smoke:
         return ms, flops / (ms * 1e-3) / 1e12
 
     @staticmethod
-    def kernel_device_ms(fn, name, calls=20):
-        """Device ms a launch of the kernels whose name holds ``name``, over a
-        profile of ``calls`` calls of fn, traced as ``profile`` traces. A
-        trace that recorded no device time at all is taken once more; if that
-        one is empty too, the result is NaN (not measured)."""
+    def kernel_device_ms(fn, name=None, calls=20):
+        """Device ms a call of fn in the kernels whose name holds ``name`` (in
+        all its kernels where ``name`` is None), over a profile of ``calls``
+        calls of fn, traced as ``profile`` traces. A trace that recorded no
+        device time at all is taken once more; if that one is empty too, the
+        result is NaN (not measured)."""
         import torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -3576,12 +4171,12 @@ class Smoke:
             if device:
                 break
         else:
-            print(f"{name}: the profiler recorded no device time (not measured)")
+            print(f"{name or 'device time'}: the profiler recorded no device time (not measured)")
             return float("nan")
-        mine = [e.time_range.elapsed_us() for e in device if name in e.name]
+        mine = [e.time_range.elapsed_us() for e in device if name is None or name in e.name]
         if not mine:
             raise AssertionError(f"the profiler saw device time but no {name}")
-        return sum(mine) / len(mine) / 1e3
+        return sum(mine) / calls / 1e3
 
     @staticmethod
     def host_us(fn, calls=200):
@@ -3767,7 +4362,14 @@ class Smoke:
                      rtmpose_predict="rtmpose_launches", rtmpose_train="rtmpose_train_launches",
                      rtmpose_val="rtmpose_val_launches", rtmpose_train_runner="rtmpose_runner_launches",
                      rtmpose_aic_train="rtmpose_aic_launches", body8_train_runner="body8_runner_launches",
-                     halpe26_runner="halpe26_launches", crowdpose_val="crowdpose_launches")
+                     halpe26_runner="halpe26_launches", crowdpose_val="crowdpose_launches",
+                     wholebody_rtmpose_predict="wholebody_rtmpose_launches",
+                     wholebody_hrnet_predict="wholebody_hrnet_launches",
+                     wholebody_cspnext_udp_predict="wholebody_cspnext_launches",
+                     wholebody_hrnet_train="wholebody_hrnet_train_launches",
+                     wholebody_cspnext_udp_train="wholebody_cspnext_udp_train_launches",
+                     wholebody_hrnet_val="wholebody_hrnet_val_launches",
+                     wholebody_train_runner="wholebody_runner_launches", ubody_train="ubody_launches")
         # K1's one counter read for the record of the instance each path ran
         k1_records = self.record.get("k1_records", {})
         for path, key in paths.items():
@@ -4021,6 +4623,7 @@ def main() -> int:
         smoke.phase("hrnet_predict", smoke.hrnet_predict)
         smoke.phase("hrnet_train", smoke.hrnet_train)
         smoke.phase("classic_golden", smoke.classic_golden)
+        smoke.phase("gau_parity", smoke.gau_parity)
         smoke.phase("rtmpose_golden", smoke.rtmpose_golden)
         smoke.phase("res50_predict", smoke.res50_predict)
         smoke.phase("hrnet_msra_predict", smoke.hrnet_msra_predict)
@@ -4033,6 +4636,12 @@ def main() -> int:
         smoke.phase("body8_train_runner", smoke.body8_train_runner)
         smoke.phase("halpe26_runner", smoke.halpe26_runner)
         smoke.phase("crowdpose_val", smoke.crowdpose_val)
+        smoke.phase("wholebody_golden", smoke.wholebody_golden)
+        smoke.phase("wholebody_predict", smoke.wholebody_predict)
+        smoke.phase("wholebody_train", smoke.wholebody_train)
+        smoke.phase("wholebody_train_runner", smoke.wholebody_train_runner)
+        smoke.phase("ubody_train", smoke.ubody_train)
+        smoke.phase("dpm_golden", smoke.dpm_golden)
         smoke.phase("timings", smoke.timings)
     left = stop_descendants()
     if left:
@@ -4045,10 +4654,21 @@ def main() -> int:
     # the JPEG decode, no TPU kernel: its own line, its launches those of val_flagship's main path
     print(json.dumps({"decode": dict(smoke.record["decode"], launches=smoke.record["decode_launches"])}))
     # the photometric kernels, no TPU kernel: their own line, the median's launches those of
-    # rtmpose_train_runner's main path, the distortion's of body8_train_runner's
+    # rtmpose_train_runner's main path, the distortion's of body8_train_runner's,
     paths = dict(photometric_median="augment_launches", photometric_distortion="body8_augment_launches")
-    print(json.dumps({"augment": [dict(rec, launches=smoke.record[paths[rec["name"]]][rec["name"]])
+    # and each one's launches on every path that augments on the card
+    by_path = dict(rtmpose_train_runner="augment_launches", body8_train_runner="body8_augment_launches",
+                   wholebody_train_runner="wholebody_augment_launches", ubody_train="ubody_augment_launches")
+    print(json.dumps({"augment": [dict(rec, launches=smoke.record[paths[rec["name"]]][rec["name"]],
+                                       launches_by_path={path: smoke.record[key][rec["name"]]
+                                                         for path, key in by_path.items()})
                                   for rec in smoke.record["augment"]]}))
+    # the GAU kernels, no TPU kernel: their own line, their launches those of wholebody_train_runner's main
+    # path, and on every path that runs RTMPose's head
+    gau = smoke.record["gau_launches"]
+    print(json.dumps({"gau": [dict(rec, launches=gau["wholebody_train_runner"][rec["name"]],
+                                   launches_by_path={path: n[rec["name"]] for path, n in gau.items()})
+                              for rec in smoke.record["gau"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -29,6 +29,7 @@ from probpose_code_torch.engine.checkpoint import load_checkpoint
 from probpose_code_torch.engine.runner import HEATMAP_KEYS
 from probpose_code_torch.models.builder import PoseModel
 from probpose_code_torch.ops.warp import warp_affine_batch
+from probpose_code_torch.registry import DATASETS
 from probpose_code_torch.structures.bbox import (
     bbox_xywh2xyxy,
     bbox_xyxy2cs,
@@ -68,9 +69,11 @@ def init_model(
     if cfg_options:
         config.merge_from_dict(cfg_options)
 
-    dataset_cfg = config.get("test_dataloader", config.get("val_dataloader", {})) or {}
-    metainfo_cfg = (dataset_cfg.get("dataset", {}) or {}).get("metainfo") or {"dataset_name": "coco"}
-    metainfo = parse_pose_metainfo(dict(metainfo_cfg))
+    # the test set's metainfo: its config's, else its class's table, else COCO's (the JAX ``init_model``)
+    dataset = (config.get("test_dataloader", config.get("val_dataloader", {})) or {}).get("dataset", {}) or {}
+    dataset_cls = DATASETS.get(dataset["type"]) if isinstance(dataset.get("type"), str) else dataset.get("type")
+    metainfo = parse_pose_metainfo(dict(dataset.get("metainfo")
+                                        or getattr(dataset_cls, "METAINFO", {"dataset_name": "coco"})))
 
     model_cfg = config["model"] if "model" in config else config
     model = PoseModel(model_cfg, metainfo=metainfo, device=device)

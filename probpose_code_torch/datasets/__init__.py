@@ -4,7 +4,9 @@ from .base_dataset import (  # noqa: F401  (registers the datasets and transform
     BaseCocoStyleDataset,
     CocoCropDataset,
     CocoDataset,
+    CocoWholeBodyDataset,
     CombinedDataset,
     Compose,
+    UBody2dDataset,
 )
 from .loader import DataLoader, collate_pose_samples  # noqa: F401

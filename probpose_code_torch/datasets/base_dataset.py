@@ -7,7 +7,8 @@ parsing with the ProbPose ``keypoints_visibility`` (v==2) flag and
 ``pad_to_contain``, detector boxes from a ``bbox_file``, the top-down
 organization and filters), the body datasets under their metainfo
 (``BODY_DATASETS``: ``CocoDataset``, ``CocoCropDataset`` and those of
-``datasets/zoo.py:24-61`` that the body8 recipes mix) and
+``datasets/zoo.py:24-61`` that the body8 recipes mix),
+``CocoWholeBodyDataset`` and ``UBody2dDataset`` (133 keypoints) and
 ``CombinedDataset``.
 ``data_mode="bottomup"`` comes with the bottom-up slice.
 """
@@ -269,6 +270,40 @@ for _name, _table in BODY_DATASETS.items():
     globals()[_name] = DATASETS.register_module(module=type(_name, (BaseCocoStyleDataset,), dict(
         METAINFO=dict(dataset_name=_table), __doc__=f"The COCO-style dataset under the {_table!r} metainfo.")))
 del _name, _table
+
+
+@DATASETS.register_module()
+class CocoWholeBodyDataset(BaseCocoStyleDataset):
+    """COCO-WholeBody (the JAX package's ``datasets/zoo.py:91-143``; reference
+    ``datasets/wholebody/coco_wholebody_dataset.py``): the 133 keypoints of an
+    annotation's body, foot, face and hand fields in one array, its
+    ``num_keypoints`` the count of annotated ones among them."""
+
+    METAINFO: dict = dict(dataset_name="coco_wholebody")
+    PARTS = ("keypoints", "foot_kpts", "face_kpts", "lefthand_kpts", "righthand_kpts")
+
+    def parse_data_info(self, raw_data_info: dict) -> Optional[dict]:
+        ann = raw_data_info["raw_ann_info"]
+        if "bbox" not in ann or "keypoints" not in ann:
+            return None
+        merged = dict(ann, keypoints=[v for part in self.PARTS for v in ann.get(part, [])])
+        info = super().parse_data_info(dict(raw_data_info, raw_ann_info=merged))
+        info["num_keypoints"] = int(np.count_nonzero(info["keypoints_visible"]))
+        info["raw_ann_info"] = copy.deepcopy(ann)
+        info.pop("crowd_index", None)
+        return info
+
+
+@DATASETS.register_module()
+class UBody2dDataset(CocoWholeBodyDataset):
+    """UBody-2D: COCO-WholeBody's layout under the ``ubody2d`` table, as
+    mmpose's ``UBody2dDataset`` (a ``CocoWholeBodyDataset`` that keeps every
+    ``sample_interval``-th image). The JAX class (``datasets/zoo.py:66``)
+    reads only the 17 body keypoints against the 133-keypoint table, so
+    ``RandomFlip``'s flip indices run past its rows; the port departs from
+    it."""
+
+    METAINFO: dict = dict(dataset_name="ubody2d")
 
 
 @DATASETS.register_module()

@@ -2,8 +2,9 @@
 
 The port's own copy of ``probpose_code_tpu/datasets/metainfo`` for COCO,
 CropCOCO (``coco_crop.py``: COCO's table under another name), AI
-Challenger (``data/aic.json``) and the other body datasets of the body8
-recipes (``body.py``, ``halpe.py``: ``data/<name>.json``):
+Challenger (``data/aic.json``), the other body datasets of the body8
+recipes (``body.py``, ``halpe.py``: ``data/<name>.json``) and
+COCO-WholeBody and UBody-2D (``wholebody.py``):
 ``parse_pose_metainfo`` (``__init__.py:65``) over those tables.
 """
 
@@ -15,11 +16,13 @@ from . import body
 from .aic import AIC_METAINFO
 from .coco import COCO_METAINFO
 from .halpe import HALPE
+from .wholebody import COCO_WHOLEBODY, UBODY2D
 
 DATASET_METAINFO = {"coco": COCO_METAINFO, "coco_crop": {**COCO_METAINFO, "dataset_name": "coco_crop"},
                     "aic": AIC_METAINFO, "crowdpose": body.CROWDPOSE, "mpii": body.MPII, "jhmdb": body.JHMDB,
                     "posetrack18": body.POSETRACK18, "ochuman": body.OCHUMAN, "humanart": body.HUMANART,
-                    "halpe": HALPE, "halpe26": body.HALPE26}
+                    "halpe": HALPE, "halpe26": body.HALPE26,
+                    "coco_wholebody": COCO_WHOLEBODY, "ubody2d": UBODY2D}
 
 
 def parse_pose_metainfo(metainfo: dict) -> dict:

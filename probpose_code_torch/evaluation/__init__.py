@@ -1,7 +1,8 @@
-"""Evaluation: CocoMetric, the PCK / AUC / EPE metrics, the evaluators,
-COCOeval and OKS NMS."""
+"""Evaluation: CocoMetric, CocoWholeBodyMetric, the PCK / AUC / EPE metrics,
+the evaluators, COCOeval and OKS NMS."""
 
 from .base_metric import BaseMetric, Evaluator, MultiDatasetEvaluator  # noqa: F401
 from .cocoeval import COCOeval  # noqa: F401
 from .metrics.coco_metric import CocoMetric  # noqa: F401
+from .metrics.coco_wholebody_metric import CocoWholeBodyMetric  # noqa: F401
 from .metrics.keypoint_2d_metrics import AUC, EPE, JhmdbPCKAccuracy, MpiiPCKAccuracy, PCKAccuracy  # noqa: F401

@@ -2,12 +2,16 @@
 
 The port's own copy of ``probpose_code_tpu/evaluation/cocoeval.py``
 (reference ``mmpose/evaluation/metrics/_cocoeval.py``) for the body
-``keypoints`` iouType and CrowdPose's ``keypoints_crowd`` (``:49``, ``:70``,
+``keypoints`` iouType, CrowdPose's ``keypoints_crowd`` (``:49``, ``:70``,
 ``:213-228``: the same keypoint field, one ignore flag for every
 visibility level, set where the annotation is a crowd and ``ignore``d, or
-has exactly 2 keypoints). The other iouTypes raise: ``segm`` (RLE mask IoU,
-``:339``) and ``bbox`` come with the bottom-up slice, the wholebody
-keypoint variants with their metrics. Neither are the JAX
+has exactly 2 keypoints) and COCO-WholeBody's part iouTypes
+``keypoints_body`` / ``_foot`` / ``_face`` / ``_lefthand`` / ``_righthand``
+/ ``_wholebody`` (``:40-90``, ``:143``, ``:204-240``: each reads its own
+field, ``body`` the first 17 rows of ``keypoints``, ``wholebody`` the five
+fields in turn; a part's detections are ranked by ``<part>_score``, which
+falls back to ``score``). ``segm`` (RLE mask IoU, ``:339``) and ``bbox``
+raise: they come with the bottom-up slice. Neither are the JAX
 package's diagnostic bbox-center pairs (``matched_pairs``) ported: no stat
 reads them.
 
@@ -41,19 +45,47 @@ from probpose_code_torch.codecs.utils.oks_map import COCO_KPT_SIGMAS
 from probpose_code_torch.structures.keypoint import fix_bbox_aspect_ratio
 
 
-def _extract_keypoints(ann: dict) -> np.ndarray:
-    """The flat [x, y, v] * K vector of an annotation."""
-    return np.array(ann["keypoints"], dtype=np.float64).flatten()
+# COCO-WholeBody's keypoint fields, in the order of its 133 keypoints
+WHOLEBODY_PARTS = ("keypoints", "foot_kpts", "face_kpts", "lefthand_kpts", "righthand_kpts")
+PART_IOU_TYPES = ("keypoints_body", "keypoints_foot", "keypoints_face", "keypoints_lefthand",
+                  "keypoints_righthand", "keypoints_wholebody")
+IOU_TYPES = ("keypoints", "keypoints_crowd", *PART_IOU_TYPES)
 
 
-def _set_keypoint_vis(ann: dict, vis: np.ndarray) -> None:
-    """Write normalized visibilities back into ``ann["keypoints"]``."""
-    arr = list(np.array(ann["keypoints"]).flatten())
-    arr[2::3] = vis.astype(int).tolist()[: len(arr) // 3]
-    ann["keypoints"] = arr
+def _fields(iou_type: str) -> tuple:
+    """The annotation fields an iouType reads, in order."""
+    if iou_type == "keypoints_wholebody":
+        return WHOLEBODY_PARTS
+    if iou_type in PART_IOU_TYPES and iou_type != "keypoints_body":
+        return (iou_type[len("keypoints_"):] + "_kpts",)
+    return ("keypoints",)
 
 
-IOU_TYPES = ("keypoints", "keypoints_crowd")
+def _extract_keypoints(ann: dict, iou_type: str) -> np.ndarray:
+    """The flat [x, y, v] * K vector of an annotation that ``iou_type``
+    reads (``keypoints_body``: the first 17 keypoints)."""
+    vals = np.concatenate([np.array(ann[f], dtype=np.float64).flatten() for f in _fields(iou_type)])
+    return vals[: 17 * 3] if iou_type == "keypoints_body" else vals
+
+
+def _set_keypoint_vis(ann: dict, iou_type: str, vis: np.ndarray) -> None:
+    """Write normalized visibilities back into the fields ``iou_type`` reads."""
+    vis = vis.astype(int).tolist()
+    off = 0
+    for field in _fields(iou_type):
+        arr = list(np.array(ann[field]).flatten())
+        n = len(arr) // 3
+        arr[2::3] = vis[off:off + n]
+        ann[field] = arr
+        off += n
+
+
+def _score_key_for(iou_type: str) -> str:
+    """The detection field a part iouType ranks by (``<part>_score``; the
+    body part and the others rank by ``score``)."""
+    if iou_type in PART_IOU_TYPES and iou_type != "keypoints_body":
+        return iou_type[len("keypoints_"):] + "_score"
+    return "score"
 
 
 class Params:
@@ -61,7 +93,8 @@ class Params:
 
     def __init__(self, iouType: str = "keypoints"):
         if iouType not in IOU_TYPES:
-            raise NotImplementedError(f"iouType {iouType!r}: the port evaluates the body keypoints only, {IOU_TYPES}")
+            raise NotImplementedError(f"iouType {iouType!r}: the port evaluates the keypoint iouTypes only, "
+                                      f"{IOU_TYPES}")
         self.iouThrs = np.linspace(0.5, 0.95, 10, endpoint=True)
         self.recThrs = np.linspace(0.0, 1.00, 101, endpoint=True)
         self.imgIds: List[int] = []
@@ -102,6 +135,7 @@ class COCOeval:
             self.params.imgIds = sorted(cocoGt.getImgIds())
             self.params.catIds = sorted(cocoGt.getCatIds())
         self.use_area = use_area
+        self.score_key = _score_key_for(iouType)
         self.extended_oks = extended_oks
         self.confidence_thr = confidence_thr
         self.match_by_bbox = match_by_bbox
@@ -131,7 +165,7 @@ class COCOeval:
         # ---- pass 1: visibility relabeling + level discovery -----------
         vis_levels = set()
         for gt in gts:
-            g = _extract_keypoints(gt)
+            g = _extract_keypoints(gt, p.iouType)
             vis = g[2::3].copy()
 
             if self.ignore_near_bbox:
@@ -159,7 +193,7 @@ class COCOeval:
                 vis[out_mask] = 3
 
             vis_levels.update(np.unique(vis.astype(int)).tolist())
-            _set_keypoint_vis(gt, vis)
+            _set_keypoint_vis(gt, p.iouType, vis)
 
         self.gt_visibilities = sorted(v for v in vis_levels if v > 0)
         self._log(f"Evaluating {len(self.gt_visibilities) + 1} levels of visibility: {self.gt_visibilities}")
@@ -171,7 +205,7 @@ class COCOeval:
                 base_ignore = gt.get("ignore", 0) and gt.get("iscrowd", 0)
                 gt["ignore"] = [bool(base_ignore) or gt["num_keypoints"] == 2] * n_levels
                 continue
-            vis = _extract_keypoints(gt)[2::3]
+            vis = _extract_keypoints(gt, p.iouType)[2::3]
             unique_vis = np.unique(vis[vis > 0].astype(int))
             # level k (k>=1) ignored unless the GT has a keypoint of that
             # visibility; level 0 ignored when nothing is annotated
@@ -188,7 +222,9 @@ class COCOeval:
         for gt in gts:
             self._gts[gt["image_id"], gt["category_id"]].append(gt)
         for dt in dts:
-            d = _extract_keypoints(dt)
+            d = _extract_keypoints(dt, p.iouType)
+            if self.score_key not in dt:
+                dt[self.score_key] = dt["score"]
             if "visibilities" not in dt:
                 dt["visibilities"] = d[2::3]
             if np.count_nonzero(d[2::3] > 0) == 0:
@@ -207,7 +243,7 @@ class COCOeval:
         p = self.params
         gts = self._gts[imgId, catId]
         dts = self._dts[imgId, catId]
-        inds = np.argsort([-d["score"] for d in dts], kind="mergesort")
+        inds = np.argsort([-d[self.score_key] for d in dts], kind="mergesort")
         dts = [dts[i] for i in inds][: p.maxDets[-1]]
         n_levels = len(self.gt_visibilities) + 1
         if len(gts) == 0 or len(dts) == 0:
@@ -220,7 +256,7 @@ class COCOeval:
         assert self.padding >= 1.0
 
         # detection arrays (D, K)
-        d_all = np.stack([_extract_keypoints(d) for d in dts])
+        d_all = np.stack([_extract_keypoints(d, p.iouType) for d in dts])
         xd, yd = d_all[:, 0::3], d_all[:, 1::3]
         cd = np.clip(d_all[:, 2::3], 0, 1)
         if self.confidence_thr is not None:
@@ -229,7 +265,7 @@ class COCOeval:
         ious = [np.zeros((len(dts), len(gts))) for _ in range(n_levels)]
 
         for j, gt in enumerate(gts):
-            g = _extract_keypoints(gt)
+            g = _extract_keypoints(gt, p.iouType)
             xg, yg, vg = g[0::3], g[1::3], g[2::3]
             gt_in_img = vg < 3
 
@@ -337,7 +373,7 @@ class COCOeval:
 
         gtind = np.argsort([g["_ignore"] for g in gt], kind="mergesort")
         gt = [gt[i] for i in gtind]
-        dtind = np.argsort([-d["score"] for d in dt], kind="mergesort")
+        dtind = np.argsort([-d[self.score_key] for d in dt], kind="mergesort")
         dt = [dt[i] for i in dtind[:maxDet]]
         iscrowd = [int(o.get("iscrowd", 0)) for o in gt]
 
@@ -408,7 +444,7 @@ class COCOeval:
             "gtIds": [g["id"] for g in gt],
             "dtMatches": dtm,
             "gtMatches": gtm,
-            "dtScores": [d["score"] for d in dt],
+            "dtScores": [d[self.score_key] for d in dt],
             "gtIgnore": gtIg,
             "dtIgnore": dtIg,
             "gtIndices": gtind,

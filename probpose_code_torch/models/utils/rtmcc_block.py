@@ -11,32 +11,17 @@ residual with a learnt per-channel scale where the widths agree. Names are
 mmpose's (``ln.g``, ``uv``, ``gamma``, ``beta``, ``w``, ``o``,
 ``res_scale.scale``), the names the JAX package's ``_convert_rtmcc_head``
 (``engine/checkpoint.py:541``) reads. f32; dropout and drop-path (0 in
-every shipped config) and cross-attention are not ported.
+every shipped config) and cross-attention are not ported. Everything
+between the two projections is ``ops/kernels/gau.py:gau_attention``: on
+the card its kernels (``csrc/gau.cu``), forward and backward.
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-
-def rope(x: torch.Tensor, axis: int = 1) -> torch.Tensor:
-    """Rotary position embedding over the token axis ``axis``; the last
-    axis splits into the halves that rotate."""
-    n = x.shape[axis]
-    half = x.shape[-1] // 2
-    position = torch.arange(n, dtype=torch.float32, device=x.device)
-    freq_seq = -torch.arange(half, dtype=torch.float32, device=x.device) / float(half)
-    inv_freq = 10000.0 ** -freq_seq
-    sinusoid = position[:, None] * inv_freq[None]  # (n, half)
-    shape = [1] * x.dim()
-    shape[axis], shape[-1] = n, half
-    sin, cos = torch.sin(sinusoid).reshape(shape), torch.cos(sinusoid).reshape(shape)
-    x1, x2 = torch.chunk(x, 2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+from probpose_code_torch.ops.kernels.gau import gau_attention, rope  # noqa: F401 (rope: this module's name too)
 
 
 class ScaleNorm(nn.Module):
@@ -90,15 +75,6 @@ class RTMCCBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, n, in_token_dims) tokens -> (B, n, out_token_dims)."""
         uv = self.uv(self.ln(x))
-        uv = F.silu(uv) if self.act_fn == "SiLU" else F.relu(uv)
-        u, v, base = torch.split(uv, [self.e, self.e, self.s], dim=-1)
-        base = base[..., None, :] * self.gamma[None, None] + self.beta[None, None]  # (B, n, 2, s)
-        if self.pos_enc:
-            base = rope(base, axis=1)
-        q, k = base[..., 0, :], base[..., 1, :]
-        qk = torch.einsum("bns,bms->bnm", q, k)
-        if self.w is not None:
-            qk = qk + self.rel_pos_bias(q.shape[1])[None]
-        kernel = torch.square(F.relu(qk / math.sqrt(self.s)))
-        out = self.o(u * torch.einsum("bnm,bme->bne", kernel, v))
+        rel_bias = None if self.w is None else self.rel_pos_bias(x.shape[1])
+        out = self.o(gau_attention(uv, self.gamma, self.beta, self.e, self.s, self.act_fn, rel_bias, self.pos_enc))
         return out if self.res_scale is None else self.res_scale(x) + out

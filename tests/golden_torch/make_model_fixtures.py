@@ -2,22 +2,30 @@
 
 Needs the JAX package, so it runs where it is installed (the card's
 machine has none): ``JAX_PLATFORMS=cpu python tests/golden_torch/make_model_fixtures.py``
-from the repository root (or name ``classic`` or ``rtmpose`` to make one). For each of ``chip_smoke.CLASSIC_FIXTURE`` (a
-narrow ResNet-50 SimpleBaseline with the DARK codec) and
-``chip_smoke.RTMPOSE_FIXTURE`` (a narrow CSPNeXt + RTMCCHead with SimCC) it
-writes:
+from the repository root (or name ``classic``, ``rtmpose``, ``wholebody`` or
+``dpm`` to make one). For each of ``chip_smoke.CLASSIC_FIXTURE`` (a narrow
+ResNet-50 SimpleBaseline with the DARK codec), ``chip_smoke.RTMPOSE_FIXTURE``
+(a narrow CSPNeXt + RTMCCHead with SimCC), ``chip_smoke.WHOLEBODY_FIXTURE``
+(the same with 133 outputs under COCO-WholeBody's metainfo) and
+``chip_smoke.DPM_FIXTURE`` (DoubleProbPose-S with its ViT in f32) it writes:
 
 - ``<name>_weights.pth``: the port's module with weights drawn from seed 0
   (``PoseModel.init_weights``) and BatchNorm statistics randomized from seed
-  1, as a state dict under mmpose's names;
+  1, as a state dict under mmpose's names; the DoubleProbPose fixture's
+  weights (about 90 MB) are not written: ``chip_smoke.dpm_fixture_state``
+  makes them from seeds where they are used;
 - ``<name>_fixture.npz``: the JAX package's outputs on those weights (loaded
   through ``convert_torch_state_dict``) at the full 256 x 192 input: its
   predict program (flip-TTA and decode) on the crops of the 62 boxes of the
   24 golden images (``tests/golden/e2e_pipeline.npz``, ``e2e_coco.json``),
   the keypoints mapped to the image as its ``attach_predictions`` maps them:
-  ``keypoints`` (62, 17, 2) and ``scores`` in the order of ``ids``
-  (annotation ids), ``ap``, the JAX CocoMetric's AP of them; and the first
-  two ``crops`` with the heatmaps or SimCC vectors on them.
+  ``keypoints`` (62, K, 2) and ``scores`` in the order of ``ids``
+  (annotation ids), the fixture's ``aux`` outputs, the whole-body
+  fixture's ``ties`` (``chip_smoke.SIMCC_TIE_REL``), ``ap``, the JAX metric's
+  AP of them (CocoMetric's, or for the whole-body fixture
+  CocoWholeBodyMetric's whole-body AP on the golden annotations in
+  COCO-WholeBody's layout, ``chip_smoke.wholebody_set_from_coco``); and the
+  first two ``crops`` with the heatmaps or SimCC vectors on them.
 
 The crops are the port's (``crop_batch``), not the JAX pipeline's
 (``cv2.warpAffine``), which differs from it by one grey level on about
@@ -35,12 +43,20 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import CLASSIC_FIXTURE, GOLDEN, RTMPOSE_FIXTURE  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    CLASSIC_FIXTURE,
+    DPM_FIXTURE,
+    GOLDEN,
+    RTMPOSE_FIXTURE,
+    SIMCC_TIE_REL,
+    WHOLEBODY_FIXTURE,
+    wholebody_set_from_coco,
+)
 from probpose_code_torch.apis.inference import crop_batch  # noqa: E402
 from probpose_code_tpu.datasets.metainfo import parse_pose_metainfo  # noqa: E402
 from probpose_code_tpu.engine.checkpoint import convert_torch_state_dict  # noqa: E402
 from probpose_code_tpu.engine.runner import attach_predictions  # noqa: E402
-from probpose_code_tpu.evaluation import CocoMetric  # noqa: E402
+from probpose_code_tpu.evaluation import CocoMetric, CocoWholeBodyMetric  # noqa: E402
 from probpose_code_tpu.models import PoseModel as JaxPoseModel  # noqa: E402
 from probpose_code_tpu.structures import InstanceData, PoseDataSample  # noqa: E402
 from tests.test_torch_classic_heatmap import seeded_state_dict  # noqa: E402
@@ -65,12 +81,53 @@ def golden_instances(cfg):
     return anns, np.stack(crops), np.stack(centers), np.stack(scales)
 
 
+def jax_ap(samples, dataset):
+    """The JAX metric's AP of ``samples``, as ``chip_smoke.golden_fixture_ap``
+    takes the port's."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        if dataset == "coco_wholebody":
+            ann = Path(tmp, "wholebody.json")
+            wholebody_set_from_coco(GOLDEN / "e2e_coco.json", ann)
+            metric = CocoWholeBodyMetric(ann_file=str(ann))
+        else:
+            metric = CocoMetric(ann_file=str(GOLDEN / "e2e_coco.json"), extended=[False])
+        metric.dataset_meta = parse_pose_metainfo({"dataset_name": dataset})
+        metric.process(None, samples)
+        return metric.compute_metrics(metric.results)["AP"]
+
+
+def jax_variables(sd):
+    """``convert_torch_state_dict`` of a state dict; a DoubleProbMapHead's
+    two heatmap towers (``head.first_head``, ``head.second_head``), which it
+    does not name, each converted as a ProbMapHead's deconv stack and final
+    layer (the port's ``state_dict_from_jax`` gives the state dict back
+    exactly)."""
+    towers = ("head.first_head.", "head.second_head.")
+    variables = convert_torch_state_dict({k: v.numpy() for k, v in sd.items() if not k.startswith(towers)})
+    for tower in towers:
+        part = {k: v.numpy() for k, v in sd.items() if k.startswith("backbone.")}
+        part.update({"head." + k[len(tower):]: v.numpy() for k, v in sd.items() if k.startswith(tower)})
+        if len(part) == sum(k.startswith("backbone.") for k in sd):
+            continue
+        converted, name = convert_torch_state_dict(part), tower.split(".")[1]
+        variables["params"]["head"][name] = {k: converted["params"]["head"][k]
+                                             for k in ("deconv_layers", "final_layer")}
+        variables["batch_stats"]["head"][name] = {"deconv_layers": converted["batch_stats"]["head"]["deconv_layers"]}
+    return variables
+
+
 def make(fixture):
-    cfg = fixture["cfg"]
-    sd = seeded_state_dict(cfg["model"], seed=0)
-    torch.save(sd, fixture["weights"])
-    model = JaxPoseModel(cfg["model"], metainfo=parse_pose_metainfo({"dataset_name": "coco"}))
-    variables = convert_torch_state_dict({k: v.numpy() for k, v in sd.items()})
+    cfg = fixture["cfg"]() if callable(fixture["cfg"]) else fixture["cfg"]
+    dataset = fixture.get("dataset", "coco")
+    if callable(fixture["weights"]):
+        sd = fixture["weights"]()
+    else:
+        sd = seeded_state_dict(cfg["model"], seed=0)
+        torch.save(sd, fixture["weights"])
+    model = JaxPoseModel(cfg["model"], metainfo=parse_pose_metainfo({"dataset_name": dataset}))
+    variables = jax_variables(sd)
 
     anns, crops, centers, scales = golden_instances(cfg)
     predict = model.make_predict(jit=False)
@@ -86,24 +143,34 @@ def make(fixture):
                                            bbox_scores=np.ones(1, np.float32))
         samples.append(sample)
     attach_predictions(preds, samples, (192, 256))
-    metric = CocoMetric(ann_file=str(GOLDEN / "e2e_coco.json"), extended=[False])
-    metric.dataset_meta = parse_pose_metainfo({"dataset_name": "coco"})
-    metric.process(None, samples)
-    ap = metric.compute_metrics(metric.results)["AP"]
+    ap = jax_ap(samples, dataset)
+    K = preds["keypoints"].shape[1]
 
+    def field(name):
+        return np.stack([np.asarray(s.pred_instances[name]).reshape(K) for s in samples]).astype(np.float32)
+
+    extra = {}
+    if fixture["name"] == "wholebody":  # its ties (``chip_smoke.SIMCC_TIE_REL``), in the order of ``ids``
+
+        def gap(v):
+            top = np.sort(v, axis=-1)
+            return (top[..., -1] - top[..., -2]) / np.abs(top[..., -1])
+
+        extra["ties"] = np.minimum(gap(preds["keypoint_x_labels"]), gap(preds["keypoint_y_labels"])) < SIMCC_TIE_REL
     np.savez_compressed(
-        fixture["outputs"], ids=np.array([a["id"] for a in anns]),
-        keypoints=np.stack([np.asarray(s.pred_instances.keypoints).reshape(17, 2) for s in samples]).astype(np.float32),
-        scores=np.stack([np.asarray(s.pred_instances.keypoint_scores).reshape(17) for s in samples]).astype(np.float32),
-        ap=np.float64(ap), crops=crops[:2].astype(np.uint8),
+        fixture["outputs"], ids=np.array([a["id"] for a in anns]), **extra,
+        keypoints=np.stack([np.asarray(s.pred_instances.keypoints).reshape(K, 2) for s in samples]).astype(np.float32),
+        scores=field("keypoint_scores"), ap=np.float64(ap), crops=crops[:2].astype(np.uint8),
+        **{k: field(k) for k in fixture.get("aux", ())},
         **{k: preds[k][:2].astype(np.float32) for k in fixture["keys"]},
     )
-    print(f"{fixture['name']}: {len(samples)} instances, AP {ap:.4f}, weights "
-          f"{Path(fixture['weights']).stat().st_size} B, outputs {Path(fixture['outputs']).stat().st_size} B")
+    weights = Path(fixture["weights"]).stat().st_size if not callable(fixture["weights"]) else "made at run time"
+    print(f"{fixture['name']}: {len(samples)} instances, {K} keypoints, AP {ap:.4f}, weights {weights}, outputs "
+          f"{Path(fixture['outputs']).stat().st_size} B")
 
 
 if __name__ == "__main__":
     torch.set_num_threads(4)
-    for fixture in (CLASSIC_FIXTURE, RTMPOSE_FIXTURE):
+    for fixture in (CLASSIC_FIXTURE, RTMPOSE_FIXTURE, WHOLEBODY_FIXTURE, DPM_FIXTURE):
         if len(sys.argv) < 2 or fixture["name"] in sys.argv[1:]:
             make(fixture)

@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import CLASSIC_FIXTURE, CLASSIC_RECIPES, model_fixture_report
+from chip_smoke import CLASSIC_FIXTURE, CLASSIC_RECIPES, model_fixture_report, randomize_batch_stats
 from probpose_code_torch.apis import init_model
 from probpose_code_torch.codecs.msra_heatmap import MSRAHeatmap
 from probpose_code_torch.codecs.utils.gaussian_heatmap import (
@@ -88,17 +88,6 @@ def _cfg(depth=50, codec=DARK, deconv=(8, 8, 8)):
                   loss=dict(type="KeypointMSELoss", use_target_weight=True), decoder=codec),
         test_cfg=dict(flip_test=True),
     )
-
-
-def randomize_batch_stats(module: torch.nn.Module, seed: int) -> None:
-    """Every BatchNorm's running mean in [-0.2, 0.2) and variance in [0.5, 1.5)."""
-    rng = np.random.RandomState(seed)
-    with torch.no_grad():
-        for name, buf in module.named_buffers():
-            if name.endswith("running_mean"):
-                buf.copy_(torch.from_numpy(rng.uniform(-0.2, 0.2, buf.shape).astype(np.float32)))
-            elif name.endswith("running_var"):
-                buf.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, buf.shape).astype(np.float32)))
 
 
 def seeded_state_dict(cfg, seed):

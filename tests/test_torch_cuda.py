@@ -36,7 +36,9 @@ the device encodes of the MSRA codec (and its unbiased form) and of the
 SimCC labels against the port's host codecs, and the classic and RTMPose
 model fixtures on the card; the photometric median kernel, the HSV
 tables and PhotometricDistortion against their plain versions and against
-cv2's fixture.
+cv2's fixture; the GAU kernels, forward and backward, against their plain
+twin on ragged token counts and widths, and RTMPose's head on the card
+through them against the CPU.
 Bars are ``chip_smoke.py``'s, with its reasons.
 """
 
@@ -64,6 +66,8 @@ from chip_smoke import (
     K3_F32_GRAD,
     SERVE_KPT_ATOL,
     SERVE_SCORE_ATOL,
+    GAU_GRAD_REL,
+    GAU_REL,
     HRNET_REL,
     K1_F32_REL,
     TINY_CFG,
@@ -858,3 +862,71 @@ def test_augment_fixture_on_the_card(card):
 
     report = augment_fixture_report("cuda")
     assert report["ok"], report
+
+
+@pytest.mark.parametrize("B,n,e,s", [(64, 133, 512, 128), (3, 70, 24, 8), (1, 1, 40, 20), (2, 65, 68, 36)])
+def test_gau_kernels_match_plain(card, B, n, e, s):
+    """The GAU kernels against their plain twin (torch autograd for the
+    gradients) at the whole-body step's shape and at token counts and widths
+    that leave ragged tiles, at ``chip_smoke.py``'s bars; the backward
+    repeats bit for bit, each call counts one launch."""
+    from probpose_code_torch.ops.kernels import gau
+
+    rng = np.random.RandomState(B + n + e)
+    z, gamma, beta, dout = (torch.from_numpy(a.astype(np.float32)).cuda() for a in (
+        rng.randn(B, n, 2 * e + s), rng.rand(2, s), 0.1 * rng.randn(2, s), rng.randn(B, n, e)))
+    before = (gau.gau_forward.launches, gau.gau_backward.launches)
+    out, saved = gau.gau_forward(z, gamma, beta, e, s)
+    grads = gau.gau_backward(dout, z, gamma, saved, e, s)
+    again = gau.gau_backward(dout, z, gamma, saved, e, s)
+    assert (gau.gau_forward.launches, gau.gau_backward.launches) == (before[0] + 1, before[1] + 2)
+    leaves = [a.clone().requires_grad_() for a in (z, gamma, beta)]
+    ref = gau.gau_attention_plain(*leaves, e, s)
+    ref_grads = torch.autograd.grad(ref, leaves, dout)
+    assert float((out - ref.detach()).abs().max() / ref.detach().abs().max()) < GAU_REL
+    for g, r in zip(grads, ref_grads):
+        assert float((g - r).abs().max() / r.abs().max()) < GAU_GRAD_REL
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def test_gau_refuses_what_the_kernels_do_not_take(card):
+    from probpose_code_torch.ops.kernels import gau
+
+    z = torch.randn(2, 5, 2 * 8 + 4, device="cuda")
+    gamma, beta = torch.rand(2, 4, device="cuda"), torch.zeros(2, 4, device="cuda")
+    with pytest.raises(NotImplementedError):
+        gau.gau_attention(z, gamma, beta, 8, 4, rel_bias=torch.zeros(5, 5, device="cuda"))
+    with pytest.raises(NotImplementedError):
+        gau.gau_attention(z, gamma, beta, 8, 4, pos_enc=True)
+    with pytest.raises(NotImplementedError):
+        gau.gau_attention(z, gamma, beta, 8, 4, act_fn="ReLU")
+    with pytest.raises(ValueError, match="float32"):
+        gau.gau_forward(z.double(), gamma, beta, 8, 4)
+    with pytest.raises(ValueError, match="gamma"):
+        gau.gau_forward(z, gamma[:, :3], beta, 8, 4)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        gau.gau_forward(torch.randn(2, 5, 2 * 6 + 4, device="cuda"), gamma, beta, 6, 4)
+
+
+def test_rtmcc_block_on_the_card_goes_through_the_gau_kernels(card):
+    """RTMPose's GAU block at the shipped widths over 133 tokens on the card
+    (one forward and one backward launch): its output and its parameters'
+    gradients against the same block on the CPU, at ``GAU_GRAD_REL``."""
+    from probpose_code_torch.models.utils.rtmcc_block import RTMCCBlock
+    from probpose_code_torch.ops.kernels import gau
+
+    torch.manual_seed(0)
+    block = RTMCCBlock(133, 256, 256, s=128, act_fn="SiLU", use_rel_bias=False)
+    x = torch.randn(4, 133, 256)
+    cpu_out = block(x)
+    cpu_out.sum().backward()
+    cpu_grads = [p.grad.clone() for p in block.parameters()]
+    block.zero_grad()
+    block.cuda()
+    before = (gau.gau_forward.launches, gau.gau_backward.launches)
+    out = block(x.cuda())
+    out.sum().backward()
+    assert (gau.gau_forward.launches, gau.gau_backward.launches) == (before[0] + 1, before[1] + 1)
+    assert float((out.detach().cpu() - cpu_out.detach()).abs().max() / cpu_out.abs().max()) < GAU_GRAD_REL
+    for p, g in zip(block.parameters(), cpu_grads):
+        assert float((p.grad.cpu() - g).abs().max() / g.abs().max()) < GAU_GRAD_REL

@@ -40,7 +40,15 @@ test_double_probmap.py``: 2 ViT layers of width 64, DoubleProbMapHead with
   pipeline's own per-sample outputs give (``gt_instances.out_heatmaps``,
   ``bbox_mask``, ``keypoints_in_image``: the JAX collate drops them). The
   crops differ by up to one grey level where cv2 rounds
-  (``tests/test_torch_train_runner.py``'s bar).
+  (``tests/test_torch_train_runner.py``'s bar);
+- the DoubleProbPose-S fixture (``chip_smoke.DPM_FIXTURE``: the config's
+  model with its ViT in f32, weights made from seeds by
+  ``chip_smoke.dpm_fixture_state``, the JAX package's outputs in
+  ``tests/golden_torch/dpm_fixture.npz``) through ``inference_topdown``
+  and ``CocoMetric``: ``chip_smoke.UDP_BARS`` on the keypoints, scores, the
+  four scalar outputs and AP, both windows' maps on two crops at
+  ``FIXTURE_OUTPUT_REL``, as the card's ``dpm_golden`` holds it (full
+  geometry: under the ``slow`` marker).
 """
 
 import copy
@@ -54,7 +62,8 @@ import pytest
 import torch
 
 from chip_smoke import DPM as DPM_CONFIG
-from chip_smoke import DPM_CODEC, GOLDEN_JPEG, TRAIN_PIPELINE, mini_coco_set, tiny_train_cfg
+from chip_smoke import DPM_CODEC, DPM_FIXTURE, GOLDEN_JPEG, TRAIN_PIPELINE, mini_coco_set, model_fixture_report
+from chip_smoke import tiny_train_cfg
 from probpose_code_torch.apis import init_model
 from probpose_code_torch.datasets.metainfo import parse_pose_metainfo
 from probpose_code_torch.datasets.transforms import common as tcommon
@@ -492,3 +501,16 @@ def test_tools_train_first_losses_match_jax_loss(tmp_path, base_variables):
     for k, v in want.items():
         assert got[k] == pytest.approx(float(v), rel=1e-3, abs=1e-6), k
     assert {"loss_kpt", "loss_kpt2", "acc_pose1", "acc_pose2"} <= set(got)
+
+
+@pytest.mark.slow
+def test_dpm_fixture_through_inference_topdown_and_coco_metric():
+    """``chip_smoke.model_fixture_report`` on the DoubleProbPose-S fixture,
+    the card's ``dpm_golden`` check, on the CPU (f32 on both sides: the
+    keypoints agree to a thousandth of a pixel). The full ViT-S geometry
+    over 62 crops takes about 40 s on one CPU thread: under ``slow``."""
+    report = model_fixture_report(DPM_FIXTURE, device="cpu")
+    assert report["instances"] == 62 and report["keypoints"] == 17 and report["sane"] == 1.0, report
+    assert report["p99"] < 1e-2 and report["over_5px"] == 0, report
+    assert report["scores"] < 2e-3 and report["aux"] < 2e-3 and report["d_AP"] < 0.01, report
+    assert report["outputs_rel"] < 1e-4 and report["ok"], report
