@@ -240,6 +240,18 @@ WHOLEBODY_RECIPES = dict(
                        "cspnext-m_udp_8xb64-210e_coco-wholebody-256x192.py",
 )
 UBODY = ROOT / "configs/wholebody_2d_keypoint/rtmpose/ubody/rtmpose-m_8xb64-270e_coco-ubody-wholebody-256x192.py"
+# the face and hand recipes: RTMPose-m face6 and hand5, HRNetV2-w18 on WFLW (MSE, AWing, DARK), the ResNet-50
+# regression recipe with WingLoss and MobileNetV2 on COCO-WholeBody-Hand
+FACE_HAND_RECIPES = dict(
+    face6=ROOT / "configs/face_2d_keypoint/rtmpose/face6/rtmpose-m_8xb256-120e_face6-256x256.py",
+    hand5=ROOT / "configs/hand_2d_keypoint/rtmpose/hand5/rtmpose-m_8xb256-210e_hand5-256x256.py",
+    hrnetv2=ROOT / "configs/face_2d_keypoint/topdown_heatmap/wflw/td-hm_hrnetv2-w18_8xb64-60e_wflw-256x256.py",
+    hrnetv2_awing=ROOT / "configs/face_2d_keypoint/topdown_heatmap/wflw/td-hm_hrnetv2-w18_awing-8xb64-60e_wflw-256x256.py",
+    hrnetv2_dark=ROOT / "configs/face_2d_keypoint/topdown_heatmap/wflw/td-hm_hrnetv2-w18_dark-8xb64-60e_wflw-256x256.py",
+    res50_wing=ROOT / "configs/face_2d_keypoint/topdown_regression/wflw/td-reg_res50_wingloss_8xb64-210e_wflw-256x256.py",
+    mobilenetv2_hand=ROOT / ("configs/hand_2d_keypoint/topdown_heatmap/coco_wholebody_hand/"
+                             "td-hm_mobilenetv2_8xb32-210e_coco-wholebody-hand-256x256.py"),
+)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them (the FMA units: K2 and K3's f32 instance), and device memory.
@@ -372,9 +384,20 @@ SIMCC_TIE_REL = 1e-5
 GAU_REL = 1e-5
 GAU_GRAD_REL = 1e-4
 # The shapes the main paths give the GAU kernels (B, n): the whole-body
-# step's, its predict call's (64 boxes and their flips) and the body
-# recipes' step; e = 512 and s = 128 in every shipped config.
-GAU_SHAPES = ((64, 133), (128, 133), (256, 17))
+# step's, its predict call's (64 boxes and their flips), the body
+# recipes' step, face6's step and predict call (LaPa's 106), hand5's step
+# (21) and a 68-keypoint face step (300W, COCO-WholeBody-Face); e = 512 and
+# s = 128 in every shipped config. The first is the kernels' record; the
+# kernels are also timed at ``GAU_TIMED``.
+GAU_SHAPES = ((64, 133), (128, 133), (256, 17), (256, 106), (128, 106), (256, 21), (64, 68))
+GAU_TIMED = ((64, 133), (256, 106), (256, 21))
+# The face and hand kernels against their plain twin (relative max error over the twin's largest magnitude):
+# the depthwise forward and input gradient are 9-term f32 sums in another order; its weight gradient sums up to
+# 64 x 128 x 128 products a tap (float64 across the chunks here, cuDNN's own order there); AdaptiveWingLoss's
+# powf and log1pf against PyTorch's, its mean over 25.7 M values in float64 here.
+DEPTHWISE_REL = 1e-5
+DEPTHWISE_GRAD_REL = 1e-4
+AWING_REL = 1e-5
 _TOPDOWN_TEST = dict(test_dataloader=dict(dataset=dict(pipeline=[
     dict(type="LoadImage"), dict(type="GetBBoxCenterScale"), dict(type="TopdownAffine", input_size=(192, 256)),
     dict(type="PackPoseInputs")])))
@@ -422,6 +445,38 @@ WHOLEBODY_FIXTURE = dict(
                         head=dict(RTMPOSE_FIXTURE["cfg"]["model"]["head"], out_channels=133))),
     weights=GOLDEN_JPEG / "wholebody_weights.pth", outputs=GOLDEN_JPEG / "wholebody_fixture.npz",
 )
+# ``tests/golden_torch/face_*``: the face fixtures, on the golden persons' face boxes (``face_hand_parts``) at
+# 256 x 256, scored by NME (``golden_fixture_ap``): ``RTMPOSE_FIXTURE``'s narrow model with RTMCCHead's 106 outputs
+# over its 8 x 8 map under LaPa's metainfo, without flip-TTA (on these smooth, upsampled face crops the random
+# model's flip average makes its x vectors nearly mirror-symmetric: 4.4% of them had their two top bins within
+# ``SIMCC_TIE_REL``, ties that decode at either end), and a narrow ResNet-18 with ``GlobalAveragePooling`` and a
+# ``RegressionHead`` of 98 joints under WFLW's (its keypoints, which no argmax rounds, compared at
+# ``FIXTURE_OUTPUT_REL``)
+_FACE_PIPELINE = [dict(type="LoadImage"), dict(type="GetBBoxCenterScale"),
+                  dict(type="TopdownAffine", input_size=(256, 256)), dict(type="PackPoseInputs")]
+FACE_RTMPOSE_FIXTURE = dict(
+    RTMPOSE_FIXTURE, name="face_rtmpose", dataset="lapa", boxes="face",
+    cfg=dict(test_dataloader=dict(dataset=dict(type="LapaDataset", pipeline=_FACE_PIPELINE)),
+             model=dict(RTMPOSE_FIXTURE["cfg"]["model"], head=dict(
+        RTMPOSE_FIXTURE["cfg"]["model"]["head"], out_channels=106, input_size=(256, 256), in_featuremap_size=(8, 8),
+        decoder=dict(type="SimCCLabel", input_size=(256, 256), sigma=(5.66, 5.66), simcc_split_ratio=2.0,
+                     normalize=False, use_dark=False)), test_cfg=dict(flip_test=False))),
+    weights=GOLDEN_JPEG / "face_rtmpose_weights.pth", outputs=GOLDEN_JPEG / "face_rtmpose_fixture.npz",
+)
+FACE_REGRESSION_FIXTURE = dict(
+    name="face_regression", dataset="wflw", boxes="face",
+    cfg=dict(test_dataloader=dict(dataset=dict(type="WFLWDataset", pipeline=_FACE_PIPELINE)), model=dict(
+        type="TopdownPoseEstimator", data_preprocessor=_PREPROCESSOR,
+        backbone=dict(type="ResNet", depth=18, stem_channels=16, base_channels=4, out_indices=(3,)),
+        neck=dict(type="GlobalAveragePooling"),
+        head=dict(type="RegressionHead", in_channels=32, num_joints=98,
+                  loss=dict(type="WingLoss", use_target_weight=True),
+                  decoder=dict(type="RegressionLabel", input_size=(256, 256))),
+        test_cfg=dict(flip_test=True))),
+    weights=GOLDEN_JPEG / "face_regression_weights.pth", outputs=GOLDEN_JPEG / "face_regression_fixture.npz",
+    keys=("keypoints",),
+)
+FACE_FIXTURES = (FACE_RTMPOSE_FIXTURE, FACE_REGRESSION_FIXTURE)
 # the keys of a kernel's record that K2 and K2b fill from ``k2_timings``
 K2_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 K3_NAMES = ("out", "dx", "ln1_scale", "ln1_bias", "w_qkv", "b_qkv", "w_proj", "b_proj",
@@ -733,9 +788,20 @@ def peaked_heatmaps(B, K, H, W, seed):
     return np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 8.0).astype(np.float32)
 
 
-def golden_samples(model):
-    """The golden fixture's 24 images and boxes through ``inference_topdown``.
-    Returns (fixture arrays, samples with the annotation id / image id set)."""
+def golden_boxes(anns, boxes="person"):
+    """(N, 4) x1 y1 x2 y2 boxes of golden annotations: the persons' own, or
+    for ``boxes="face"`` their faces (``face_hand_parts``)."""
+    import numpy as np
+
+    faces = face_hand_parts(GOLDEN / "e2e_coco.json") if boxes == "face" else None
+    xywh = [faces[a["id"]]["face"] if faces else a["bbox"] for a in anns]
+    return np.array([[x, y, x + w, y + h] for x, y, w, h in xywh], np.float32)
+
+
+def golden_samples(model, boxes="person"):
+    """The golden fixture's 24 images and boxes (``golden_boxes``: the
+    persons' or their faces') through ``inference_topdown``. Returns
+    (fixture arrays, samples with the annotation id / image id set)."""
     import numpy as np
 
     from probpose_code_torch.apis import inference_topdown
@@ -745,10 +811,10 @@ def golden_samples(model):
     anns = {}
     for a in gt["annotations"]:
         anns.setdefault(a["image_id"], []).append(a)
+    kind = boxes
     samples = []
     for im in gt["images"]:
-        boxes = np.array([[a["bbox"][0], a["bbox"][1], a["bbox"][0] + a["bbox"][2], a["bbox"][1] + a["bbox"][3]]
-                          for a in anns[im["id"]]], np.float32)
+        boxes = golden_boxes(anns[im["id"]], kind)
         preds = inference_topdown(model, data[f"img_{im['id']}"], boxes)
         if len(preds) != len(boxes):
             raise AssertionError(f"{len(preds)} predictions for {len(boxes)} boxes")
@@ -897,16 +963,50 @@ DPM_FIXTURE = dict(name="dpm", cfg=dpm_fixture_cfg, weights=dpm_fixture_state,
                    aux=("keypoints_probs", "keypoints_visible", "keypoints_oks", "keypoints_error"))
 
 
-def golden_fixture_ap(samples, dataset="coco"):
-    """The AP of the predictions ``samples`` on the golden boxes: CocoMetric's
-    on ``tests/golden/e2e_coco.json``, or for ``dataset="coco_wholebody"``
-    CocoWholeBodyMetric's whole-body AP on the same annotations in
-    COCO-WholeBody's layout (``wholebody_set_from_coco``, seed 0)."""
+# the face fixtures' datasets: the golden persons' faces in that dataset's layout (``face_hand_sets_from_coco``)
+FACE_FIXTURE_SETS = dict(lapa="LapaDataset", wflw="WFLWDataset")
+
+
+def face_fixture_gt(dataset):
+    """{annotation id: (keypoints (1, K, 2), visible (1, K))} of the golden
+    persons' faces in the layout of ``FACE_FIXTURE_SETS[dataset]``."""
     import tempfile
 
-    from probpose_code_torch.datasets.metainfo import parse_pose_metainfo
-    from probpose_code_torch.evaluation import CocoMetric, CocoWholeBodyMetric
+    import numpy as np
 
+    kind = FACE_FIXTURE_SETS[dataset]
+    with tempfile.TemporaryDirectory() as tmp:
+        face_hand_sets_from_coco(GOLDEN / "e2e_coco.json", tmp, [kind])
+        anns = json.loads(Path(tmp, f"{kind}.json").read_text())["annotations"]
+    out = {}
+    for a in anns:
+        kpts = np.array(a["keypoints"], np.float32).reshape(1, -1, 3)
+        out[a["id"]] = kpts[..., :2], np.minimum(1, kpts[..., 2])
+    return out
+
+
+def golden_fixture_ap(samples, dataset="coco"):
+    """The score of the predictions ``samples`` on the golden boxes: the AP
+    of CocoMetric on ``tests/golden/e2e_coco.json``, or for
+    ``dataset="coco_wholebody"`` CocoWholeBodyMetric's whole-body AP on the
+    same annotations in COCO-WholeBody's layout (``wholebody_set_from_coco``,
+    seed 0); for a face dataset (``FACE_FIXTURE_SETS``) the NME (inter-ocular
+    norm) against the golden faces in its layout (``face_fixture_gt``)."""
+    import tempfile
+
+    import numpy as np
+
+    from probpose_code_torch.datasets.metainfo import parse_pose_metainfo
+    from probpose_code_torch.evaluation import NME, CocoMetric, CocoWholeBodyMetric
+
+    if dataset in FACE_FIXTURE_SETS:
+        gt = face_fixture_gt(dataset)
+        metric = NME(norm_mode="keypoint_distance")
+        metric.dataset_meta = parse_pose_metainfo({"dataset_name": dataset})
+        metric.process(None, [dict(pred_instances=dict(keypoints=np.asarray(s.pred_instances.keypoints)),
+                                   gt_instances=dict(keypoints=gt[s.metainfo["id"]][0],
+                                                     keypoints_visible=gt[s.metainfo["id"]][1])) for s in samples])
+        return metric.compute_metrics(metric.results)["NME"]
     with tempfile.TemporaryDirectory() as tmp:
         if dataset == "coco_wholebody":
             ann = Path(tmp, "wholebody.json")
@@ -942,14 +1042,23 @@ def fixture_model(fixture, device):
     return model
 
 
+def fixture_output_name(key):
+    """The name in a fixture's outputs of the crops' ``key`` output: the
+    regressed ``keypoints`` of the crops are ``crop_keypoints`` (the
+    image's are ``keypoints``)."""
+    return "crop_keypoints" if key == "keypoints" else key
+
+
 def model_fixture_report(fixture, device):
     """A model fixture (``CLASSIC_FIXTURE``, ``RTMPOSE_FIXTURE``,
-    ``WHOLEBODY_FIXTURE``, ``DPM_FIXTURE``) through ``init_model`` with its
-    weights (``fixture_model``), ``inference_topdown`` over the golden
-    images and the AP (``golden_fixture_ap``), against the JAX package's
-    keypoints, scores, the fixture's ``aux`` outputs and AP (``UDP_BARS``;
-    the aux outputs at the scores' bar); and ``PoseModel.predict`` on the
-    fixture's two crops against the JAX package's heatmaps or SimCC vectors
+    ``WHOLEBODY_FIXTURE``, ``DPM_FIXTURE``, ``FACE_FIXTURES``) through
+    ``init_model`` with its weights (``fixture_model``), ``inference_topdown``
+    over the golden images' person or face boxes and the AP, or a face
+    fixture's NME, in ``AP`` (``golden_fixture_ap``), against the JAX
+    package's keypoints, scores, the fixture's ``aux`` outputs and AP or NME
+    (``UDP_BARS``; the aux outputs at the scores' bar); and
+    ``PoseModel.predict`` on the fixture's two crops against the JAX
+    package's heatmaps, SimCC vectors or regressed keypoints
     (``FIXTURE_OUTPUT_REL``). Returns a report with ``ok``."""
     import numpy as np
     import torch
@@ -957,7 +1066,7 @@ def model_fixture_report(fixture, device):
     model = fixture_model(fixture, device)
     K = model.metainfo["num_keypoints"]
     ref = np.load(fixture["outputs"])
-    _, samples = golden_samples(model)
+    _, samples = golden_samples(model, fixture.get("boxes", "person"))
     by_id = {s.metainfo["id"]: s for s in samples}
 
     def ours(field, *shape):
@@ -974,7 +1083,8 @@ def model_fixture_report(fixture, device):
     err = np.linalg.norm(kpts - ref["keypoints"], axis=-1)[sane]
     ap = golden_fixture_ap(samples, fixture.get("dataset", "coco"))
     preds = model.predict(torch.from_numpy(ref["crops"].astype(np.float32)).to(model.device))
-    rel = max(float(np.abs(preds[k].cpu().numpy() - ref[k]).max() / np.abs(ref[k]).max()) for k in fixture["keys"])
+    rel = max(float(np.abs(preds[k].cpu().numpy() - ref[fixture_output_name(k)]).max()
+                    / np.abs(ref[fixture_output_name(k)]).max()) for k in fixture["keys"])
     report = dict(instances=len(samples), keypoints=K, ties=int(ties.sum()), sane=float(sane.mean()),
                   p99=float(np.percentile(err, 99)),
                   max=float(err.max()), over_5px=int((err > 5.0).sum()),
@@ -1376,6 +1486,131 @@ def wholebody_set_from_coco(ann_file, out_file):
     Path(out_file).write_text(json.dumps(gt))
 
 
+# the face and hand datasets whose file layouts ``face_hand_sets_from_coco`` writes: the plain ones (a COCO-style
+# annotation a face or a hand, its ``bbox`` the part's box) with their keypoint counts, then COCO-WholeBody's and
+# Halpe's whole-person layouts, which hold a person's face and both hands
+FACE_SETS = dict(WFLWDataset=98, Face300WDataset=68, Face300WLPDataset=68, COFWDataset=29, AFLWDataset=19,
+                 LapaDataset=106)
+HAND_SETS = dict(OneHand10KDataset=21, FreiHandDataset=21, Rhd2DDataset=21, PanopticHand2DDataset=21)
+PERSON_SETS = ("CocoWholeBodyFaceDataset", "CocoWholeBodyHandDataset", "HalpeDataset", "HalpeHandDataset")
+# the seed of the boxes' and keypoints' draws, the share of keypoints left unannotated and the share of
+# COCO-WholeBody's faces and hands left invalid (``<part>_valid`` false, all zeros)
+FACE_HAND_SEED = 0
+FACE_HAND_UNANNOTATED = 0.05
+FACE_HAND_MISSING = 0.2
+
+
+def face_hand_parts(ann_file):
+    """A face box and two hand boxes (x, y, w, h) drawn inside each person
+    box of ``ann_file`` from ``FACE_HAND_SEED``: the face a square of 0.3 to
+    0.5 of the box's shorter side in its top 40%, each hand a square of 0.15
+    to 0.3 of it anywhere in the box. Returns {annotation id: dict(face=,
+    left=, right=)}."""
+    import numpy as np
+
+    rng = np.random.RandomState(FACE_HAND_SEED)
+    parts = {}
+    for a in json.loads(Path(ann_file).read_text())["annotations"]:
+        x0, y0, w, h = a["bbox"]
+        side = min(w, h)
+        f = side * rng.uniform(0.3, 0.5)
+        face = [x0 + rng.uniform(0, w - f), y0 + rng.uniform(0, max(0.4 * h - f, 0)), f, f]
+        hands = []
+        for _ in range(2):
+            s = side * rng.uniform(0.15, 0.3)
+            hands.append([x0 + rng.uniform(0, w - s), y0 + rng.uniform(0, h - s), s, s])
+        parts[a["id"]] = dict(face=face, left=hands[0], right=hands[1])
+    return parts
+
+
+def face_hand_sets_from_coco(ann_file, root, kinds=None, prefix=""):
+    """The persons of a COCO keypoint file (``tests/golden/e2e_coco.json``,
+    say) in the layouts of the face and hand datasets (``kinds``, by default
+    all of ``FACE_SETS``, ``HAND_SETS`` and ``PERSON_SETS``), written to
+    ``root/<kind>.json``: each person's face and hands (``face_hand_parts``)
+    with the dataset's keypoints drawn inside the part's box, v = 2 but a
+    ``FACE_HAND_UNANNOTATED`` share left unannotated (v = 0, at 0, 0).
+    A face set gets an annotation a person (WFLW, 300W and AFLW also
+    mmpose's ``center`` and ``scale``, the box's centre and 1.25 times its
+    longer side over 200, and AFLW its ``box_size``), a hand set one a hand
+    (Panoptic also a ``head_size``); COCO-WholeBody's faces and hands are the
+    persons' ``face_box`` / ``face_kpts`` / ``face_valid`` and
+    ``<side>hand_*`` fields (each invalid with probability
+    ``FACE_HAND_MISSING``), Halpe's 136 keypoints the body's 17, 9
+    unannotated, then 68 of the face and 21 of each hand. The files are
+    ``root/<prefix><kind>.json``. Returns {kind: file name}."""
+    import copy
+
+    import numpy as np
+
+    gt = json.loads(Path(ann_file).read_text())
+    parts = face_hand_parts(ann_file)
+    kinds = list(kinds or [*FACE_SETS, *HAND_SETS, *PERSON_SETS])
+    written = {}
+    for n, kind in enumerate(kinds):
+        rng = np.random.RandomState(FACE_HAND_SEED + 1 + n)
+
+        def draw(box, num):
+            x, y, w, h = box
+            kpts = np.stack([x + rng.rand(num) * w, y + rng.rand(num) * h, np.full(num, 2.0)], axis=-1)
+            kpts[rng.rand(num) < FACE_HAND_UNANNOTATED] = 0.0
+            return kpts.reshape(-1).tolist()
+
+        out = dict(copy.deepcopy(gt), annotations=[])
+        for a in gt["annotations"]:
+            part = parts[a["id"]]
+            if kind in FACE_SETS or kind in HAND_SETS:
+                boxes = [part["face"]] if kind in FACE_SETS else [part["left"], part["right"]]
+                num = FACE_SETS.get(kind) or HAND_SETS[kind]
+                for k, box in enumerate(boxes):
+                    kpts = draw(box, num)
+                    ann = dict(id=len(boxes) * a["id"] + k, image_id=a["image_id"], category_id=1, bbox=box,
+                               keypoints=kpts, num_keypoints=int(np.count_nonzero(kpts[2::3])),
+                               area=box[2] * box[3], iscrowd=0)
+                    if kind in ("WFLWDataset", "Face300WDataset", "AFLWDataset"):
+                        ann.update(center=[box[0] + box[2] / 2, box[1] + box[3] / 2],
+                                   scale=1.25 * max(box[2:]) / 200)
+                    if kind == "AFLWDataset":
+                        ann["box_size"] = max(box[2:])
+                    if kind == "PanopticHand2DDataset":
+                        ann["head_size"] = 0.7 * max(box[2:])
+                    out["annotations"].append(ann)
+                continue
+            ann = copy.deepcopy(a)
+            if kind.startswith("CocoWholeBody"):
+                for field, num in (("face", 68), ("lefthand", 21), ("righthand", 21)):
+                    valid = rng.rand() >= FACE_HAND_MISSING
+                    box = part["face" if field == "face" else field.removesuffix("hand")]
+                    ann[f"{field}_box"] = box if valid else [0.0] * 4
+                    ann[f"{field}_kpts"] = draw(box, num) if valid else [0.0] * 3 * num
+                    ann[f"{field}_valid"] = bool(valid)
+                ann["foot_kpts"], ann["foot_valid"] = [0.0] * 18, False
+            else:  # Halpe
+                ann["keypoints"] = (a["keypoints"] + [0.0] * 27 + draw(part["face"], 68) + draw(part["left"], 21)
+                                    + draw(part["right"], 21))
+            out["annotations"].append(ann)
+        num = FACE_SETS.get(kind) or HAND_SETS.get(kind) or (136 if kind.startswith("Halpe") else 17)
+        out["categories"] = [dict(id=1, name="person", keypoints=[str(k) for k in range(num)], skeleton=[])]
+        Path(root, f"{prefix}{kind}.json").write_text(json.dumps(out))
+        written[kind] = f"{prefix}{kind}.json"
+    return written
+
+
+def face_hand_options(cfg, loader, root, ann_file):
+    """``--cfg-options`` items that point ``cfg[loader]``'s dataset (each
+    sub-dataset of a ``CombinedDataset``) at its layout of ``ann_file``'s
+    persons (``face_hand_sets_from_coco``: ``root/<loader>_<kind>.json``),
+    the images in ``root/imgs``."""
+    dataset = cfg[loader]["dataset"]
+    subs = list(enumerate(dataset["datasets"])) if dataset["type"] == "CombinedDataset" else [(None, dataset)]
+    files = face_hand_sets_from_coco(ann_file, root, sorted({d["type"] for _, d in subs}), prefix=f"{loader}_")
+    options = []
+    for i, d in subs:
+        key = f"{loader}.dataset" if i is None else f"{loader}.dataset.datasets.{i}"
+        options += [f"{key}.data_root={root}", f"{key}.ann_file={files[d['type']]}", f"{key}.data_prefix.img=imgs/"]
+    return options
+
+
 def recipe_sets(cfg, loader, root, ann_file):
     """The sub-datasets of ``cfg[loader]``'s ``CombinedDataset`` over the
     images under ``root``: ``ann_file`` (COCO's layout) written in each
@@ -1556,6 +1791,16 @@ def gau_counters():
     return dict(gau_forward=gau.gau_forward, gau_backward=gau.gau_backward)
 
 
+def face_hand_counters():
+    """The face and hand recipes' kernels' wrappers (no TPU kernel: their
+    own line), whose ``launches`` count their kernels' launches."""
+    from probpose_code_torch.ops.kernels import adaptive_wing, depthwise
+
+    return dict(depthwise_forward=depthwise.depthwise_forward, depthwise_backward=depthwise.depthwise_backward,
+                adaptive_wing_forward=adaptive_wing.adaptive_wing_forward,
+                adaptive_wing_backward=adaptive_wing.adaptive_wing_backward)
+
+
 def has_gau(model) -> bool:
     """Whether ``model``'s head runs a GAU (RTMPose's ``RTMCCHead``)."""
     from probpose_code_torch.models.utils.rtmcc_block import RTMCCBlock
@@ -1564,14 +1809,16 @@ def has_gau(model) -> bool:
 
 
 def reset_counts():
-    """Every kernel's count, the JPEG decode's, the photometric kernels'
-    and the GAU kernels' set to 0; returns a reader of the kernels' counts
-    (``decode_batch.launches`` holds the decode's, ``augment_counters``
-    and ``gau_counters`` the others)."""
+    """Every kernel's count, the JPEG decode's, the photometric kernels',
+    the GAU kernels' and the face and hand kernels' set to 0; returns a
+    reader of the kernels' counts (``decode_batch.launches`` holds the
+    decode's, ``augment_counters``, ``gau_counters`` and
+    ``face_hand_counters`` the others)."""
     from probpose_code_torch.ops.kernels.jpeg import decode_batch
 
     counters = kernel_counters()
-    for c in (*counters.values(), *augment_counters().values(), *gau_counters().values(), decode_batch):
+    for c in (*counters.values(), *augment_counters().values(), *gau_counters().values(),
+              *face_hand_counters().values(), decode_batch):
         c.launches = 0
     return lambda: {k: c.launches for k, c in counters.items()}
 
@@ -1899,6 +2146,22 @@ class Smoke:
         want = dict(gau_forward=runs, gau_backward=runs and backward)
         if any(bool(launches[k]) != v for k, v in want.items()):
             raise AssertionError(f"{path}: GAU kernel launches {launches}, expected launched {want}")
+
+    def read_face_hand(self, path, model, backward=False):
+        """The face and hand kernels' launches on ``path``'s main path (their
+        counts set to 0 with the others'), kept for the ``face_hand`` line.
+        Fails unless the depthwise kernels launched where ``model`` has a
+        MobileNetV2 (the backward too where the path trains), the
+        AdaptiveWingLoss kernels where it trains under that loss, and
+        neither elsewhere."""
+        launches = {k: c.launches for k, c in face_hand_counters().items()}
+        self.record.setdefault("face_hand_launches", {})[path] = launches
+        mobilenet = model.aux["backbone_cfg"].get("type") == "MobileNetV2"
+        awing = backward and (model.aux["head_cfg"].get("loss") or {}).get("type") == "AdaptiveWingLoss"
+        want = dict(depthwise_forward=mobilenet, depthwise_backward=mobilenet and backward,
+                    adaptive_wing_forward=awing, adaptive_wing_backward=awing)
+        if any(bool(launches[k]) != v for k, v in want.items()):
+            raise AssertionError(f"{path}: face and hand kernel launches {launches}, expected launched {want}")
 
     def phase(self, name, fn):
         t0 = time.time()
@@ -3050,6 +3313,7 @@ class Smoke:
         torch.cuda.synchronize()
         launches = read_counts()
         self.read_gau(record_key.removesuffix("_launches"), has_gau(model))
+        self.read_face_hand(record_key.removesuffix("_launches"), model)
         kpts = np.stack([s.pred_instances.keypoints for s in samples])
         scores = np.stack([s.pred_instances.keypoint_scores for s in samples])
         print(f"{record_key.removesuffix('_launches')} main path: {len(samples)} crops, launches {json.dumps(launches)}")
@@ -3088,7 +3352,8 @@ class Smoke:
         full width: no kernel of the port launched, the losses, lr and
         gradient norm of each step finite (the first step's lr ``first_lr``
         where given), train crops/s over 5 steps after 3 warm-up, peak memory
-        and a profile of 2 steps. Returns (model, state, step)."""
+        and a profile of 2 steps. Returns (model, state, step, the profiled
+        step's device busy ms)."""
         import torch
 
         from probpose_code_torch.apis import init_model
@@ -3112,6 +3377,7 @@ class Smoke:
         torch.cuda.synchronize()
         launches = read_counts()
         self.read_gau(record_key.removesuffix("_launches"), has_gau(model), backward=True)
+        self.read_face_hand(record_key.removesuffix("_launches"), model, backward=True)
         print(f"{record_key.removesuffix('_launches')} main path: one step of B={B}, launches {json.dumps(launches)}")
         if launches != NO_LAUNCHES:
             raise AssertionError(f"{name} train launched a kernel of the port: {launches}")
@@ -3136,8 +3402,8 @@ class Smoke:
             nonlocal state
             state, _ = run_steps(step, state, batch, gen, lr_fn, 1)
 
-        self.profile(one, calls=2, what=f"{name} train steps")
-        return model, state, step
+        busy_ms = self.profile(one, calls=2, what=f"{name} train steps")
+        return model, state, step, busy_ms
 
     def hrnet_predict(self):
         """HRNet-w32 + UDP (its config file) through ``predict_phase``."""
@@ -3178,8 +3444,9 @@ class Smoke:
         ``GAU_SHAPES`` (e = 512, s = 128): the forward at ``GAU_REL``,
         and the gradients of z, gamma and beta (torch autograd through the
         twin) at ``GAU_GRAD_REL``; the backward twice, bit for bit (no
-        atomics). At the whole-body step's shape, each kernel's time beside
-        its twin's and its bound: the multiply-adds of its products at the
+        atomics). At the shapes of ``GAU_TIMED`` (the whole-body step's, the
+        record's, then face6's and hand5's), each kernel's time beside its
+        twin's and its bound: the multiply-adds of its products at the
         rate of f32 products in 3xTF32, as they run (``PEAK_F32_3XTF32``),
         or its inputs read and outputs written once. The times are the
         kernels' device time a call (profiled, ``kernel_device_ms``) and
@@ -3218,7 +3485,7 @@ class Smoke:
                     and deterministic):
                 raise AssertionError(f"gau_parity B={B} n={n}: the kernels disagree with the plain twin: {err}, "
                                      f"deterministic {deterministic}")
-            if (B, n) != GAU_SHAPES[0]:
+            if (B, n) not in GAU_TIMED:
                 continue
             fwd_ops, bwd_ops = gau_flops(B, n, e, s)
             fwd_bytes = 4 * (z.numel() + gamma.numel() + beta.numel() + out.numel())
@@ -3232,12 +3499,15 @@ class Smoke:
                               max(float((g - r).abs().max()) for g, r in zip(grads, ref_grads))))
             for name, (fn, plain, ops, nbytes, abs_err) in timed.items():
                 need = dict(operations=ops / PEAK_F32_3XTF32, bytes=nbytes / PEAK_BYTES)
-                records[name] = dict(
+                r = dict(
                     name=name, route="cuda", source="probpose_code_torch/csrc/gau.cu",
                     ports="probpose_code_tpu/models/utils/rtmcc_block.py:99", max_abs_err=abs_err,
                     ms=Smoke.kernel_device_ms(fn), plain_ms=Smoke.kernel_device_ms(plain, calls=10),
                     bound_ms=max(need.values()) * 1e3, bound_by=max(need, key=need.get), library_ms=None)
-                r = records[name]
+                if (B, n) == GAU_TIMED[0]:
+                    records[name] = dict(r, by_shape={})
+                records[name]["by_shape"][f"B={B},n={n}"] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                                              "bound_by", "max_abs_err")}
                 print(f"  {name} B={B} n={n}: device {r['ms']:.4f} ms a call (call {cuda_time_ms(fn, 20):.4f} ms by "
                       f"CUDA events, the wrapper's host work included), plain {r['plain_ms']:.4f} ms device (call "
                       f"{cuda_time_ms(plain, 10):.4f}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
@@ -3578,14 +3848,14 @@ class Smoke:
                       f"(rtmpose_augment), {100 * photometric_ms / busy_ms:.2f}% of the profiled step's {busy_ms:.2f} "
                       f"ms of device time")
 
-    def switch_runner(self, name, config, root, data_options):
+    def switch_runner(self, name, config, root, data_options, val_interval=2):
         """An RTMPose recipe through ``tools.train``'s main on its config
         file (random weights, seed 0) at its config's batch over the data
         of ``data_options`` under ``root`` (``root/val.json`` the val set;
         an epoch the whole batches the data holds): two epochs with
         ``switch_epoch=1`` (the stage-2 pipeline from the second, its workers
-        restarted), the EMA hook, a checkpoint each epoch and val after the
-        second; then a third epoch resumed by ``--resume``. Fails unless the
+        restarted), the EMA hook, a checkpoint each epoch and val every
+        ``val_interval`` epochs; then a third epoch resumed by ``--resume``. Fails unless the
         config's batch and two epochs' steps run, no kernel of the port's
         TPU list launches, the GAU's kernels launch (``read_gau``), one JPEG decode runs a step and a val batch, the
         crops are augmented on the card (the median kernel launched), the
@@ -3608,7 +3878,8 @@ class Smoke:
 
         RunnerWatch = _runner_watch()
         wd = Path(root, "work")
-        argv = [str(config), "--work-dir", str(wd), "--cfg-options", *data_options, "train_cfg.val_interval=2",
+        argv = [str(config), "--work-dir", str(wd), "--cfg-options", *data_options,
+                f"train_cfg.val_interval={val_interval}",
                 "default_hooks.checkpoint.interval=1", "default_hooks.logger.interval=1",
                 "custom_hooks.1.switch_epoch=1"]
 
@@ -3635,7 +3906,7 @@ class Smoke:
         print(f"{name} val inside training: {len(runner.val_dataset)} instances, {json.dumps(metrics)}; val_times "
               f"{json.dumps(runner.val_times)}")
         if (B != batch or not steps_per_epoch or steps != 2 * steps_per_epoch or launches != NO_LAUNCHES
-                or decodes != steps + val_batches
+                or decodes != steps + val_batches * (2 // val_interval)
                 or written != sorted(["epoch_1.pth", "epoch_2.pth"] + (["best.pth"] if runner.save_best else []))
                 or "pipeline switch at epoch 1" not in log
                 or not metrics or not all(math.isfinite(v) for v in metrics.values())
@@ -3877,6 +4148,391 @@ class Smoke:
             first_step_check("ubody_train", runner)
             runner.close()
 
+    def face_golden(self):
+        """The face fixtures (``FACE_FIXTURES``: the narrow RTMPose with 106
+        outputs, its GAU kernels launched, and the narrow ResNet regression
+        model with 98 joints; ``tests/golden_torch/face_*``) on the card over
+        the golden persons' face boxes at 256 x 256, scored by NME."""
+        for fixture in FACE_FIXTURES:
+            self._fixture_phase(fixture)
+
+    def face_hand_predict(self):
+        """The face and hand recipes at full width through ``predict_phase``
+        (64 boxes, flip-TTA as their configs say): RTMPose-m face6 (106
+        outputs, the GAU over 106 tokens, SimCC of 512 bins an axis) and
+        hand5 (21), HRNetV2-w18 on WFLW (98 MSRA maps of 64 x 64 from the
+        four branches concatenated) and its DARK variant, the ResNet-50
+        regression recipe (``GlobalAveragePooling``, ``RegressionHead``: its
+        keypoints against the CPU twin's) and MobileNetV2 on
+        COCO-WholeBody-Hand."""
+        recipes = (("face6", "RTMPose-m face6", ("keypoint_x_labels", "keypoint_y_labels")),
+                   ("hand5", "RTMPose-m hand5", ("keypoint_x_labels", "keypoint_y_labels")),
+                   ("hrnetv2", "HRNetV2-w18 WFLW", ("heatmaps",)),
+                   ("hrnetv2_dark", "HRNetV2-w18 DARK WFLW", ("heatmaps",)),
+                   ("res50_wing", "ResNet-50 regression WFLW", ("keypoints",)),
+                   ("mobilenetv2_hand", "MobileNetV2 COCO-WholeBody-Hand", ("heatmaps",)))
+        for key, name, keys in recipes:
+            self.predict_phase(FACE_HAND_RECIPES[key], name, keys, f"{key}_predict_launches", timed_calls=5,
+                               profile_calls=1)
+
+    def face6_train_runner(self):
+        """RTMPose-m face6 (``rtmpose-m_8xb256-120e_face6``) through
+        ``tools.train``'s main at its batch of 256 with eight workers, as
+        ``switch_runner`` runs it (two epochs across the stage-2 switch, a
+        resumed third): its six-way ``CombinedDataset`` (LaPa,
+        COCO-WholeBody-Face, WFLW, 300W, COFW and Halpe, each through its
+        converter to LaPa's 106 keypoints) over the golden JPEGs' persons
+        copied to 92 (about 530 instances: 2 steps an epoch; ``face_hand_
+        options``), val on LaPa's layout of the 62 golden persons by ``NME``
+        after every epoch; then ``tools.test`` on ``best.pth`` over the
+        config's six-way test mix. Fails unless ``switch_runner``'s checks
+        hold (the first loss dict, the GAU and median kernels' launches), the
+        NMEs are finite, ``best.pth`` is the epoch of the lowest and the test
+        mix's NME is finite. Prints the SimCC label render's share of the
+        profiled step's device time (the 2% rule)."""
+        import contextlib
+        import io
+        import tempfile
+
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.datasets.loader import stop_workers
+        from probpose_code_torch.engine.checkpoint import read_checkpoint
+        from probpose_code_torch.tools import test as test_cli
+
+        config = FACE_HAND_RECIPES["face6"]
+        cfg = Config.fromfile(str(config))
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+            stack.callback(stop_workers)
+            _, ann = golden_jpeg_set(tmp)
+            copy_instances(ann, 92, Path(tmp, "train.json"))
+            options = face_hand_options(cfg, "train_dataloader", tmp, Path(tmp, "train.json")) + face_hand_options(
+                cfg, "val_dataloader", tmp, ann) + ["train_dataloader.num_workers=8", "val_dataloader.num_workers=8"]
+            launches, augments, busy_ms, metrics = self.switch_runner("face6_train_runner", config, tmp, options,
+                                                                    val_interval=1)
+            log = Path(tmp, "work", "train.log").read_text()
+            nmes = [float(line.split("nme/NME: ")[1].split()[0]) for line in log.splitlines() if "val: " in line]
+            best = read_checkpoint(str(Path(tmp, "work", "best.pth")))["meta"]
+            print(f"face6_train_runner: val NME by epoch {nmes}; best.pth epoch {best['epoch']}, best score "
+                  f"{best['best_score']}")
+            # the log prints 4 decimals: the best epoch's NME is the lowest to that precision
+            if (len(nmes) != 3 or not all(math.isfinite(v) for v in nmes) or set(metrics) != {"nme/NME"}
+                    or abs(best["best_score"] - min(nmes)) > 1e-4 or abs(nmes[best["epoch"] - 1] - min(nmes)) > 1e-4):
+                raise AssertionError(f"face6_train_runner: NMEs {nmes}, best.pth {best}")
+            self.record["face6_runner_launches"] = launches
+            self.record["face6_augment_launches"] = augments
+            self.record.setdefault("op_shares", {})["face6_train_runner"] = self.face_hand_op_shares(
+                "face6", busy_ms)
+
+            test = face_hand_options(cfg, "test_dataloader", tmp, ann)
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                test_cli.main([str(config), str(Path(tmp, "work", "best.pth")), "--cfg-options", *test,
+                               "test_dataloader.num_workers=8"])
+            tested = dict(line.split(": ", 1) for line in out.getvalue().splitlines() if line.startswith("nme/"))
+            print(f"face6_train_runner tools.test on best.pth over the six-way test mix in "
+                  f"{time.perf_counter() - t0:.2f} s: {json.dumps(tested)}")
+            if set(tested) != {"nme/NME"} or not math.isfinite(float(tested["nme/NME"])):
+                raise AssertionError(f"face6_train_runner: tools.test gave {tested}")
+
+    def hand5_train(self):
+        """RTMPose-m hand5 (``rtmpose-m_8xb256-210e_hand5``) through
+        ``tools.train``'s main at its batch of 256 with eight workers: its
+        five-way mix (COCO-WholeBody-Hand, OneHand10K, FreiHAND, RHD through
+        its converter, Halpe's hands) over the golden JPEGs' persons copied
+        to 32 (about 300 hands: one step), one epoch, then val on the golden
+        persons' hands in COCO-WholeBody's layout by ``PCKAccuracy(thr=0.2)``,
+        ``AUC`` and ``EPE``. Fails unless the step runs, no kernel of the
+        port's TPU list launches, the GAU and median kernels launch, one
+        decode runs a step and a val batch, the metrics are finite and the
+        first loss dict equals ``make_train_step``'s."""
+        import contextlib
+        import tempfile
+
+        import torch
+
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.datasets.loader import stop_workers
+        from probpose_code_torch.ops.kernels.jpeg import decode_batch
+        from probpose_code_torch.tools import train as train_cli
+
+        config = FACE_HAND_RECIPES["hand5"]
+        cfg = Config.fromfile(str(config))
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+            stack.callback(stop_workers)
+            _, ann = golden_jpeg_set(tmp)
+            copy_instances(ann, 32, Path(tmp, "train.json"))
+            options = face_hand_options(cfg, "train_dataloader", tmp, Path(tmp, "train.json"))
+            options += face_hand_options(cfg, "val_dataloader", tmp, ann) + [
+                "train_dataloader.num_workers=8", "val_dataloader.num_workers=8", "train_cfg.max_epochs=1",
+                "train_cfg.val_interval=1", "default_hooks.logger.interval=1"]
+            # the main path: counts set to 0 just before, read just after
+            torch.cuda.reset_peak_memory_stats()
+            read_counts = reset_counts()
+            runner = train_cli.main([str(config), "--work-dir", str(Path(tmp, "work")), "--cfg-options", *options])
+            torch.cuda.synchronize()
+            launches, decodes = read_counts(), decode_batch.launches
+            self.read_gau("hand5_train", True, backward=True)
+            augments = {k: c.launches for k, c in augment_counters().items()}
+            B, steps, val_batches = runner.train_loader.batch_size, runner.state.step, len(runner.val_loader)
+            print(f"hand5_train main path: {steps} steps of {B} over {len(runner.train_loader.dataset)} hands (5 "
+                  f"datasets), launches {json.dumps(launches)}, JPEG decodes {decodes}, photometric kernels "
+                  f"{json.dumps(augments)}, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            report_runner_epochs("hand5_train", runner, 0)
+            log = Path(tmp, "work", "train.log").read_text()
+            val = [line for line in log.splitlines() if "val: " in line]
+            print(f"hand5_train val: {val[-1] if val else None}; val_times {json.dumps(runner.val_times)}")
+            names = ("pck/PCK", "auc/AUC", "epe/EPE")
+            got = {k: float(val[-1].split(f"{k}: ")[1].split()[0]) for k in names if val and f"{k}: " in val[-1]}
+            if (B != 256 or steps < 1 or launches != NO_LAUNCHES or decodes != steps + val_batches
+                    or set(got) != set(names) or not all(math.isfinite(v) for v in got.values())
+                    or not augments["photometric_median"]):
+                raise AssertionError(f"hand5_train: batch {B}, {steps} steps, launches {launches}, {decodes} decodes, "
+                                     f"metrics {got}, photometric {augments}")
+            self.record["hand5_launches"] = launches
+            self.record["hand5_augment_launches"] = augments
+            first_step_check("hand5_train", runner)
+            runner.close()
+
+    def face_hand_train(self):
+        """The bare train steps (``train_phase``, B = 64, synthetic crops,
+        targets encoded on the card) of HRNetV2-w18 on WFLW with
+        ``AdaptiveWingLoss`` (98 MSRA maps of 64 x 64), the ResNet-50
+        regression recipe with ``WingLoss`` (``RegressionLabel``'s labels)
+        and MobileNetV2 on COCO-WholeBody-Hand (21 maps); then the 2% rule's
+        candidate ops of these steps, each alone at its step's shapes
+        (``face_hand_op_shares``)."""
+        from probpose_code_torch.config import Config
+
+        shares = self.record.setdefault("op_shares", {})
+        for key, name, K, seed in (("hrnetv2_awing", "HRNetV2-w18 AWing WFLW", 98, 11),
+                                   ("res50_wing", "ResNet-50 WingLoss WFLW", 98, 12),
+                                   ("mobilenetv2_hand", "MobileNetV2 COCO-WholeBody-Hand", 21, 13)):
+            config = FACE_HAND_RECIPES[key]
+            model, _, _, busy_ms = self.train_phase(
+                config, name, synthetic_codec_batch(64, seed, Config.fromfile(str(config))["codec"], K=K),
+                f"{key}_train_launches")
+            if key != "res50_wing":
+                shares[key] = self.face_hand_op_shares(key, busy_ms, model)
+            del model
+
+    @staticmethod
+    def depthwise_shapes(model):
+        """(module, input shape) of each depthwise 3x3 conv of ``model``'s
+        MobileNetV2 in one forward of 64 crops of the model's input size."""
+        import torch
+
+        from probpose_code_torch.models.backbones.mobilenet_v2 import ConvModule
+
+        shapes, hooks = [], []
+        for m in model.module.backbone.modules():
+            if isinstance(m, ConvModule) and m.depthwise:
+                hooks.append(m.register_forward_hook(lambda m, i, o: shapes.append((m, tuple(i[0].shape)))))
+        w, h = model.input_size
+        with torch.no_grad():
+            model.module(torch.zeros(64, h, w, 3, device="cuda"))
+        for hook in hooks:
+            hook.remove()
+        return shapes
+
+    def face_hand_kernels(self):
+        """The face and hand recipes' kernels against their plain twin on
+        inputs drawn from a seed, at the shapes of their main paths: the
+        depthwise 3x3 kernels (``ops/kernels/depthwise.py``,
+        ``csrc/depthwise.cu``) at each of MobileNetV2's 17 depthwise convs
+        of the hand recipe's step (B = 64, 256 x 256; forward at
+        ``DEPTHWISE_REL``, input and weight gradients at
+        ``DEPTHWISE_GRAD_REL``, the backward twice bit for bit), and
+        ``AdaptiveWingLoss``'s (``ops/kernels/adaptive_wing.py``,
+        ``csrc/adaptive_wing.cu``) over HRNetV2-w18's WFLW maps (64, 98, 64,
+        64) with its weights (loss and gradient at ``AWING_REL``). Then each
+        kernel's device time (``kernel_device_ms``; the depthwise kernels
+        summed over the 17 shapes, a step's worth) beside the twin's, the
+        library call's (the depthwise twin is cuDNN's ``F.conv2d``, so its
+        plain and library times are one call's, measured apart; no PyTorch
+        call computes the loss) and the bound: the bytes that each moves
+        (every input read once, every output written once) over 3.35 TB/s,
+        or its operations over the f32 FMA rate. Launches made here are not
+        the main path's."""
+        import numpy as np
+        import torch
+
+        from probpose_code_torch.apis import init_model
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.models.builder import full_f32_precision
+        from probpose_code_torch.ops.kernels import adaptive_wing as aw
+        from probpose_code_torch.ops.kernels import depthwise as dw
+
+        def rel(a, b):
+            return float((a - b).abs().max() / b.abs().max())
+
+        model = init_model(Config.fromfile(str(FACE_HAND_RECIPES["mobilenetv2_hand"])), device="cuda")
+        rng = np.random.RandomState(7)
+        cases = []
+        for module, (B, C, H, W) in self.depthwise_shapes(model):
+            stride = module.conv.stride[0]
+            Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+
+            def draw(*shape):
+                return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+
+            x = draw(B, H, W, C).permute(0, 3, 1, 2)  # channels last, as the backbone gives it
+            w = draw(C, 1, 3, 3)
+            dy = draw(B, Ho, Wo, C).permute(0, 3, 1, 2)
+            cases.append((x, w, dy, stride))
+        del model
+        errors = dict(forward=0.0, dx=0.0, dw=0.0)
+        abs_err = dict(depthwise_forward=0.0, depthwise_backward=0.0)
+        deterministic = True
+        with full_f32_precision():
+            for x, w, dy, stride in cases:
+                y = dw.depthwise_forward(x, w, stride)
+                gx, gw = dw.depthwise_backward(dy, x, w, stride)
+                again = dw.depthwise_backward(dy, x, w, stride)
+                leaves = [x.clone().requires_grad_(), w.clone().requires_grad_()]
+                ref = dw.depthwise_conv3x3_plain(*leaves, stride)
+                rx, rw = torch.autograd.grad(ref, leaves, dy)
+                errors["forward"] = max(errors["forward"], rel(y, ref.detach()))
+                errors["dx"], errors["dw"] = max(errors["dx"], rel(gx, rx)), max(errors["dw"], rel(gw, rw))
+                abs_err["depthwise_forward"] = max(abs_err["depthwise_forward"], float((y - ref.detach()).abs().max()))
+                abs_err["depthwise_backward"] = max(abs_err["depthwise_backward"], float((gx - rx).abs().max()),
+                                                    float((gw - rw).abs().max()))
+                deterministic &= torch.equal(gx, again[0]) and torch.equal(gw, again[1])
+        print(f"face_hand_kernels depthwise over the 17 shapes of MobileNetV2's B=64 step: rel max err "
+              f"{json.dumps(errors)} (bars {DEPTHWISE_REL:g} forward, {DEPTHWISE_GRAD_REL:g} gradients); the "
+              f"backward repeats bit for bit: {deterministic}")
+        if not (errors["forward"] < DEPTHWISE_REL and max(errors["dx"], errors["dw"]) < DEPTHWISE_GRAD_REL
+                and deterministic):
+            raise AssertionError(f"face_hand_kernels: the depthwise kernels disagree with the twin: {errors}")
+
+        target = torch.from_numpy(rng.rand(64, 98, 64, 64).astype(np.float32)).cuda()
+        output = target + torch.from_numpy(0.3 * rng.randn(64, 98, 64, 64).astype(np.float32)).cuda()
+        weights = torch.from_numpy((rng.rand(64, 98) > 0.1).astype(np.float32)).cuda()
+        params = (2.1, 14.0, 1.0, 0.5, 1.0)
+        loss = aw.adaptive_wing_forward(output, target, weights, params)
+        dloss = torch.ones((), device="cuda")
+        grad = aw.adaptive_wing_backward(dloss, output, target, weights, params)
+        leaf = output.clone().requires_grad_()
+        ref = aw.adaptive_wing_loss_plain(leaf, target, weights, *params)
+        (ref_grad,) = torch.autograd.grad(ref, [leaf])
+        werr = dict(loss=rel(loss, ref.detach()), grad=rel(grad, ref_grad))
+        print(f"face_hand_kernels AdaptiveWingLoss over (64, 98, 64, 64): rel max err {json.dumps(werr)} (bar "
+              f"{AWING_REL:g})")
+        if not max(werr.values()) < AWING_REL:
+            raise AssertionError(f"face_hand_kernels: the AdaptiveWingLoss kernels disagree with the twin: {werr}")
+        abs_err["adaptive_wing_forward"] = float((loss - ref.detach()).abs())
+        abs_err["adaptive_wing_backward"] = float((grad - ref_grad).abs().max())
+
+        def each(fn):
+            return lambda: [fn(*case) for case in cases]
+
+        def plain_grad(x, w, dy, stride):
+            leaves = [x.detach().requires_grad_(), w.detach().requires_grad_()]
+            return torch.autograd.grad(dw.depthwise_conv3x3_plain(*leaves, stride), leaves, dy)
+
+        fwd_bytes = sum(dw.depthwise_bytes(x.shape[0], x.shape[1], x.shape[2], x.shape[3], s)[0]
+                        for x, _, _, s in cases)
+        bwd_bytes = sum(dw.depthwise_bytes(x.shape[0], x.shape[1], x.shape[2], x.shape[3], s)[1]
+                        for x, _, _, s in cases)
+        fwd_ops = sum(2 * 9 * dy.numel() for _, _, dy, _ in cases)
+        elements = output.numel()
+        awing_bytes = aw.adaptive_wing_bytes(elements, weights.numel(), True)
+        timed = dict(
+            depthwise_forward=(each(lambda x, w, dy, s: dw.depthwise_forward(x, w, s)),
+                               each(lambda x, w, dy, s: dw.depthwise_conv3x3_plain(x, w, s)), True, fwd_ops,
+                               fwd_bytes, "probpose_code_tpu/models/backbones/mobilenet_v2.py:45",
+                               "probpose_code_torch/csrc/depthwise.cu"),
+            depthwise_backward=(each(lambda x, w, dy, s: dw.depthwise_backward(dy, x, w, s)), each(plain_grad), True,
+                                2 * fwd_ops, bwd_bytes, "probpose_code_tpu/models/backbones/mobilenet_v2.py:45",
+                                "probpose_code_torch/csrc/depthwise.cu"),
+            adaptive_wing_forward=(lambda: aw.adaptive_wing_forward(output, target, weights, params),
+                                   lambda: aw.adaptive_wing_loss_plain(output, target, weights, *params), False,
+                                   30 * elements, awing_bytes[0], "probpose_code_tpu/models/losses/heatmap_loss.py:139",
+                                   "probpose_code_torch/csrc/adaptive_wing.cu"),
+            adaptive_wing_backward=(lambda: aw.adaptive_wing_backward(dloss, output, target, weights, params),
+                                    lambda: torch.autograd.grad(aw.adaptive_wing_loss_plain(
+                                        leaf, target, weights, *params), [leaf]), False, 40 * elements,
+                                    awing_bytes[1], "probpose_code_tpu/models/losses/heatmap_loss.py:139",
+                                    "probpose_code_torch/csrc/adaptive_wing.cu"))
+        records = []
+        for name, (fn, plain, library, ops, nbytes, ports, source) in timed.items():
+            with full_f32_precision():
+                ms, plain_ms = Smoke.kernel_device_ms(fn, calls=10), Smoke.kernel_device_ms(plain, calls=10)
+                library_ms = Smoke.kernel_device_ms(plain, calls=10) if library else None
+            need = dict(operations=ops / PEAK_F32, bytes=nbytes / PEAK_BYTES)
+            records.append(dict(name=name, route="cuda", source=source, ports=ports, max_abs_err=abs_err[name],
+                                ms=ms, plain_ms=plain_ms, bound_ms=max(need.values()) * 1e3,
+                                bound_by=max(need, key=need.get), library_ms=library_ms))
+            r = records[-1]
+            print(f"  {name}: device {ms:.4f} ms (call {cuda_time_ms(fn, 10):.4f} by CUDA events), plain {plain_ms:.4f}"
+                  f" ms device" + (f", library (cuDNN F.conv2d) {library_ms:.4f}" if library else "")
+                  + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} "
+                  f"MB), {ms / r['bound_ms']:.1f}x its bound, max abs err {r['max_abs_err']:.3e}")
+        self.record["face_hand_kernels"] = records
+
+    @staticmethod
+    def face_hand_op_shares(key, busy_ms, model=None):
+        """The 2% rule's candidates of this slice, each run alone on the card
+        at its step's shapes and profiled (``kernel_device_ms``: the device
+        time of its kernels a call), over the profiled step's device time
+        ``busy_ms``: for ``face6`` the SimCC label render at K = 106 with
+        512 bins an axis (B = 256, float64); for ``hrnetv2_awing``
+        ``AdaptiveWingLoss``, forward and backward over (64, 98, 64, 64) maps,
+        as its kernels and as its plain twin (PyTorch, which the step ran
+        before the kernels); for ``mobilenetv2_hand`` every depthwise 3x3
+        convolution of the step's MobileNetV2, forward and backward at the
+        shapes one forward of ``model`` gives them, as the kernels and as
+        cuDNN's (the twin). Returns {op: device ms, share %}."""
+        import numpy as np
+        import torch
+
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.ops.encode import generate_simcc_labels_device
+        from probpose_code_torch.ops.kernels import adaptive_wing as aw
+        from probpose_code_torch.ops.kernels import depthwise as dw
+
+        rng = np.random.RandomState(0)
+        ops = {}
+        if key == "face6":
+            codec = Config.fromfile(str(FACE_HAND_RECIPES["face6"]))["codec"]
+            size = np.array(codec["input_size"]) * codec["simcc_split_ratio"]
+            bins = torch.from_numpy(np.round(rng.uniform(-0.05, 1.05, (256, 106, 2)) * size)).cuda()
+            vis = torch.from_numpy((rng.rand(256, 106) > 0.1).astype(np.float32)).cuda()
+            ops["simcc_label_render_K106"] = lambda: generate_simcc_labels_device(
+                bins, vis, tuple(codec["input_size"]), codec["simcc_split_ratio"], codec["sigma"], "gaussian",
+                codec["normalize"])
+        elif key == "hrnetv2_awing":
+            target = torch.rand(64, 98, 64, 64, device="cuda")
+            output = (target + 0.1 * torch.randn_like(target)).requires_grad_()
+            weights = torch.ones(64, 98, device="cuda")
+            params = (2.1, 14.0, 1.0, 0.5, 1.0)
+            ops["adaptive_wing_loss_fwd_bwd_kernels"] = lambda: aw.adaptive_wing_loss(
+                output, target, weights, *params).backward()
+            ops["adaptive_wing_loss_fwd_bwd_plain"] = lambda: torch.autograd.grad(
+                aw.adaptive_wing_loss_plain(output, target, weights, *params), [output])
+        elif key == "mobilenetv2_hand":
+            cases = []
+            for module, (B, C, H, W) in Smoke.depthwise_shapes(model):
+                s = module.conv.stride[0]
+                x = torch.randn(B, H, W, C, device="cuda").permute(0, 3, 1, 2).requires_grad_()
+                w = module.conv.weight.detach().clone().requires_grad_()
+                dy = torch.randn(B, (H - 1) // s + 1, (W - 1) // s + 1, C, device="cuda").permute(0, 3, 1, 2)
+                cases.append((x, w, dy, s))
+
+            def run(conv):
+                for x, w, dy, s in cases:
+                    torch.autograd.grad(conv(x, w, s), [x, w], dy)
+
+            ops[f"depthwise_3x3_fwd_bwd_x{len(cases)}_kernels"] = lambda: run(dw.depthwise_conv3x3)
+            ops[f"depthwise_3x3_fwd_bwd_x{len(cases)}_plain"] = lambda: run(dw.depthwise_conv3x3_plain)
+        shares = {}
+        for name, fn in ops.items():
+            ms = Smoke.kernel_device_ms(fn, calls=10)
+            shares[name] = dict(device_ms=round(ms, 4), share=round(100 * ms / busy_ms, 2) if busy_ms else None)
+        print(f"{key}: the 2% rule's candidate ops alone at the step's shapes, device ms a call and % of the "
+              f"profiled step's {busy_ms} ms of device time: {json.dumps(shares)}")
+        return shares
+
     def halpe26_runner(self):
         """RTMPose-m's halpe26 recipe (``rtmpose-m_8xb512-700e_body8-
         halpe26``, its sub-datasets' converters repaired as
@@ -4080,7 +4736,8 @@ class Smoke:
     def profile(fn, calls: int, what: str = "flagship calls"):
         """Device time by kernel over a few calls, and the device's busy
         share of the wall time (torch.profiler's CUDA activity); where K2 ran,
-        also its share."""
+        also its share. Returns the device's busy ms a call (None where the
+        profiler recorded no device time)."""
         import torch
         from torch.profiler import ProfilerActivity, profile
 
@@ -4090,7 +4747,7 @@ class Smoke:
                 fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        Smoke.report_profile(prof, wall_us, calls, what)
+        return Smoke.report_profile(prof, wall_us, calls, what)
 
     @staticmethod
     def report_profile(prof, wall_us: float, calls: int, what: str):
@@ -4641,6 +5298,12 @@ def main() -> int:
         smoke.phase("wholebody_train", smoke.wholebody_train)
         smoke.phase("wholebody_train_runner", smoke.wholebody_train_runner)
         smoke.phase("ubody_train", smoke.ubody_train)
+        smoke.phase("face_golden", smoke.face_golden)
+        smoke.phase("face_hand_predict", smoke.face_hand_predict)
+        smoke.phase("face6_train_runner", smoke.face6_train_runner)
+        smoke.phase("hand5_train", smoke.hand5_train)
+        smoke.phase("face_hand_kernels", smoke.face_hand_kernels)
+        smoke.phase("face_hand_train", smoke.face_hand_train)
         smoke.phase("dpm_golden", smoke.dpm_golden)
         smoke.phase("timings", smoke.timings)
     left = stop_descendants()
@@ -4658,7 +5321,8 @@ def main() -> int:
     paths = dict(photometric_median="augment_launches", photometric_distortion="body8_augment_launches")
     # and each one's launches on every path that augments on the card
     by_path = dict(rtmpose_train_runner="augment_launches", body8_train_runner="body8_augment_launches",
-                   wholebody_train_runner="wholebody_augment_launches", ubody_train="ubody_augment_launches")
+                   wholebody_train_runner="wholebody_augment_launches", ubody_train="ubody_augment_launches",
+                   face6_train_runner="face6_augment_launches", hand5_train="hand5_augment_launches")
     print(json.dumps({"augment": [dict(rec, launches=smoke.record[paths[rec["name"]]][rec["name"]],
                                        launches_by_path={path: smoke.record[key][rec["name"]]
                                                          for path, key in by_path.items()})
@@ -4669,6 +5333,14 @@ def main() -> int:
     print(json.dumps({"gau": [dict(rec, launches=gau["wholebody_train_runner"][rec["name"]],
                                    launches_by_path={path: n[rec["name"]] for path, n in gau.items()})
                               for rec in smoke.record["gau"]]}))
+    # the face and hand recipes' kernels, no TPU kernel: their own line, the depthwise kernels' launches those of
+    # MobileNetV2's hand step, AdaptiveWingLoss's those of HRNetV2-w18's WFLW step, and each one's on every path
+    face_hand = smoke.record["face_hand_launches"]
+    main_path = dict(depthwise_forward="mobilenetv2_hand_train", depthwise_backward="mobilenetv2_hand_train",
+                     adaptive_wing_forward="hrnetv2_awing_train", adaptive_wing_backward="hrnetv2_awing_train")
+    print(json.dumps({"face_hand": [dict(rec, launches=face_hand[main_path[rec["name"]]][rec["name"]],
+                                         launches_by_path={path: n[rec["name"]] for path, n in face_hand.items()})
+                                    for rec in smoke.record["face_hand_kernels"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

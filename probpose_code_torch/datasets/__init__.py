@@ -5,8 +5,11 @@ from .base_dataset import (  # noqa: F401  (registers the datasets and transform
     CocoCropDataset,
     CocoDataset,
     CocoWholeBodyDataset,
+    CocoWholeBodyFaceDataset,
+    CocoWholeBodyHandDataset,
     CombinedDataset,
     Compose,
+    HalpeHandDataset,
     UBody2dDataset,
 )
 from .loader import DataLoader, collate_pose_samples  # noqa: F401

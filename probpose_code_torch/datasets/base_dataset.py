@@ -8,8 +8,11 @@ parsing with the ProbPose ``keypoints_visibility`` (v==2) flag and
 organization and filters), the body datasets under their metainfo
 (``BODY_DATASETS``: ``CocoDataset``, ``CocoCropDataset`` and those of
 ``datasets/zoo.py:24-61`` that the body8 recipes mix),
-``CocoWholeBodyDataset`` and ``UBody2dDataset`` (133 keypoints) and
-``CombinedDataset``.
+``CocoWholeBodyDataset`` and ``UBody2dDataset`` (133 keypoints), the face
+and hand datasets (``FACE_HAND_DATASETS``, ``zoo.py:38-49``, and mmpose's
+readings of COCO-WholeBody's faces and hands and of Halpe's hands:
+``CocoWholeBodyFaceDataset``, ``CocoWholeBodyHandDataset``,
+``HalpeHandDataset``) and ``CombinedDataset``.
 ``data_mode="bottomup"`` comes with the bottom-up slice.
 """
 
@@ -266,7 +269,14 @@ BODY_DATASETS = dict(CocoDataset="coco", CocoCropDataset="coco_crop", AicDataset
                      CrowdPoseDataset="crowdpose", MpiiDataset="mpii", JhmdbDataset="jhmdb",
                      HalpeDataset="halpe", PoseTrack18Dataset="posetrack18", OCHumanDataset="ochuman",
                      HumanArtDataset="humanart")
-for _name, _table in BODY_DATASETS.items():
+# The face and hand datasets the same way (``datasets/zoo.py:38-49``). The JAX parser takes each box from the
+# file's ``bbox``: mmpose's WFLW, 300W and AFLW classes build theirs from ``center`` and ``scale`` (x 200) and
+# AFLW's NME norm from ``box_size``, and its Panoptic class sets ``head_size``; the port copies the JAX reading.
+FACE_HAND_DATASETS = dict(Face300WDataset="300w", Face300WLPDataset="300wlp", WFLWDataset="wflw",
+                          AFLWDataset="aflw", COFWDataset="cofw", LapaDataset="lapa",
+                          OneHand10KDataset="onehand10k", FreiHandDataset="freihand2d", Rhd2DDataset="rhd2d",
+                          PanopticHand2DDataset="panoptic_hand2d")
+for _name, _table in {**BODY_DATASETS, **FACE_HAND_DATASETS}.items():
     globals()[_name] = DATASETS.register_module(module=type(_name, (BaseCocoStyleDataset,), dict(
         METAINFO=dict(dataset_name=_table), __doc__=f"The COCO-style dataset under the {_table!r} metainfo.")))
 del _name, _table
@@ -304,6 +314,128 @@ class UBody2dDataset(CocoWholeBodyDataset):
     it."""
 
     METAINFO: dict = dict(dataset_name="ubody2d")
+
+
+@DATASETS.register_module()
+class CocoWholeBodyFaceDataset(BaseCocoStyleDataset):
+    """The faces of COCO-WholeBody (mmpose's ``datasets/face/
+    coco_wholebody_face_dataset.py``): an annotation's 68 ``face_kpts`` in
+    its ``face_box`` (x, y, w, h, clipped to the image), none where
+    ``face_valid`` is false or every ``face_kpts`` value is 0. The JAX class
+    (``datasets/zoo.py:44``) is the COCO parser under the 68-keypoint table:
+    it reads the body's 17 ``keypoints`` in the person's box, and
+    ``RandomFlip``'s 68 flip indices run past them; the port departs from it.
+    Each instance's ``area`` is the base parser's for a file without one, of
+    the face box."""
+
+    METAINFO: dict = dict(dataset_name="coco_wholebody_face")
+
+    def parse_data_info(self, raw_data_info: dict) -> Optional[dict]:
+        ann = raw_data_info["raw_ann_info"]
+        if not ann.get("face_valid", False) or max(ann.get("face_kpts", [0])) <= 0:
+            return None
+        face = {k: v for k, v in ann.items() if k not in ("area", "num_keypoints", "pad_to_contain")}
+        face.update(bbox=ann["face_box"], keypoints=ann["face_kpts"])
+        info = super().parse_data_info(dict(raw_data_info, raw_ann_info=face))
+        info["raw_ann_info"] = copy.deepcopy(ann)
+        info.pop("crowd_index", None)
+        return info
+
+
+def _hand_info(ann, img, bbox, kpts, instance_id, source) -> dict:
+    """One hand's instance: ``bbox`` (1, 4) x1 y1 x2 y2 and ``kpts`` (21, 3)
+    (x, y, v), the fields the base parser gives an instance."""
+    _keypoints = np.asarray(kpts, np.float32).reshape(1, -1, 3)
+    return {
+        "img_id": ann["image_id"],
+        "img_path": img["img_path"],
+        "bbox": bbox,
+        "bbox_score": np.ones(1, dtype=np.float32),
+        "num_keypoints": int(np.count_nonzero(_keypoints[..., :2].max(axis=2))),
+        "keypoints": _keypoints[..., :2],
+        "keypoints_visible": np.minimum(1, _keypoints[..., 2]),
+        "keypoints_visibility": (_keypoints[..., 2] == 2).astype(np.float32),
+        "pad_to_contain": find_min_padding_exact(bbox, _keypoints.reshape(-1, 3)),
+        "area": np.array(np.clip((bbox[0, 2] - bbox[0, 0]) * (bbox[0, 3] - bbox[0, 1]) * 0.53, 1.0, None),
+                         dtype=np.float32),
+        "iscrowd": ann.get("iscrowd", 0),
+        "segmentation": ann.get("segmentation", None),
+        "id": instance_id,
+        "category_id": np.array(ann["category_id"]),
+        "raw_ann_info": copy.deepcopy(ann),
+        "source_dataset": source,
+    }
+
+
+class _HandDataset(BaseCocoStyleDataset):
+    """One 21-keypoint instance a hand, left then right for each non-crowd
+    annotation of each image (``sample_interval`` is read by neither mmpose
+    class); the instance ``id`` counts the hands from 0, as mmpose's does.
+    ``hands(ann)`` yields a hand's (bbox (1, 4), keypoints (21, 3)) or
+    nothing."""
+
+    METAINFO: dict = dict(dataset_name="coco_wholebody_hand")
+
+    def hands(self, ann):
+        raise NotImplementedError
+
+    def _load_annotations(self):
+        assert osp.exists(self.ann_file), f"Annotation file `{self.ann_file}` does not exist"
+        self.coco = COCO(self.ann_file)
+        if "categories" in self.coco.dataset:
+            self._metainfo["CLASSES"] = self.coco.loadCats(self.coco.getCatIds())
+        instance_list: List[dict] = []
+        for img_id in self.coco.getImgIds():
+            img = dict(self.coco.loadImgs(img_id)[0])
+            img["img_id"] = img_id
+            img["img_path"] = osp.join(self.data_prefix["img"], img["file_name"])
+            for ann in self.coco.loadAnns(self.coco.getAnnIds(imgIds=img_id, iscrowd=False)):
+                for bbox, kpts in self.hands(ann):
+                    instance_list.append(_hand_info(ann, img, bbox, kpts, len(instance_list),
+                                                    self._metainfo["dataset_name"]))
+        return instance_list
+
+
+@DATASETS.register_module()
+class CocoWholeBodyHandDataset(_HandDataset):
+    """The hands of COCO-WholeBody (mmpose's ``datasets/hand/
+    coco_wholebody_hand_dataset.py``): for each hand whose
+    ``<side>hand_valid`` is true and whose ``<side>hand_kpts`` are not all
+    0, its 21 keypoints in its ``<side>hand_box`` (x, y, w, h; not
+    clipped). The JAX class (``datasets/zoo.py:50``) is the COCO parser
+    under the 21-keypoint table: it reads the body's 17 ``keypoints`` in the
+    person's box, one instance a person; the port departs from it."""
+
+    def hands(self, ann):
+        for side in ("left", "right"):
+            kpts = ann.get(f"{side}hand_kpts")
+            if ann.get(f"{side}hand_valid", False) and kpts and max(kpts) > 0:
+                x, y, w, h = ann[f"{side}hand_box"]
+                yield np.array([[x, y, x + w, y + h]], np.float32), kpts
+
+
+@DATASETS.register_module()
+class HalpeHandDataset(_HandDataset):
+    """The hands of Halpe-FullBody's 136 keypoints (mmpose's
+    ``datasets/hand/halpe_hand_dataset.py``): rows 94-114 the left hand and
+    115-135 the right, one instance for each hand with an annotated
+    keypoint (v > 0), its box the least one (x1, y1, x2, y2) that holds the
+    annotated keypoints. The JAX class (``datasets/zoo.py:52``) is the COCO
+    parser under the 21-keypoint table: it reads all 136 rows against it;
+    the port departs from it."""
+
+    SIDES = (("left", 94), ("right", 115))
+
+    def hands(self, ann):
+        rows = np.asarray(ann.get("keypoints", []), np.float32).reshape(-1, 3)
+        if len(rows) != 136:
+            return
+        for _, first in self.SIDES:
+            kpts = rows[first:first + 21]
+            annotated = kpts[:, 2] > 0
+            if annotated.any():
+                xy = kpts[annotated, :2]
+                yield np.concatenate([xy.min(0), xy.max(0)]).reshape(1, 4).astype(np.float32), kpts
 
 
 @DATASETS.register_module()

@@ -4,7 +4,8 @@ The port's own copy of ``probpose_code_tpu/datasets/metainfo`` for COCO,
 CropCOCO (``coco_crop.py``: COCO's table under another name), AI
 Challenger (``data/aic.json``), the other body datasets of the body8
 recipes (``body.py``, ``halpe.py``: ``data/<name>.json``) and
-COCO-WholeBody and UBody-2D (``wholebody.py``):
+COCO-WholeBody and UBody-2D (``wholebody.py``) and the face and hand
+datasets (``face.py``, ``hand.py``):
 ``parse_pose_metainfo`` (``__init__.py:65``) over those tables.
 """
 
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from . import body
+from . import body, face, hand
 from .aic import AIC_METAINFO
 from .coco import COCO_METAINFO
 from .halpe import HALPE
@@ -22,7 +23,11 @@ DATASET_METAINFO = {"coco": COCO_METAINFO, "coco_crop": {**COCO_METAINFO, "datas
                     "aic": AIC_METAINFO, "crowdpose": body.CROWDPOSE, "mpii": body.MPII, "jhmdb": body.JHMDB,
                     "posetrack18": body.POSETRACK18, "ochuman": body.OCHUMAN, "humanart": body.HUMANART,
                     "halpe": HALPE, "halpe26": body.HALPE26,
-                    "coco_wholebody": COCO_WHOLEBODY, "ubody2d": UBODY2D}
+                    "coco_wholebody": COCO_WHOLEBODY, "ubody2d": UBODY2D,
+                    "300w": face.FACE_300W, "300wlp": face.FACE_300WLP, "wflw": face.WFLW, "cofw": face.COFW,
+                    "aflw": face.AFLW, "lapa": face.LAPA, "coco_wholebody_face": face.COCO_WHOLEBODY_FACE,
+                    "onehand10k": hand.ONEHAND10K, "freihand2d": hand.FREIHAND2D, "rhd2d": hand.RHD2D,
+                    "panoptic_hand2d": hand.PANOPTIC_HAND2D, "coco_wholebody_hand": hand.COCO_WHOLEBODY_HAND}
 
 
 def parse_pose_metainfo(metainfo: dict) -> dict:

@@ -48,10 +48,12 @@ logger = logging.getLogger(__name__)
 def _numpy_globals() -> List[Any]:
     """What ``torch.load(weights_only=True)`` must admit to rebuild numpy
     arrays and scalars: the array reconstructor and ``scalar`` under the names
-    numpy 1.x and 2.x pickle them by, ``ndarray``, ``dtype`` and the dtype
-    classes of every numeric, boolean, string and datetime type."""
+    numpy 1.x and 2.x pickle them by, ``ndarray``, ``dtype``, the dtype
+    classes of every numeric, boolean, string and datetime type, and
+    ``bytes``, by which an empty array's data is pickled (the face tables'
+    empty ``sigmas`` and skeleton colours)."""
     multiarray = (getattr(np, "_core", None) or np.core).multiarray
-    allowed: List[Any] = [np.ndarray, np.dtype]
+    allowed: List[Any] = [np.ndarray, np.dtype, bytes]
     for fn in (multiarray._reconstruct, multiarray.scalar):
         allowed += [(fn, f"{module}.{fn.__name__}") for module in ("numpy.core.multiarray", "numpy._core.multiarray")]
     allowed += sorted({type(np.dtype(code)) for code in "?bBhHiIlLqQefdgFDGSUMm"}, key=str)

@@ -1,8 +1,15 @@
-"""Evaluation: CocoMetric, CocoWholeBodyMetric, the PCK / AUC / EPE metrics,
+"""Evaluation: CocoMetric, CocoWholeBodyMetric, the PCK / AUC / EPE / NME metrics,
 the evaluators, COCOeval and OKS NMS."""
 
 from .base_metric import BaseMetric, Evaluator, MultiDatasetEvaluator  # noqa: F401
 from .cocoeval import COCOeval  # noqa: F401
 from .metrics.coco_metric import CocoMetric  # noqa: F401
 from .metrics.coco_wholebody_metric import CocoWholeBodyMetric  # noqa: F401
-from .metrics.keypoint_2d_metrics import AUC, EPE, JhmdbPCKAccuracy, MpiiPCKAccuracy, PCKAccuracy  # noqa: F401
+from .metrics.keypoint_2d_metrics import (  # noqa: F401
+    AUC,
+    EPE,
+    NME,
+    JhmdbPCKAccuracy,
+    MpiiPCKAccuracy,
+    PCKAccuracy,
+)

@@ -2,10 +2,10 @@
 
 The port's own copy of ``probpose_code_tpu/evaluation/functional/
 keypoint_eval.py:21-70`` (reference ``mmpose/evaluation/functional/
-keypoint_eval.py``): normalized distances, PCK, its AUC and the end-point
-error, which ``metrics/keypoint_2d_metrics.py`` reads. The heatmap and
-SimCC forms of PCK (``pose_pck_accuracy``, ``simcc_pck_accuracy``) and NME
-come with the families that log or score them.
+keypoint_eval.py``): normalized distances, PCK, its AUC, the normalized
+mean error and the end-point error, which ``metrics/keypoint_2d_metrics.py``
+reads. The heatmap and SimCC forms of PCK (``pose_pck_accuracy``,
+``simcc_pck_accuracy``) come with the families that log them.
 """
 
 from __future__ import annotations
@@ -57,6 +57,14 @@ def keypoint_auc(pred, gt, mask, norm_factor, num_thrs: int = 20) -> float:
         _, avg_acc, _ = keypoint_pck_accuracy(pred, gt, mask, thr, nor)
         avg_accs.append(avg_acc)
     return float(np.mean(avg_accs))
+
+
+def keypoint_nme(pred, gt, mask, normalize_factor) -> float:
+    """The mean over the masked keypoints of their distance over the norm
+    factor (N, 2) of their sample (the JAX function's float32, as a float)."""
+    distances = _calc_distances(pred, gt, mask, normalize_factor)
+    distance_valid = distances[distances != -1]
+    return float(distance_valid.sum() / max(len(distance_valid), 1))
 
 
 def keypoint_epe(pred, gt, mask) -> float:

@@ -1,14 +1,15 @@
 """2D keypoint accuracy metrics: PCK (bbox, head and torso norms), MPII's
-PCKh, JHMDB's PCK, AUC and EPE.
+PCKh, JHMDB's PCK, AUC, EPE and NME.
 
 The port's own copy of ``probpose_code_tpu/evaluation/metrics/
-keypoint_2d_metrics.py:34-180`` (reference ``mmpose/evaluation/metrics/
+keypoint_2d_metrics.py:34-248`` (reference ``mmpose/evaluation/metrics/
 keypoint_2d_metrics.py``). Each metric keeps per sample the predicted and
 ground-truth keypoints (image pixels), the annotated mask (the first
 channel of a ``KeypointConverter``'s stacked ``keypoints_visible``) and the
 norm sizes it reads: the box's longer side, ``head_size`` or the distance
-of keypoints 4 and 5. ``NME`` comes with the face family, whose metainfo
-gives its keypoint indices.
+of keypoints 4 and 5; ``NME`` a norm item of the sample (the box's longer
+side where the sample lacks it) or the distance of two keypoints that the
+dataset's name picks.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 from probpose_code_torch.registry import METRICS
 
 from ..base_metric import BaseMetric
-from ..functional.keypoint_eval import keypoint_auc, keypoint_epe, keypoint_pck_accuracy
+from ..functional.keypoint_eval import keypoint_auc, keypoint_epe, keypoint_nme, keypoint_pck_accuracy
 from .coco_metric import _sample_view
 
 
@@ -167,3 +168,57 @@ class EPE(_KeypointMetricBase):
     def compute_metrics(self, results: list) -> Dict[str, float]:
         pred, gt, mask = _collect(results)
         return {"EPE": keypoint_epe(pred, gt, mask)}
+
+
+@METRICS.register_module()
+class NME(_KeypointMetricBase):
+    """The normalized mean error of the face benchmarks: under
+    ``norm_mode="use_norm_item"`` each sample's distances over its
+    ``norm_item`` (``box_size``; the box's longer side where the sample has
+    no such field, as for AFLW's ``bbox_size``, and 1 where it has no box
+    either), under ``"keypoint_distance"`` over the distance of the ground
+    truth's two ``keypoint_indices`` (by default the dataset's inter-ocular
+    pair, ``DEFAULT_KEYPOINT_INDICES``; [0, 1] for another dataset), at
+    least 1e-6."""
+
+    default_prefix = "nme"
+    DEFAULT_KEYPOINT_INDICES = {"horse10": [0, 1], "300w": [36, 45], "coco_wholebody_face": [36, 45],
+                                "cofw": [8, 9], "wflw": [60, 72], "lapa": [66, 79]}
+    MODES = ("use_norm_item", "keypoint_distance")
+
+    def __init__(self, norm_mode: str = "use_norm_item", norm_item: str = "box_size",
+                 keypoint_indices: Optional[Sequence[int]] = None, prefix: Optional[str] = None):
+        super().__init__(prefix=prefix)
+        if norm_mode not in self.MODES:
+            raise ValueError(f"NME: norm_mode {norm_mode!r} is not one of {list(self.MODES)}")
+        self.norm_mode = norm_mode
+        self.norm_item = norm_item
+        self.keypoint_indices = keypoint_indices
+
+    def process(self, data_batch, data_samples: Sequence) -> None:
+        start = len(self.results)
+        super().process(data_batch, data_samples)
+        if self.norm_mode != "use_norm_item":
+            return
+        for raw, result in zip(data_samples, self.results[start:]):
+            gt_inst = _sample_view(raw)["gt_instances"]
+            if self.norm_item in gt_inst:
+                size = np.asarray(gt_inst[self.norm_item]).reshape(-1, 1)
+            elif "bboxes" in gt_inst:
+                bb = np.asarray(gt_inst["bboxes"]).reshape(-1, 4)
+                size = np.max(bb[:, 2:] - bb[:, :2], axis=1, keepdims=True)
+            else:
+                size = np.ones((result["pred_coords"].shape[0], 1), np.float32)
+            result["norm_size"] = np.tile(size, (1, 2))
+
+    def compute_metrics(self, results: list) -> Dict[str, float]:
+        pred, gt, mask = _collect(results)
+        if self.norm_mode == "use_norm_item":
+            norm = np.concatenate([r["norm_size"] for r in results])
+        else:
+            indices = self.keypoint_indices
+            if indices is None:
+                indices = self.DEFAULT_KEYPOINT_INDICES.get((self.dataset_meta or {}).get("dataset_name", ""), [0, 1])
+            d = np.linalg.norm(gt[:, indices[0]] - gt[:, indices[1]], axis=-1, keepdims=True)
+            norm = np.tile(np.clip(d, 1e-6, None), (1, 2))
+        return {"NME": keypoint_nme(pred, gt, mask, norm)}

@@ -3,13 +3,16 @@
 Port of ``probpose_code_tpu/models/builder.py``: ``build_pose_estimator``
 (``:39``) reads the same reference-style config dicts, ``build_loss_modules``
 (``:132``) builds the head's losses, and ``PoseModel`` owns the module, its
-predict program for top-down ProbMapHead, DoubleProbMapHead, HeatmapHead and
-RTMCCHead models (preprocess -> original and mirrored crops as one doubled
-batch -> flip-TTA average -> the expected-OKS decode, ``:815-832``, argmax
-and DARK-UDP for the UDP codec, argmax and the quarter-pixel step or DARK
-for the MSRA codec, ``:870-908``, or SimCC's joint argmax, ``:833-837``) and
-its loss (``loss_fn``, ``:406``, with the targets and DoubleProbMap's bbox
-mask made on the device by ``device_preprocess_batch``, ``:363``).
+predict program for top-down ProbMapHead, DoubleProbMapHead, HeatmapHead,
+RTMCCHead and RegressionHead models (preprocess -> original and mirrored
+crops as one doubled batch -> flip-TTA average -> the expected-OKS decode,
+``:815-832``, argmax and DARK-UDP for the UDP codec, argmax and the
+quarter-pixel step or DARK for the MSRA codec, ``:870-908``, SimCC's joint
+argmax, ``:833-837``, or the regression head's coordinates times the input
+size, ``:841-844``) and its loss (``loss_fn``, ``:406``, ``:486``, with the
+targets and DoubleProbMap's bbox mask made on the device by
+``device_preprocess_batch``, ``:363``). The RLE, integral and DSNT
+regression heads are not ported.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from probpose_code_torch.ops.encode import (
     DEVICE_CODECS,
     generate_gaussian_device,
     generate_probmaps_device,
+    regression_labels_device,
     generate_simcc_labels_device,
     generate_udp_gaussian_device,
     generate_unbiased_gaussian_device,
@@ -42,12 +46,14 @@ from probpose_code_torch.registry import MODELS
 from . import losses  # noqa: F401  (registers)
 from .backbones.cspnext import CSPNeXt  # noqa: F401  (registers)
 from .backbones.hrnet import HRNet  # noqa: F401  (registers)
+from .backbones.mobilenet_v2 import MobileNetV2  # noqa: F401  (registers)
 from .backbones.resnet import ResNet  # noqa: F401  (registers)
 from .backbones.vit import VisionTransformer  # noqa: F401  (registers)
 from .heads.heatmap_head import HeatmapHead  # noqa: F401  (registers)
 from .heads.probmap_head import DoubleProbMapHead, ProbMapHead  # noqa: F401  (registers)
+from .heads.regression_head import RegressionHead  # noqa: F401  (registers)
 from .heads.rtmcc_head import RTMCCHead  # noqa: F401  (registers)
-from .necks.necks import FeatureMapProcessor  # noqa: F401  (registers)
+from .necks.necks import FeatureMapProcessor, GlobalAveragePooling  # noqa: F401  (registers)
 from .pose_estimators.topdown import (
     TopdownPoseEstimator,
     double_probmap_head_loss,
@@ -57,11 +63,13 @@ from .pose_estimators.topdown import (
     preprocess_inputs,
     probmap_head_loss,
     probmap_head_predict,
+    regression_head_loss,
+    regression_head_predict,
     simcc_head_loss,
     simcc_head_predict,
 )
 
-HEAD_TYPES = ("ProbMapHead", "DoubleProbMapHead", "HeatmapHead", "RTMCCHead")
+HEAD_TYPES = ("ProbMapHead", "DoubleProbMapHead", "HeatmapHead", "RTMCCHead", "RegressionHead")
 # the codecs whose decode a HeatmapHead runs
 HEATMAP_DECODERS = ("UDPHeatmap", "MSRAHeatmap")
 
@@ -265,7 +273,8 @@ class PoseModel:
     def flip_indices(self):
         if self.metainfo:
             return list(self.metainfo["flip_indices"])
-        return list(range(self.aux["head_cfg"].get("out_channels", 17)))
+        head = self.aux["head_cfg"]
+        return list(range(head.get("out_channels", head.get("num_joints", 17))))
 
     def make_predict(self):
         """(B, H, W, 3) raw crops on the model's device -> decoded predictions."""
@@ -298,6 +307,8 @@ class PoseModel:
                         outputs, outputs_flipped = both[:B], both[B:]
                 else:
                     outputs = self.module(x)
+                if self.head_type == "RegressionHead":
+                    return regression_head_predict(outputs, outputs_flipped, flip_indices, self.input_size)
                 if self.head_type == "RTMCCHead":
                     return simcc_head_predict(outputs, outputs_flipped, flip_indices,
                                               simcc_split_ratio=self.decoder_cfg.get("simcc_split_ratio", 2.0))
@@ -344,8 +355,9 @@ class PoseModel:
         ``kpts_visible`` (B, K)) instead of target maps gets its maps
         encoded: UDP gaussians for the UDPHeatmap codec, MSRA gaussians
         (or their unbiased form) for MSRAHeatmap, expected-OKS maps for the
-        ProbMap family, and for SimCCLabel (``kpts_hm`` its bins) the
-        ``keypoint_x_labels`` / ``keypoint_y_labels``; a DoubleProbMap batch
+        ProbMap family, for SimCCLabel (``kpts_hm`` its bins) the
+        ``keypoint_x_labels`` / ``keypoint_y_labels``, for RegressionLabel
+        (``kpts_hm`` in input pixels) the ``keypoint_labels``; a DoubleProbMap batch
         both windows' maps
         (``heatmaps`` from ``kpts_hm``, ``out_heatmaps`` from
         ``kpts_hm_out``) and, from ``bbox_mask_rect`` / ``bbox_mask_mat``,
@@ -378,7 +390,7 @@ class PoseModel:
                 with self.augment_clock.span(inputs.device):
                     inputs = augment(inputs, **{k: batch.pop(k) for k in AUGMENT_KEYS if k in batch})
             batch["inputs"] = inputs
-        if "kpts_hm" not in batch or "heatmaps" in batch or "keypoint_x_labels" in batch:
+        if "kpts_hm" not in batch or {"heatmaps", "keypoint_x_labels", "keypoint_labels"} & set(batch):
             return batch
         dc = self.decoder_cfg
         if dc.get("type", "ProbMap") not in DEVICE_CODECS:
@@ -386,7 +398,9 @@ class PoseModel:
         kpts = batch.pop("kpts_hm")
         vis = batch.pop("kpts_visible")
         hm_size = tuple(dc.get("heatmap_size", (48, 64)))
-        if dc.get("type") == "SimCCLabel":
+        if dc.get("type") == "RegressionLabel":
+            batch["keypoint_labels"] = regression_labels_device(kpts, tuple(dc["input_size"]))
+        elif dc.get("type") == "SimCCLabel":
             batch["keypoint_x_labels"], batch["keypoint_y_labels"] = generate_simcc_labels_device(
                 kpts, vis, tuple(dc["input_size"]), dc.get("simcc_split_ratio", 2.0), dc.get("sigma", 6.0),
                 dc.get("smoothing_type", "gaussian"), dc.get("normalize", True), dc.get("label_smooth_weight", 0.0))
@@ -423,6 +437,8 @@ class PoseModel:
             losses = heatmap_head_loss(outputs, batch, self.loss_modules["keypoint"])
         elif self.head_type == "RTMCCHead":
             losses = simcc_head_loss(outputs, batch, self.loss_modules["keypoint"])
+        elif self.head_type == "RegressionHead":
+            losses = regression_head_loss(outputs, batch, self.loss_modules["keypoint"])
         elif self.head_type == "DoubleProbMapHead":
             losses = double_probmap_head_loss(
                 outputs, batch, self.loss_modules, self.aux["head_cfg"], input_size=self.input_size,

@@ -1,8 +1,8 @@
 """Dense heatmap losses in PyTorch.
 
 Port of ``probpose_code_tpu/models/losses/heatmap_loss.py``: ``_resolve_mask``
-(``:30``), ``KeypointMSELoss`` (``:50``), ``_sobel_gradients`` (``:188``) and
-``OKSHeatmapLoss`` (``:201``). Shapes: output / target (B, K, H, W),
+(``:30``), ``KeypointMSELoss`` (``:50``), ``AdaptiveWingLoss`` (``:121``),
+``_sobel_gradients`` (``:188``) and ``OKSHeatmapLoss`` (``:201``). Shapes: output / target (B, K, H, W),
 target_weights (B, K) or (B, K, H, W), optional mask (B, K|1, H, W).
 """
 
@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from probpose_code_torch.ops.kernels.adaptive_wing import adaptive_wing_loss
 from probpose_code_torch.registry import MODELS
 
 
@@ -54,6 +55,31 @@ class KeypointMSELoss:
         if per_pixel:
             return loss * self.loss_weight
         return loss.mean() * self.loss_weight
+
+
+@MODELS.register_module()
+class AdaptiveWingLoss:
+    """The adaptive wing loss of heatmap regression (reference
+    ``heatmap_loss.py:271``): ``omega * log1p((d / epsilon) ** (alpha - y))``
+    where the error d = |output - y| is below ``theta``, its tangent line
+    ``A d - C`` above, the mean over every pixel (each keypoint's map
+    weighed by its weight with ``use_target_weight``). On the card its
+    forward and backward are CUDA kernels (``ops/kernels/adaptive_wing.py``),
+    on the CPU their plain twin."""
+
+    def __init__(self, alpha: float = 2.1, omega: float = 14.0, epsilon: float = 1.0, theta: float = 0.5,
+                 use_target_weight: bool = False, loss_weight: float = 1.0):
+        self.alpha = alpha
+        self.omega = omega
+        self.epsilon = epsilon
+        self.theta = theta
+        self.use_target_weight = use_target_weight
+        self.loss_weight = loss_weight
+
+    def __call__(self, output, target, target_weights=None):
+        weights = target_weights if self.use_target_weight else None
+        return adaptive_wing_loss(output, target, weights, self.alpha, self.omega, self.epsilon, self.theta,
+                                  self.loss_weight)
 
 
 _SOBEL_X = ((1.0, 0.0, -1.0), (2.0, 0.0, -2.0), (1.0, 0.0, -1.0))

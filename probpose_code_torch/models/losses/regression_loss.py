@@ -1,11 +1,15 @@
-"""Regression losses of the ProbPose head in PyTorch.
+"""Regression losses in PyTorch: the ProbPose head's branches and the
+coordinate-regression heads' losses.
 
 Port of ``probpose_code_tpu/models/losses/regression_loss.py``: ``_smooth_l1``
-(``:19``), ``_apply_weight_product`` (``:24``), ``L1LogLoss`` (``:46``, the
-error branch) and ``MSELoss`` (``:83``, the OKS branch).
+(``:19``), ``_apply_weight_product`` (``:24``), ``SmoothL1Loss`` (``:33``),
+``L1LogLoss`` (``:46``, the error branch), ``MSELoss`` (``:83``, the OKS
+branch), ``WingLoss`` (``:96``) and ``SoftWingLoss`` (``:127``).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -39,6 +43,13 @@ class _WeightedLoss:
 
 
 @MODELS.register_module()
+class SmoothL1Loss(_WeightedLoss):
+    def __call__(self, output, target, target_weight=None):
+        output, target = self._weighted(output, target, target_weight)
+        return _smooth_l1(output, target).mean() * self.loss_weight
+
+
+@MODELS.register_module()
 class L1LogLoss(_WeightedLoss):
     """Smooth-L1 on log(1 + x): the relative error of the error branch."""
 
@@ -52,3 +63,43 @@ class MSELoss(_WeightedLoss):
     def __call__(self, output, target, target_weight=None):
         output, target = self._weighted(output, target, target_weight)
         return ((output - target) ** 2).mean() * self.loss_weight
+
+
+@MODELS.register_module()
+class WingLoss(_WeightedLoss):
+    """``omega * log(1 + d / epsilon)`` for errors d below ``omega``, else
+    ``d - C`` (C joins the two); the mean over the coordinates and the
+    keypoints, summed over the batch."""
+
+    def __init__(self, omega: float = 10.0, epsilon: float = 2.0, use_target_weight: bool = False,
+                 loss_weight: float = 1.0):
+        super().__init__(use_target_weight, loss_weight)
+        self.omega = omega
+        self.epsilon = epsilon
+        self.C = self.omega * (1.0 - math.log(1.0 + self.omega / self.epsilon))
+
+    def __call__(self, output, target, target_weight=None):
+        output, target = self._weighted(output, target, target_weight)
+        delta = (target - output).abs()
+        losses = torch.where(delta < self.omega, self.omega * torch.log(1.0 + delta / self.epsilon), delta - self.C)
+        return losses.mean(dim=-1).mean(dim=-1).sum() * self.loss_weight
+
+
+@MODELS.register_module()
+class SoftWingLoss(_WeightedLoss):
+    """The error d itself below ``omega1``, else ``omega2 * log(1 + d /
+    epsilon) + B`` (B joins the two); reduced as ``WingLoss``."""
+
+    def __init__(self, omega1: float = 2.0, omega2: float = 20.0, epsilon: float = 0.5,
+                 use_target_weight: bool = False, loss_weight: float = 1.0):
+        super().__init__(use_target_weight, loss_weight)
+        self.omega1 = omega1
+        self.omega2 = omega2
+        self.epsilon = epsilon
+        self.B = self.omega1 - self.omega2 * math.log(1.0 + self.omega1 / self.epsilon)
+
+    def __call__(self, output, target, target_weight=None):
+        output, target = self._weighted(output, target, target_weight)
+        delta = (target - output).abs()
+        losses = torch.where(delta < self.omega1, delta, self.omega2 * torch.log(1.0 + delta / self.epsilon) + self.B)
+        return losses.mean(dim=-1).mean(dim=-1).sum() * self.loss_weight

@@ -1,8 +1,10 @@
-"""Parameter-free feature-map neck in PyTorch.
+"""Parameter-free necks in PyTorch.
 
 Port of ``probpose_code_tpu/models/necks/necks.py:FeatureMapProcessor``
 (``:35-75``) with ``_resize_bilinear`` (``:30``): select, concatenate and
-rescale (B, C, h, w) feature maps, then an optional ReLU. ``jax.image.resize``
+rescale (B, C, h, w) feature maps, then an optional ReLU; and
+``GlobalAveragePooling`` (``:79-92``, registered as ``GAP`` too): each
+map's spatial mean, (B, C, h, w) -> (B, C). ``jax.image.resize``
 with ``method="bilinear"`` samples at half-pixel centres and renormalises its
 weights at the border, which for upsampling is torch's bilinear
 interpolation with ``align_corners=False``.
@@ -69,3 +71,14 @@ class FeatureMapProcessor(nn.Module):
         if not sequential_input and len(inputs) == 1:
             return inputs[0]
         return tuple(inputs)
+
+
+@MODELS.register_module(name="GAP")
+@MODELS.register_module()
+class GlobalAveragePooling(nn.Module):
+    """The spatial mean of each feature map: (B, C, h, w) -> (B, C)."""
+
+    def forward(self, inputs):
+        if isinstance(inputs, (tuple, list)):
+            return tuple(x.mean(dim=(2, 3)) for x in inputs)
+        return inputs.mean(dim=(2, 3))

@@ -6,7 +6,9 @@ Port of ``probpose_code_tpu/models/pose_estimators/topdown.py``:
 (``:94-251``), the DoubleProbMap programs (``merge_double_heatmaps_device``,
 ``double_probmap_head_loss`` and ``double_probmap_head_predict``,
 ``:254-475``), ``heatmap_head_loss`` (``:637-651``) and the SimCC programs
-``simcc_head_loss`` (``:475``) and ``simcc_head_predict`` (``:504``); and
+``simcc_head_loss`` (``:475``) and ``simcc_head_predict`` (``:504``), the
+``RegressionHead`` halves of ``regression_head_loss`` and
+``regression_head_predict`` (``:531-606``); and
 the plain heatmap head's decode of ``probpose_code_tpu/models/builder.py:
 make_predict`` (``:870-908``). ProbMap: the OKS and error targets come from
 the fast decode of the ground-truth and predicted heatmaps on the device,
@@ -15,7 +17,9 @@ beside the losses, and the predict decode goes through K2
 (``ops/kernels/expected_oks.py``). Plain heatmaps: flip average, then
 argmax and DARK-UDP for the UDP codec, argmax and the quarter-pixel step
 (or DARK with ``unbiased``) for the MSRA codec. SimCC: flip average of
-the vectors, then the joint argmax over the split ratio.
+the vectors, then the joint argmax over the split ratio. Regression: the
+loss module on the normalized coordinates, flip average with the shifted
+mirror, then the coordinates times the input size, every score 1.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from probpose_code_torch.ops.decode import (
 )
 from probpose_code_torch.ops.heatmap import heatmap_maximum_batch
 from probpose_code_torch.ops.kernels.expected_oks import expected_oks_decode
-from probpose_code_torch.ops.tta import flip_heatmaps, flip_vectors
+from probpose_code_torch.ops.tta import flip_coordinates, flip_heatmaps, flip_vectors
 from probpose_code_torch.registry import MODELS
 
 
@@ -54,7 +58,12 @@ class TopdownPoseEstimator(nn.Module):
 
     def forward(self, inputs: torch.Tensor, generator: Optional[torch.Generator] = None):
         """``generator`` draws the backbone's stochastic-depth masks in training."""
-        feats = self.backbone(inputs.permute(0, 3, 1, 2), generator)
+        x = inputs.permute(0, 3, 1, 2)
+        if x.device.type == "cpu":
+            # the CPU's convolution backward on this channels-last view corrupts the heap at some shapes (the
+            # narrow ResNet-18 at 256 x 256); the card takes the view as it is
+            x = x.contiguous()
+        feats = self.backbone(x, generator)
         if self.neck is not None:
             feats = self.neck(feats)
         return self.head(feats)
@@ -202,6 +211,39 @@ def simcc_head_predict(
     locs, scores = simcc_maximum_batch(pred_x, pred_y)
     return dict(keypoints=locs / simcc_split_ratio, keypoint_scores=scores, keypoint_x_labels=pred_x,
                 keypoint_y_labels=pred_y)
+
+
+def regression_head_loss(
+    coords: torch.Tensor,
+    batch: Dict[str, torch.Tensor],
+    loss_module: Any,
+) -> Dict[str, torch.Tensor]:
+    """The RegressionHead's loss (reference ``regression_head.py:loss``):
+    ``loss_kpt``, the loss module on the (B, K, 2) normalized coordinates
+    against ``keypoint_labels``, and the monitor ``acc_pose``: the share of
+    the weighted keypoints within 0.05 of their label."""
+    labels, weights = batch["keypoint_labels"], batch["keypoint_weights"]
+    dist = torch.linalg.norm(coords.detach() - labels, dim=-1)
+    valid = weights > 0.5
+    return {
+        "loss_kpt": loss_module(coords, labels, weights),
+        "acc_pose": ((dist < 0.05) & valid).sum() / torch.clamp(valid.sum(), min=1),
+    }
+
+
+def regression_head_predict(
+    coords: torch.Tensor,
+    coords_flipped: Optional[torch.Tensor],
+    flip_indices,
+    input_size: Tuple[int, int],
+) -> Dict[str, torch.Tensor]:
+    """Flip-TTA average of the normalized coordinates (the mirrored ones
+    flipped back and shifted, ``flip_coordinates``), then times the input
+    size; every score 1 (reference ``regression_head.py:predict``)."""
+    if coords_flipped is not None:
+        coords = (coords + flip_coordinates(coords_flipped, flip_indices, input_size)) * 0.5
+    size = torch.tensor([float(input_size[0]), float(input_size[1])], dtype=torch.float32, device=coords.device)
+    return dict(keypoints=coords * size, keypoint_scores=torch.ones(coords.shape[:2], device=coords.device))
 
 
 # --------------------------------------------------------------------------

@@ -17,7 +17,10 @@ gaussian_heatmap.py:generate_gaussian_heatmaps``, ``:35``, and
 which the JAX package encodes on the host, are rendered here in the host
 codec's own arithmetic: float64 for the MSRA and SimCC gaussians, float32
 for the unbiased form, so that the maps equal the codec's (the port's copy,
-``probpose_code_torch/codecs/``) to the last bit or two of exp.
+``probpose_code_torch/codecs/``) to the last bit or two of exp. The
+regression codec's labels (``probpose_code_tpu/codecs/regression_label.py:
+encode``, ``:33-40``) are the input-space keypoints over the input size,
+divided in float64 and rounded once, as the host codec divides them.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ import torch
 from probpose_code_torch.codecs.utils.oks_map import oks_kernel_scales
 
 # the codecs whose targets are rendered here, on the device
-DEVICE_CODECS = ("ProbMap", "ArgMaxProbMap", "UDPHeatmap", "DoubleProbMap", "MSRAHeatmap", "SimCCLabel")
+DEVICE_CODECS = ("ProbMap", "ArgMaxProbMap", "UDPHeatmap", "DoubleProbMap", "MSRAHeatmap", "SimCCLabel",
+                 "RegressionLabel")
 
 
 def probmap_encode_scales(
@@ -197,3 +201,11 @@ def generate_simcc_labels_device(
             label[hit] = 1.0 - label_smooth_weight
         labels.append(torch.where(active[..., None], label, 0.0))
     return labels[0], labels[1]
+
+
+def regression_labels_device(kpts: torch.Tensor, input_size: Tuple[int, int]) -> torch.Tensor:
+    """(B, K, 2) input-space keypoints -> f32 labels ``kpts / (w, h)``,
+    divided in float64 as the host codec does (its float32 keypoints over
+    an integer array) and rounded to f32 once."""
+    wh = torch.tensor([float(input_size[0]), float(input_size[1])], dtype=torch.float64, device=kpts.device)
+    return (kpts.double() / wh).float()

@@ -2,7 +2,7 @@
 
 Port of ``probpose_code_tpu/ops/tta.py``: ``flip_heatmaps`` (``:15``) in
 heatmap mode, which mirrors the W axis back and swaps left/right channels,
-and ``flip_vectors`` (``:52``).
+``flip_vectors`` (``:52``) and ``flip_coordinates`` (``:60``).
 """
 
 from __future__ import annotations
@@ -32,3 +32,13 @@ def flip_vectors(x_labels: torch.Tensor, y_labels: torch.Tensor,
     flipped input: both permuted by ``flip_indices``, only x mirrored."""
     idx = torch.as_tensor(flip_indices, device=x_labels.device)
     return torch.flip(x_labels[:, idx], dims=[-1]), y_labels[:, idx]
+
+
+def flip_coordinates(coords: torch.Tensor, flip_indices: List[int], input_size: Tuple[int, int]) -> torch.Tensor:
+    """Normalized (B, K, D) coordinates back from a horizontally flipped
+    input: x mirrored and shifted by a pixel of the input (1 - x - 1 / w,
+    ``shift_coords=True``, what every regression config sets), the
+    keypoints permuted by ``flip_indices``."""
+    x = 1.0 - coords[..., 0] - 1.0 / input_size[0]
+    coords = torch.cat([x[..., None], coords[..., 1:]], dim=-1)
+    return coords[:, torch.as_tensor(flip_indices, device=coords.device)]

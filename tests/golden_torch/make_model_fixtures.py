@@ -2,12 +2,16 @@
 
 Needs the JAX package, so it runs where it is installed (the card's
 machine has none): ``JAX_PLATFORMS=cpu python tests/golden_torch/make_model_fixtures.py``
-from the repository root (or name ``classic``, ``rtmpose``, ``wholebody`` or
-``dpm`` to make one). For each of ``chip_smoke.CLASSIC_FIXTURE`` (a narrow
-ResNet-50 SimpleBaseline with the DARK codec), ``chip_smoke.RTMPOSE_FIXTURE``
-(a narrow CSPNeXt + RTMCCHead with SimCC), ``chip_smoke.WHOLEBODY_FIXTURE``
-(the same with 133 outputs under COCO-WholeBody's metainfo) and
-``chip_smoke.DPM_FIXTURE`` (DoubleProbPose-S with its ViT in f32) it writes:
+from the repository root (or name ``classic``, ``rtmpose``, ``wholebody``,
+``dpm`` or ``face`` to make one). For each of ``chip_smoke.CLASSIC_FIXTURE``
+(a narrow ResNet-50 SimpleBaseline with the DARK codec),
+``chip_smoke.RTMPOSE_FIXTURE`` (a narrow CSPNeXt + RTMCCHead with SimCC),
+``chip_smoke.WHOLEBODY_FIXTURE`` (the same with 133 outputs under
+COCO-WholeBody's metainfo), ``chip_smoke.DPM_FIXTURE`` (DoubleProbPose-S
+with its ViT in f32) and ``chip_smoke.FACE_FIXTURES`` (``face``: the narrow
+CSPNeXt + RTMCCHead with 106 outputs under LaPa's metainfo, and a narrow
+ResNet-18 + ``GlobalAveragePooling`` + ``RegressionHead`` of 98 joints under
+WFLW's, both at 256 x 256 on the golden persons' face boxes) it writes:
 
 - ``<name>_weights.pth``: the port's module with weights drawn from seed 0
   (``PoseModel.init_weights``) and BatchNorm statistics randomized from seed
@@ -20,12 +24,18 @@ ResNet-50 SimpleBaseline with the DARK codec), ``chip_smoke.RTMPOSE_FIXTURE``
   24 golden images (``tests/golden/e2e_pipeline.npz``, ``e2e_coco.json``),
   the keypoints mapped to the image as its ``attach_predictions`` maps them:
   ``keypoints`` (62, K, 2) and ``scores`` in the order of ``ids``
-  (annotation ids), the fixture's ``aux`` outputs, the whole-body
-  fixture's ``ties`` (``chip_smoke.SIMCC_TIE_REL``), ``ap``, the JAX metric's
-  AP of them (CocoMetric's, or for the whole-body fixture
-  CocoWholeBodyMetric's whole-body AP on the golden annotations in
-  COCO-WholeBody's layout, ``chip_smoke.wholebody_set_from_coco``); and the
-  first two ``crops`` with the heatmaps or SimCC vectors on them.
+  (annotation ids), the fixture's ``aux`` outputs, a SimCC fixture's
+  ``ties`` (``chip_smoke.SIMCC_TIE_REL``; the whole-body and face ones),
+  ``ap``, the JAX metric's AP of them (CocoMetric's, or for the whole-body
+  fixture CocoWholeBodyMetric's whole-body AP on the golden annotations in
+  COCO-WholeBody's layout, ``chip_smoke.wholebody_set_from_coco``), or a
+  face fixture's NME (the JAX ``NME`` against the golden faces in the
+  fixture dataset's layout, ``chip_smoke.face_fixture_gt``); and the first
+  two ``crops`` with the heatmaps, SimCC vectors or keypoints on them.
+
+The JAX package builds the regression fixture's model without its neck
+(its ``RegressionHead`` pools by itself), which is the port's model with
+it; ``head.fc`` is carried across by hand.
 
 The crops are the port's (``crop_batch``), not the JAX pipeline's
 (``cv2.warpAffine``), which differs from it by one grey level on about
@@ -46,10 +56,14 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import (  # noqa: E402
     CLASSIC_FIXTURE,
     DPM_FIXTURE,
+    FACE_FIXTURES,
     GOLDEN,
     RTMPOSE_FIXTURE,
     SIMCC_TIE_REL,
     WHOLEBODY_FIXTURE,
+    face_fixture_gt,
+    fixture_output_name,
+    golden_boxes,
     wholebody_set_from_coco,
 )
 from probpose_code_torch.apis.inference import crop_batch  # noqa: E402
@@ -57,24 +71,24 @@ from probpose_code_tpu.datasets.metainfo import parse_pose_metainfo  # noqa: E40
 from probpose_code_tpu.engine.checkpoint import convert_torch_state_dict  # noqa: E402
 from probpose_code_tpu.engine.runner import attach_predictions  # noqa: E402
 from probpose_code_tpu.evaluation import CocoMetric, CocoWholeBodyMetric  # noqa: E402
+from probpose_code_tpu.evaluation.metrics.keypoint_2d_metrics import NME  # noqa: E402
 from probpose_code_tpu.models import PoseModel as JaxPoseModel  # noqa: E402
 from probpose_code_tpu.structures import InstanceData, PoseDataSample  # noqa: E402
 from tests.test_torch_classic_heatmap import seeded_state_dict  # noqa: E402
 
 
-def golden_instances(cfg):
-    """The golden fixture's 62 boxes (in annotation order) cut as ``cfg``'s
-    test pipeline cuts them, by the port's ``crop_batch``: the card's crop
+def golden_instances(cfg, boxes, input_size):
+    """The golden fixture's 62 person or face boxes (``chip_smoke.
+    golden_boxes``, in annotation order) cut as ``cfg``'s test pipeline cuts
+    them at ``input_size``, by the port's ``crop_batch``: the card's crop
     equals it bit for bit (the same f32 operations one at a time), so the
     JAX package is held on the crops the port feeds its model. Returns
-    (annotations, crops (62, 256, 192, 3), centers, scales)."""
+    (annotations, crops (62, h, w, 3), centers, scales)."""
     data = np.load(GOLDEN / "e2e_pipeline.npz")
     anns = json.loads((GOLDEN / "e2e_coco.json").read_text())["annotations"]
     crops, centers, scales = [], [], []
-    for a in anns:
-        x, y, w, h = a["bbox"]
-        cut, center, scale = crop_batch(data[f"img_{a['image_id']}"], np.array([[x, y, x + w, y + h]], np.float32),
-                                        (192, 256), "cpu", cfg)
+    for a, box in zip(anns, golden_boxes(anns, boxes)):
+        cut, center, scale = crop_batch(data[f"img_{a['image_id']}"], box[None], input_size, "cpu", cfg)
         crops.append(cut[0].numpy())
         centers.append(center[0])
         scales.append(scale[0])
@@ -86,6 +100,14 @@ def jax_ap(samples, dataset):
     takes the port's."""
     import tempfile
 
+    if dataset in ("lapa", "wflw"):
+        gt = face_fixture_gt(dataset)
+        metric = NME(norm_mode="keypoint_distance")
+        metric.dataset_meta = parse_pose_metainfo({"dataset_name": dataset})
+        metric.process(None, [dict(pred_instances=dict(keypoints=np.asarray(s.pred_instances.keypoints)),
+                                   gt_instances=dict(keypoints=gt[s.metainfo["id"]][0],
+                                                     keypoints_visible=gt[s.metainfo["id"]][1])) for s in samples])
+        return metric.compute_metrics(metric.results)["NME"]
     with tempfile.TemporaryDirectory() as tmp:
         if dataset == "coco_wholebody":
             ann = Path(tmp, "wholebody.json")
@@ -105,7 +127,11 @@ def jax_variables(sd):
     layer (the port's ``state_dict_from_jax`` gives the state dict back
     exactly)."""
     towers = ("head.first_head.", "head.second_head.")
-    variables = convert_torch_state_dict({k: v.numpy() for k, v in sd.items() if not k.startswith(towers)})
+    variables = convert_torch_state_dict({k: v.numpy() for k, v in sd.items()
+                                          if not k.startswith(towers) and not k.startswith("head.fc.")})
+    if "head.fc.weight" in sd:  # a RegressionHead, which the converter does not name
+        variables["params"]["head"] = {"fc": {"kernel": sd["head.fc.weight"].numpy().T,
+                                              "bias": sd["head.fc.bias"].numpy()}}
     for tower in towers:
         part = {k: v.numpy() for k, v in sd.items() if k.startswith("backbone.")}
         part.update({"head." + k[len(tower):]: v.numpy() for k, v in sd.items() if k.startswith(tower)})
@@ -126,10 +152,13 @@ def make(fixture):
     else:
         sd = seeded_state_dict(cfg["model"], seed=0)
         torch.save(sd, fixture["weights"])
-    model = JaxPoseModel(cfg["model"], metainfo=parse_pose_metainfo({"dataset_name": dataset}))
+    # the JAX RegressionHead pools by itself: its model is the config's without the neck
+    model_cfg = {k: v for k, v in cfg["model"].items() if k != "neck" or v["type"] != "GlobalAveragePooling"}
+    model = JaxPoseModel(model_cfg, metainfo=parse_pose_metainfo({"dataset_name": dataset}))
     variables = jax_variables(sd)
+    input_size = tuple(cfg["test_dataloader"]["dataset"]["pipeline"][2]["input_size"])
 
-    anns, crops, centers, scales = golden_instances(cfg)
+    anns, crops, centers, scales = golden_instances(cfg, fixture.get("boxes", "person"), input_size)
     predict = model.make_predict(jit=False)
     preds = [{k: np.asarray(v) for k, v in predict(variables, crops[i:i + 16]).items()}
              for i in range(0, len(crops), 16)]
@@ -137,12 +166,11 @@ def make(fixture):
     samples = []
     for a, center, scale in zip(anns, centers, scales):
         sample = PoseDataSample(metainfo=dict(id=a["id"], img_id=a["image_id"], input_center=center,
-                                              input_scale=scale, input_size=(192, 256)))
-        x, y, w, h = a["bbox"]
-        sample.gt_instances = InstanceData(bboxes=np.array([[x, y, x + w, y + h]], np.float32),
+                                              input_scale=scale, input_size=input_size))
+        sample.gt_instances = InstanceData(bboxes=golden_boxes([a], fixture.get("boxes", "person")),
                                            bbox_scores=np.ones(1, np.float32))
         samples.append(sample)
-    attach_predictions(preds, samples, (192, 256))
+    attach_predictions(preds, samples, input_size)
     ap = jax_ap(samples, dataset)
     K = preds["keypoints"].shape[1]
 
@@ -150,7 +178,7 @@ def make(fixture):
         return np.stack([np.asarray(s.pred_instances[name]).reshape(K) for s in samples]).astype(np.float32)
 
     extra = {}
-    if fixture["name"] == "wholebody":  # its ties (``chip_smoke.SIMCC_TIE_REL``), in the order of ``ids``
+    if fixture["name"] != "rtmpose" and "keypoint_x_labels" in preds:  # ties (``SIMCC_TIE_REL``), by ``ids``
 
         def gap(v):
             top = np.sort(v, axis=-1)
@@ -162,15 +190,15 @@ def make(fixture):
         keypoints=np.stack([np.asarray(s.pred_instances.keypoints).reshape(K, 2) for s in samples]).astype(np.float32),
         scores=field("keypoint_scores"), ap=np.float64(ap), crops=crops[:2].astype(np.uint8),
         **{k: field(k) for k in fixture.get("aux", ())},
-        **{k: preds[k][:2].astype(np.float32) for k in fixture["keys"]},
+        **{fixture_output_name(k): preds[k][:2].astype(np.float32) for k in fixture["keys"]},
     )
     weights = Path(fixture["weights"]).stat().st_size if not callable(fixture["weights"]) else "made at run time"
-    print(f"{fixture['name']}: {len(samples)} instances, {K} keypoints, AP {ap:.4f}, weights {weights}, outputs "
+    print(f"{fixture['name']}: {len(samples)} instances, {K} keypoints, {'NME' if dataset in ('lapa', 'wflw') else 'AP'} {ap:.4f}, weights {weights}, outputs "
           f"{Path(fixture['outputs']).stat().st_size} B")
 
 
 if __name__ == "__main__":
     torch.set_num_threads(4)
-    for fixture in (CLASSIC_FIXTURE, RTMPOSE_FIXTURE, WHOLEBODY_FIXTURE, DPM_FIXTURE):
-        if len(sys.argv) < 2 or fixture["name"] in sys.argv[1:]:
+    for fixture in (CLASSIC_FIXTURE, RTMPOSE_FIXTURE, WHOLEBODY_FIXTURE, DPM_FIXTURE, *FACE_FIXTURES):
+        if len(sys.argv) < 2 or fixture["name"] in sys.argv[1:] or fixture["name"].split("_")[0] in sys.argv[1:]:
             make(fixture)

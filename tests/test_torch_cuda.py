@@ -38,7 +38,11 @@ model fixtures on the card; the photometric median kernel, the HSV
 tables and PhotometricDistortion against their plain versions and against
 cv2's fixture; the GAU kernels, forward and backward, against their plain
 twin on ragged token counts and widths, and RTMPose's head on the card
-through them against the CPU.
+through them against the CPU; MobileNetV2's depthwise 3x3 kernels (forward,
+input and weight gradients) on channel counts beside the 32 of a tile and
+odd sides at both strides (a count that is no multiple of 4 refused), and
+AdaptiveWingLoss's kernels with and without weights, against
+their plain twins.
 Bars are ``chip_smoke.py``'s, with its reasons.
 """
 
@@ -66,6 +70,9 @@ from chip_smoke import (
     K3_F32_GRAD,
     SERVE_KPT_ATOL,
     SERVE_SCORE_ATOL,
+    AWING_REL,
+    DEPTHWISE_GRAD_REL,
+    DEPTHWISE_REL,
     GAU_GRAD_REL,
     GAU_REL,
     HRNET_REL,
@@ -930,3 +937,60 @@ def test_rtmcc_block_on_the_card_goes_through_the_gau_kernels(card):
     assert float((out.detach().cpu() - cpu_out.detach()).abs().max() / cpu_out.abs().max()) < GAU_GRAD_REL
     for p, g in zip(block.parameters(), cpu_grads):
         assert float((p.grad.cpu() - g).abs().max() / g.abs().max()) < GAU_GRAD_REL
+
+
+@pytest.mark.parametrize("B,C,H,W,stride", [(4, 96, 64, 64, 2), (3, 36, 17, 9, 1), (2, 44, 9, 14, 2), (1, 4, 1, 1, 1)])
+def test_depthwise_kernels_match_plain(card, B, C, H, W, stride):
+    """The depthwise 3x3 kernels against ``F.conv2d`` with one group a
+    channel (torch autograd for the gradients), TF32 off, at
+    ``chip_smoke.py``'s bars, on channels-last and contiguous inputs; the
+    backward repeats bit for bit, each call counts one launch."""
+    from probpose_code_torch.models.builder import full_f32_precision
+    from probpose_code_torch.ops.kernels import depthwise as dw
+
+    rng = np.random.RandomState(B + C + H + W)
+    x, w = (torch.from_numpy(a.astype(np.float32)).cuda() for a in (rng.randn(B, C, H, W), rng.randn(C, 1, 3, 3)))
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    dy = torch.from_numpy(rng.randn(B, C, Ho, Wo).astype(np.float32)).cuda()
+    for inputs in (x, x.contiguous(memory_format=torch.channels_last)):
+        before = (dw.depthwise_forward.launches, dw.depthwise_backward.launches)
+        y = dw.depthwise_conv3x3(inputs, w, stride)
+        grads = dw.depthwise_backward(dy, inputs, w, stride)
+        again = dw.depthwise_backward(dy, inputs, w, stride)
+        assert (dw.depthwise_forward.launches, dw.depthwise_backward.launches) == (before[0] + 1, before[1] + 2)
+        leaves = [inputs.clone().requires_grad_(), w.clone().requires_grad_()]
+        with full_f32_precision():
+            ref = dw.depthwise_conv3x3_plain(*leaves, stride)
+            ref_grads = torch.autograd.grad(ref, leaves, dy)
+        assert y.shape == ref.shape and float((y - ref).abs().max() / ref.abs().max()) < DEPTHWISE_REL
+        for g, r in zip(grads, ref_grads):
+            assert float((g - r).abs().max() / r.abs().max()) < DEPTHWISE_GRAD_REL
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    with pytest.raises(ValueError, match="multiples of 4"):
+        dw.depthwise_forward(torch.zeros(1, 6, 4, 4, device="cuda"), torch.zeros(6, 1, 3, 3, device="cuda"), 1)
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+def test_adaptive_wing_kernels_match_plain(card, weighted):
+    """``AdaptiveWingLoss`` on the card (its kernels, through autograd)
+    against its plain twin on the CPU, at ``AWING_REL``, maps of 5 x 98 x
+    17 x 23 with errors on both sides of ``theta`` and some exactly 0."""
+    from probpose_code_torch.ops.kernels import adaptive_wing as aw
+    from probpose_code_torch.registry import MODELS
+
+    rng = np.random.RandomState(3)
+    target = rng.rand(5, 98, 17, 23).astype(np.float32)
+    output = (target + rng.randn(*target.shape) * rng.choice([0.05, 0.9], target.shape)).astype(np.float32)
+    output[0, 0] = target[0, 0]
+    weights = (rng.rand(5, 98) > 0.2).astype(np.float32)
+    loss = MODELS.build(dict(type="AdaptiveWingLoss", use_target_weight=weighted, loss_weight=0.5))
+    results = []
+    for device in ("cpu", "cuda"):
+        o = torch.from_numpy(output).to(device).requires_grad_()
+        value = loss(o, torch.from_numpy(target).to(device), torch.from_numpy(weights).to(device))
+        (2 * value).backward()
+        results.append((value.detach().cpu(), o.grad.cpu()))
+    (ref, ref_grad), (got, grad) = results
+    assert float((got - ref).abs() / ref.abs()) < AWING_REL
+    assert float((grad - ref_grad).abs().max() / ref_grad.abs().max()) < AWING_REL
+    assert aw.adaptive_wing_forward.launches and aw.adaptive_wing_backward.launches
