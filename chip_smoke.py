@@ -188,10 +188,25 @@ card and the CUDA toolkit (nvcc); it builds the port's kernels from
    a profile beside the call time, and the wrapper's host cost a call; K2b's
    yardstick is cuDNN's depthwise convolution of the padded maps.
 
+Run in this order among them: after ``vitpose_train``, ``vit_large_parity``
+(K1 in f32 at a layer of ViTPose-L's and -H's predict calls, C = 1024 and
+C = 1280 with heads of 80, against its twin; K4 at their training shapes,
+forward and gradient), ``vitpose_small_predict``, ``vitpose_large_predict``
+and ``vitpose_huge_predict`` (as ``vitpose_predict``: K1 x12, x24, x32 a
+call) and ``vitpose_large_train`` and ``vitpose_huge_train`` (as
+``vitpose_train`` at B = 64: K4 x24, x32 a step, peak memory, the classic
+head's share of the step); after ``dpm_golden``, ``animal_fashion_predict``
+(AP-10K HRNet-w32 and RTMPose-m, Animal Kingdom, DeepFashion upper and
+DeepFashion2 at full width through ``predict_phase``) and
+``animal_fashion_runner`` (each through ``tools.train``, one epoch of 2
+steps with val, then ``tools.test``). ``timings`` also times K1 in f32 at
+ViTPose-S, -L and -H's shapes and K4 at ViTPose-L and -H's.
+
 The lines before the last hold the kernels' record as JSON (each kernel's
 ``launches`` from the flagship's paths, and ``launches_by_path`` on every
 main path: K1's one count goes to the record of the instance, bf16 ViT-S
-or f32 ViT-B, that the path's model runs) and the JPEG decode's (no TPU
+or f32 ViT-S, -B, -L or -H, that the path's model runs, and K4's to that of
+the f32 width, ViT-B, -L or -H, that the path trains) and the JPEG decode's (no TPU
 kernel: its own line, no ``replaces``) and the photometric kernels' (no
 TPU kernel either: the ``augment`` line, each one's ``ports`` the JAX
 transform it ports, the median's ``launches`` from
@@ -204,6 +219,7 @@ that augments on the card), the last line ``{"ok": true,
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import math
 import subprocess
@@ -217,6 +233,11 @@ GOLDEN = ROOT / "tests" / "golden"
 GOLDEN_JPEG = ROOT / "tests" / "golden_torch"
 FLAGSHIP = ROOT / "configs/body_2d_keypoint/topdown_probmap/coco/td-pm_ProbPose-small_8xb64-210e_coco-256x192.py"
 VITPOSE = ROOT / "configs/body_2d_keypoint/topdown_heatmap/coco/td-hm_ViTPose-base-simple_8xb64-210e_coco-256x192.py"
+VITPOSE_SMALL = ROOT / "configs/body_2d_keypoint/topdown_heatmap/coco/td-hm_ViTPose-small-simple_8xb64-210e_coco-256x192.py"
+VITPOSE_LARGE = ROOT / "configs/body_2d_keypoint/topdown_heatmap/coco/td-hm_ViTPose-large_8xb64-210e_coco-256x192.py"
+VITPOSE_HUGE = ROOT / "configs/body_2d_keypoint/topdown_heatmap/coco/td-hm_ViTPose-huge_8xb64-210e_coco-256x192.py"
+# (C, heads, feed-forward width) of ViT-L and ViT-H: heads of 64 and of 80
+VIT_LARGE_SHAPES = ((1024, 16, 4096), (1280, 16, 5120))
 DPM = ROOT / "configs/body_2d_keypoint/topdown_probmap/coco/td-dpm_DoubleProbPose-small_8xb64-210e_coco-256x192.py"
 HRNET = ROOT / "configs/body_2d_keypoint/topdown_heatmap/coco/td-hm_hrnet-w32_udp-8xb64-210e_coco-256x192.py"
 # the classic heatmap recipes (MSRA codec, DARK with ``unbiased``) and RTMPose-m
@@ -251,6 +272,17 @@ FACE_HAND_RECIPES = dict(
     res50_wing=ROOT / "configs/face_2d_keypoint/topdown_regression/wflw/td-reg_res50_wingloss_8xb64-210e_wflw-256x256.py",
     mobilenetv2_hand=ROOT / ("configs/hand_2d_keypoint/topdown_heatmap/coco_wholebody_hand/"
                              "td-hm_mobilenetv2_8xb32-210e_coco-wholebody-hand-256x256.py"),
+)
+# the animal and fashion recipes on the card: AP-10K (HRNet-w32 by CocoMetric with AP-10K's sigmas, RTMPose-m),
+# Animal Kingdom (ResNet-50, PCK at 0.05), DeepFashion's upper subset (6 keypoints) and DeepFashion2 (294)
+ANIMAL_FASHION_RECIPES = dict(
+    ap10k_hrnet=ROOT / "configs/animal_2d_keypoint/topdown_heatmap/ap10k/td-hm_hrnet-w32_8xb64-210e_ap10k-256x256.py",
+    ap10k_rtmpose=ROOT / "configs/animal_2d_keypoint/rtmpose/ap10k/rtmpose-m_8xb64-210e_ap10k-256x256.py",
+    ak_res50=ROOT / "configs/animal_2d_keypoint/topdown_heatmap/ak/td-hm_res50_8xb64-300e_ak-256x256.py",
+    deepfashion_upper_res50=ROOT / ("configs/fashion_2d_keypoint/topdown_heatmap/deepfashion/"
+                                    "td-hm_res50_8xb64-210e_deepfashion_upper-256x192.py"),
+    deepfashion2_res50=ROOT / ("configs/fashion_2d_keypoint/topdown_heatmap/deepfashion2/"
+                               "td-hm_res50_4xb64-210e_deepfashion2-256x192.py"),
 )
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
@@ -1493,11 +1525,24 @@ FACE_SETS = dict(WFLWDataset=98, Face300WDataset=68, Face300WLPDataset=68, COFWD
                  LapaDataset=106)
 HAND_SETS = dict(OneHand10KDataset=21, FreiHandDataset=21, Rhd2DDataset=21, PanopticHand2DDataset=21)
 PERSON_SETS = ("CocoWholeBodyFaceDataset", "CocoWholeBodyHandDataset", "HalpeDataset", "HalpeHandDataset")
-# the seed of the boxes' and keypoints' draws, the share of keypoints left unannotated and the share of
-# COCO-WholeBody's faces and hands left invalid (``<part>_valid`` false, all zeros)
+# the seed of the boxes' and keypoints' draws and the share of COCO-WholeBody's faces and hands left
+# invalid (``<part>_valid`` false, all zeros)
 FACE_HAND_SEED = 0
-FACE_HAND_UNANNOTATED = 0.05
 FACE_HAND_MISSING = 0.2
+# the share of drawn keypoints left unannotated (``draw_keypoints``)
+UNANNOTATED = 0.05
+
+
+def draw_keypoints(rng, box, num):
+    """``num`` keypoints drawn uniformly inside ``box`` (x, y, w, h) from
+    ``rng``, v = 2 but an ``UNANNOTATED`` share left unannotated (v = 0, at
+    0, 0), as the flat COCO list [x, y, v, ...]."""
+    import numpy as np
+
+    x, y, w, h = box
+    kpts = np.stack([x + rng.rand(num) * w, y + rng.rand(num) * h, np.full(num, 2.0)], axis=-1)
+    kpts[rng.rand(num) < UNANNOTATED] = 0.0
+    return kpts.reshape(-1).tolist()
 
 
 def face_hand_parts(ann_file):
@@ -1528,8 +1573,8 @@ def face_hand_sets_from_coco(ann_file, root, kinds=None, prefix=""):
     say) in the layouts of the face and hand datasets (``kinds``, by default
     all of ``FACE_SETS``, ``HAND_SETS`` and ``PERSON_SETS``), written to
     ``root/<kind>.json``: each person's face and hands (``face_hand_parts``)
-    with the dataset's keypoints drawn inside the part's box, v = 2 but a
-    ``FACE_HAND_UNANNOTATED`` share left unannotated (v = 0, at 0, 0).
+    with the dataset's keypoints drawn inside the part's box
+    (``draw_keypoints``).
     A face set gets an annotation a person (WFLW, 300W and AFLW also
     mmpose's ``center`` and ``scale``, the box's centre and 1.25 times its
     longer side over 200, and AFLW its ``box_size``), a hand set one a hand
@@ -1549,13 +1594,7 @@ def face_hand_sets_from_coco(ann_file, root, kinds=None, prefix=""):
     written = {}
     for n, kind in enumerate(kinds):
         rng = np.random.RandomState(FACE_HAND_SEED + 1 + n)
-
-        def draw(box, num):
-            x, y, w, h = box
-            kpts = np.stack([x + rng.rand(num) * w, y + rng.rand(num) * h, np.full(num, 2.0)], axis=-1)
-            kpts[rng.rand(num) < FACE_HAND_UNANNOTATED] = 0.0
-            return kpts.reshape(-1).tolist()
-
+        draw = functools.partial(draw_keypoints, rng)
         out = dict(copy.deepcopy(gt), annotations=[])
         for a in gt["annotations"]:
             part = parts[a["id"]]
@@ -1608,6 +1647,53 @@ def face_hand_options(cfg, loader, root, ann_file):
     for i, d in subs:
         key = f"{loader}.dataset" if i is None else f"{loader}.dataset.datasets.{i}"
         options += [f"{key}.data_root={root}", f"{key}.ann_file={files[d['type']]}", f"{key}.data_prefix.img=imgs/"]
+    return options
+
+
+# the seed of the animal and fashion sets' keypoint draws
+ANIMAL_FASHION_SEED = 0
+
+
+def animal_fashion_set_from_coco(ann_file, out_file, num_keypoints):
+    """The persons of a COCO keypoint file (``tests/golden/e2e_coco.json``,
+    say) as the instances of an animal, fashion or ExLPose dataset of
+    ``num_keypoints`` (the COCO-style layout each reads), written to
+    ``out_file``: each keeps its image, id, box, area and crowd flag, and
+    its keypoints are drawn inside its box from ``ANIMAL_FASHION_SEED``
+    (``draw_keypoints``)."""
+    import copy
+
+    import numpy as np
+
+    gt = json.loads(Path(ann_file).read_text())
+    rng = np.random.RandomState(ANIMAL_FASHION_SEED)
+    out = dict(copy.deepcopy(gt), annotations=[])
+    for a in gt["annotations"]:
+        kpts = draw_keypoints(rng, a["bbox"], num_keypoints)
+        out["annotations"].append(dict(a, keypoints=kpts, num_keypoints=int(np.count_nonzero(kpts[2::3]))))
+    out["categories"] = [dict(id=1, name="person", keypoints=[str(k) for k in range(num_keypoints)], skeleton=[])]
+    Path(out_file).write_text(json.dumps(out))
+
+
+def animal_fashion_options(cfg, loader, root, ann_file):
+    """``--cfg-options`` items that point ``cfg[loader]``'s dataset at
+    ``ann_file``'s persons in its layout (``animal_fashion_set_from_coco``
+    at its table's keypoint count: ``root/<loader>.json``), the images in
+    ``root/imgs``, no detector boxes, and a ``CocoMetric`` evaluator of the
+    loader at the same file."""
+    from probpose_code_torch.datasets import config_metainfo
+    from probpose_code_torch.datasets.metainfo import parse_pose_metainfo
+
+    dataset = cfg[loader]["dataset"]
+    num = parse_pose_metainfo(config_metainfo(dataset))["num_keypoints"]
+    animal_fashion_set_from_coco(ann_file, Path(root, f"{loader}.json"), num)
+    key = f"{loader}.dataset"
+    options = [f"{key}.data_root={root}", f"{key}.ann_file={loader}.json", f"{key}.data_prefix.img=imgs/"]
+    if "bbox_file" in dataset:
+        options.append(f"{key}.bbox_file=None")
+    evaluator = loader.replace("dataloader", "evaluator")
+    if isinstance(cfg.get(evaluator), dict) and cfg[evaluator].get("type") == "CocoMetric":
+        options.append(f"{evaluator}.ann_file={Path(root, f'{loader}.json')}")
     return options
 
 
@@ -1761,9 +1847,13 @@ def kernel_counters():
                 attention=attention_kernel)
 
 
-# the kernels line's two records of K1, by the instance (compute type, width)
+# the kernels line's records of K1, by the instance (compute type, width)
 # that a model's backbone runs
-K1_RECORDS = {("torch.bfloat16", 384): "vit_layer", ("torch.float32", 768): "vit_layer_vitb_f32"}
+K1_RECORDS = {("torch.bfloat16", 384): "vit_layer", ("torch.float32", 768): "vit_layer_vitb_f32",
+              ("torch.float32", 384): "vit_layer_vits_f32", ("torch.float32", 1024): "vit_layer_vitl_f32",
+              ("torch.float32", 1280): "vit_layer_vith_f32"}
+# and of K4, by the width of the f32 backbone whose training runs it
+K4_RECORDS = {768: "attention", 1024: "attention_vitl", 1280: "attention_vith"}
 
 
 def k1_record(model) -> str:
@@ -1773,6 +1863,15 @@ def k1_record(model) -> str:
     if key not in K1_RECORDS:
         raise AssertionError(f"no K1 record in the kernels line for the instance {key}")
     return K1_RECORDS[key]
+
+
+def k4_record(model) -> str:
+    """The kernels line's record of the K4 instance that ``model``'s training
+    runs."""
+    backbone = model.module.backbone
+    if str(backbone.dtype) != "torch.float32" or backbone.embed_dims not in K4_RECORDS:
+        raise AssertionError(f"no K4 record in the kernels line for ({backbone.dtype}, {backbone.embed_dims})")
+    return K4_RECORDS[backbone.embed_dims]
 
 
 def augment_counters():
@@ -2413,21 +2512,43 @@ class Smoke:
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         self.profile(lambda: run(1), calls=2, what="train steps")
 
-    def k4_parity(self):
+    @staticmethod
+    def k4_f32_errors(B, N, H, D, seed):
+        """K4 in f32 at one shape: the forward's max abs error against its
+        plain twin on unit-normal strided qkv views, and one gradient through
+        the Function on the card (the kernel's forward, the strided views
+        saved and recomputed there) against autograd through
+        ``xla_attention`` on CPU copies of the same inputs; each checked
+        against its bar."""
         import torch
 
         from probpose_code_torch.ops.kernels.attention import (
             fused_attention, fused_attention_plain, xla_attention_plain,
         )
 
-        # the ViTPose-B training shape in f32: max abs error on unit-normal inputs
-        B, N, H, D = 64, 192, 12, 64
-        q, k, v = qkv_views(B, N, H, D, torch.float32, seed=6)
+        q, k, v = qkv_views(B, N, H, D, torch.float32, seed=seed)
         with torch.no_grad():
             err = (fused_attention(q, k, v, D ** -0.5) - fused_attention_plain(q, k, v, D ** -0.5)).abs().max().item()
-        print(f"K4 B={B} N={N} h={H} d={D} f32: max abs err {err:.3e} (bar {K4_F32_ATOL:g})")
-        if not err < K4_F32_ATOL:
-            raise AssertionError(f"K4 f32 disagrees with its plain twin: {err:.3e}")
+        g = torch.randn(B, N, H, D, generator=torch.Generator().manual_seed(seed + 2))
+        qkv = torch.stack((q, k, v), dim=2).detach().requires_grad_(True)
+        (card,) = torch.autograd.grad(fused_attention(*qkv.unbind(2), D ** -0.5), qkv, g.cuda())
+        qkv = qkv.detach().cpu().requires_grad_(True)
+        (host,) = torch.autograd.grad(xla_attention_plain(*qkv.unbind(2), D ** -0.5), qkv, g)
+        gerr = (card.cpu() - host).abs().max().item()
+        print(f"K4 B={B} N={N} h={H} d={D} f32: max abs err {err:.3e} (bar {K4_F32_ATOL:g}); gradient (dq, dk, dv) "
+              f"on the card vs autograd through xla_attention on the CPU: max abs err {gerr:.3e} "
+              f"(bar {K4_GRAD_ATOL:g})")
+        if not (err < K4_F32_ATOL and gerr < K4_GRAD_ATOL):
+            raise AssertionError(f"K4 f32 at h={H} d={D} disagrees: forward {err:.3e}, gradient {gerr:.3e}")
+
+    def k4_parity(self):
+        import torch
+
+        from probpose_code_torch.ops.kernels.attention import fused_attention, fused_attention_plain
+
+        # the ViTPose-B training shape in f32, forward and gradient
+        N, H = 192, 12
+        self.k4_f32_errors(64, N, H, 64, seed=6)
         # the ProbPose-S shape in bf16: relative max error
         Bs, Ds = 128, 32
         qs, ks, vs = qkv_views(Bs, N, H, Ds, torch.bfloat16, seed=7)
@@ -2438,21 +2559,38 @@ class Smoke:
         print(f"K4 B={Bs} N={N} h={H} d={Ds} bf16: rel max err {rel:.3e} (bar {K4_BF16_REL:g})")
         if not (rel < K4_BF16_REL and torch.isfinite(got).all()):
             raise AssertionError(f"K4 bf16 disagrees with its plain twin: {rel:.3e}")
-        # one gradient through the Function on the card (the kernel's forward, the
-        # strided qkv views saved and recomputed there) against autograd through
-        # xla_attention on CPU copies of the same inputs
-        g = torch.randn(B, N, H, D, generator=torch.Generator().manual_seed(8))
-        qkv = torch.stack((q, k, v), dim=2).detach().requires_grad_(True)
-        (card,) = torch.autograd.grad(fused_attention(*qkv.unbind(2), D ** -0.5), qkv, g.cuda())
-        qkv = qkv.detach().cpu().requires_grad_(True)
-        (host,) = torch.autograd.grad(xla_attention_plain(*qkv.unbind(2), D ** -0.5), qkv, g)
-        gerr = (card.cpu() - host).abs().max().item()
-        print(f"K4 gradient (dq, dk, dv) on the card vs autograd through xla_attention on the CPU: "
-              f"max abs err {gerr:.3e} (bar {K4_GRAD_ATOL:g})")
-        if not gerr < K4_GRAD_ATOL:
-            raise AssertionError(f"K4's gradient disagrees: {gerr:.3e}")
 
-    def vitpose_predict(self):
+    def vit_large_parity(self):
+        """K1 in f32 with erf GELU at one layer of the ViTPose-L and -H predict
+        calls (64 crops and their mirrors: B = 128, N = 192; C = 1024 with 16
+        heads of 64, and C = 1280 with 16 heads of 80, which takes the
+        two-pass attention) against its plain twin at ``K1_F32_REL``, and K4
+        in f32 at their training shapes (B = 64, 16 heads of 64 and of 80),
+        forward and gradient (``k4_f32_errors``)."""
+        import torch
+
+        from probpose_code_torch.ops.kernels.vit_layer import vit_layer, vit_layer_plain
+
+        for C, H, F in VIT_LARGE_SHAPES:
+            x, p = layer_inputs(128, 192, C, F, torch.float32, seed=C)
+            kw = dict(num_heads=H, approximate_gelu=False, dtype=torch.float32)
+            with torch.inference_mode():
+                got = vit_layer(x, *p, **kw)
+                want = vit_layer_plain(x, *p, **kw)
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            print(f"K1 B=128 N=192 C={C} h={H} d={C // H} f32 erf: rel max err {rel:.3e} (bar {K1_F32_REL:g})")
+            if not (rel < K1_F32_REL and torch.isfinite(got).all()):
+                raise AssertionError(f"K1 at C={C} disagrees with its plain twin: {rel:.3e}")
+            self.k4_f32_errors(64, 192, H, C // H, seed=C + 1)
+
+    def vit_predict(self, config, name, path, record_key, layers):
+        """A ViTPose config file at full width (random weights, seed 0, f32,
+        erf GELU) through ``init_model`` / ``inference_topdown``, 64 boxes
+        with flip-TTA: K1's launches in one call (one a layer, no other
+        kernel), the outputs finite, every positive heatmap peak inside its
+        crop's padded box, two crops' heatmaps and scores against the same
+        model on the CPU (K1's plain twin), then crops/s, peak memory and a
+        profile."""
         import numpy as np
         import torch
 
@@ -2461,7 +2599,7 @@ class Smoke:
         from probpose_code_torch.config import Config
         from probpose_code_torch.ops.heatmap import heatmap_maximum_batch
 
-        model = init_model(Config.fromfile(VITPOSE), device="cuda")
+        model = init_model(Config.fromfile(config), device="cuda")
         img, boxes = synthetic_boxes(64, seed=1)
 
         # the main path: counts set to 0 just before, read just after
@@ -2469,13 +2607,13 @@ class Smoke:
         samples = inference_topdown(model, img, boxes)
         torch.cuda.synchronize()
         launches = read_counts()
-        print(f"vitpose predict main path: {len(samples)} crops, launches {json.dumps(launches)}")
+        print(f"{path} main path: {len(samples)} crops, launches {json.dumps(launches)}")
         kpts = np.stack([s.pred_instances.keypoints for s in samples])
         scores = np.stack([s.pred_instances.keypoint_scores for s in samples])
         if kpts.shape != (64, 1, 17, 2) or scores.shape != (64, 1, 17):
-            raise AssertionError(f"vitpose output shapes {kpts.shape}, {scores.shape}")
+            raise AssertionError(f"{name} output shapes {kpts.shape}, {scores.shape}")
         if not (np.isfinite(kpts).all() and np.isfinite(scores).all()):
-            raise AssertionError("vitpose outputs are not finite")
+            raise AssertionError(f"{name} outputs are not finite")
         # every positive heatmap peak maps inside its crop's padded box (a map
         # whose maximum is <= 0 has no peak: its location is -1, as in the
         # JAX decode). The DARK-UDP step that follows is a Newton step on
@@ -2490,43 +2628,72 @@ class Smoke:
         peaks = peaks / hm_wh * scales[:, None] + lo
         inside = ((peaks >= lo - 1e-3) & (peaks <= hi + 1e-3)).all(-1)
         if not inside[vals > 0].all():
-            raise AssertionError("a vitpose heatmap peak maps outside its padded box")
+            raise AssertionError(f"a {name} heatmap peak maps outside its padded box")
         outside = np.maximum(np.maximum(lo - kpts[:, 0], kpts[:, 0] - hi), 0) / scales[:, None]
-        print(f"vitpose heatmap peaks inside the padded boxes ({int((vals > 0).sum())} of {vals.size} positive); "
+        print(f"{name} heatmap peaks inside the padded boxes ({int((vals > 0).sum())} of {vals.size} positive); "
               f"refined keypoints outside them: {int((outside.max(-1) > 0).sum())}, at most "
               f"{outside.max():.3f} box widths")
         # the predict program on two of the crops against the same model on the
         # CPU (K1's plain twin, the same seed-0 weights), both in f32
         crops = crops[:2]
         got = model.predict(crops)
-        ref = init_model(Config.fromfile(VITPOSE), device="cpu").predict(crops.cpu())
+        ref = init_model(Config.fromfile(config), device="cpu").predict(crops.cpu())
         hm_rel = ((got["heatmaps"].cpu() - ref["heatmaps"]).abs().max() / ref["heatmaps"].abs().max()).item()
         score_err = (got["keypoint_scores"].cpu() - ref["keypoint_scores"]).abs().max().item()
-        print(f"vitpose predict on 2 crops vs the CPU twin: heatmaps rel max err {hm_rel:.3e} "
+        print(f"{name} predict on 2 crops vs the CPU twin: heatmaps rel max err {hm_rel:.3e} "
               f"(bar {K1_F32_REL:g}), scores max abs err {score_err:.3e} (bar {K1_F32_REL:g})")
         if not (hm_rel < K1_F32_REL and score_err < K1_F32_REL):
-            raise AssertionError("vitpose predict disagrees with the CPU twin")
-        want = dict(vit_layer=12, expected_oks=0, oks_convolve=0, vit_layer_train_fwd=0, vit_layer_train_bwd=0,
-                    attention=0)
+            raise AssertionError(f"{name} predict disagrees with the CPU twin")
+        want = dict(NO_LAUNCHES, vit_layer=layers)
         if launches != want:
-            raise AssertionError(f"expected K1 x12 per call and no other kernel, got {launches}")
-        self.record["vitpose_launches"] = launches
-        self.record.setdefault("k1_records", {})["vitpose_predict"] = k1_record(model)
+            raise AssertionError(f"expected K1 x{layers} per call and no other kernel, got {launches}")
+        self.record[record_key] = launches
+        self.record.setdefault("k1_records", {})[path] = k1_record(model)
 
         iters = 5
         for _ in range(2):
             inference_topdown(model, img, boxes)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         for _ in range(iters):
             inference_topdown(model, img, boxes)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        print(f"ViTPose-B-simple predict, f32, flip-TTA, B=64: {64 * iters / dt:.1f} crops/s "
-              f"({1e3 * dt / iters:.2f} ms per inference_topdown call, {iters} calls after 2 warm-up)")
-        self.profile(lambda: inference_topdown(model, img, boxes), calls=2, what="vitpose predict calls")
+        print(f"{name} predict, f32, flip-TTA, B=64: {64 * iters / dt:.1f} crops/s "
+              f"({1e3 * dt / iters:.2f} ms per inference_topdown call, {iters} calls after 2 warm-up); peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        self.profile(lambda: inference_topdown(model, img, boxes), calls=2, what=f"{name} predict calls")
 
-    def vitpose_train(self):
+    def vitpose_predict(self):
+        """ViTPose-B-simple (ViT-B/16, f32, erf GELU, x4 neck, HeatmapHead,
+        UDP decode) through ``vit_predict``: K1 x12."""
+        self.vit_predict(VITPOSE, "ViTPose-B-simple", "vitpose_predict", "vitpose_launches", 12)
+
+    def vitpose_small_predict(self):
+        """ViTPose-S-simple (ViT-S/16 in f32 with erf GELU: K1's f32 instance
+        at C = 384) through ``vit_predict``: K1 x12."""
+        self.vit_predict(VITPOSE_SMALL, "ViTPose-S-simple", "vitpose_small_predict", "vitpose_small_launches", 12)
+
+    def vitpose_large_predict(self):
+        """ViTPose-L (ViT-L/16: C = 1024, 16 heads of 64; the classic head's
+        two deconvolutions on 1024 channels, 64 x 48 UDP maps) through
+        ``vit_predict``: K1 x24."""
+        self.vit_predict(VITPOSE_LARGE, "ViTPose-L", "vitpose_large_predict", "vitpose_large_launches", 24)
+
+    def vitpose_huge_predict(self):
+        """ViTPose-H (ViT-H/16: C = 1280, 16 heads of 80; deconvolutions on
+        1280 channels) through ``vit_predict``: K1 x32."""
+        self.vit_predict(VITPOSE_HUGE, "ViTPose-H", "vitpose_huge_predict", "vitpose_huge_launches", 32)
+
+    def vit_train(self, config, name, path, record_key, layers, steps=5):
+        """A ViTPose recipe at full width (its drop_path, UDP targets encoded
+        on the card, its optimizer and schedules) through ``make_train_step``
+        on its batch (64) of synthetic crops: K4's launches in one step (one
+        a layer; K1 and K3 none), the first layer's gradient, the losses, lr
+        and gradient norm of each step, train crops/s over ``steps`` steps
+        after 3 warm-up, peak memory and a profile. A batch that does not fit
+        on the card fails the phase, saying so."""
         import torch
 
         from probpose_code_torch.apis import init_model
@@ -2534,7 +2701,7 @@ class Smoke:
         from probpose_code_torch.engine.optim import build_optimizer
         from probpose_code_torch.parallel import create_train_state, make_train_step
 
-        cfg = Config.fromfile(VITPOSE)
+        cfg = Config.fromfile(config)
         model = init_model(cfg, device="cuda")
         optimizer, lr_fn = build_optimizer(
             model, cfg["optim_wrapper"], cfg["param_scheduler"], STEPS_PER_EPOCH, cfg["train_cfg"]["max_epochs"],
@@ -2545,44 +2712,75 @@ class Smoke:
         batch = synthetic_train_batch(B, seed=1)
         gen = torch.Generator(device="cuda").manual_seed(1)
         qkv0 = dict(model.module.named_parameters())["backbone.layers.0.attn.qkv.weight"]
+        torch.cuda.reset_peak_memory_stats()
 
         # the main path: counts set to 0 just before one step, read just after
         read_counts = reset_counts()
-        state, logs = run_steps(step, state, batch, gen, lr_fn, 1)
-        report_steps(logs)
-        torch.cuda.synchronize()
+        try:
+            state, logs = run_steps(step, state, batch, gen, lr_fn, 1)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as e:
+            raise AssertionError(f"{name}: a train step at the recipe's B={B} does not fit on the card "
+                                 f"({torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated at most)") from e
         launches = read_counts()
+        report_steps(logs)
         g0 = qkv0.grad.abs().max().item()
-        print(f"vitpose train main path: one step of B={B}, launches {json.dumps(launches)}; "
+        print(f"{path} main path: one step of B={B}, launches {json.dumps(launches)}; "
               f"max |grad| of backbone.layers.0.attn.qkv.weight {g0:.3e}")
-        want = dict(vit_layer=0, expected_oks=0, oks_convolve=0, vit_layer_train_fwd=0, vit_layer_train_bwd=0,
-                    attention=12)
-        if launches != want:
-            raise AssertionError(f"expected K4 x12 (and K3 x0) in a ViTPose step and no other kernel, got {launches}")
+        if launches != dict(NO_LAUNCHES, attention=layers):
+            raise AssertionError(f"expected K4 x{layers} (and K1, K3 x0) in a {name} step and no other kernel, "
+                                 f"got {launches}")
         if not g0 > 0:
             raise AssertionError("the first ViT layer got no gradient")
-        self.record["vitpose_train_launches"] = launches
+        self.record[record_key] = launches
+        self.record.setdefault("k4_records", {})[path] = k4_record(model)
 
         state, logs = run_steps(step, state, batch, gen, lr_fn, 2)  # warm-up: 3 steps with the one above
         report_steps(logs)
         torch.cuda.synchronize()
-        steps = 5
-        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.reset_peak_memory_stats()  # the printed peak: the timed steps only
         t0 = time.perf_counter()
         state, logs = run_steps(step, state, batch, gen, lr_fn, steps)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         report_steps(logs)
-        print(f"ViTPose-B-simple train step, B={B}, f32, drop_path 0.3: {B * steps / dt:.1f} crops/s "
-              f"({1e3 * dt / steps:.2f} ms per step, {steps} steps after 3 warm-up; the loss dicts are read "
-              f"to the host after the timed steps); peak device memory "
+        print(f"{name} train step, B={B}, f32, drop_path {cfg['model']['backbone']['drop_path_rate']}: "
+              f"{B * steps / dt:.1f} crops/s ({1e3 * dt / steps:.2f} ms per step, {steps} steps after 3 warm-up; "
+              f"the loss dicts are read to the host after the timed steps); peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
         def one():
             nonlocal state
             state, _ = run_steps(step, state, batch, gen, lr_fn, 1)
 
-        self.profile(one, calls=2, what="vitpose train steps")
+        busy_ms = self.profile(one, calls=2, what=f"{name} train steps")
+        head = model.module.head
+        if len(head.deconv_layers) and busy_ms:
+            # the 2% rule for the classic head this recipe newly puts on a step: its deconvolutions on the
+            # backbone's C channels, BatchNorm and final conv (cuDNN), forward and backward alone at the step's shapes
+            bb = model.module.backbone
+            feat = torch.randn(B, bb.embed_dims, bb.grid_h, bb.grid_w, device="cuda", requires_grad=True)
+            ms = self.kernel_device_ms(lambda: head(feat).sum().backward(), calls=5)
+            print(f"2% rule: the {name} head ({len(head.deconv_layers) // 3} deconvolutions, the first on "
+                  f"{bb.embed_dims} channels) forward and backward alone at B={B}: {ms:.3f} ms of device time, "
+                  f"{100 * ms / busy_ms:.2f}% of the profiled step's {busy_ms:.2f} ms")
+
+    def vitpose_train(self):
+        """The ViTPose-B-simple recipe (drop_path 0.3, AdamW with layer decay
+        0.75) through ``vit_train``: K4 x12."""
+        self.vit_train(VITPOSE, "ViTPose-B-simple", "vitpose_train", "vitpose_train_launches", 12)
+
+    def vitpose_large_train(self):
+        """The ViTPose-L recipe (drop_path 0.5, AdamW with layer decay 0.8 over
+        24 layers, clip 1.0) through ``vit_train``: K4 x24."""
+        self.vit_train(VITPOSE_LARGE, "ViTPose-L", "vitpose_large_train", "vitpose_large_train_launches", 24,
+                       steps=3)
+
+    def vitpose_huge_train(self):
+        """The ViTPose-H recipe (drop_path 0.55, AdamW with layer decay 0.85
+        over 32 layers, clip 1.0) through ``vit_train``: K4 x32."""
+        self.vit_train(VITPOSE_HUGE, "ViTPose-H", "vitpose_huge_train", "vitpose_huge_train_launches", 32,
+                       steps=3)
 
     def full_weights(self):
         """The fixture's full-geometry weights, ``build_e2e_model(full=True)``
@@ -3528,6 +3726,89 @@ class Smoke:
         on two crops at ``FIXTURE_OUTPUT_REL``: K1 (its f32 instance) and K2
         (both windows in one launch at the identity scale) launched."""
         self._fixture_phase(DPM_FIXTURE, kernels=("vit_layer", "expected_oks"))
+
+    def animal_fashion_predict(self):
+        """The animal and fashion recipes (``ANIMAL_FASHION_RECIPES``) at full
+        width through ``predict_phase`` (64 boxes, flip-TTA, 3 timed calls, no
+        profile): HRNet-w32 and RTMPose-m on AP-10K (17 keypoints at 256 x
+        256; RTMPose's GAU kernels), ResNet-50 on Animal Kingdom (23),
+        DeepFashion's upper subset (6 keypoints, the subset's table) and
+        DeepFashion2 (294 maps of 64 x 48)."""
+        for key, config in ANIMAL_FASHION_RECIPES.items():
+            keys = ("keypoint_x_labels", "keypoint_y_labels") if "rtmpose" in key else ("heatmaps",)
+            self.predict_phase(config, key, keys, f"{key}_predict_launches", timed_calls=3, profile_calls=0)
+
+    def animal_fashion_runner(self):
+        """Each animal and fashion recipe through ``tools.train``'s main at its
+        batch of 64 with four workers: one epoch over the golden JPEGs'
+        persons copied to 128 instances in its dataset's layout (2 steps;
+        ``animal_fashion_options``), val at its end over the 62 golden
+        persons in the layout by the recipe's evaluator; then ``tools.test``
+        on ``epoch_1.pth`` over the same persons as its test set. Fails
+        unless both steps run, no kernel of the port's TPU list launches,
+        the GAU kernels launch where the model runs a GAU, one decode runs a
+        step, the first loss dict equals ``make_train_step``'s, and every
+        metric of the val and the test is finite (CocoMetric under AP-10K's
+        sigmas, PCK at 0.05 on Animal Kingdom, PCK / AUC / EPE on
+        DeepFashion)."""
+        import contextlib
+        import io
+        import tempfile
+
+        import torch
+
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.datasets.loader import stop_workers
+        from probpose_code_torch.ops.kernels.jpeg import decode_batch
+        from probpose_code_torch.tools import test as test_cli
+        from probpose_code_torch.tools import train as train_cli
+
+        for key, config in ANIMAL_FASHION_RECIPES.items():
+            cfg = Config.fromfile(str(config))
+            path = f"{key}_train"
+            with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+                stack.callback(stop_workers)
+                _, ann = golden_jpeg_set(tmp)
+                copy_instances(ann, 128, Path(tmp, "train.json"))
+                options = animal_fashion_options(cfg, "train_dataloader", tmp, Path(tmp, "train.json"))
+                options += animal_fashion_options(cfg, "val_dataloader", tmp, ann) + [
+                    "train_dataloader.num_workers=4", "val_dataloader.num_workers=4", "train_cfg.max_epochs=1",
+                    "default_hooks.logger.interval=1"]
+                # the main path: counts set to 0 just before, read just after
+                t0 = time.perf_counter()
+                torch.cuda.reset_peak_memory_stats()
+                read_counts = reset_counts()
+                runner = train_cli.main([str(config), "--work-dir", str(Path(tmp, "work")), "--cfg-options",
+                                         *options])
+                torch.cuda.synchronize()
+                launches, decodes = read_counts(), decode_batch.launches
+                self.read_gau(path, has_gau(runner.model), backward=True)
+                B, steps, val_batches = runner.train_loader.batch_size, runner.state.step, len(runner.val_loader)
+                print(f"{path} main path: {steps} steps of {B} over {len(runner.train_loader.dataset)} instances "
+                      f"({cfg['train_dataloader']['dataset']['type']}, {runner.metainfo['num_keypoints']} keypoints) "
+                      f"in {time.perf_counter() - t0:.2f} s, launches {json.dumps(launches)}, JPEG decodes "
+                      f"{decodes}, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+                report_runner_epochs(path, runner, 0)
+                val = [line for line in Path(tmp, "work", "train.log").read_text().splitlines() if "val: " in line]
+                print(f"{path} val: {val[-1] if val else None}")
+                if B != 64 or steps != 2 or launches != NO_LAUNCHES or decodes != steps + val_batches or not val:
+                    raise AssertionError(f"{path}: batch {B}, {steps} steps, launches {launches}, {decodes} decodes, "
+                                         f"val {val}")
+                self.record[f"{path}_launches"] = launches
+                first_step_check(path, runner)
+                runner.close()
+
+                test = animal_fashion_options(cfg, "test_dataloader", tmp, ann) + ["test_dataloader.num_workers=4"]
+                out = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    test_cli.main([str(config), str(Path(tmp, "work", "epoch_1.pth")), "--cfg-options", *test])
+                rows = (line.partition(": ") for line in out.getvalue().splitlines())
+                tested = {k: float(v) for k, _, v in rows if "/" in k and " " not in k}
+                print(f"{key} tools.test on epoch_1.pth over {len(json.loads(ann.read_text())['annotations'])} "
+                      f"instances in {time.perf_counter() - t0:.2f} s: {json.dumps(tested)}")
+                if not tested or not all(math.isfinite(v) for v in tested.values()):
+                    raise AssertionError(f"{key}: tools.test gave {tested}")
 
     def res50_predict(self):
         """SimpleBaseline ResNet-50 with DARK (``td-hm_res50_dark``) through
@@ -4974,7 +5255,10 @@ class Smoke:
         # kernels line); K1 at the ViTPose-B predict shape
         k4 = self.k4_timings(64, N, 12, 64, torch.float32)
         k4b = self.k4_timings(128, N, 12, 32, torch.bfloat16)
-        kb = self.k1_vitb_timings(128, N, 768, 12, 3072)
+        kb = self.k1_f32_timings(128, N, 768, 12, 3072)
+        # K1's f32 instance at ViT-S, -L and -H's predict shapes, K4 at ViT-L and -H's training shapes
+        k1f = {C: self.k1_f32_timings(128, N, C, H_, F_) for C, H_, F_ in ((384, 12, 1536), *VIT_LARGE_SHAPES)}
+        k4f = {C: self.k4_timings(64, N, H_, C // H_, torch.float32) for C, H_, _ in VIT_LARGE_SHAPES}
 
         # the launch counts above belong to the comparisons, not the main paths:
         # K1, K2 and K2b from the flagship predict run, K3 from the flagship
@@ -5010,10 +5294,27 @@ class Smoke:
                  replaces="probpose_code_tpu/ops/pallas/vit_layer.py:117",
                  launches=self.record.get("vitpose_launches", {}).get("vit_layer", 0),
                  **{key: kb[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+        ] + [
+            dict(name=K1_RECORDS[("torch.float32", C)], route="cuda", source="probpose_code_torch/csrc/vit_layer.cu",
+                 replaces="probpose_code_tpu/ops/pallas/vit_layer.py:117",
+                 launches=self.record.get(key, {}).get("vit_layer", 0),
+                 **{k: k1f[C][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            for C, key in ((384, "vitpose_small_launches"), (1024, "vitpose_large_launches"),
+                           (1280, "vitpose_huge_launches"))
+        ] + [
+            dict(name=K4_RECORDS[C], route="cuda", source="probpose_code_torch/csrc/attention.cu",
+                 replaces="probpose_code_tpu/ops/pallas/attention.py:73",
+                 launches=self.record.get(key, {}).get("attention", 0),
+                 **{k: k4f[C][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            for C, key in ((1024, "vitpose_large_train_launches"), (1280, "vitpose_huge_train_launches"))
         ]
         # each kernel's launches on every main path of this run (one call, one step, or one val batch)
         paths = dict(flagship_predict="launches", flagship_train="train_launches", vitpose_predict="vitpose_launches",
-                     vitpose_train="vitpose_train_launches", dpm_predict="dpm_launches", dpm_train="dpm_train_launches",
+                     vitpose_train="vitpose_train_launches", vitpose_small_predict="vitpose_small_launches",
+                     vitpose_large_predict="vitpose_large_launches", vitpose_huge_predict="vitpose_huge_launches",
+                     vitpose_large_train="vitpose_large_train_launches",
+                     vitpose_huge_train="vitpose_huge_train_launches", dpm_predict="dpm_launches",
+                     dpm_train="dpm_train_launches",
                      hrnet_predict="hrnet_launches", hrnet_train="hrnet_train_launches", res50_predict="res50_launches",
                      hrnet_msra_predict="hrnet_msra_launches", res50_train="res50_train_launches",
                      rtmpose_predict="rtmpose_launches", rtmpose_train="rtmpose_train_launches",
@@ -5027,27 +5328,29 @@ class Smoke:
                      wholebody_cspnext_udp_train="wholebody_cspnext_udp_train_launches",
                      wholebody_hrnet_val="wholebody_hrnet_val_launches",
                      wholebody_train_runner="wholebody_runner_launches", ubody_train="ubody_launches")
-        # K1's one counter read for the record of the instance each path ran
-        k1_records = self.record.get("k1_records", {})
-        for path, key in paths.items():
-            if self.record.get(key, {}).get("vit_layer", 0) and path not in k1_records:
-                raise AssertionError(f"{path} launched K1 but recorded no instance")
+        # K1's and K4's one counter each read for the record of the instance each path ran
+        instances = dict(vit_layer=(K1_RECORDS, self.record.get("k1_records", {})),
+                         attention=(K4_RECORDS, self.record.get("k4_records", {})))
+        for counter, (_, records) in instances.items():
+            for path, key in paths.items():
+                if self.record.get(key, {}).get(counter, 0) and path not in records:
+                    raise AssertionError(f"{path} launched {counter} but recorded no instance")
         for entry in self.record["kernels"]:
             by_path = {}
             for path, key in paths.items():
                 counts = self.record.get(key, {})
-                if entry["name"] in K1_RECORDS.values():
-                    by_path[path] = counts.get("vit_layer", 0) if k1_records.get(path) == entry["name"] else 0
-                else:
-                    by_path[path] = counts.get(entry["name"], 0)
+                by_path[path] = counts.get(entry["name"], 0)
+                for counter, (names, records) in instances.items():
+                    if entry["name"] in names.values():
+                        by_path[path] = counts.get(counter, 0) if records.get(path) == entry["name"] else 0
             entry["launches_by_path"] = by_path
-        for entry in self.record["kernels"]:
-            if entry["name"] in K1_RECORDS.values():
-                ran = {path for path, n in entry["launches_by_path"].items() if n}
-                want = {path for path, name in k1_records.items() if name == entry["name"]}
-                if ran != want:
-                    raise AssertionError(f"{entry['name']}: launched on {sorted(ran)}, its instance ran on "
-                                         f"{sorted(want)}")
+            for counter, (names, records) in instances.items():
+                if entry["name"] in names.values():
+                    ran = {path for path, n in by_path.items() if n}
+                    want = {path for path, name in records.items() if name == entry["name"]}
+                    if ran != want:
+                        raise AssertionError(f"{entry['name']}: launched on {sorted(ran)}, its instance ran on "
+                                             f"{sorted(want)}")
         print(f"K1 vit_layer B={B} N={N} C={C} bf16: {k1_ms:.3f} ms, plain {k1_plain:.3f} ms, "
               f"nn.TransformerEncoderLayer (erf GELU, max-shifted softmax) {k1_lib:.3f} ms, "
               f"bound {k1_bound:.4f} ms ({k1_ops / 1e9:.1f} GFLOP, {k1_bytes / 1e6:.1f} MB), "
@@ -5070,13 +5373,23 @@ class Smoke:
                   f"{t['gflop'] / t['ms']:.1f} TFLOP/s, {t['ms'] / t['bound_ms']:.1f}x its bound, "
                   f"{t['ms'] / t['library_ms']:.2f}x the library, max abs err {t['max_abs_err']:.3e} "
                   f"(relative to the largest value {t['rel']:.2e})")
-        print(f"K1 vit_layer at the ViTPose-B predict shape B=128 N={N} C=768 f32 erf: {kb['ms']:.3f} ms, "
-              f"plain {kb['plain_ms']:.3f} ms, nn.TransformerEncoderLayer {kb['library_ms']:.3f} ms, "
-              f"bound {kb['bound_ms']:.4f} ms, {kb['bound_by']} ({kb['gflop']:.1f} GFLOP), "
-              f"{kb['gflop'] / kb['ms']:.1f} TFLOP/s, {kb['ms'] / kb['bound_ms']:.1f}x its bound, "
-              f"{kb['ms'] / kb['library_ms']:.2f}x the library, rel max err {kb['rel']:.2e}; its products "
-              f"({kb['prod_gflop']:.1f} GFLOP) {kb['prod_ms']:.3f} ms of GEMM device time, "
-              f"{kb['prod_rate']:.1f} TFLOP/s")
+        for what, C, H_, t in (("ViTPose-B", 768, 12, kb), ("ViTPose-S f32", 384, 12, k1f[384]),
+                               ("ViTPose-L", 1024, 16, k1f[1024]), ("ViTPose-H", 1280, 16, k1f[1280])):
+            print(f"K1 vit_layer at the {what} predict shape B=128 N={N} C={C} h={H_} d={C // H_} f32 erf: "
+                  f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, nn.TransformerEncoderLayer "
+                  f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms, {t['bound_by']} ({t['gflop']:.1f} GFLOP), "
+                  f"{t['gflop'] / t['ms']:.1f} TFLOP/s, {t['ms'] / t['bound_ms']:.1f}x its bound, "
+                  f"{t['ms'] / t['library_ms']:.2f}x the library, rel max err {t['rel']:.2e}; its products "
+                  f"({t['prod_gflop']:.1f} GFLOP) {t['prod_ms']:.3f} ms of GEMM device time, "
+                  f"{t['prod_rate']:.1f} TFLOP/s")
+        for C, H_, _ in VIT_LARGE_SHAPES:
+            t = k4f[C]
+            print(f"K4 attention at the ViTPose-{'L' if C == 1024 else 'H'} training shape B=64 N={N} h={H_} "
+                  f"d={C // H_} f32 (strided qkv views): {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+                  f"F.scaled_dot_product_attention {t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms, "
+                  f"{t['bound_by']} ({t['gflop']:.2f} GFLOP, {t['mb']:.1f} MB), {t['gflop'] / t['ms']:.1f} TFLOP/s, "
+                  f"{t['ms'] / t['bound_ms']:.1f}x its bound, {t['ms'] / t['library_ms']:.2f}x the library, "
+                  f"max abs err {t['max_abs_err']:.3e}")
 
     @staticmethod
     def k4_timings(B, N, H, D, dtype):
@@ -5113,12 +5426,12 @@ class Smoke:
                     gflop=ops / 1e9, mb=nbytes / 1e6)
 
     @staticmethod
-    def k1_vitb_timings(B, N, C, H, F):
+    def k1_f32_timings(B, N, C, H, F):
         """K1 on prepared f32 weights with exact GELU, its plain twin and
-        nn.TransformerEncoderLayer (f32, erf GELU) at one ViT-B layer of the
-        ViTPose predict call (64 crops and their mirrors); the bound with the
-        products as 3xTF32, and the rate of the layer's products from the
-        device time of its GEMM kernels."""
+        nn.TransformerEncoderLayer (f32, erf GELU) at one layer of a ViTPose
+        predict call (64 crops and their mirrors; ViT-S, -B, -L or -H); the
+        bound with the products as 3xTF32, and the rate of the layer's
+        products from the device time of its GEMM kernels."""
         import torch
         import torch.nn as nn
 
@@ -5139,7 +5452,7 @@ class Smoke:
             err = (got - want).abs().max().item()
             rel = err / want.abs().max().item()
             if not rel < K1_F32_REL:
-                raise AssertionError(f"K1 at the ViT-B shape: rel max err {rel:.3e}")
+                raise AssertionError(f"K1 at C={C}: rel max err {rel:.3e}")
             ms = cuda_time_ms(lambda: vit_layer_prepared(x, w, **kw), 5, warmup=1)
             plain = cuda_time_ms(lambda: vit_layer_plain(x, *p, **kw), 3, warmup=1)
             libms = cuda_time_ms(lambda: lib(x), 5, warmup=1)
@@ -5267,6 +5580,12 @@ def main() -> int:
         smoke.phase("k4_parity", smoke.k4_parity)
         smoke.phase("vitpose_predict", smoke.vitpose_predict)
         smoke.phase("vitpose_train", smoke.vitpose_train)
+        smoke.phase("vit_large_parity", smoke.vit_large_parity)
+        smoke.phase("vitpose_small_predict", smoke.vitpose_small_predict)
+        smoke.phase("vitpose_large_predict", smoke.vitpose_large_predict)
+        smoke.phase("vitpose_huge_predict", smoke.vitpose_huge_predict)
+        smoke.phase("vitpose_large_train", smoke.vitpose_large_train)
+        smoke.phase("vitpose_huge_train", smoke.vitpose_huge_train)
         smoke.phase("jpeg_decode", smoke.jpeg_decode)
         smoke.phase("val_full", smoke.val_full)
         smoke.phase("val_full_jpeg", smoke.val_full_jpeg)
@@ -5305,6 +5624,8 @@ def main() -> int:
         smoke.phase("face_hand_kernels", smoke.face_hand_kernels)
         smoke.phase("face_hand_train", smoke.face_hand_train)
         smoke.phase("dpm_golden", smoke.dpm_golden)
+        smoke.phase("animal_fashion_predict", smoke.animal_fashion_predict)
+        smoke.phase("animal_fashion_runner", smoke.animal_fashion_runner)
         smoke.phase("timings", smoke.timings)
     left = stop_descendants()
     if left:

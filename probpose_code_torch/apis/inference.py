@@ -23,13 +23,13 @@ import numpy as np
 import torch
 
 from probpose_code_torch.config import Config
+from probpose_code_torch.datasets import config_metainfo
 from probpose_code_torch.datasets.metainfo import parse_pose_metainfo
 from probpose_code_torch.datasets.transforms.loading import read_image_bytes
 from probpose_code_torch.engine.checkpoint import load_checkpoint
 from probpose_code_torch.engine.runner import HEATMAP_KEYS
 from probpose_code_torch.models.builder import PoseModel
 from probpose_code_torch.ops.warp import warp_affine_batch
-from probpose_code_torch.registry import DATASETS
 from probpose_code_torch.structures.bbox import (
     bbox_xywh2xyxy,
     bbox_xyxy2cs,
@@ -70,10 +70,8 @@ def init_model(
         config.merge_from_dict(cfg_options)
 
     # the test set's metainfo: its config's, else its class's table, else COCO's (the JAX ``init_model``)
-    dataset = (config.get("test_dataloader", config.get("val_dataloader", {})) or {}).get("dataset", {}) or {}
-    dataset_cls = DATASETS.get(dataset["type"]) if isinstance(dataset.get("type"), str) else dataset.get("type")
-    metainfo = parse_pose_metainfo(dict(dataset.get("metainfo")
-                                        or getattr(dataset_cls, "METAINFO", {"dataset_name": "coco"})))
+    dataset = (config.get("test_dataloader", config.get("val_dataloader", {})) or {}).get("dataset")
+    metainfo = parse_pose_metainfo(config_metainfo(dataset))
 
     model_cfg = config["model"] if "model" in config else config
     model = PoseModel(model_cfg, metainfo=metainfo, device=device)

@@ -9,7 +9,9 @@ from .base_dataset import (  # noqa: F401  (registers the datasets and transform
     CocoWholeBodyHandDataset,
     CombinedDataset,
     Compose,
+    DeepFashionDataset,
     HalpeHandDataset,
     UBody2dDataset,
+    config_metainfo,
 )
 from .loader import DataLoader, collate_pose_samples  # noqa: F401

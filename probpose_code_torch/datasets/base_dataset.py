@@ -12,7 +12,10 @@ organization and filters), the body datasets under their metainfo
 and hand datasets (``FACE_HAND_DATASETS``, ``zoo.py:38-49``, and mmpose's
 readings of COCO-WholeBody's faces and hands and of Halpe's hands:
 ``CocoWholeBodyFaceDataset``, ``CocoWholeBodyHandDataset``,
-``HalpeHandDataset``) and ``CombinedDataset``.
+``HalpeHandDataset``), the animal, fashion and ExLPose datasets
+(``ANIMAL_FASHION_DATASETS``, ``zoo.py:35``, ``:55-69``, and
+``DeepFashionDataset`` with mmpose's ``subset``) and ``CombinedDataset``.
+``config_metainfo`` gives the table that a dataset config names.
 ``data_mode="bottomup"`` comes with the bottom-up slice.
 """
 
@@ -78,13 +81,19 @@ class BaseCocoStyleDataset:
         self.test_mode = test_mode
         self.sample_interval = sample_interval
 
-        raw_metainfo = metainfo if metainfo is not None else self.METAINFO
+        raw_metainfo = metainfo if metainfo is not None else self.class_metainfo(kwargs)
         self._metainfo = parse_pose_metainfo(dict(raw_metainfo))
         self.pipeline = Compose(pipeline)
 
         self.data_list = self.load_data_list()
 
     # -- metainfo --------------------------------------------------------
+
+    @classmethod
+    def class_metainfo(cls, dataset_cfg: dict) -> dict:
+        """The class's table for a config that names none (``dataset_cfg``
+        is the rest of the config; DeepFashion reads its ``subset``)."""
+        return dict(cls.METAINFO)
 
     @property
     def metainfo(self) -> dict:
@@ -276,10 +285,51 @@ FACE_HAND_DATASETS = dict(Face300WDataset="300w", Face300WLPDataset="300wlp", WF
                           AFLWDataset="aflw", COFWDataset="cofw", LapaDataset="lapa",
                           OneHand10KDataset="onehand10k", FreiHandDataset="freihand2d", Rhd2DDataset="rhd2d",
                           PanopticHand2DDataset="panoptic_hand2d")
-for _name, _table in {**BODY_DATASETS, **FACE_HAND_DATASETS}.items():
+# The animal, fashion and ExLPose datasets the same way (``datasets/zoo.py:35``, ``:55-69``), the JAX reading
+# of each file's ``bbox`` too.
+ANIMAL_FASHION_DATASETS = dict(AP10KDataset="ap10k", AnimalPoseDataset="animalpose", Horse10Dataset="horse10",
+                               MacaqueDataset="macaque", FlyDataset="fly", LocustDataset="locust",
+                               ZebraDataset="zebra", ATRWDataset="atrw", AnimalKingdomDataset="ak",
+                               DeepFashion2Dataset="deepfashion2", ExlposeDataset="exlpose")
+for _name, _table in {**BODY_DATASETS, **FACE_HAND_DATASETS, **ANIMAL_FASHION_DATASETS}.items():
     globals()[_name] = DATASETS.register_module(module=type(_name, (BaseCocoStyleDataset,), dict(
         METAINFO=dict(dataset_name=_table), __doc__=f"The COCO-style dataset under the {_table!r} metainfo.")))
 del _name, _table
+
+
+@DATASETS.register_module()
+class DeepFashionDataset(BaseCocoStyleDataset):
+    """DeepFashion's landmarks (mmpose's ``datasets/fashion/
+    deepfashion_dataset.py``): ``subset`` "full", "upper" or "lower" picks
+    the 8-, 6- or 4-keypoint table (``deepfashion_<subset>``), and any other
+    value raises, as mmpose's does. Without a ``subset`` the set is the full
+    one (mmpose raises; one shipped config of 8 outputs sets none, and the
+    JAX class reads it so). The JAX class (``datasets/zoo.py:68``)
+    takes ``subset`` into its ``**kwargs`` and reads every subset under the
+    8-keypoint table, so the upper and lower configs' 6 and 4 keypoints meet
+    8 flip indices; the port departs from it."""
+
+    METAINFO: dict = dict(dataset_name="deepfashion_full")
+    SUBSETS = ("full", "upper", "lower")
+
+    @classmethod
+    def class_metainfo(cls, dataset_cfg: dict) -> dict:
+        subset = dataset_cfg.get("subset", "full")
+        if subset not in cls.SUBSETS:
+            raise ValueError(f"DeepFashionDataset: subset {subset!r}, expected one of {cls.SUBSETS}")
+        return dict(dataset_name=f"deepfashion_{subset}")
+
+
+def config_metainfo(dataset_cfg: Optional[dict]) -> dict:
+    """The raw metainfo that a dataset config gives its set: the config's
+    ``metainfo``, else its class's table (``class_metainfo``), else COCO's
+    (the JAX ``init_model``'s and runner's default)."""
+    dataset_cfg = dict(dataset_cfg or {})
+    if dataset_cfg.get("metainfo"):
+        return dict(dataset_cfg["metainfo"])
+    kind = dataset_cfg.pop("type", None)
+    cls = DATASETS.get(kind) if isinstance(kind, str) else kind
+    return cls.class_metainfo(dataset_cfg) if hasattr(cls, "class_metainfo") else dict(dataset_name="coco")
 
 
 @DATASETS.register_module()

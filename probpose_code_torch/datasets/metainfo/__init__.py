@@ -5,7 +5,8 @@ CropCOCO (``coco_crop.py``: COCO's table under another name), AI
 Challenger (``data/aic.json``), the other body datasets of the body8
 recipes (``body.py``, ``halpe.py``: ``data/<name>.json``) and
 COCO-WholeBody and UBody-2D (``wholebody.py``) and the face and hand
-datasets (``face.py``, ``hand.py``):
+datasets (``face.py``, ``hand.py``), the animal and fashion datasets
+(``animal.py``, ``fashion.py``) and ExLPose (``body.py``):
 ``parse_pose_metainfo`` (``__init__.py:65``) over those tables.
 """
 
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from . import body, face, hand
+from . import animal, body, face, fashion, hand
 from .aic import AIC_METAINFO
 from .coco import COCO_METAINFO
 from .halpe import HALPE
@@ -27,7 +28,12 @@ DATASET_METAINFO = {"coco": COCO_METAINFO, "coco_crop": {**COCO_METAINFO, "datas
                     "300w": face.FACE_300W, "300wlp": face.FACE_300WLP, "wflw": face.WFLW, "cofw": face.COFW,
                     "aflw": face.AFLW, "lapa": face.LAPA, "coco_wholebody_face": face.COCO_WHOLEBODY_FACE,
                     "onehand10k": hand.ONEHAND10K, "freihand2d": hand.FREIHAND2D, "rhd2d": hand.RHD2D,
-                    "panoptic_hand2d": hand.PANOPTIC_HAND2D, "coco_wholebody_hand": hand.COCO_WHOLEBODY_HAND}
+                    "panoptic_hand2d": hand.PANOPTIC_HAND2D, "coco_wholebody_hand": hand.COCO_WHOLEBODY_HAND,
+                    "ap10k": animal.AP10K, "animalpose": animal.ANIMALPOSE, "horse10": animal.HORSE10,
+                    "macaque": animal.MACAQUE, "fly": animal.FLY, "locust": animal.LOCUST, "zebra": animal.ZEBRA,
+                    "atrw": animal.ATRW, "ak": animal.AK, "deepfashion_full": fashion.DEEPFASHION_FULL,
+                    "deepfashion_upper": fashion.DEEPFASHION_UPPER, "deepfashion_lower": fashion.DEEPFASHION_LOWER,
+                    "deepfashion2": fashion.DEEPFASHION2, "exlpose": body.EXLPOSE}
 
 
 def parse_pose_metainfo(metainfo: dict) -> dict:

@@ -39,6 +39,7 @@ import torch
 import probpose_code_torch.engine.hooks  # noqa: F401  (registers the hooks)
 import probpose_code_torch.evaluation  # noqa: F401  (registers the metric and evaluators)
 from probpose_code_torch.config import Config
+from probpose_code_torch.datasets import config_metainfo
 from probpose_code_torch.datasets.loader import HOST_KEYS, DataLoader
 from probpose_code_torch.datasets.metainfo import parse_pose_metainfo
 from probpose_code_torch.engine.checkpoint import (
@@ -95,10 +96,7 @@ class Runner:
 
         # the train set's metainfo: its config's, else its class's table (mmengine's dataset_meta; the JAX
         # runner takes COCO's for a dataset that names its table only by its class, such as CrowdPose's)
-        train_ds_cfg = (cfg.get("train_dataloader") or {}).get("dataset", {})
-        train_ds_cls = DATASETS.get(train_ds_cfg.get("type", "CocoDataset"))
-        self.metainfo = parse_pose_metainfo(dict(train_ds_cfg.get("metainfo")
-                                                 or getattr(train_ds_cls, "METAINFO", {"dataset_name": "coco"})))
+        self.metainfo = parse_pose_metainfo(config_metainfo((cfg.get("train_dataloader") or {}).get("dataset")))
         self.model = PoseModel(cfg["model"], metainfo=self.metainfo, device=device)
         self.model.init_weights(seed=0)
 

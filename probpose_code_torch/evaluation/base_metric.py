@@ -14,9 +14,9 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence
 
-import probpose_code_torch.datasets  # noqa: F401  (registers the dataset classes)
+from probpose_code_torch.datasets import config_metainfo
 from probpose_code_torch.datasets.metainfo import parse_pose_metainfo
-from probpose_code_torch.registry import DATASETS, EVALUATORS, METRICS
+from probpose_code_torch.registry import EVALUATORS, METRICS
 
 
 class BaseMetric:
@@ -95,9 +95,7 @@ class MultiDatasetEvaluator(Evaluator):
         super().__init__(metrics, dataset_meta=dataset_meta)
         self.dataset_names = []
         for ds_cfg in datasets:
-            ds_cls = DATASETS.get(ds_cfg["type"]) if isinstance(ds_cfg.get("type"), str) else ds_cfg.get("type")
-            metainfo = ds_cfg.get("metainfo") or getattr(ds_cls, "METAINFO", {"dataset_name": "coco"})
-            self.dataset_names.append(parse_pose_metainfo(dict(metainfo))["dataset_name"])
+            self.dataset_names.append(parse_pose_metainfo(config_metainfo(ds_cfg))["dataset_name"])
         assert len(self.dataset_names) == len(self.metrics), (
             f"{len(self.dataset_names)} datasets vs {len(self.metrics)} metrics"
         )

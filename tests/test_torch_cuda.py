@@ -79,8 +79,10 @@ from chip_smoke import (
     K1_F32_REL,
     TINY_CFG,
     UDP_FIXTURE_CFG,
+    VIT_LARGE_SHAPES,
     KeepSamples,
     NvjpegBatched,
+    Smoke,
     golden_errors,
     golden_jpeg_set,
     golden_png_set,
@@ -124,6 +126,29 @@ def test_vit_layer_matches_plain(card, B, N, C, H, F, dtype):
     assert vit_layer_prepared.launches == before + 1
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() / want.abs().max().item() < bar
+
+
+@pytest.mark.parametrize("C,H,F", VIT_LARGE_SHAPES, ids=["vitl", "vith"])
+def test_vit_layer_matches_plain_at_vit_large_and_huge(card, C, H, F):
+    """K1's f32 instance with erf GELU at ViT-L's width (16 heads of 64) and
+    ViT-H's (16 heads of 80: the two-pass attention) against its twin."""
+    from probpose_code_torch.ops.kernels.vit_layer import vit_layer, vit_layer_plain
+
+    x, p = layer_inputs(4, 192, C, F, torch.float32, seed=C)
+    kw = dict(num_heads=H, approximate_gelu=False, dtype=torch.float32)
+    with torch.inference_mode():
+        got, want = vit_layer(x, *p, **kw), vit_layer_plain(x, *p, **kw)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() / want.abs().max().item() < K1_F32_REL
+
+
+@pytest.mark.parametrize("D", [64, 80])
+def test_attention_matches_plain_at_vit_large_and_huge_heads(card, D):
+    """K4 in f32 over 16 heads of 64 (ViT-L) and of 80 (ViT-H) on strided
+    qkv views: the forward at ``K4_F32_ATOL`` and the gradient through the
+    Function at ``K4_GRAD_ATOL`` (``Smoke.k4_f32_errors`` raises on
+    either)."""
+    Smoke.k4_f32_errors(8, 192, 16, D, seed=D)
 
 
 # the shipped shapes, then maps whose sides are no multiple of K2's 16-output
