@@ -2563,10 +2563,10 @@ class Smoke:
     def vit_large_parity(self):
         """K1 in f32 with erf GELU at one layer of the ViTPose-L and -H predict
         calls (64 crops and their mirrors: B = 128, N = 192; C = 1024 with 16
-        heads of 64, and C = 1280 with 16 heads of 80, which takes the
-        two-pass attention) against its plain twin at ``K1_F32_REL``, and K4
-        in f32 at their training shapes (B = 64, 16 heads of 64 and of 80),
-        forward and gradient (``k4_f32_errors``)."""
+        heads of 64, and C = 1280 with 16 heads of 80, which takes the f32
+        attention's wide one-pass instance) against its plain twin at
+        ``K1_F32_REL``, and K4 in f32 at their training shapes (B = 64, 16
+        heads of 64 and of 80), forward and gradient (``k4_f32_errors``)."""
         import torch
 
         from probpose_code_torch.ops.kernels.vit_layer import vit_layer, vit_layer_plain
@@ -5259,6 +5259,7 @@ class Smoke:
         # K1's f32 instance at ViT-S, -L and -H's predict shapes, K4 at ViT-L and -H's training shapes
         k1f = {C: self.k1_f32_timings(128, N, C, H_, F_) for C, H_, F_ in ((384, 12, 1536), *VIT_LARGE_SHAPES)}
         k4f = {C: self.k4_timings(64, N, H_, C // H_, torch.float32) for C, H_, _ in VIT_LARGE_SHAPES}
+        self.attention_occupancy_report()
 
         # the launch counts above belong to the comparisons, not the main paths:
         # K1, K2 and K2b from the flagship predict run, K3 from the flagship
@@ -5381,7 +5382,8 @@ class Smoke:
                   f"{t['gflop'] / t['ms']:.1f} TFLOP/s, {t['ms'] / t['bound_ms']:.1f}x its bound, "
                   f"{t['ms'] / t['library_ms']:.2f}x the library, rel max err {t['rel']:.2e}; its products "
                   f"({t['prod_gflop']:.1f} GFLOP) {t['prod_ms']:.3f} ms of GEMM device time, "
-                  f"{t['prod_rate']:.1f} TFLOP/s")
+                  f"{t['prod_rate']:.1f} TFLOP/s; its attention (attention_fwd_kernel) {t['attn_ms']:.3f} ms of "
+                  f"its {t['device_ms']:.3f} ms device time ({100 * t['attn_ms'] / t['device_ms']:.1f}%)")
         for C, H_, _ in VIT_LARGE_SHAPES:
             t = k4f[C]
             print(f"K4 attention at the ViTPose-{'L' if C == 1024 else 'H'} training shape B=64 N={N} h={H_} "
@@ -5390,6 +5392,33 @@ class Smoke:
                   f"{t['bound_by']} ({t['gflop']:.2f} GFLOP, {t['mb']:.1f} MB), {t['gflop'] / t['ms']:.1f} TFLOP/s, "
                   f"{t['ms'] / t['bound_ms']:.1f}x its bound, {t['ms'] / t['library_ms']:.2f}x the library, "
                   f"max abs err {t['max_abs_err']:.3e}")
+
+    @staticmethod
+    def attention_occupancy_report():
+        """What the attention engine's instances hold on an SM at the shapes
+        the ViT paths give them (N = 192; f32 heads of 64 and 80, bf16 of
+        32) and, for heads of 80, the two-pass instance that N = 193 takes:
+        registers and spills a thread, shared memory a block, resident warps
+        an SM, from the card's function attributes (nothing is launched).
+        Fails where K1's or K4's f32 instance at heads of 80 keeps fewer than
+        8 warps on an SM."""
+        import torch
+
+        from probpose_code_torch.ops.kernels.attention import attention_occupancy
+
+        rows = {}
+        for what, dtype, N, D in (("f32", torch.float32, 192, 64), ("f32", torch.float32, 192, 80),
+                                  ("f32 two-pass", torch.float32, 193, 80), ("bf16", torch.bfloat16, 192, 32)):
+            for kernel, shift in (("K4", True), ("K1", False)):
+                o = attention_occupancy(dtype, N, D, shift)
+                rows[(kernel, what, N, D)] = o
+                print(f"attention instance {kernel} {what} N={N} d={D}: {o['registers']} registers a thread, "
+                      f"{o['local_bytes']} B local memory a thread (spills), {o['smem_bytes']} B shared memory and "
+                      f"{o['threads']} threads a block, {o['blocks_per_sm']} blocks and {o['warps_per_sm']} warps "
+                      f"an SM")
+        for kernel in ("K4", "K1"):
+            if rows[(kernel, "f32", 192, 80)]["warps_per_sm"] < 8:
+                raise AssertionError(f"{kernel}'s f32 attention at heads of 80 keeps fewer than 8 warps an SM")
 
     @staticmethod
     def k4_timings(B, N, H, D, dtype):
@@ -5430,8 +5459,9 @@ class Smoke:
         """K1 on prepared f32 weights with exact GELU, its plain twin and
         nn.TransformerEncoderLayer (f32, erf GELU) at one layer of a ViTPose
         predict call (64 crops and their mirrors; ViT-S, -B, -L or -H); the
-        bound with the products as 3xTF32, and the rate of the layer's
-        products from the device time of its GEMM kernels."""
+        bound with the products as 3xTF32, the rate of the layer's
+        products from the device time of its GEMM kernels, and its
+        attention's device time beside the layer's."""
         import torch
         import torch.nn as nn
 
@@ -5458,12 +5488,15 @@ class Smoke:
             libms = cuda_time_ms(lambda: lib(x), 5, warmup=1)
             prod_flops = 2 * B * N * C * (4 * C + 2 * F)
             prod_ms, prod_rate = Smoke.products_rate(lambda: vit_layer_prepared(x, w, **kw), prod_flops, calls=2)
+            attn_ms = Smoke.kernel_device_ms(lambda: vit_layer_prepared(x, w, **kw), "attention_fwd_kernel", calls=3)
+            device_ms = Smoke.kernel_device_ms(lambda: vit_layer_prepared(x, w, **kw), calls=3)
         ops = layer_flops(B, N, C, F)
         nbytes = 2 * x.numel() * 4 + sum(t.numel() * 4 for t in p)
         return dict(ms=ms, plain_ms=plain, library_ms=libms, rel=rel, max_abs_err=err, gflop=ops / 1e9,
                     bound_ms=max(ops / PEAK_F32_3XTF32, nbytes / PEAK_BYTES) * 1e3,
                     bound_by="operations" if ops / PEAK_F32_3XTF32 >= nbytes / PEAK_BYTES else "bytes",
-                    prod_gflop=prod_flops / 1e9, prod_ms=prod_ms, prod_rate=prod_rate)
+                    prod_gflop=prod_flops / 1e9, prod_ms=prod_ms, prod_rate=prod_rate, attn_ms=attn_ms,
+                    device_ms=device_ms)
 
     @staticmethod
     def k3_timings(B, N, C, H, F):

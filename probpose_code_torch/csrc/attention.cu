@@ -24,12 +24,19 @@
 // both products run on the tensor cores through the attention engine of
 // tc_tiles.cuh, bf16 as mma.sync m16n8k16 and f32 as 3xTF32 m16n8k8 (the f32
 // bar, 1e-4 absolute on unit-normal inputs, rules out single-pass TF32). At
-// N <= 192 and d <= 64 a head's K and V sit whole in shared memory and each
-// warp keeps its 16 queries' key row in registers: each score is computed
-// once, the row maximum is taken from the registers, and p is rounded after
-// the division as the TPU kernel rounds it (an online softmax would round
-// it elsewhere). Elsewhere, two passes over key chunks streamed through
-// shared memory: a running maximum and sum, then p v.
+// N <= 192 (the 256x192 crops) a head's K and V sit whole in shared memory
+// and each warp keeps its 16 queries' key row in registers: each score is
+// computed once, the row maximum is taken from the registers, and p is
+// rounded after the division as the TPU kernel rounds it (an online softmax
+// would round it elsewhere). That one pass takes heads up to 64 wide in
+// bf16 and f32, and in f32 also heads up to 96 wide (ViTPose-H's 80): one
+// block of 12 warps holds a head's 192 queries and reads its K and V once,
+// and the output is taken 48 columns at a time from the same p, so that the
+// accumulators fit beside the key row in the registers of one block an SM.
+// Elsewhere (longer rows, wider heads), two passes over key chunks through
+// shared memory: a running maximum and sum, then p v, the scores recomputed
+// for each 64 output columns. attention_occupancy reads what the chosen
+// instance holds on an SM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -72,6 +79,19 @@ extern "C" {
 // Why heads D wide cannot run, or NULL. dtype as below.
 const char* attention_shape_error(int dtype, int D) {
   return dtype == 0 ? tc::attention_shape_error<float>(D) : tc::attention_shape_error<__nv_bfloat16>(D);
+}
+
+// What the instance that N keys of heads D wide launch holds on an SM, into
+// out[5]: registers a thread, local memory a thread (spills), dynamic shared
+// memory a block, threads a block and blocks resident an SM. dtype as below;
+// shift 1: K4's instance (a max-shifted softmax), 0: K1's (vit_layer.cu,
+// exp(min(s, 80))). Returns 0 or the CUDA error code.
+int attention_occupancy(int dtype, int shift, int N, int D, int* out) {
+  if (dtype == 0)
+    return (int)(shift ? tc::attention_occupancy<float, true>(N, D, out)
+                       : tc::attention_occupancy<float, false>(N, D, out));
+  return (int)(shift ? tc::attention_occupancy<__nv_bfloat16, true>(N, D, out)
+                     : tc::attention_occupancy<__nv_bfloat16, false>(N, D, out));
 }
 
 const char* attention_error_string(int code) {

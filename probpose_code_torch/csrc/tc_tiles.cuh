@@ -46,15 +46,24 @@
 //    TPU kernels round it, then p @ v. q, k and v are read in place from
 //    strided views (the (B*N, 3C) rows of K1 and K3's qkv, or K4's (B, N, 3,
 //    h, d) projection); the output is (B*N, C) rows. A block takes 16 queries
-//    a warp. At N <= 192 and head widths up to 64 (the 256x192 crops), K and
-//    V sit whole in shared memory (v's copy lands while the scores are
-//    computed) and the key row stays in registers: one pass, each score
-//    computed once (bf16: 4 warps, 4 blocks an SM; f32: 12 warps, the 192
-//    queries of an image's head, one block an SM by registers). Otherwise
-//    two passes over key chunks (K4: a running maximum in the first), K and V
-//    whole in shared memory where they fit and streamed a chunk at a time
-//    where they do not, and the output computed 64 columns at a time; heads
-//    up to 896 wide.
+//    a warp. Which instance takes which shapes (attention_launch):
+//     - N <= 192 (the 256x192 crops), heads up to 64 wide: one pass. K and V
+//       sit whole in shared memory (v's copy lands while the scores are
+//       computed) and the key row stays in registers, so each score is
+//       computed once (bf16: 4 warps, 4 blocks an SM; f32: 12 warps, the 192
+//       queries of an image's head, one block an SM by registers).
+//     - f32, N <= 192, heads 65 to 96 wide (ViT-H's 80): the same one pass,
+//       12 warps and 192 queries a block, K and V read once for the head
+//       (193,536 bytes of shared memory at 80, 230,400 at 96); the output is
+//       computed 48 columns at a time from the same p in registers, so the
+//       accumulators take 24 registers beside the key row's 96, fewer than
+//       the instance above's 32, and no score is recomputed.
+//     - otherwise two passes over key chunks (K4: a running maximum in the
+//       first), K and V whole in shared memory where they fit and streamed a
+//       chunk at a time where they do not, and the output computed 64
+//       columns at a time, its scores recomputed for each; heads up to 896
+//       wide. Its f32 form runs 2 warps a block, so that a streamed block
+//       fits 896-wide heads.
 
 #pragma once
 
@@ -520,8 +529,9 @@ cudaError_t gemm_tf32(const float* A, const float* B, const Epi& epi, int M, int
 // zero columns. The rows a block sweeps (keys; queries on the key side of
 // the backward) sit whole in shared memory where they fit ("resident"), else
 // they stream through it a chunk at a time. An output wider than a kernel's
-// DMAX columns is computed DMAX columns at a time, its scores recomputed for
-// each.
+// DMAX columns is computed DMAX columns at a time: from the same p in
+// registers in the one-pass forward, its scores recomputed for each chunk
+// elsewhere.
 // ---------------------------------------------------------------------------
 constexpr int ATT_ROWS = 64, ATT_WARPS = 4, ATT_THREADS = ATT_WARPS * 32;
 
@@ -787,14 +797,15 @@ __host__ __device__ __forceinline__ size_t attention_fwd_smem(int rows, int kv_r
 // WARPS x 16 queries a block, KCH keys a chunk, DMAX output columns at a
 // time; SHIFT: K4's math (q scaled in T, a max-shifted softmax), else K1's
 // exp(min(s, 80)) on q as given. ONE (the
-// caller sees to N <= KCH and D <= DMAX): one pass, the scores stay in
-// registers, the loop over the depth unrolled. Otherwise two passes over key
-// chunks: the row sums (and, SHIFT, the running maxima), then p @ v for each
-// chunk of DMAX output columns.
+// caller sees to N <= KCH and D <= OCH x DMAX): one pass, the scores stay in
+// registers, the loop over the depth unrolled, and p @ v is taken for each
+// of the OCH chunks of DMAX output columns from the same p. Otherwise two
+// passes over key chunks: the row sums (and, SHIFT, the running maxima),
+// then p @ v for each chunk of DMAX output columns.
 // MINB blocks an SM bound the registers: the bf16 kernel is bound by
 // latency, not by its few operations, and four blocks an SM hide it better
 // than the registers the compiler would otherwise take.
-template <typename T, int WARPS, int KCH, int DMAX, bool ONE, bool SHIFT, int MINB>
+template <typename T, int WARPS, int KCH, int DMAX, bool ONE, bool SHIFT, int MINB, int OCH = 1>
 __global__ void __launch_bounds__(WARPS * 32, MINB)
 attention_fwd_kernel(const Heads<T> a, int resident) {
   constexpr int ROWS = 16 * WARPS, THREADS = 32 * WARPS;
@@ -853,7 +864,7 @@ attention_fwd_kernel(const Heads<T> a, int resident) {
 
   auto scores = [&](int ko, int c0) {
     zero(s);
-    mma_abt<KCH / 16, ONE ? DMAX : 0>(s, qw, ks + ko, P, DP, N - c0, lane);
+    mma_abt<KCH / 16, ONE ? OCH * DMAX : 0>(s, qw, ks + ko, P, DP, N - c0, lane);
   };
   auto exps = [&](int c0) {
     if constexpr (SHIFT)
@@ -882,8 +893,8 @@ attention_fwd_kernel(const Heads<T> a, int resident) {
     inv0 = 1.f / l0;
     inv1 = 1.f / l1;
   };
-  // o += p @ v[:, dc0:]; p = s / l, rounded to T (in mma_ab) after the division
-  auto pv = [&](int ko, int c0, int dc0) {
+  // p = s / l in place, rounded to T (in mma_ab) after the division
+  auto divide = [&]() {
 #pragma unroll
     for (int j = 0; j < KCH / 8; ++j) {
       s[j][0] = div_by(s[j][0], l0, inv0);
@@ -891,6 +902,9 @@ attention_fwd_kernel(const Heads<T> a, int resident) {
       s[j][2] = div_by(s[j][2], l1, inv1);
       s[j][3] = div_by(s[j][3], l1, inv1);
     }
+  };
+  // o += p @ v[:, dc0:]
+  auto pv = [&](int ko, int c0, int dc0) {
     mma_ab<KCH / 16, DMAX>(o, s, vs + ko + dc0, P, DP - dc0, N - c0, lane);
   };
 
@@ -909,9 +923,15 @@ attention_fwd_kernel(const Heads<T> a, int resident) {
     reduce();
     cp_async_wait<0>();
     __syncthreads();
-    zero(o);
-    pv(0, 0, 0);
-    store_rows(orow, pitch, o, r, N, D, lane);
+    divide();
+#pragma unroll
+    for (int c = 0; c < OCH; ++c) {  // DMAX output columns at a time, each from the same p
+      const int dc0 = c * DMAX;
+      if (c > 0 && dc0 >= DP) break;
+      zero(o);
+      pv(0, 0, dc0);
+      store_rows(orow + dc0, pitch, o, r, N, D - dc0, lane);
+    }
   } else {
     for (int c0 = 0; c0 < N; c0 += KCH) {
       scores(chunk(c0, false), c0);
@@ -935,6 +955,7 @@ attention_fwd_kernel(const Heads<T> a, int resident) {
         const int ko = chunk(c0, true);
         scores(ko, c0);
         exps(c0);
+        divide();
         pv(ko, c0, dc0);
       }
       store_rows(orow + dc0, pitch, o, r, N, D - dc0, lane);
@@ -949,6 +970,8 @@ attention_fwd_kernel(const Heads<T> a, int resident) {
 // The instances of T. One pass (N <= 192, heads up to 64 wide): bf16 4 warps
 // and 4 blocks an SM; f32 the 192 queries of a head in 12 warps, its key row
 // (96 registers) and output (32) within the 168 registers of one block an SM.
+// f32's wide one pass (N <= 192, heads up to WIDE_D = 96 wide): the same 12
+// warps, the output in chunks of WIDE_DMAX = 48 columns (24 registers).
 // Two passes: bf16 4 warps and 32-key chunks; f32 2 warps and 16-key chunks,
 // so that heads up to 896 wide fit one block's shared memory when streamed.
 template <typename T> struct AttCfg;
@@ -956,33 +979,72 @@ template <> struct AttCfg<bf16> {
   static constexpr int ONE_WARPS = 4, ONE_MINB = 4, WARPS = 4, KCH = 32, MINB = 4;
 };
 template <> struct AttCfg<float> {
-  static constexpr int ONE_WARPS = 12, ONE_MINB = 1, WARPS = 2, KCH = 16, MINB = 4;
+  static constexpr int ONE_WARPS = 12, ONE_MINB = 1, WARPS = 2, KCH = 16, MINB = 4, WIDE_D = 96, WIDE_DMAX = 48;
 };
 
-template <class Kern, typename T>
-cudaError_t launch_attention_kernel(Kern kernel, int warps, dim3 grid, size_t smem, cudaStream_t s, const Heads<T>& a,
-                                    int resident) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, warps * 32, smem, s>>>(a, resident);
-  return cudaGetLastError();
+// What attention_heads launches for N keys of heads D wide: the instance,
+// its threads, grid and shared memory, and whether K and V sit whole in
+// shared memory
+template <typename T>
+struct AttLaunch {
+  void (*kernel)(const Heads<T>, int);
+  int threads;
+  dim3 grid;
+  size_t smem;
+  int resident;
+};
+
+template <typename T, bool SHIFT>
+AttLaunch<T> attention_launch(int N, int D, int H, int B) {
+  using Cfg = AttCfg<T>;
+  const int NP = round16(N);
+  if (N <= 192 && round16(D) <= 64) {
+    constexpr int W = Cfg::ONE_WARPS;
+    return {attention_fwd_kernel<T, W, 192, 64, true, SHIFT, Cfg::ONE_MINB>, 32 * W,
+            dim3((N + 16 * W - 1) / (16 * W), H, B), attention_fwd_smem<T>(16 * W, NP, D), 1};
+  }
+  if constexpr (sizeof(T) == 4) {
+    if (N <= 192 && round16(D) <= Cfg::WIDE_D) {
+      constexpr int W = Cfg::ONE_WARPS, OCH = Cfg::WIDE_D / Cfg::WIDE_DMAX;
+      return {attention_fwd_kernel<T, W, 192, Cfg::WIDE_DMAX, true, SHIFT, Cfg::ONE_MINB, OCH>, 32 * W,
+              dim3((N + 16 * W - 1) / (16 * W), H, B), attention_fwd_smem<T>(16 * W, NP, D), 1};
+    }
+  }
+  constexpr int W = Cfg::WARPS;
+  const int resident = attention_fwd_smem<T>(16 * W, NP, D) <= kSmemMax;
+  return {attention_fwd_kernel<T, W, Cfg::KCH, 64, false, SHIFT, Cfg::MINB>, 32 * W,
+          dim3((N + 16 * W - 1) / (16 * W), H, B), attention_fwd_smem<T>(16 * W, resident ? NP : Cfg::KCH, D),
+          resident};
 }
 
 template <typename T, bool SHIFT>
 cudaError_t attention_heads(const Heads<T>& a, int B, cudaStream_t s) {
-  using Cfg = AttCfg<T>;
-  const int N = a.N, D = a.D, NP = round16(N);
-  if (N <= 192 && round16(D) <= 64) {
-    constexpr int W = Cfg::ONE_WARPS;
-    const dim3 grid((N + 16 * W - 1) / (16 * W), a.H, B);
-    return launch_attention_kernel(attention_fwd_kernel<T, W, 192, 64, true, SHIFT, Cfg::ONE_MINB>, W, grid,
-                                   attention_fwd_smem<T>(16 * W, NP, D), s, a, 1);
-  }
-  constexpr int W = Cfg::WARPS;
-  const dim3 grid((N + 16 * W - 1) / (16 * W), a.H, B);
-  const int resident = attention_fwd_smem<T>(16 * W, NP, D) <= kSmemMax;
-  return launch_attention_kernel(attention_fwd_kernel<T, W, Cfg::KCH, 64, false, SHIFT, Cfg::MINB>, W, grid,
-                                 attention_fwd_smem<T>(16 * W, resident ? NP : Cfg::KCH, D), s, a, resident);
+  const AttLaunch<T> l = attention_launch<T, SHIFT>(a.N, a.D, a.H, B);
+  cudaError_t e = cudaFuncSetAttribute(l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+  if (e != cudaSuccess) return e;
+  const auto kernel = l.kernel;
+  kernel<<<l.grid, l.threads, l.smem, s>>>(a, l.resident);
+  return cudaGetLastError();
+}
+
+// What the instance attention_heads launches for (N, D) holds on an SM:
+// out = {registers a thread, local memory a thread (spills), dynamic shared
+// memory a block, threads a block, blocks resident an SM}
+template <typename T, bool SHIFT>
+cudaError_t attention_occupancy(int N, int D, int* out) {
+  const AttLaunch<T> l = attention_launch<T, SHIFT>(N, D, 1, 1);
+  cudaError_t e = cudaFuncSetAttribute(l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+  cudaFuncAttributes attr{};
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, l.kernel);
+  int blocks = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, l.kernel, l.threads, l.smem);
+  if (e != cudaSuccess) return e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)l.smem;
+  out[3] = l.threads;
+  out[4] = blocks;
+  return cudaSuccess;
 }
 
 // K1 and K3's attention: a (B*N, 3C) qkv, C a multiple of 8; out (B*N, C),

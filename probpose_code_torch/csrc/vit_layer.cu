@@ -32,10 +32,10 @@
 // the f32 residual, GELU) on the accumulators. bf16 operands go as they
 // are; f32 operands as 3xTF32 (each split into two TF32 parts, three
 // products), since the f32 bar (relative error 1e-4) rules out single-pass
-// TF32's 2^-11. At the 256x192 crops' shape (N = 192, heads up to 64 wide)
-// the attention computes each score once and keeps the key row in
-// registers, and at any shape it never writes the N x N scores to device
-// memory.
+// TF32's 2^-11. At the 256x192 crops' shape (N = 192; heads up to 64 wide,
+// and in f32 up to 96, ViT-H's 80) the attention computes each score once
+// and keeps the key row in registers, and at any shape it never writes the
+// N x N scores to device memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

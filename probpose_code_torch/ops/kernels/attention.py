@@ -13,10 +13,12 @@ tensor cores (``csrc/tc_tiles.cuh``: bf16 as mma.sync m16n8k16, f32 as
 3xTF32 m16n8k8, whose error of about 2^-22 a product keeps the f32 bar);
 q, k and v are read in place from the qkv projection's strided
 (B, N, 3, h, d) view and the output is written as (B, N, C), so no
-transpose reaches device memory; at N <= 192 and d <= 64 each score is
-computed once and the key row stays in registers, elsewhere K and V stream
-through shared memory in key chunks, so the N x N scores never reach
-device memory. Heads up to 896 wide.
+transpose reaches device memory; at N <= 192 with d <= 64, and in f32 with
+d <= 96 (ViTPose-H's 80), each score is computed once and the key row stays
+in registers, elsewhere K and V stream through shared memory in key chunks,
+so the N x N scores never reach device memory. Heads up to 896 wide.
+``attention_occupancy`` reads what the instance chosen for a shape holds on
+an SM (registers, spills, shared memory, resident blocks).
 
 ``fused_attention`` is a ``torch.autograd.Function``. Its forward is the
 kernel on a CUDA tensor and ``fused_attention_plain`` on a CPU tensor; it
@@ -40,6 +42,7 @@ _SIGNATURES = {
     "attention_forward": [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
     + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
     "attention_shape_error": ([ctypes.c_int] * 2, ctypes.c_char_p),
+    "attention_occupancy": [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)],
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -103,6 +106,21 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: f
 
 
 attention_kernel.launches = 0
+
+
+def attention_occupancy(dtype: torch.dtype, N: int, D: int, shift: bool = True) -> dict:
+    """What the instance that the attention engine launches for N keys of
+    heads D wide holds on an SM of the current card: registers and local
+    memory (spills) a thread, dynamic shared memory and threads a block,
+    resident blocks and warps an SM. ``shift``: K4's instance (a max-shifted
+    softmax), else K1's. Reads the card's function attributes; launches
+    nothing."""
+    lib = _lib()
+    out = (ctypes.c_int * 5)()
+    _build.check(lib, "attention", lib.attention_occupancy(_DTYPE_CODE[dtype], int(shift), N, D, out))
+    regs, local, smem, threads, blocks = out
+    return dict(registers=regs, local_bytes=local, smem_bytes=smem, threads=threads, blocks_per_sm=blocks,
+                warps_per_sm=blocks * threads // 32)
 
 
 def _forward(q, k, v, scale):

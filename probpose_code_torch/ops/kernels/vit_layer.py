@@ -16,10 +16,11 @@ epilogue (bias, the f32 residual, GELU): bf16 operands as they are, f32
 operands as 3xTF32 (each split into two TF32 parts, three products: about
 2^-22 relative error a product, where the f32 bar of 1e-4 rules out
 single-pass TF32's 2^-11). The attention never writes the N x N scores to
-device memory (at N <= 192 with heads up to 64 wide it computes each score
-once and keeps the key row in registers; elsewhere it makes two passes over
-key chunks). A whole layer does not fit one block (x alone is 295 KB in f32
-for four images), so the intermediates round-trip through device memory.
+device memory (at N <= 192 with heads up to 64 wide, and in f32 up to 96,
+it computes each score once and keeps the key row in registers; elsewhere
+it makes two passes over key chunks). A whole layer does not fit one block
+(x alone is 295 KB in f32 for four images), so the intermediates round-trip
+through device memory.
 
 Both instances take every shape that ``fits`` admits, with heads up to 896
 wide; ``vit_layer_prepared`` raises on a wider head (there is no other

@@ -37,8 +37,10 @@ from probpose_code_torch.ops.kernels.attention import (
 from probpose_code_tpu.ops.pallas.attention import fused_attention as jax_fused_attention
 from probpose_code_tpu.ops.pallas.attention import xla_attention as jax_xla_attention
 
-# (B, N, h, d): ProbPose-S's head width, ViTPose-B's, and an N that is not a multiple of 8
-SHAPES = [(2, 192, 4, 32), (2, 192, 2, 64), (1, 37, 3, 32)]
+# (B, N, h, d): ProbPose-S's head width, ViTPose-B's, an N that is not a
+# multiple of 8, ViTPose-H's heads of 80 and the widest head (96) that the f32
+# kernel's one-pass instances take
+SHAPES = [(2, 192, 4, 32), (2, 192, 2, 64), (1, 37, 3, 32), (1, 192, 2, 80), (1, 64, 2, 96)]
 BF16_STEP = 2.0 ** -8
 
 

@@ -459,11 +459,14 @@ def test_runner_trains_on_the_card(card, tmp_path):
     assert stop_descendants(grace=2.0) == []
 
 
-# one pass (N <= 192, d <= 64); two passes with K and V whole in shared memory
-# (1, 200, 2, 160) or streamed: keys beyond it (1, 1024, 2, 64), and a head
-# of 824 (1, 40, 1, 824)
+# one pass (N <= 192, d <= 64); f32's wide one pass (N <= 192, d <= 96:
+# ViT-H's 80, a ragged N at 72, the widest 96), whose shapes bf16 and, just
+# past either edge, (1, 193, 2, 80) and (1, 192, 2, 104), take two passes;
+# two passes with K and V whole in shared memory (1, 200, 2, 160) or
+# streamed: keys beyond it (1, 1024, 2, 64), and a head of 824 (1, 40, 1, 824)
 @pytest.mark.parametrize("B,N,H,D", [(2, 192, 12, 64), (3, 37, 5, 8), (1, 200, 2, 160), (2, 16, 3, 36),
-                                     (1, 1024, 2, 64), (1, 40, 1, 824)])
+                                     (1, 1024, 2, 64), (1, 40, 1, 824), (2, 192, 16, 80), (3, 37, 5, 72),
+                                     (1, 192, 2, 96), (1, 193, 2, 80), (1, 192, 2, 104)])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_attention_matches_plain(card, B, N, H, D, dtype):
     from probpose_code_torch.ops.kernels.attention import attention_kernel, fused_attention_plain
@@ -484,16 +487,32 @@ def test_attention_matches_plain(card, B, N, H, D, dtype):
     assert torch.equal(again, got)
 
 
+@pytest.mark.parametrize("D", [64, 80])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_attention_repeats_bit_for_bit(card, dtype):
-    """K4 at the ViTPose-B train step's shape gives the same bits on every
-    launch: a race between the warps of a block would show as a change."""
+def test_attention_repeats_bit_for_bit(card, dtype, D):
+    """K4 at the ViTPose-B and -H train steps' head widths gives the same
+    bits on every launch: a race between the warps of a block (12 of them in
+    f32's one-pass instances) would show as a change."""
     from probpose_code_torch.ops.kernels.attention import attention_kernel
 
-    q, k, v = qkv_views(4, 192, 12, 64, getattr(torch, dtype), seed=3)
-    first = attention_kernel(q, k, v, 0.125)
+    q, k, v = qkv_views(4, 192, 12, D, getattr(torch, dtype), seed=3)
+    first = attention_kernel(q, k, v, D ** -0.5)
     for _ in range(50):
-        assert torch.equal(attention_kernel(q, k, v, 0.125), first)
+        assert torch.equal(attention_kernel(q, k, v, D ** -0.5), first)
+
+
+@pytest.mark.parametrize("D", [64, 80, 96])
+def test_f32_attention_keeps_its_head_on_one_sm(card, D):
+    """At N = 192 the f32 instances of K1 and K4 hold a head's 192 queries
+    in one block of 12 warps up to heads of 96, one block an SM; the wide
+    instance (heads 65 to 96) spills nothing."""
+    from probpose_code_torch.ops.kernels.attention import attention_occupancy
+
+    for shift in (True, False):
+        o = attention_occupancy(torch.float32, 192, D, shift)
+        assert (o["threads"], o["blocks_per_sm"], o["warps_per_sm"]) == (384, 1, 12), o
+        if D > 64:
+            assert o["local_bytes"] == 0, o
 
 
 def test_attention_rejects_what_it_does_not_take(card):
