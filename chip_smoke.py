@@ -192,15 +192,24 @@ Run in this order among them: after ``vitpose_train``, ``vit_large_parity``
 (K1 in f32 at a layer of ViTPose-L's and -H's predict calls, C = 1024 and
 C = 1280 with heads of 80, against its twin; K4 at their training shapes,
 forward and gradient), ``vitpose_small_predict``, ``vitpose_large_predict``
-and ``vitpose_huge_predict`` (as ``vitpose_predict``: K1 x12, x24, x32 a
-call) and ``vitpose_large_train`` and ``vitpose_huge_train`` (as
-``vitpose_train`` at B = 64: K4 x24, x32 a step, peak memory, the classic
-head's share of the step); after ``dpm_golden``, ``animal_fashion_predict``
+and ``vitpose_huge_predict`` (as ``vitpose_predict``: K1 x12 a call, and
+ViT-L's and -H's first ``VIT_LARGE_DEPTH`` layers of 24 and 32, K1 a layer)
+and ``vitpose_large_train`` and ``vitpose_huge_train`` (as
+``vitpose_train`` at B = 64, their first ``VIT_LARGE_DEPTH`` layers: K4 a
+layer a step, peak memory, the classic head's share of the step); after ``dpm_golden``, ``animal_fashion_predict``
 (AP-10K HRNet-w32 and RTMPose-m, Animal Kingdom, DeepFashion upper and
 DeepFashion2 at full width through ``predict_phase``) and
 ``animal_fashion_runner`` (each through ``tools.train``, one epoch of 2
-steps with val, then ``tools.test``). ``timings`` also times K1 in f32 at
-ViTPose-S, -L and -H's shapes and K4 at ViTPose-L and -H's.
+steps with val, then ``tools.test``); then ``cnn_zoo_golden`` (the SCNet-50
+and narrow ViPNAS fixtures, ``CNN_ZOO_FIXTURES``, at 257 x 193),
+``cnn_zoo_kernels`` (SCNet's gate kernels, ``csrc/sc_gate.cu``, and the
+split attention's, ``csrc/split_attention.cu``, against their twins at
+SCNet-50's and ResNeSt-50's step shapes, timed), ``cnn_zoo_predict`` (the nine
+``CNN_ZOO`` recipes through ``predict_phase``: crops/s, busy share, peak
+memory; ShuffleNetV2's channel shuffle share) and ``cnn_zoo_train``
+(SCNet-50, ResNeSt-50 and ViPNAS-Res50 steps at B = 64 and the 2% rule's op
+shares). ``timings`` also times K1 in f32 at ViTPose-S, -L and -H's shapes
+and K4 at ViTPose-L and -H's.
 
 The lines before the last hold the kernels' record as JSON (each kernel's
 ``launches`` from the flagship's paths, and ``launches_by_path`` on every
@@ -212,7 +221,10 @@ TPU kernel either: the ``augment`` line, each one's ``ports`` the JAX
 transform it ports, the median's ``launches`` from
 ``rtmpose_train_runner``'s main path, the distortion's from
 ``body8_train_runner``'s, and each one's ``launches_by_path`` on every path
-that augments on the card), the last line ``{"ok": true,
+that augments on the card) and the CNN backbones' kernels' (no TPU
+kernel: the ``cnn_zoo`` line, ``launches`` from ``cnn_zoo_train``'s SCNet-50
+step for SCNet's gate and its ResNeSt-50 step for the split attention), the
+last line ``{"ok": true,
 "device": ...}``. Any failure exits non-zero without them. It imports neither JAX nor the JAX package.
 """
 
@@ -284,6 +296,18 @@ ANIMAL_FASHION_RECIPES = dict(
     deepfashion2_res50=ROOT / ("configs/fashion_2d_keypoint/topdown_heatmap/deepfashion2/"
                                "td-hm_res50_4xb64-210e_deepfashion2-256x192.py"),
 )
+# and the ViPNAS DeepFashion recipes, which ``animal_fashion_predict`` runs beside them
+VIPNAS_FASHION = {f"deepfashion_{subset}_vipnas": ROOT / (
+    f"configs/fashion_2d_keypoint/topdown_heatmap/deepfashion/td-hm_vipnas-res50_8xb64-210e_deepfashion_{subset}"
+    "-192x256.py") for subset in ("full", "upper", "lower")}
+# the ResNet-like and small CNN recipes that ``cnn_zoo_predict`` runs, all COCO's 256 x 192 but the last
+CNN_ZOO = {name: ROOT / f"configs/body_2d_keypoint/topdown_heatmap/coco/td-hm_{name}_8xb64-210e_coco-256x192.py"
+           for name in ("resnetv1d50", "resnext50", "seresnet50", "scnet50", "resnest50", "shufflenetv2", "vgg16-bn",
+                        "vipnas-res50")}
+CNN_ZOO["vipnas-res50_wholebody"] = ROOT / ("configs/wholebody_2d_keypoint/topdown_heatmap/coco-wholebody/"
+                                            "td-hm_vipnas-res50_8xb64-210e_coco-wholebody-256x192.py")
+# and the recipes whose bare step ``cnn_zoo_train`` runs
+CNN_ZOO_TRAIN = ("scnet50", "resnest50", "vipnas-res50")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them (the FMA units: K2 and K3's f32 instance), and device memory.
@@ -430,6 +454,15 @@ GAU_TIMED = ((64, 133), (256, 106), (256, 21))
 DEPTHWISE_REL = 1e-5
 DEPTHWISE_GRAD_REL = 1e-4
 AWING_REL = 1e-5
+# SCNet's gate kernels against their twin: the same f32 operations in another
+# order (the resize's backward gathered in a fixed order where PyTorch's
+# scatters by atomics), so a few ulp of each output's largest value
+SC_GATE_REL = 1e-5
+SC_GATE_GRAD_REL = 1e-5
+# the split attention's kernels against their twin: the same f32 operations,
+# the dot products over space summed in another order
+SPLIT_ATTENTION_REL = 1e-5
+SPLIT_ATTENTION_GRAD_REL = 1e-5
 _TOPDOWN_TEST = dict(test_dataloader=dict(dataset=dict(pipeline=[
     dict(type="LoadImage"), dict(type="GetBBoxCenterScale"), dict(type="TopdownAffine", input_size=(192, 256)),
     dict(type="PackPoseInputs")])))
@@ -509,6 +542,38 @@ FACE_REGRESSION_FIXTURE = dict(
     keys=("keypoints",),
 )
 FACE_FIXTURES = (FACE_RTMPOSE_FIXTURE, FACE_REGRESSION_FIXTURE)
+# ``tests/golden_torch/{scnet,vipnas}_fixture.npz``: SCNet-50 (full width: the JAX module has no width option) with
+# a narrow HeatmapHead, and a narrow ViPNAS_ResNet with ViPNASHead (16 groups a deconvolution), both MSRA at a
+# 193 x 257 input, where every strided input is odd and the JAX modules' "SAME" padding agrees with the port's
+# (mmpose's); their weights made at run time from seeds (``seeded_fixture_state``), their JAX outputs from the
+# JAX variables that ``state_dict_from_jax`` carries onto those weights exactly
+_ODD_PIPELINE = [dict(type="LoadImage"), dict(type="GetBBoxCenterScale"),
+                 dict(type="TopdownAffine", input_size=(193, 257)), dict(type="PackPoseInputs")]
+_ODD_MSRA = dict(type="MSRAHeatmap", input_size=(193, 257), heatmap_size=(56, 72), sigma=2)
+SCNET_FIXTURE = dict(
+    name="scnet",
+    cfg=dict(test_dataloader=dict(dataset=dict(pipeline=_ODD_PIPELINE)), model=dict(
+        type="TopdownPoseEstimator", data_preprocessor=_PREPROCESSOR, backbone=dict(type="SCNet", depth=50),
+        head=dict(type="HeatmapHead", in_channels=2048, out_channels=17, deconv_out_channels=(16, 16, 16),
+                  deconv_kernel_sizes=(4, 4, 4), loss=dict(type="KeypointMSELoss", use_target_weight=True),
+                  decoder=_ODD_MSRA),
+        test_cfg=dict(flip_test=True))),
+    weights=lambda: seeded_fixture_state(SCNET_FIXTURE), outputs=GOLDEN_JPEG / "scnet_fixture.npz",
+    keys=("heatmaps",),
+)
+VIPNAS_FIXTURE = dict(
+    name="vipnas",
+    cfg=dict(test_dataloader=dict(dataset=dict(pipeline=_ODD_PIPELINE)), model=dict(
+        type="TopdownPoseEstimator", data_preprocessor=_PREPROCESSOR,
+        backbone=dict(type="ViPNAS_ResNet", depth=50, wid=(16, 32, 32, 64, 64), dep=(None, 2, 2, 3, 2)),
+        head=dict(type="ViPNASHead", in_channels=64, out_channels=17, deconv_out_channels=(32, 32, 32),
+                  deconv_num_groups=(16, 16, 16), loss=dict(type="KeypointMSELoss", use_target_weight=True),
+                  decoder=_ODD_MSRA),
+        test_cfg=dict(flip_test=True))),
+    weights=lambda: seeded_fixture_state(VIPNAS_FIXTURE), outputs=GOLDEN_JPEG / "vipnas_fixture.npz",
+    keys=("heatmaps",),
+)
+CNN_ZOO_FIXTURES = (SCNET_FIXTURE, VIPNAS_FIXTURE)
 # the keys of a kernel's record that K2 and K2b fill from ``k2_timings``
 K2_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 K3_NAMES = ("out", "dx", "ln1_scale", "ln1_bias", "w_qkv", "b_qkv", "w_proj", "b_proj",
@@ -983,6 +1048,19 @@ def dpm_fixture_state():
             last = [m for m in getattr(model.module.head, tower).modules() if isinstance(m, torch.nn.Conv2d)][-1]
             last.weight.mul_(12.0)
             last.bias.copy_(torch.from_numpy(rng.normal(0.0, 1.0, last.bias.shape).astype(np.float32)))
+    return {k: v.clone() for k, v in model.module.state_dict().items()}
+
+
+def seeded_fixture_state(fixture):
+    """A model fixture's weights made on the CPU from seeds:
+    ``PoseModel.init_weights(seed=0)`` and the BatchNorm statistics
+    randomized from seed 1, as a state dict."""
+    from probpose_code_torch.datasets.metainfo import parse_pose_metainfo
+    from probpose_code_torch.models.builder import PoseModel
+
+    model = PoseModel(fixture["cfg"]["model"], metainfo=parse_pose_metainfo({"dataset_name": "coco"}), device="cpu")
+    model.init_weights(seed=0)
+    randomize_batch_stats(model.module, seed=1)
     return {k: v.clone() for k, v in model.module.state_dict().items()}
 
 
@@ -1856,6 +1934,29 @@ K1_RECORDS = {("torch.bfloat16", 384): "vit_layer", ("torch.float32", 768): "vit
 K4_RECORDS = {768: "attention", 1024: "attention_vitl", 1280: "attention_vith"}
 
 
+# ViTPose-L's and -H's predict and train paths run their first layers only
+# (of 24 and 32): the script's time limit. K1 and K4 at their full layer
+# shapes are held by ``vit_large_parity`` and timed by ``timings``.
+VIT_LARGE_DEPTH = 8
+
+
+def vit_config(config, layers):
+    """A ViTPose config file with its backbone cut to its first ``layers``
+    layers (its layer decay over them): the config as it is where it has
+    no more."""
+    from probpose_code_torch.config import Config
+    from probpose_code_torch.models.backbones.vit import VIT_ARCH_ZOO
+
+    cfg = Config.fromfile(str(config))
+    arch = cfg["model"]["backbone"]["arch"]
+    arch = dict(VIT_ARCH_ZOO[arch] if isinstance(arch, str) else arch)
+    if layers < arch["num_layers"]:
+        cfg.merge_from_dict({"model.backbone.arch": dict(arch, num_layers=layers)})
+        if "num_layers" in (cfg["optim_wrapper"].get("paramwise_cfg") or {}):
+            cfg.merge_from_dict({"optim_wrapper.paramwise_cfg.num_layers": layers})
+    return cfg
+
+
 def k1_record(model) -> str:
     """The kernels line's record of the K1 instance that ``model`` runs."""
     backbone = model.module.backbone
@@ -1900,6 +2001,16 @@ def face_hand_counters():
                 adaptive_wing_backward=adaptive_wing.adaptive_wing_backward)
 
 
+def cnn_zoo_counters():
+    """The CNN backbones' kernels' wrappers (no TPU kernel: their own line),
+    whose ``launches`` count their kernels' launches."""
+    from probpose_code_torch.ops.kernels import sc_gate, split_attention
+
+    return dict(sc_gate_forward=sc_gate.sc_gate_forward, sc_gate_backward=sc_gate.sc_gate_backward,
+                split_attention_forward=split_attention.split_attention_forward,
+                split_attention_backward=split_attention.split_attention_backward)
+
+
 def has_gau(model) -> bool:
     """Whether ``model``'s head runs a GAU (RTMPose's ``RTMCCHead``)."""
     from probpose_code_torch.models.utils.rtmcc_block import RTMCCBlock
@@ -1909,15 +2020,16 @@ def has_gau(model) -> bool:
 
 def reset_counts():
     """Every kernel's count, the JPEG decode's, the photometric kernels',
-    the GAU kernels' and the face and hand kernels' set to 0; returns a
-    reader of the kernels' counts (``decode_batch.launches`` holds the
-    decode's, ``augment_counters``, ``gau_counters`` and
-    ``face_hand_counters`` the others)."""
+    the GAU kernels', the face and hand kernels' and the CNN backbones'
+    set to 0; returns a reader of the kernels' counts
+    (``decode_batch.launches`` holds the decode's, ``augment_counters``,
+    ``gau_counters``, ``face_hand_counters`` and ``cnn_zoo_counters`` the
+    others)."""
     from probpose_code_torch.ops.kernels.jpeg import decode_batch
 
     counters = kernel_counters()
     for c in (*counters.values(), *augment_counters().values(), *gau_counters().values(),
-              *face_hand_counters().values(), decode_batch):
+              *face_hand_counters().values(), *cnn_zoo_counters().values(), decode_batch):
         c.launches = 0
     return lambda: {k: c.launches for k, c in counters.items()}
 
@@ -2262,6 +2374,20 @@ class Smoke:
         if any(bool(launches[k]) != v for k, v in want.items()):
             raise AssertionError(f"{path}: face and hand kernel launches {launches}, expected launched {want}")
 
+    def read_cnn_zoo(self, path, model, backward=False):
+        """The CNN backbones' kernels' launches on ``path``'s main path (their
+        counts set to 0 with the others'), kept for the ``cnn_zoo`` line.
+        Fails unless SCNet's gate kernel launched where ``model`` is an
+        SCNet and the split attention's where it is a ResNeSt (the
+        backward too where the path trains), and neither elsewhere."""
+        launches = {k: c.launches for k, c in cnn_zoo_counters().items()}
+        self.record.setdefault("cnn_zoo_launches", {})[path] = launches
+        kind = model.aux["backbone_cfg"].get("type")
+        want = dict(sc_gate_forward=kind == "SCNet", sc_gate_backward=kind == "SCNet" and backward,
+                    split_attention_forward=kind == "ResNeSt", split_attention_backward=kind == "ResNeSt" and backward)
+        if any(bool(launches[k]) != v for k, v in want.items()):
+            raise AssertionError(f"{path}: CNN backbone kernel launches {launches}, expected launched {want}")
+
     def phase(self, name, fn):
         t0 = time.time()
         try:
@@ -2585,21 +2711,20 @@ class Smoke:
 
     def vit_predict(self, config, name, path, record_key, layers):
         """A ViTPose config file at full width (random weights, seed 0, f32,
-        erf GELU) through ``init_model`` / ``inference_topdown``, 64 boxes
-        with flip-TTA: K1's launches in one call (one a layer, no other
-        kernel), the outputs finite, every positive heatmap peak inside its
-        crop's padded box, two crops' heatmaps and scores against the same
-        model on the CPU (K1's plain twin), then crops/s, peak memory and a
-        profile."""
+        erf GELU; its first ``layers`` layers, ``vit_config``) through
+        ``init_model`` / ``inference_topdown``, 64 boxes with flip-TTA: K1's
+        launches in one call (one a layer, no other kernel), the outputs
+        finite, every positive heatmap peak inside its crop's padded box, two
+        crops' heatmaps and scores against the same model on the CPU (K1's
+        plain twin), then crops/s, peak memory and a profile."""
         import numpy as np
         import torch
 
         from probpose_code_torch.apis import inference_topdown, init_model
         from probpose_code_torch.apis.inference import crop_batch
-        from probpose_code_torch.config import Config
         from probpose_code_torch.ops.heatmap import heatmap_maximum_batch
 
-        model = init_model(Config.fromfile(config), device="cuda")
+        model = init_model(vit_config(config, layers), device="cuda")
         img, boxes = synthetic_boxes(64, seed=1)
 
         # the main path: counts set to 0 just before, read just after
@@ -2637,7 +2762,7 @@ class Smoke:
         # CPU (K1's plain twin, the same seed-0 weights), both in f32
         crops = crops[:2]
         got = model.predict(crops)
-        ref = init_model(Config.fromfile(config), device="cpu").predict(crops.cpu())
+        ref = init_model(vit_config(config, layers), device="cpu").predict(crops.cpu())
         hm_rel = ((got["heatmaps"].cpu() - ref["heatmaps"]).abs().max() / ref["heatmaps"].abs().max()).item()
         score_err = (got["keypoint_scores"].cpu() - ref["keypoint_scores"]).abs().max().item()
         print(f"{name} predict on 2 crops vs the CPU twin: heatmaps rel max err {hm_rel:.3e} "
@@ -2660,7 +2785,7 @@ class Smoke:
             inference_topdown(model, img, boxes)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        print(f"{name} predict, f32, flip-TTA, B=64: {64 * iters / dt:.1f} crops/s "
+        print(f"{name} predict ({layers} layers), f32, flip-TTA, B=64: {64 * iters / dt:.1f} crops/s "
               f"({1e3 * dt / iters:.2f} ms per inference_topdown call, {iters} calls after 2 warm-up); peak device "
               f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         self.profile(lambda: inference_topdown(model, img, boxes), calls=2, what=f"{name} predict calls")
@@ -2678,30 +2803,33 @@ class Smoke:
     def vitpose_large_predict(self):
         """ViTPose-L (ViT-L/16: C = 1024, 16 heads of 64; the classic head's
         two deconvolutions on 1024 channels, 64 x 48 UDP maps) through
-        ``vit_predict``: K1 x24."""
-        self.vit_predict(VITPOSE_LARGE, "ViTPose-L", "vitpose_large_predict", "vitpose_large_launches", 24)
+        ``vit_predict``, its first ``VIT_LARGE_DEPTH`` of 24 layers: K1 a
+        layer."""
+        self.vit_predict(VITPOSE_LARGE, "ViTPose-L", "vitpose_large_predict", "vitpose_large_launches",
+                         VIT_LARGE_DEPTH)
 
     def vitpose_huge_predict(self):
         """ViTPose-H (ViT-H/16: C = 1280, 16 heads of 80; deconvolutions on
-        1280 channels) through ``vit_predict``: K1 x32."""
-        self.vit_predict(VITPOSE_HUGE, "ViTPose-H", "vitpose_huge_predict", "vitpose_huge_launches", 32)
+        1280 channels) through ``vit_predict``, its first ``VIT_LARGE_DEPTH``
+        of 32 layers: K1 a layer."""
+        self.vit_predict(VITPOSE_HUGE, "ViTPose-H", "vitpose_huge_predict", "vitpose_huge_launches", VIT_LARGE_DEPTH)
 
     def vit_train(self, config, name, path, record_key, layers, steps=5):
         """A ViTPose recipe at full width (its drop_path, UDP targets encoded
         on the card, its optimizer and schedules) through ``make_train_step``
-        on its batch (64) of synthetic crops: K4's launches in one step (one
-        a layer; K1 and K3 none), the first layer's gradient, the losses, lr
-        and gradient norm of each step, train crops/s over ``steps`` steps
-        after 3 warm-up, peak memory and a profile. A batch that does not fit
-        on the card fails the phase, saying so."""
+        on its batch (64) of synthetic crops, its first ``layers`` layers
+        (``vit_config``): K4's launches in one step (one a layer; K1 and K3
+        none), the first layer's gradient, the losses, lr and gradient norm
+        of each step, train crops/s over ``steps`` steps after 3 warm-up,
+        peak memory and a profile. A batch that does not fit on the card
+        fails the phase, saying so."""
         import torch
 
         from probpose_code_torch.apis import init_model
-        from probpose_code_torch.config import Config
         from probpose_code_torch.engine.optim import build_optimizer
         from probpose_code_torch.parallel import create_train_state, make_train_step
 
-        cfg = Config.fromfile(config)
+        cfg = vit_config(config, layers)
         model = init_model(cfg, device="cuda")
         optimizer, lr_fn = build_optimizer(
             model, cfg["optim_wrapper"], cfg["param_scheduler"], STEPS_PER_EPOCH, cfg["train_cfg"]["max_epochs"],
@@ -2744,7 +2872,7 @@ class Smoke:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         report_steps(logs)
-        print(f"{name} train step, B={B}, f32, drop_path {cfg['model']['backbone']['drop_path_rate']}: "
+        print(f"{name} train step ({layers} layers), B={B}, f32, drop_path {cfg['model']['backbone']['drop_path_rate']}: "
               f"{B * steps / dt:.1f} crops/s ({1e3 * dt / steps:.2f} ms per step, {steps} steps after 3 warm-up; "
               f"the loss dicts are read to the host after the timed steps); peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2771,16 +2899,18 @@ class Smoke:
         self.vit_train(VITPOSE, "ViTPose-B-simple", "vitpose_train", "vitpose_train_launches", 12)
 
     def vitpose_large_train(self):
-        """The ViTPose-L recipe (drop_path 0.5, AdamW with layer decay 0.8 over
-        24 layers, clip 1.0) through ``vit_train``: K4 x24."""
-        self.vit_train(VITPOSE_LARGE, "ViTPose-L", "vitpose_large_train", "vitpose_large_train_launches", 24,
-                       steps=3)
+        """The ViTPose-L recipe (drop_path 0.5, AdamW with layer decay 0.8,
+        clip 1.0) through ``vit_train``, its first ``VIT_LARGE_DEPTH`` of 24
+        layers: K4 a layer."""
+        self.vit_train(VITPOSE_LARGE, "ViTPose-L", "vitpose_large_train", "vitpose_large_train_launches",
+                       VIT_LARGE_DEPTH, steps=3)
 
     def vitpose_huge_train(self):
-        """The ViTPose-H recipe (drop_path 0.55, AdamW with layer decay 0.85
-        over 32 layers, clip 1.0) through ``vit_train``: K4 x32."""
-        self.vit_train(VITPOSE_HUGE, "ViTPose-H", "vitpose_huge_train", "vitpose_huge_train_launches", 32,
-                       steps=3)
+        """The ViTPose-H recipe (drop_path 0.55, AdamW with layer decay 0.85,
+        clip 1.0) through ``vit_train``, its first ``VIT_LARGE_DEPTH`` of 32
+        layers: K4 a layer."""
+        self.vit_train(VITPOSE_HUGE, "ViTPose-H", "vitpose_huge_train", "vitpose_huge_train_launches",
+                       VIT_LARGE_DEPTH, steps=3)
 
     def full_weights(self):
         """The fixture's full-geometry weights, ``build_e2e_model(full=True)``
@@ -3495,7 +3625,8 @@ class Smoke:
         the port launched, the outputs finite, two crops' ``keys`` (heatmaps
         or SimCC vectors) against the same model on the CPU (``HRNET_REL``),
         then crops/s over ``timed_calls`` calls after 2 warm-up, peak device
-        memory and a profile of ``profile_calls`` calls."""
+        memory and a profile of ``profile_calls`` calls. Returns the
+        profiled call's device busy ms (None without a profile)."""
         import numpy as np
         import torch
 
@@ -3512,6 +3643,7 @@ class Smoke:
         launches = read_counts()
         self.read_gau(record_key.removesuffix("_launches"), has_gau(model))
         self.read_face_hand(record_key.removesuffix("_launches"), model)
+        self.read_cnn_zoo(record_key.removesuffix("_launches"), model)
         kpts = np.stack([s.pred_instances.keypoints for s in samples])
         scores = np.stack([s.pred_instances.keypoint_scores for s in samples])
         print(f"{record_key.removesuffix('_launches')} main path: {len(samples)} crops, launches {json.dumps(launches)}")
@@ -3542,7 +3674,8 @@ class Smoke:
               f"({1e3 * dt / timed_calls:.2f} ms per inference_topdown call, {timed_calls} calls after 2 warm-up); "
               f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         if profile_calls:
-            self.profile(lambda: inference_topdown(model, img, boxes), calls=profile_calls, what=f"{name} predict calls")
+            return self.profile(lambda: inference_topdown(model, img, boxes), calls=profile_calls,
+                                what=f"{name} predict calls")
 
     def train_phase(self, config, name, batch, record_key, first_lr=None):
         """A config file's recipe (its optimizer and schedules; targets
@@ -3576,6 +3709,7 @@ class Smoke:
         launches = read_counts()
         self.read_gau(record_key.removesuffix("_launches"), has_gau(model), backward=True)
         self.read_face_hand(record_key.removesuffix("_launches"), model, backward=True)
+        self.read_cnn_zoo(record_key.removesuffix("_launches"), model, backward=True)
         print(f"{record_key.removesuffix('_launches')} main path: one step of B={B}, launches {json.dumps(launches)}")
         if launches != NO_LAUNCHES:
             raise AssertionError(f"{name} train launched a kernel of the port: {launches}")
@@ -3732,9 +3866,10 @@ class Smoke:
         width through ``predict_phase`` (64 boxes, flip-TTA, 3 timed calls, no
         profile): HRNet-w32 and RTMPose-m on AP-10K (17 keypoints at 256 x
         256; RTMPose's GAU kernels), ResNet-50 on Animal Kingdom (23),
-        DeepFashion's upper subset (6 keypoints, the subset's table) and
-        DeepFashion2 (294 maps of 64 x 48)."""
-        for key, config in ANIMAL_FASHION_RECIPES.items():
+        DeepFashion's upper subset (6 keypoints, the subset's table),
+        DeepFashion2 (294 maps of 64 x 48) and ViPNAS-Res50 with ViPNASHead
+        on DeepFashion's three subsets (``VIPNAS_FASHION``)."""
+        for key, config in {**ANIMAL_FASHION_RECIPES, **VIPNAS_FASHION}.items():
             keys = ("keypoint_x_labels", "keypoint_y_labels") if "rtmpose" in key else ("heatmaps",)
             self.predict_phase(config, key, keys, f"{key}_predict_launches", timed_calls=3, profile_calls=0)
 
@@ -3809,6 +3944,237 @@ class Smoke:
                       f"instances in {time.perf_counter() - t0:.2f} s: {json.dumps(tested)}")
                 if not tested or not all(math.isfinite(v) for v in tested.values()):
                     raise AssertionError(f"{key}: tools.test gave {tested}")
+
+    def cnn_zoo_golden(self):
+        """The SCNet-50 and ViPNAS fixtures (``CNN_ZOO_FIXTURES``) on the card
+        as ``classic_golden``: ``model_fixture_report`` within ``UDP_BARS`` and
+        ``FIXTURE_OUTPUT_REL``, no kernel of the TPU list launched, SCNet's
+        gate forward launched by the SCNet fixture alone."""
+        for fixture in CNN_ZOO_FIXTURES:
+            self._fixture_phase(fixture)  # its counts set to 0 just before, the TPU kernels' read just after
+            launches = {k: c.launches for k, c in cnn_zoo_counters().items()}
+            self.record.setdefault("cnn_zoo_launches", {})[f"{fixture['name']}_golden"] = launches
+            if bool(launches["sc_gate_forward"]) != (fixture is SCNET_FIXTURE) or any(
+                    n for k, n in launches.items() if k != "sc_gate_forward"):
+                raise AssertionError(f"{fixture['name']}_golden: the CNN backbones' kernels launched {launches}")
+
+    def cnn_zoo_predict(self):
+        """The ResNet-like and small CNN recipes (``CNN_ZOO``: ResNetV1d-50,
+        ResNeXt-50, SEResNet-50, SCNet-50, ResNeSt-50, ShuffleNetV2, VGG16-bn
+        and ViPNAS-Res50 on COCO, ViPNAS-Res50 on COCO-WholeBody) at full
+        width through ``predict_phase`` (random weights, seed 0, 64 boxes
+        with flip-TTA, 3 timed calls, one profiled: crops/s, the busy share,
+        peak memory); then the channel shuffle's share of ShuffleNetV2's
+        predict call (``cnn_zoo_op_shares``)."""
+        shares = self.record.setdefault("op_shares", {})
+        for name, config in CNN_ZOO.items():
+            busy_ms = self.predict_phase(config, name, ("heatmaps",), f"{name}_predict_launches", timed_calls=3,
+                                         profile_calls=1)
+            if name == "shufflenetv2":
+                from probpose_code_torch.apis import init_model
+                from probpose_code_torch.config import Config
+
+                model = init_model(Config.fromfile(str(config)), device="cuda")
+                shares[name] = self.cnn_zoo_op_shares(name, busy_ms, model, backward=False)
+                del model
+
+    def cnn_zoo_train(self):
+        """The bare train steps (``train_phase``, B = 64, MSRA targets
+        rendered on the card, the recipes' Adam and schedules) of SCNet-50,
+        ResNeSt-50 and ViPNAS-Res50 (``CNN_ZOO_TRAIN``): crops/s, peak memory
+        and the busy share; then the 2% rule's candidate ops of these steps,
+        each alone at its step's shapes, forward and backward
+        (``cnn_zoo_op_shares``)."""
+        from probpose_code_torch.config import Config
+
+        shares = self.record.setdefault("op_shares", {})
+        for i, name in enumerate(CNN_ZOO_TRAIN):
+            config = CNN_ZOO[name]
+            model, _, _, busy_ms = self.train_phase(
+                config, name, synthetic_codec_batch(64, 21 + i, Config.fromfile(str(config))["codec"]),
+                f"{name}_train_launches")
+            shares[name] = self.cnn_zoo_op_shares(name, busy_ms, model)
+            del model
+
+    def cnn_zoo_kernels(self):
+        """The CNN backbones' kernels against their plain twins on inputs drawn
+        from a seed, at the shapes of their B = 64 train steps
+        (``cnn_zoo_shapes``): SCNet's gate (``ops/kernels/sc_gate.py``,
+        ``csrc/sc_gate.cu``) at SCNet-50's 16 gates and ResNeSt's split
+        attention (``ops/kernels/split_attention.py``,
+        ``csrc/split_attention.cu``) at ResNeSt-50's 16 blocks: the forward at
+        ``SC_GATE_REL`` / ``SPLIT_ATTENTION_REL``, every input's gradient at
+        ``SC_GATE_GRAD_REL`` / ``SPLIT_ATTENTION_GRAD_REL`` (against autograd
+        through the twin), the backward twice bit for bit. Then each kernel's
+        device time summed over its shapes (a step's worth,
+        ``kernel_device_ms``) beside the twin's, and the bound: the bytes each
+        must move (``sc_gate_bytes``, ``split_attention_bytes``) over 3.35
+        TB/s, or its operations over the f32 rate. No single PyTorch call
+        computes either: no library time. Launches made here are not the main
+        path's."""
+        import numpy as np
+        import torch
+
+        from probpose_code_torch.apis import init_model
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.models.builder import full_f32_precision
+        from probpose_code_torch.ops.kernels import sc_gate, split_attention
+
+        def rel(a, b):
+            return float((a - b).abs().max() / b.abs().max())
+
+        rng = np.random.RandomState(9)
+
+        def draw(*shape):
+            return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+
+        def shapes(recipe, op):
+            model = init_model(Config.fromfile(str(CNN_ZOO[recipe])), device="cuda")
+            found = [(m, shape) for o, m, shape in self.cnn_zoo_shapes(model) if o == op]
+            del model
+            return found
+
+        # per kernel: its inputs and the output's gradient a case, the launches, the twin, the bytes, the bars
+        gates = [(draw(B, C, H, W), draw(B, C, H // m.k2[0].kernel_size, W // m.k2[0].kernel_size), draw(B, C, H, W),
+                  draw(B, C, H, W)) for m, (B, C, H, W) in shapes("scnet50", "self_calibration")]
+        splits = [(draw(B, m.radix, m.channels, H, W), draw(B, m.radix, m.channels), draw(B, m.channels, H, W))
+                  for m, (B, _, H, W) in shapes("resnest50", "split_attention")]
+        kernels = dict(
+            sc_gate=(gates, sc_gate.sc_gate_forward, sc_gate.sc_gate_backward, sc_gate.self_calibration_plain,
+                     lambda case: sc_gate.sc_gate_bytes(case[0].numel(), case[1].numel()),
+                     lambda case: (30 * case[0].numel(), 60 * case[0].numel()), SC_GATE_REL, SC_GATE_GRAD_REL,
+                     "probpose_code_tpu/models/backbones/classic.py:330"),
+            split_attention=(splits, split_attention.split_attention_forward, split_attention.split_attention_backward,
+                             split_attention.split_attention_plain,
+                             lambda case: split_attention.split_attention_bytes(case[2].numel(), case[0].shape[1],
+                                                                                case[1].numel()),
+                             lambda case: (2 * case[0].numel(), 4 * case[0].numel()), SPLIT_ATTENTION_REL,
+                             SPLIT_ATTENTION_GRAD_REL, "probpose_code_tpu/models/backbones/litehrnet.py:245"))
+        records = []
+        for name, (cases, forward, backward, plain, nbytes, nops, bar, grad_bar, ports) in kernels.items():
+            errors, abs_err, deterministic = dict(forward=0.0, gradients=0.0), [0.0, 0.0], True
+            with full_f32_precision():
+                for *ins, dy in cases:
+                    out = forward(*ins)
+                    grads, again = backward(dy, *ins), backward(dy, *ins)
+                    leaves = [t.clone().requires_grad_() for t in ins]
+                    ref = plain(*leaves)
+                    ref_grads = torch.autograd.grad(ref, leaves, dy)
+                    errors["forward"] = max(errors["forward"], rel(out, ref.detach()))
+                    errors["gradients"] = max(errors["gradients"], *(rel(g, r) for g, r in zip(grads, ref_grads)))
+                    abs_err[0] = max(abs_err[0], float((out - ref.detach()).abs().max()))
+                    abs_err[1] = max(abs_err[1], *(float((g - r).abs().max()) for g, r in zip(grads, ref_grads)))
+                    deterministic &= all(torch.equal(a, b) for a, b in zip(grads, again))
+            print(f"cnn_zoo_kernels {name} over the {len(cases)} calls of its B=64 step: rel max err "
+                  f"{json.dumps(errors)} (bars {bar:g} forward, {grad_bar:g} gradients); the backward repeats bit "
+                  f"for bit: {deterministic}")
+            if not (errors["forward"] < bar and errors["gradients"] < grad_bar and deterministic):
+                raise AssertionError(f"cnn_zoo_kernels: the {name} kernels disagree with the twin: {errors}")
+
+            def each(fn, cases=cases):
+                return lambda: [fn(*case) for case in cases]
+
+            def plain_grad(*case, plain=plain):
+                *ins, dy = case
+                leaves = [t.detach().requires_grad_() for t in ins]
+                return torch.autograd.grad(plain(*leaves), leaves, dy)
+
+            for i, (suffix, fn, twin) in enumerate(
+                    (("forward", each(lambda *case, f=forward: f(*case[:-1])), each(lambda *case, p=plain: p(*case[:-1]))),
+                     ("backward", each(lambda *case, b=backward: b(case[-1], *case[:-1])), each(plain_grad)))):
+                ms, plain_ms = Smoke.kernel_device_ms(fn, calls=10), Smoke.kernel_device_ms(twin, calls=10)
+                nb, ops = sum(nbytes(case)[i] for case in cases), sum(nops(case)[i] for case in cases)
+                need = dict(operations=ops / PEAK_F32, bytes=nb / PEAK_BYTES)
+                records.append(dict(name=f"{name}_{suffix}", route="cuda", source=f"probpose_code_torch/csrc/{name}.cu",
+                                    ports=ports, max_abs_err=abs_err[i], ms=ms, plain_ms=plain_ms,
+                                    bound_ms=max(need.values()) * 1e3, bound_by=max(need, key=need.get),
+                                    library_ms=None))
+                r = records[-1]
+                print(f"  {r['name']}: device {ms:.4f} ms (call {cuda_time_ms(fn, 10):.4f} by CUDA events), plain "
+                      f"{plain_ms:.4f} ms device, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {ops / 1e9:.3f} GFLOP, "
+                      f"{nb / 1e6:.1f} MB), {ms / r['bound_ms']:.1f}x its bound, max abs err {r['max_abs_err']:.3e}")
+        self.record["cnn_zoo_kernels"] = records
+
+    @staticmethod
+    def cnn_zoo_shapes(model):
+        """(op, module, input shape) of each call of the 2% rule's candidate
+        ops in one forward of 64 crops of ``model`` (forward hooks): the
+        squeeze and excite (``SELayer``), SCNet's gate (``SCConv``), the split
+        attention (``SplitAttentionConv``) and the channel shuffle
+        (``ShuffleUnitV2``)."""
+        import torch
+
+        from probpose_code_torch.models.backbones import classic, resnest
+
+        ops = {classic.SELayer: "se_layer", classic.SCConv: "self_calibration",
+               resnest.SplitAttentionConv: "split_attention", classic.ShuffleUnitV2: "channel_shuffle"}
+        calls, hooks = [], []
+        for m in model.module.backbone.modules():
+            if type(m) in ops:
+                hooks.append(m.register_forward_hook(
+                    lambda m, args, out, op=ops[type(m)]: calls.append((op, m, tuple(args[0].shape)))))
+        w, h = model.input_size
+        with torch.no_grad():
+            model.module(torch.zeros(64, h, w, 3, device=model.device))
+        for handle in hooks:
+            handle.remove()
+        return calls
+
+    @staticmethod
+    def cnn_zoo_op_shares(key, busy_ms, model, backward=True):
+        """The 2% rule's candidates that ``model`` runs, each alone on the card
+        at the shapes one forward of 64 crops gives it (``cnn_zoo_shapes``),
+        over the profiled call's or step's device time ``busy_ms``: the
+        squeeze and excite (``SELayer``: the pooling, its two 1x1 convs, the
+        gate and the scale), SCNet's gate (``self_calibration``: as the
+        kernels of ``csrc/sc_gate.cu`` and as its plain twin), the split
+        attention's radix softmax and weighted sum (``split_attention``: as
+        the kernels of ``csrc/split_attention.cu`` and as its plain twin)
+        and ShuffleNet's channel shuffle, summed over the model's calls of each,
+        forward and (``backward``) backward as the step runs them. Returns
+        {op: device ms, share %, calls}."""
+        import torch
+
+        from probpose_code_torch.models.backbones import classic
+        from probpose_code_torch.ops.kernels import sc_gate, split_attention
+
+        def leaf(*shape):
+            return torch.randn(*shape, device=model.device).requires_grad_(backward)
+
+        cases = {}
+        for op, m, (B, C, H, W) in Smoke.cnn_zoo_shapes(model):
+            if op == "se_layer":
+                x = leaf(B, C, H, W)
+                cases.setdefault(op, []).append((lambda m=m, x=x: m(x, torch.float32), (x, *m.parameters())))
+            elif op == "self_calibration":
+                r = m.k2[0].kernel_size
+                ins = leaf(B, C, H, W), leaf(B, C, H // r, W // r), leaf(B, C, H, W)
+                cases.setdefault(op, []).append((lambda ins=ins: sc_gate.self_calibration(*ins), ins))
+                cases.setdefault(op + "_plain", []).append((lambda ins=ins: sc_gate.self_calibration_plain(*ins), ins))
+            elif op == "split_attention":
+                ins = leaf(B, m.radix, m.channels, H, W), leaf(B, m.radix, m.channels)
+                cases.setdefault(op, []).append((lambda ins=ins: split_attention.split_attention(*ins), ins))
+                cases.setdefault(op + "_plain", []).append(
+                    (lambda ins=ins: split_attention.split_attention_plain(*ins), ins))
+            else:
+                Ho, Wo = ((H + 1) // 2, (W + 1) // 2) if m.stride > 1 else (H, W)
+                ins = (leaf(B, m.branch2[2].conv.out_channels * 2, Ho, Wo),)
+                cases.setdefault(op, []).append((lambda ins=ins: classic.channel_shuffle(*ins, 2), ins))
+
+        def run(calls):
+            for fn, ins in calls:
+                out = fn()
+                if backward:
+                    torch.autograd.grad(out, ins, torch.ones_like(out))
+
+        shares = {}
+        for op, calls in cases.items():
+            ms = Smoke.kernel_device_ms(lambda calls=calls: run(calls), calls=5)
+            shares[op] = dict(device_ms=round(ms, 4), share=round(100 * ms / busy_ms, 2) if busy_ms else None,
+                              calls=len(calls))
+        print(f"{key}: the 2% rule's candidate ops alone at the {'step' if backward else 'call'}'s shapes, device ms a "
+              f"{'step' if backward else 'call'} and % of the profiled {busy_ms} ms of device time: {json.dumps(shares)}")
+        return shares
 
     def res50_predict(self):
         """SimpleBaseline ResNet-50 with DARK (``td-hm_res50_dark``) through
@@ -5659,6 +6025,10 @@ def main() -> int:
         smoke.phase("dpm_golden", smoke.dpm_golden)
         smoke.phase("animal_fashion_predict", smoke.animal_fashion_predict)
         smoke.phase("animal_fashion_runner", smoke.animal_fashion_runner)
+        smoke.phase("cnn_zoo_golden", smoke.cnn_zoo_golden)
+        smoke.phase("cnn_zoo_predict", smoke.cnn_zoo_predict)
+        smoke.phase("cnn_zoo_kernels", smoke.cnn_zoo_kernels)
+        smoke.phase("cnn_zoo_train", smoke.cnn_zoo_train)
         smoke.phase("timings", smoke.timings)
     left = stop_descendants()
     if left:
@@ -5695,6 +6065,14 @@ def main() -> int:
     print(json.dumps({"face_hand": [dict(rec, launches=face_hand[main_path[rec["name"]]][rec["name"]],
                                          launches_by_path={path: n[rec["name"]] for path, n in face_hand.items()})
                                     for rec in smoke.record["face_hand_kernels"]]}))
+    # the CNN backbones' kernels, no TPU kernel: their own line, SCNet's gate's launches those of SCNet-50's
+    # train step, the split attention's those of ResNeSt-50's, and each one's on every path
+    cnn_zoo = smoke.record["cnn_zoo_launches"]
+    main_path = dict(sc_gate_forward="scnet50_train", sc_gate_backward="scnet50_train",
+                     split_attention_forward="resnest50_train", split_attention_backward="resnest50_train")
+    print(json.dumps({"cnn_zoo": [dict(rec, launches=cnn_zoo[main_path[rec["name"]]][rec["name"]],
+                                       launches_by_path={path: n[rec["name"]] for path, n in cnn_zoo.items()})
+                                  for rec in smoke.record["cnn_zoo_kernels"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

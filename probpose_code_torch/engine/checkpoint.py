@@ -24,7 +24,14 @@ tree of numpy arrays into the port's state dict: the inverse of
 ``probpose_code_tpu/engine/checkpoint.py:convert_torch_state_dict``
 (``:680-836``) for the ViT and HRNet backbones with a ProbMapHead, a
 DoubleProbMapHead (its ``first_head`` and ``second_head`` towers under the
-ProbMapHead's tower names) or a HeatmapHead (a neck has no parameters).
+ProbMapHead's tower names) or a HeatmapHead (a neck has no parameters); and
+for the classic CNN backbones (ResNet, ResNetV1d, ResNeXt, the SE, SC,
+split-attention, ShuffleNet, VGG, AlexNet and ViPNAS families, by rules
+from the JAX module names to mmpose's) and ViPNASHead, whose JAX head
+keeps a transposed conv a group (``deconv{i}_g{j}``): their kernels,
+concatenated along the input axis, are one grouped ``ConvTranspose2d``
+weight. The JAX converter has no inverse for those families but ResNet and
+ResNeXt's 7x7 stem (``:839``).
 """
 
 from __future__ import annotations
@@ -233,15 +240,185 @@ def _hrnet_from_jax(sd: Dict[str, np.ndarray], bb: Dict[str, Any], bb_s: Dict[st
                 put(f"{prefix}.fuse_layers.{i}.{j}{step}.{0 if kind == 'conv' else 1}", node, stats, sub)
 
 
+# The CNN backbones of the classic families: for each, rules that name the
+# mmpose module of each flax module of the JAX backbone (its path joined by
+# "/"), a template for ``re.Match.expand`` or a function of the match.
+_CONV_BN = r"(conv|bn)"
+
+
+def _resnet_rules(bb):
+    """ResNet, ResNetV1d, ResNeXt (``resnet.py``): the 7x7 or deep stem."""
+    return [(r"conv1|bn1", r"\g<0>"), (r"stem_(conv|bn)(\d)", r"stem.\2.\1"),
+            (r"layer(\d)_block(\d+)/((?:conv|bn)\d)", r"layer\1.\2.\3"),
+            (r"layer(\d)_block(\d+)/downsample_conv", r"layer\1.\2.downsample.0"),
+            (r"layer(\d)_block(\d+)/downsample_bn", r"layer\1.\2.downsample.1")]
+
+
+def _resnet_like_rules(bb):
+    """SEResNet, SEResNeXt, SCNet (``classic.py:_ResNetLike``): ConvBNReLU's
+    ``conv`` / ``bn`` under each name."""
+    block = r"layer(\d)_block(\d+)/"
+    return [(r"conv1/conv", "conv1"), (r"conv1/bn", "bn1"),
+            (block + r"conv(\d)/conv", r"layer\1.\2.conv\3"), (block + r"conv(\d)/bn", r"layer\1.\2.bn\3"),
+            (block + r"se/fc(\d)", r"layer\1.\2.se_layer.conv\3.conv"),
+            (block + r"k1/conv", r"layer\1.\2.k1.0"), (block + r"k1/bn", r"layer\1.\2.k1.1"),
+            (block + r"k2/conv", r"layer\1.\2.scconv.k2.1"), (block + r"k2/bn", r"layer\1.\2.scconv.k2.2"),
+            (block + r"k([34])/conv", r"layer\1.\2.scconv.k\3.0"), (block + r"k([34])/bn", r"layer\1.\2.scconv.k\3.1"),
+            (block + r"downsample/conv", r"layer\1.\2.downsample.0"),
+            (block + r"downsample/bn", r"layer\1.\2.downsample.1")]
+
+
+def _resnest_rules(bb):
+    """ResNeSt (``litehrnet.py:250``); stages count from 0 in JAX, and a
+    strided projection sits behind its average pool."""
+
+    def block(m, name):
+        return f"layer{int(m[1]) + 1}.{m[2]}.{name}"
+
+    def down(m):
+        return block(m, f"downsample.{(int(m[1]) > 0) + (m[3] == 'bn')}")
+
+    sa = dict(conv="conv2.conv", bn0="conv2.bn0", fc1="conv2.fc1", fc_bn="conv2.bn1", fc2="conv2.fc2")
+    return [(r"stem(\d)/" + _CONV_BN, r"stem.\1.\2"),
+            (r"l(\d)_b(\d+)_conv([13])/" + _CONV_BN, lambda m: block(m, f"{m[4]}{m[3]}")),
+            (r"l(\d)_b(\d+)_sa/(conv|bn0|fc1|fc_bn|fc2)", lambda m: block(m, sa[m[3]])),
+            (r"l(\d)_b(\d+)_down/" + _CONV_BN, down)]
+
+
+def _shufflenet_v1_rules(bb):
+    unit = r"layer(\d)_(\d+)/"
+    return [(r"conv1/" + _CONV_BN, r"conv1.\1"),
+            (unit + r"g_conv1", r"layers.\1.\2.g_conv_1x1_compress.conv"),
+            (unit + r"bn1", r"layers.\1.\2.g_conv_1x1_compress.bn"),
+            (unit + r"dw_conv", r"layers.\1.\2.depthwise_conv3x3_bn.conv"),
+            (unit + r"bn2", r"layers.\1.\2.depthwise_conv3x3_bn.bn"),
+            (unit + r"g_conv2", r"layers.\1.\2.g_conv_1x1_expand.conv"),
+            (unit + r"bn3", r"layers.\1.\2.g_conv_1x1_expand.bn")]
+
+
+def _shufflenet_v2_rules(bb):
+    unit = r"layer(\d)_(\d+)/"
+    return [(r"conv1/" + _CONV_BN, r"conv1.\1"), (r"conv_last/" + _CONV_BN, r"layers.3.\1"),
+            (unit + r"short_dw", r"layers.\1.\2.branch1.0.conv"), (unit + r"short_bn1", r"layers.\1.\2.branch1.0.bn"),
+            (unit + r"short_pw/" + _CONV_BN, r"layers.\1.\2.branch1.1.\3"),
+            (unit + r"pw1/" + _CONV_BN, r"layers.\1.\2.branch2.0.\3"),
+            (unit + r"dw", r"layers.\1.\2.branch2.1.conv"), (unit + r"dw_bn", r"layers.\1.\2.branch2.1.bn"),
+            (unit + r"pw2/" + _CONV_BN, r"layers.\1.\2.branch2.2.\3")]
+
+
+def _vgg_rules(bb):
+    """VGG: one ``features`` sequence, each stage's convs then its pool."""
+    convs = [sum(re.fullmatch(rf"stage{i}_conv\d+", k) is not None for k in bb) for i in range(5)]
+
+    def index(m):
+        return f"features.{sum(n + 1 for n in convs[:int(m[1])]) + int(m[2])}"
+
+    return [(r"stage(\d)_conv(\d+)/" + _CONV_BN, lambda m: f"{index(m)}.{m[3]}"),
+            (r"stage(\d)_conv(\d+)", lambda m: f"{index(m)}.conv")]
+
+
+def _alexnet_rules(bb):
+    return [(r"conv([1-5])", lambda m: f"features.{(0, 3, 6, 8, 10)[int(m[1]) - 1]}")]
+
+
+def _vipnas_resnet_rules(bb):
+    def block(m, name):
+        return f"layer{int(m[1]) + 1}.{m[2]}.{name}"
+
+    return [(r"stem_conv", "conv1"), (r"stem_bn", "bn1"),
+            (r"l(\d)_b(\d+)_conv([13])/" + _CONV_BN, lambda m: block(m, f"{m[4]}{m[3]}")),
+            (r"l(\d)_b(\d+)_(conv2|bn2)", lambda m: block(m, m[3])),
+            (r"l(\d)_b(\d+)_att/fc(\d)", lambda m: block(m, f"attention.conv{m[3]}.conv")),
+            (r"l(\d)_b(\d+)_down/" + _CONV_BN, lambda m: block(m, f"downsample.{int(m[3] == 'bn')}"))]
+
+
+def _vipnas_mbv3_rules(bb):
+    """ViPNAS-MobileNetV3: the blocks numbered from 1 across its stages."""
+    depth = {}
+    for k in bb:
+        m = re.fullmatch(r"l(\d)_b(\d+)_dw", k)
+        if m:
+            depth[int(m[1])] = max(depth.get(int(m[1]), 0), int(m[2]) + 1)
+
+    def layer(m, name):
+        return f"layer{sum(depth[i] for i in depth if i < int(m[1])) + int(m[2]) + 1}.{name}"
+
+    parts = dict(expand="expand_conv", project="linear_conv")
+    return [(r"stem_conv", "conv1.conv"), (r"stem_bn", "conv1.bn"),
+            (r"l(\d)_b(\d+)_(expand|project)/" + _CONV_BN, lambda m: layer(m, f"{parts[m[3]]}.{m[4]}")),
+            (r"l(\d)_b(\d+)_dw", lambda m: layer(m, "depthwise_conv.conv")),
+            (r"l(\d)_b(\d+)_dw_bn", lambda m: layer(m, "depthwise_conv.bn")),
+            (r"l(\d)_b(\d+)_se/fc(\d)", lambda m: layer(m, f"se.conv{m[3]}.conv"))]
+
+
+def _cnn_rules(bb: Dict[str, Any]):
+    """The rules of the JAX backbone ``bb``'s family, told by its modules'
+    names, or None (a ViT or an HRNet)."""
+    if "stem_conv" in bb:
+        return _vipnas_mbv3_rules if "l1_b0_expand" in bb else _vipnas_resnet_rules
+    if "stem0" in bb:
+        return _resnest_rules
+    if "layer0_0" in bb:
+        return _shufflenet_v1_rules if "g_conv1" in bb["layer0_0"] else _shufflenet_v2_rules
+    if "stage0_conv0" in bb:
+        return _vgg_rules
+    if "conv5" in bb:
+        return _alexnet_rules
+    if "layer2_block0" in bb:
+        return _resnet_like_rules if "conv" in bb["layer1_block0"]["conv1"] else _resnet_rules
+    return None
+
+
+def _modules(tree: Dict[str, Any], path=()):
+    """(path, leaves) of each flax module in ``tree`` that holds arrays."""
+    leaves = {k: v for k, v in tree.items() if not isinstance(v, dict)}
+    if leaves:
+        yield path, leaves
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _modules(v, path + (k,))
+
+
+def _cnn_from_jax(sd: Dict[str, np.ndarray], bb: Dict[str, Any], bb_s: Dict[str, Any], rules) -> None:
+    """Each flax module of ``bb`` under its mmpose name: a conv's kernel (a
+    ``Dense``'s as a 1x1 conv) and bias, a BatchNorm's scale, bias and
+    statistics."""
+    for path, leaves in _modules(bb):
+        joined = "/".join(path)
+        for pattern, name in rules:
+            m = re.fullmatch(pattern, joined)
+            if m:
+                key = "backbone." + (name(m) if callable(name) else m.expand(name))
+                break
+        else:
+            raise KeyError(f"state_dict_from_jax: no torch name for the JAX backbone's module {joined}")
+        if "kernel" in leaves:
+            kernel = leaves["kernel"]
+            sd[f"{key}.weight"] = _conv(kernel) if kernel.ndim == 4 else kernel.T[:, :, None, None]
+            if "bias" in leaves:
+                sd[f"{key}.bias"] = leaves["bias"]
+        else:
+            stats = bb_s
+            for part in path:
+                stats = stats[part]
+            _bn_from_jax(sd, key, leaves, stats)
+
+
 def state_dict_from_jax(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
-    """JAX ``{"params", "batch_stats"}`` (a ViT or an HRNet; a ProbMapHead,
-    a DoubleProbMapHead or a HeatmapHead) -> torch state dict."""
+    """JAX ``{"params", "batch_stats"}`` (a ViT, an HRNet or a classic CNN:
+    ResNet, ResNetV1d, ResNeXt, SEResNet, SEResNeXt, SCNet, ResNeSt,
+    ShuffleNetV1 / V2, VGG, AlexNet, ViPNAS_ResNet, ViPNAS_MobileNetV3; a
+    ProbMapHead, a DoubleProbMapHead, a HeatmapHead or a ViPNASHead) -> torch
+    state dict."""
     params, stats = variables["params"], variables.get("batch_stats", {})
     sd: Dict[str, np.ndarray] = {}
 
     bb = params["backbone"]
+    rules = _cnn_rules(bb)
     if "patch_embed" in bb:
         _vit_from_jax(sd, bb)
+    elif rules is not None:
+        _cnn_from_jax(sd, bb, stats.get("backbone", {}), rules(bb))
     else:
         _hrnet_from_jax(sd, bb, stats.get("backbone", {}))
 
@@ -267,6 +444,13 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Te
             sd[f"{prefix}.final_layer.bias"] = node["final_layer"]["bias"]
 
     tower("head", head, head_s)
+    j = 0
+    while f"deconv{j}_g0" in head:  # ViPNASHead: the groups' kernels along the input axis, one grouped weight
+        groups = sum(re.fullmatch(rf"deconv{j}_g\d+", k) is not None for k in head)
+        sd[f"head.deconv_layers.{3 * j}.weight"] = np.concatenate(
+            [_deconv(head[f"deconv{j}_g{g}"]["kernel"]) for g in range(groups)], axis=0)
+        _bn_from_jax(sd, f"head.deconv_layers.{3 * j + 1}", head[f"deconv_bn{j}"], head_s[f"deconv_bn{j}"])
+        j += 1
     for name in ("first_head", "second_head"):  # DoubleProbMapHead's two towers
         if name in head:
             tower(f"head.{name}", head[name], head_s.get(name, {}))

@@ -70,27 +70,34 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (strided; ``groups`` groups) -> 1x1 to ``channels * 4``,
+    the 3x3 ``width`` wide (``channels`` unless given: ResNeXt's and
+    SEResNeXt's rules are their callers')."""
+
     expansion = 4
 
-    def __init__(self, cin: int, channels: int, stride: int = 1):
+    def __init__(self, cin: int, channels: int, stride: int = 1, groups: int = 1, width: Optional[int] = None):
         super().__init__()
         out = channels * self.expansion
-        self.conv1 = _conv(cin, channels, 1)
-        self.bn1 = _bn(channels)
-        self.conv2 = _conv(channels, channels, 3, stride)
-        self.bn2 = _bn(channels)
-        self.conv3 = _conv(channels, out, 1)
+        width = width or channels
+        self.conv1 = _conv(cin, width, 1)
+        self.bn1 = _bn(width)
+        self.conv2 = nn.Conv2d(width, width, 3, stride, padding=1, groups=groups, bias=False)
+        self.bn2 = _bn(width)
+        self.conv3 = _conv(width, out, 1)
         self.bn3 = _bn(out)
         self.downsample = None
         if cin != out or stride != 1:
             self.downsample = nn.Sequential(_conv(cin, out, 1, stride), _bn(out))
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def residual(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         out = torch.relu(self.bn1(conv_in(self.conv1, x, dtype).float()))
         out = torch.relu(self.bn2(conv_in(self.conv2, out, dtype).float()))
-        out = self.bn3(conv_in(self.conv3, out, dtype).float())
+        return self.bn3(conv_in(self.conv3, out, dtype).float())
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         identity = x if self.downsample is None else _run(self.downsample, x, dtype)
-        return torch.relu(out + identity.float())
+        return torch.relu(self.residual(x, dtype) + identity.float())
 
 
 BLOCKS = {"BASIC": BasicBlock, "BOTTLENECK": Bottleneck}

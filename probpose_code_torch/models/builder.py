@@ -3,10 +3,10 @@
 Port of ``probpose_code_tpu/models/builder.py``: ``build_pose_estimator``
 (``:39``) reads the same reference-style config dicts, ``build_loss_modules``
 (``:132``) builds the head's losses, and ``PoseModel`` owns the module, its
-predict program for top-down ProbMapHead, DoubleProbMapHead, HeatmapHead,
-RTMCCHead and RegressionHead models (preprocess -> original and mirrored
-crops as one doubled batch -> flip-TTA average -> the expected-OKS decode,
-``:815-832``, argmax and DARK-UDP for the UDP codec, argmax and the
+predict program for top-down ProbMapHead, DoubleProbMapHead, HeatmapHead
+(and ViPNASHead), RTMCCHead and RegressionHead models (preprocess ->
+original and mirrored crops as one doubled batch -> flip-TTA average -> the
+expected-OKS decode, ``:815-832``, argmax and DARK-UDP for the UDP codec, argmax and the
 quarter-pixel step or DARK for the MSRA codec, ``:870-908``, SimCC's joint
 argmax, ``:833-837``, or the regression head's coordinates times the input
 size, ``:841-844``) and its loss (``loss_fn``, ``:406``, ``:486``, with the
@@ -44,12 +44,13 @@ from probpose_code_torch.ops.warp import warp_affine_batch
 from probpose_code_torch.registry import MODELS
 
 from . import losses  # noqa: F401  (registers)
+from .backbones import classic, resnest, vipnas  # noqa: F401  (register)
 from .backbones.cspnext import CSPNeXt  # noqa: F401  (registers)
 from .backbones.hrnet import HRNet  # noqa: F401  (registers)
 from .backbones.mobilenet_v2 import MobileNetV2  # noqa: F401  (registers)
 from .backbones.resnet import ResNet  # noqa: F401  (registers)
 from .backbones.vit import VisionTransformer  # noqa: F401  (registers)
-from .heads.heatmap_head import HeatmapHead  # noqa: F401  (registers)
+from .heads.heatmap_head import HeatmapHead, ViPNASHead  # noqa: F401  (registers)
 from .heads.probmap_head import DoubleProbMapHead, ProbMapHead  # noqa: F401  (registers)
 from .heads.regression_head import RegressionHead  # noqa: F401  (registers)
 from .heads.rtmcc_head import RTMCCHead  # noqa: F401  (registers)
@@ -69,7 +70,9 @@ from .pose_estimators.topdown import (
     simcc_head_predict,
 )
 
-HEAD_TYPES = ("ProbMapHead", "DoubleProbMapHead", "HeatmapHead", "RTMCCHead", "RegressionHead")
+HEAD_TYPES = ("ProbMapHead", "DoubleProbMapHead", "HeatmapHead", "ViPNASHead", "RTMCCHead", "RegressionHead")
+# the heads whose heatmaps take HeatmapHead's predict and loss
+HEATMAP_HEADS = ("HeatmapHead", "ViPNASHead")
 # the codecs whose decode a HeatmapHead runs
 HEATMAP_DECODERS = ("UDPHeatmap", "MSRAHeatmap")
 
@@ -77,8 +80,8 @@ HEATMAP_DECODERS = ("UDPHeatmap", "MSRAHeatmap")
 def _adapt_backbone_cfg(cfg: Dict[str, Any]) -> Dict[str, Any]:
     """Accept ``type='mmpretrain.VisionTransformer'`` and its kwargs
     (``patch_cfg.padding``); drop the torch-side ``init_cfg`` and the ViT's
-    and HRNet's optimizer-side ``frozen_stages``. ``ResNet`` refuses frozen
-    stages; the other backbones take their config as it is."""
+    and HRNet's optimizer-side ``frozen_stages``; the other backbones take
+    their config as it is (``ResNet`` freezes its ``frozen_stages``)."""
     cfg = copy.deepcopy(dict(cfg))
     if cfg.get("type") in ("mmpretrain.VisionTransformer", "VisionTransformer"):
         cfg["type"] = "VisionTransformer"
@@ -283,7 +286,7 @@ class PoseModel:
         shift_heatmap = test_cfg.get("shift_heatmap", False)
         freeze_oks = self.aux["head_cfg"].get("freeze_oks", False)
         flip_indices = self.flip_indices()
-        if self.head_type == "HeatmapHead" and self.decoder_cfg.get("type", "UDPHeatmap") not in HEATMAP_DECODERS:
+        if self.head_type in HEATMAP_HEADS and self.decoder_cfg.get("type", "UDPHeatmap") not in HEATMAP_DECODERS:
             raise NotImplementedError(f"the {self.decoder_cfg['type']} decode is not ported yet "
                                       f"({', '.join(HEATMAP_DECODERS)} are)")
         precision = contextlib.nullcontext if self.is_low_precision() else full_f32_precision
@@ -312,7 +315,7 @@ class PoseModel:
                 if self.head_type == "RTMCCHead":
                     return simcc_head_predict(outputs, outputs_flipped, flip_indices,
                                               simcc_split_ratio=self.decoder_cfg.get("simcc_split_ratio", 2.0))
-                if self.head_type == "HeatmapHead":
+                if self.head_type in HEATMAP_HEADS:
                     return heatmap_head_predict(
                         outputs, outputs_flipped, flip_indices, self.decoder_cfg, input_size=self.input_size,
                         shift_heatmap=shift_heatmap,
@@ -433,7 +436,7 @@ class PoseModel:
         self.train()
         batch = self.device_preprocess_batch(batch)
         outputs = self.module(self.preprocess(batch["inputs"]), generator)
-        if self.head_type == "HeatmapHead":
+        if self.head_type in HEATMAP_HEADS:
             losses = heatmap_head_loss(outputs, batch, self.loss_modules["keypoint"])
         elif self.head_type == "RTMCCHead":
             losses = simcc_head_loss(outputs, batch, self.loss_modules["keypoint"])

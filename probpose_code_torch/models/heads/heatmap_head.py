@@ -1,7 +1,9 @@
 """Deconvolutional heatmap head and the conv stacks of the heatmap heads.
 
 Port of ``probpose_code_tpu/models/heads/heatmap_head.py``: ``DeconvStack``
-(``:19``), ``ConvStack`` (``:40``) and ``HeatmapHead`` (``:57-92``).
+(``:19``), ``ConvStack`` (``:40``) and ``HeatmapHead`` (``:57-92``); and of
+``ViPNASHead`` (``heads/multistage_heads.py:139``), the head with grouped
+deconvolutions.
 DeconvStack: ConvTranspose(k4, s2) + BN(eps 1e-5) + ReLU blocks (kernel size
 4, the ProbPose heads' size; 2 and 3 are not ported yet). Torch's
 ``ConvTranspose2d(k=4, s=2, padding=1)`` takes the reference weights as they
@@ -69,13 +71,14 @@ def run_sequential(seq: nn.Sequential, x: torch.Tensor, dtype: torch.dtype) -> t
     return x
 
 
-def make_deconv_stack(in_channels: int, out_channels: Sequence[int], kernel_sizes: Sequence[int]) -> nn.Sequential:
+def make_deconv_stack(in_channels: int, out_channels: Sequence[int], kernel_sizes: Sequence[int],
+                      groups: Optional[Sequence[int]] = None) -> nn.Sequential:
     layers = []
-    for c, k in zip(out_channels, kernel_sizes):
+    for c, k, g in zip(out_channels, kernel_sizes, groups or (1,) * len(out_channels)):
         if k != 4:
             raise NotImplementedError(f"deconv kernel size {k} is not ported yet (4 is)")
         layers += [
-            nn.ConvTranspose2d(in_channels, c, 4, stride=2, padding=1, bias=False),
+            nn.ConvTranspose2d(in_channels, c, 4, stride=2, padding=1, groups=g, bias=False),
             BatchNorm2d(c, eps=1e-5, momentum=0.1),
             nn.ReLU(inplace=False),
         ]
@@ -145,3 +148,22 @@ class HeatmapHead(nn.Module):
         if self.final_layer is not None:
             x = self.final_layer(x.float())
         return x.float()
+
+
+@MODELS.register_module()
+class ViPNASHead(HeatmapHead):
+    """HeatmapHead whose deconvolutions are grouped: each stage one
+    ``ConvTranspose2d(groups=g)`` of ``deconv_num_groups``, where the JAX head
+    (``heads/multistage_heads.py:139``) runs g transposed convs on the
+    channel groups and concatenates them (``deconv{i}_g{j}``, carried across
+    by ``engine/checkpoint.py:state_dict_from_jax``); then BatchNorm and
+    ReLU, and the 1x1 ``final_layer``. mmpose's names:
+    ``deconv_layers.{0,3,...}`` with weights (in, out / g, 4, 4)."""
+
+    def __init__(self, in_channels: int, out_channels: int, deconv_out_channels: Sequence[int] = (144, 144, 144),
+                 deconv_num_groups: Sequence[int] = (16, 16, 16), loss: Any = None, decoder: Any = None,
+                 dtype: Any = "float32"):
+        kernel_sizes = (4,) * len(deconv_out_channels)
+        super().__init__(in_channels, out_channels, deconv_out_channels, kernel_sizes, loss=loss, decoder=decoder,
+                         dtype=dtype)
+        self.deconv_layers = make_deconv_stack(in_channels, deconv_out_channels, kernel_sizes, deconv_num_groups)

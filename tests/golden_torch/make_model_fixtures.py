@@ -3,7 +3,7 @@
 Needs the JAX package, so it runs where it is installed (the card's
 machine has none): ``JAX_PLATFORMS=cpu python tests/golden_torch/make_model_fixtures.py``
 from the repository root (or name ``classic``, ``rtmpose``, ``wholebody``,
-``dpm`` or ``face`` to make one). For each of ``chip_smoke.CLASSIC_FIXTURE``
+``dpm``, ``face``, ``scnet`` or ``vipnas`` to make one). For each of ``chip_smoke.CLASSIC_FIXTURE``
 (a narrow ResNet-50 SimpleBaseline with the DARK codec),
 ``chip_smoke.RTMPOSE_FIXTURE`` (a narrow CSPNeXt + RTMCCHead with SimCC),
 ``chip_smoke.WHOLEBODY_FIXTURE`` (the same with 133 outputs under
@@ -11,15 +11,21 @@ COCO-WholeBody's metainfo), ``chip_smoke.DPM_FIXTURE`` (DoubleProbPose-S
 with its ViT in f32) and ``chip_smoke.FACE_FIXTURES`` (``face``: the narrow
 CSPNeXt + RTMCCHead with 106 outputs under LaPa's metainfo, and a narrow
 ResNet-18 + ``GlobalAveragePooling`` + ``RegressionHead`` of 98 joints under
-WFLW's, both at 256 x 256 on the golden persons' face boxes) it writes:
+WFLW's, both at 256 x 256 on the golden persons' face boxes) and
+``chip_smoke.CNN_ZOO_FIXTURES`` (SCNet-50 with a narrow HeatmapHead, and a
+narrow ViPNAS_ResNet with ViPNASHead, both MSRA at 193 x 257) it writes:
 
 - ``<name>_weights.pth``: the port's module with weights drawn from seed 0
   (``PoseModel.init_weights``) and BatchNorm statistics randomized from seed
   1, as a state dict under mmpose's names; the DoubleProbPose fixture's
   weights (about 90 MB) are not written: ``chip_smoke.dpm_fixture_state``
-  makes them from seeds where they are used;
+  makes them from seeds where they are used, and so does
+  ``chip_smoke.seeded_fixture_state`` the SCNet and ViPNAS fixtures';
 - ``<name>_fixture.npz``: the JAX package's outputs on those weights (loaded
-  through ``convert_torch_state_dict``) at the full 256 x 192 input: its
+  through ``convert_torch_state_dict``; for the SCNet and ViPNAS fixtures,
+  whose backbones it does not know, the JAX variables that the port's
+  ``state_dict_from_jax`` carries onto them exactly, ``carried_variables``)
+  at the fixture's input (256 x 192, or 257 x 193): its
   predict program (flip-TTA and decode) on the crops of the 62 boxes of the
   24 golden images (``tests/golden/e2e_pipeline.npz``, ``e2e_coco.json``),
   the keypoints mapped to the image as its ``attach_predictions`` maps them:
@@ -55,6 +61,7 @@ sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (  # noqa: E402
     CLASSIC_FIXTURE,
+    CNN_ZOO_FIXTURES,
     DPM_FIXTURE,
     FACE_FIXTURES,
     GOLDEN,
@@ -67,6 +74,7 @@ from chip_smoke import (  # noqa: E402
     wholebody_set_from_coco,
 )
 from probpose_code_torch.apis.inference import crop_batch  # noqa: E402
+from probpose_code_torch.engine.checkpoint import state_dict_from_jax  # noqa: E402
 from probpose_code_tpu.datasets.metainfo import parse_pose_metainfo  # noqa: E402
 from probpose_code_tpu.engine.checkpoint import convert_torch_state_dict  # noqa: E402
 from probpose_code_tpu.engine.runner import attach_predictions  # noqa: E402
@@ -144,6 +152,33 @@ def jax_variables(sd):
     return variables
 
 
+def carried_variables(sd, model, input_shape):
+    """The JAX variables of ``model`` that the port's ``state_dict_from_jax``
+    carries onto the state dict ``sd`` exactly: its init's shapes (traced by
+    ``jax.eval_shape``), each element numbered, carried, and filled from
+    ``sd`` at the place its number lands (the carry only moves elements)."""
+    import jax
+    import jax.numpy as jnp
+
+    shapes = jax.eval_shape(lambda: model.module.init(jax.random.PRNGKey(0), jnp.zeros(input_shape), train=False))
+    leaves, treedef = jax.tree_util.tree_flatten(shapes)
+    offsets = np.cumsum([0] + [int(np.prod(leaf.shape)) for leaf in leaves])
+    numbered = treedef.unflatten([np.arange(a, b, dtype=np.float64).reshape(leaf.shape)
+                                  for a, b, leaf in zip(offsets[:-1], offsets[1:], leaves)])
+    flat = np.full(offsets[-1], np.nan, np.float32)
+    for key, where in state_dict_from_jax(numbered).items():
+        if not key.endswith("num_batches_tracked"):
+            flat[where.numpy().astype(np.int64).ravel()] = sd[key].numpy().ravel()
+    if np.isnan(flat).any():
+        raise AssertionError("the state dict does not fill the JAX variables")
+    variables = treedef.unflatten([flat[a:b].reshape(leaf.shape)
+                                   for a, b, leaf in zip(offsets[:-1], offsets[1:], leaves)])
+    for key, value in state_dict_from_jax(variables).items():
+        if not torch.equal(value, sd[key]):
+            raise AssertionError(f"state_dict_from_jax does not carry {key} back")
+    return variables
+
+
 def make(fixture):
     cfg = fixture["cfg"]() if callable(fixture["cfg"]) else fixture["cfg"]
     dataset = fixture.get("dataset", "coco")
@@ -155,8 +190,11 @@ def make(fixture):
     # the JAX RegressionHead pools by itself: its model is the config's without the neck
     model_cfg = {k: v for k, v in cfg["model"].items() if k != "neck" or v["type"] != "GlobalAveragePooling"}
     model = JaxPoseModel(model_cfg, metainfo=parse_pose_metainfo({"dataset_name": dataset}))
-    variables = jax_variables(sd)
     input_size = tuple(cfg["test_dataloader"]["dataset"]["pipeline"][2]["input_size"])
+    if fixture in CNN_ZOO_FIXTURES:  # backbones that ``convert_torch_state_dict`` does not know
+        variables = carried_variables(sd, model, (1, input_size[1], input_size[0], 3))
+    else:
+        variables = jax_variables(sd)
 
     anns, crops, centers, scales = golden_instances(cfg, fixture.get("boxes", "person"), input_size)
     predict = model.make_predict(jit=False)
@@ -199,6 +237,7 @@ def make(fixture):
 
 if __name__ == "__main__":
     torch.set_num_threads(4)
-    for fixture in (CLASSIC_FIXTURE, RTMPOSE_FIXTURE, WHOLEBODY_FIXTURE, DPM_FIXTURE, *FACE_FIXTURES):
+    for fixture in (CLASSIC_FIXTURE, RTMPOSE_FIXTURE, WHOLEBODY_FIXTURE, DPM_FIXTURE, *FACE_FIXTURES,
+                    *CNN_ZOO_FIXTURES):
         if len(sys.argv) < 2 or fixture["name"] in sys.argv[1:] or fixture["name"].split("_")[0] in sys.argv[1:]:
             make(fixture)

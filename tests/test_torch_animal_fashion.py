@@ -3,8 +3,8 @@ package: the fourteen metainfo tables, the twelve dataset classes,
 DeepFashion's ``subset`` (the JAX reading and the port's), a narrow AP-10K
 HRNet's predict scored by ``CocoMetric`` under AP-10K's sigmas, a narrow
 Animal Kingdom ResNet's scored by PCK at 0.05, and every shipped config of
-the families (but the three ViPNAS ones, whose backbone is not ported)
-built in the port. No animal or fashion file is in the repository: every
+the families built in the port, the three ViPNAS_ResNet DeepFashion ones
+also predicting in their narrow form. No animal or fashion file is in the repository: every
 set is the golden persons (``tests/golden/e2e_coco.json``) with keypoints
 drawn in their boxes, ``chip_smoke.animal_fashion_set_from_coco``.
 
@@ -57,10 +57,12 @@ KINDS = {**ANIMAL_FASHION_DATASETS, "DeepFashionDataset": "deepfashion_full"}
 AP10K_HRNET = ROOT / "configs/animal_2d_keypoint/topdown_heatmap/ap10k/td-hm_hrnet-w32_8xb64-210e_ap10k-256x256.py"
 AK_RES50 = ROOT / "configs/animal_2d_keypoint/topdown_heatmap/ak/td-hm_res50_8xb64-300e_ak-256x256.py"
 HRNET_NARROW = [f"model.backbone.extra={HRNET_NARROW_EXTRA!r}", "model.head.in_channels=8"]
-# every shipped config of the families but the ViPNAS ones (``ViPNAS_ResNet`` waits for its slice)
+# every shipped config of the families
 CONFIGS = sorted(str(p.relative_to(ROOT)) for p in [
     *(ROOT / "configs/animal_2d_keypoint").rglob("*.py"), *(ROOT / "configs/fashion_2d_keypoint").rglob("*.py"),
-    *(ROOT / "configs/body_2d_keypoint/topdown_heatmap/exlpose").glob("*.py")] if "vipnas" not in p.name)
+    *(ROOT / "configs/body_2d_keypoint/topdown_heatmap/exlpose").glob("*.py")])
+VIPNAS_NARROW = ["model.backbone.wid=(16,16,32,32,64)", "model.backbone.dep=(None,1,2,2,1)",
+                 "model.head.in_channels=64", "model.head.deconv_out_channels=(32,32,32)"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -276,14 +278,16 @@ def test_animal_kingdom_pck_matches_jax(sets):
 
 
 def _narrowed(config):
-    """The config with its backbone narrowed (ResNet, HRNet, CSPNeXt),
-    its depth, input size, head and keypoints kept."""
+    """The config with its backbone narrowed (ResNet, HRNet, CSPNeXt,
+    ViPNAS_ResNet), its depth, input size, head and keypoints kept."""
     cfg = Config.fromfile(str(ROOT / config))
     kind = cfg["model"]["backbone"]["type"]
     if kind == "ResNet":
         options = [o for o in RES50_NARROW if "deconv" not in o]
     elif kind == "HRNet":
         options = HRNET_NARROW
+    elif kind == "ViPNAS_ResNet":
+        options = VIPNAS_NARROW
     else:
         assert kind == "CSPNeXt", kind
         options = RTMPOSE_NARROW[:2] + ["model.head.in_channels=128"]
@@ -315,3 +319,22 @@ def test_config_builds_in_the_port(config):
         evaluator = EVALUATORS.build(dict(type="Evaluator", metrics=metrics))
         evaluator.dataset_meta = meta
         assert evaluator.metrics
+
+
+@pytest.mark.parametrize("config", [c for c in CONFIGS if "vipnas" in c])
+def test_vipnas_fashion_config_predicts(config):
+    """The ViPNAS_ResNet DeepFashion configs, narrowed, through predict on two
+    crops at their 192 x 256 input: heatmaps of the subset's keypoints, the
+    keypoints inside the crop. (At this even side the port pads as mmpose
+    does, not as the JAX module does: ``tests/test_torch_cnn_backbones.py``
+    holds the two apart.)"""
+    cfg = _narrowed(config)
+    meta = parse_pose_metainfo(config_metainfo(cfg["test_dataloader"]["dataset"]))
+    model = PoseModel(copy.deepcopy(cfg["model"]), metainfo=meta, device="cpu")
+    model.init_weights(0)
+    out = model.predict(torch.from_numpy(_smooth_crops(2, 81)))
+    K = meta["num_keypoints"]
+    assert out["heatmaps"].shape == (2, K, 64, 48)
+    kpts = out["keypoints"].numpy()
+    assert kpts.shape == (2, K, 2) and np.isfinite(kpts).all()
+    assert (kpts >= -0.5).all() and (kpts[..., 0] <= 192).all() and (kpts[..., 1] <= 256).all()

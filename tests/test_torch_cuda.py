@@ -41,8 +41,11 @@ twin on ragged token counts and widths, and RTMPose's head on the card
 through them against the CPU; MobileNetV2's depthwise 3x3 kernels (forward,
 input and weight gradients) on channel counts beside the 32 of a tile and
 odd sides at both strides (a count that is no multiple of 4 refused), and
-AdaptiveWingLoss's kernels with and without weights, against
-their plain twins.
+AdaptiveWingLoss's kernels with and without weights, SCNet's gate
+kernels (forward and the gradients of its three inputs, bit for bit across
+two runs) on odd sides and pooled sizes of each ratio SCNet meets, and
+ResNeSt's split attention kernels at radix 1 to 4 on planes smaller and
+larger than a block, against their plain twins.
 Bars are ``chip_smoke.py``'s, with its reasons.
 """
 
@@ -71,6 +74,10 @@ from chip_smoke import (
     SERVE_KPT_ATOL,
     SERVE_SCORE_ATOL,
     AWING_REL,
+    SC_GATE_GRAD_REL,
+    SC_GATE_REL,
+    SPLIT_ATTENTION_GRAD_REL,
+    SPLIT_ATTENTION_REL,
     DEPTHWISE_GRAD_REL,
     DEPTHWISE_REL,
     GAU_GRAD_REL,
@@ -1038,3 +1045,74 @@ def test_adaptive_wing_kernels_match_plain(card, weighted):
     assert float((got - ref).abs() / ref.abs()) < AWING_REL
     assert float((grad - ref_grad).abs().max() / ref_grad.abs().max()) < AWING_REL
     assert aw.adaptive_wing_forward.launches and aw.adaptive_wing_backward.launches
+
+
+@pytest.mark.parametrize("B,C,H,W,r", [(2, 3, 17, 13, 4), (1, 5, 64, 48, 4), (3, 2, 9, 7, 2), (2, 4, 33, 25, 3),
+                                       (1, 1, 4, 4, 4), (2, 7, 8, 6, 4)])
+def test_sc_gate_kernels_match_plain(card, B, C, H, W, r):
+    """SCNet's gate on the card (its kernels, through autograd) against its
+    plain twin on the CPU: the output at ``SC_GATE_REL``, the gradients of
+    x, k2 and k3 at ``SC_GATE_GRAD_REL``, the backward bit for bit across two
+    runs."""
+    from probpose_code_torch.ops.kernels import sc_gate
+
+    rng = np.random.RandomState(100 * B + H)
+    x, k3, dy = (torch.from_numpy(rng.randn(B, C, H, W).astype(np.float32)) for _ in range(3))
+    k2 = torch.from_numpy(rng.randn(B, C, H // r, W // r).astype(np.float32))
+    results = []
+    for device in ("cpu", "cuda"):
+        leaves = [t.to(device).requires_grad_() for t in (x, k2, k3)]
+        out = sc_gate.self_calibration(*leaves)
+        results.append([t.detach().cpu() for t in (out, *torch.autograd.grad(out, leaves, dy.to(device)))])
+    for i, (got, ref) in enumerate(zip(results[1], results[0])):
+        assert float((got - ref).abs().max() / ref.abs().max()) < (SC_GATE_REL if i == 0 else SC_GATE_GRAD_REL), i
+    cuda = [t.cuda() for t in (dy, x, k2, k3)]
+    first, second = sc_gate.sc_gate_backward(*cuda), sc_gate.sc_gate_backward(*cuda)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert sc_gate.sc_gate_forward.launches and sc_gate.sc_gate_backward.launches
+
+
+def test_sc_gate_rejects_what_it_does_not_take(card):
+    from probpose_code_torch.ops.kernels import sc_gate
+
+    x = torch.zeros(1, 2, 8, 8, device="cuda")
+    with pytest.raises(ValueError):
+        sc_gate.sc_gate_forward(x, torch.zeros(1, 2, 9, 2, device="cuda"), x)
+    with pytest.raises(ValueError):
+        sc_gate.sc_gate_forward(x.double(), torch.zeros(1, 2, 2, 2, device="cuda").double(), x.double())
+
+
+@pytest.mark.parametrize("B,R,C,H,W", [(2, 2, 64, 64, 48), (3, 2, 5, 8, 6), (1, 1, 7, 9, 13), (2, 3, 4, 17, 23),
+                                       (1, 4, 3, 2, 2), (4, 2, 512, 8, 6)])
+def test_split_attention_kernels_match_plain(card, B, R, C, H, W):
+    """ResNeSt's split attention on the card (its kernels, through autograd)
+    against its plain twin on the CPU: the output at
+    ``SPLIT_ATTENTION_REL``, the gradients of the splits and the logits at
+    ``SPLIT_ATTENTION_GRAD_REL``, the backward bit for bit across two runs."""
+    from probpose_code_torch.ops.kernels import split_attention as sa
+
+    rng = np.random.RandomState(10 * R + H)
+    splits = torch.from_numpy(rng.randn(B, R, C, H, W).astype(np.float32))
+    logits = torch.from_numpy(rng.randn(B, R, C).astype(np.float32))
+    dy = torch.from_numpy(rng.randn(B, C, H, W).astype(np.float32))
+    results = []
+    for device in ("cpu", "cuda"):
+        leaves = [t.to(device).requires_grad_() for t in (splits, logits)]
+        out = sa.split_attention(*leaves)
+        results.append([t.detach().cpu() for t in (out, *torch.autograd.grad(out, leaves, dy.to(device)))])
+    for i, (got, ref) in enumerate(zip(results[1], results[0])):
+        bar = SPLIT_ATTENTION_REL if i == 0 else SPLIT_ATTENTION_GRAD_REL
+        assert float((got - ref).abs().max() / ref.abs().max()) < bar, i
+    cuda = [t.cuda() for t in (dy, splits, logits)]
+    first, second = sa.split_attention_backward(*cuda), sa.split_attention_backward(*cuda)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert sa.split_attention_forward.launches and sa.split_attention_backward.launches
+
+
+def test_split_attention_rejects_what_it_does_not_take(card):
+    from probpose_code_torch.ops.kernels import split_attention as sa
+
+    with pytest.raises(ValueError):
+        sa.split_attention_forward(torch.zeros(1, 5, 2, 4, 4, device="cuda"), torch.zeros(1, 5, 2, device="cuda"))
+    with pytest.raises(ValueError):
+        sa.split_attention_forward(torch.zeros(1, 2, 2, 4, 4, device="cuda"), torch.zeros(1, 2, 3, device="cuda"))
