@@ -208,8 +208,23 @@ SCNet-50's and ResNeSt-50's step shapes, timed), ``cnn_zoo_predict`` (the nine
 ``CNN_ZOO`` recipes through ``predict_phase``: crops/s, busy share, peak
 memory; ShuffleNetV2's channel shuffle share) and ``cnn_zoo_train``
 (SCNet-50, ResNeSt-50 and ViPNAS-Res50 steps at B = 64 and the 2% rule's op
-shares). ``timings`` also times K1 in f32 at ViTPose-S, -L and -H's shapes
-and K4 at ViTPose-L and -H's.
+shares); ``cnn_zoo_kernels`` also holds the squeeze-and-excite kernels
+(``csrc/se_layer.cu``) at ViPNAS-Res50's SE layers (``se_layer_kernels``),
+and times each of these kernels with the L2 cache flushed before each
+launch and without (``queued_ms``: CUDA events around calls queued
+behind a wait, not the profiler, which drops records late in the run).
+After ``timings``:
+``multistage_golden``
+(the RTMW, hourglass, CPM and MSPN fixtures, ``MULTISTAGE_FIXTURES``),
+``multistage_predict`` (the twelve ``MULTISTAGE`` recipes through
+``predict_phase``: the SimCC heads, RTMW-m with the GAU kernels,
+SimCC-MobileNetV2 with the depthwise ones, the hourglass, CPM, MSPN and
+RSN; the Megvii decode on the card against the CPU's),
+``multistage_train`` (Hourglass-52, CPM, SimCC-ResNet-50 and RTMW-m steps
+and the 2% rule's op shares) and ``rtmw_runner`` (RTMW-m through
+``tools.train`` over a cocktail14 mix across the pipeline switch, val,
+``tools.test``). ``timings`` also times K1 in f32 at ViTPose-S, -L and
+-H's shapes and K4 at ViTPose-L and -H's.
 
 The lines before the last hold the kernels' record as JSON (each kernel's
 ``launches`` from the flagship's paths, and ``launches_by_path`` on every
@@ -223,7 +238,8 @@ transform it ports, the median's ``launches`` from
 ``body8_train_runner``'s, and each one's ``launches_by_path`` on every path
 that augments on the card) and the CNN backbones' kernels' (no TPU
 kernel: the ``cnn_zoo`` line, ``launches`` from ``cnn_zoo_train``'s SCNet-50
-step for SCNet's gate and its ResNeSt-50 step for the split attention), the
+step for SCNet's gate, its ResNeSt-50 step for the split attention and its
+ViPNAS-Res50 step for the squeeze and excite), the
 last line ``{"ok": true,
 "device": ...}``. Any failure exits non-zero without them. It imports neither JAX nor the JAX package.
 """
@@ -232,8 +248,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import importlib.util
 import json
 import math
+import py_compile
 import subprocess
 import sys
 import time
@@ -308,6 +326,29 @@ CNN_ZOO["vipnas-res50_wholebody"] = ROOT / ("configs/wholebody_2d_keypoint/topdo
                                             "td-hm_vipnas-res50_8xb64-210e_coco-wholebody-256x192.py")
 # and the recipes whose bare step ``cnn_zoo_train`` runs
 CNN_ZOO_TRAIN = ("scnet50", "resnest50", "vipnas-res50")
+# the SimCC and multi-stage recipes that ``multistage_predict`` runs, at full width and depth
+_SIMCC = ROOT / "configs/body_2d_keypoint/simcc/coco"
+_TD_COCO = ROOT / "configs/body_2d_keypoint/topdown_heatmap/coco"
+RTMW = ROOT / "configs/wholebody_2d_keypoint/rtmpose/cocktail14/rtmw-m_8xb1024-270e_cocktail14-256x192.py"
+MULTISTAGE = dict(
+    simcc_res50=_SIMCC / "simcc_res50_8xb64-210e_coco-256x192.py",
+    simcc_res50_384=_SIMCC / "simcc_res50_8xb32-140e_coco-384x288.py",
+    simcc_mobilenetv2=_SIMCC / "simcc_mobilenetv2_wo-deconv-8xb64-210e_coco-256x192.py",
+    simcc_vipnas_mbv3=_SIMCC / "simcc_vipnas-mbv3_8xb64-210e_coco-256x192.py",
+    rtmw_m=RTMW,
+    hourglass52=_TD_COCO / "td-hm_hourglass52_8xb32-210e_coco-256x256.py",
+    hourglass52_384=_TD_COCO / "td-hm_hourglass52_8xb32-210e_coco-384x384.py",
+    cpm=_TD_COCO / "td-hm_cpm_8xb64-210e_coco-256x192.py",
+    mspn50=_TD_COCO / "td-hm_mspn50_8xb32-210e_coco-256x192.py",
+    mspn50_4x=_TD_COCO / "td-hm_4xmspn50_8xb32-210e_coco-256x192.py",
+    rsn18=_TD_COCO / "td-hm_rsn18_8xb32-210e_coco-256x192.py",
+    rsn50_3x=_TD_COCO / "td-hm_3xrsn50_8xb32-210e_coco-256x192.py",
+)
+# and the steps that ``multistage_train`` runs, with their batch (the configs': 32 for the hourglass)
+MULTISTAGE_TRAIN = dict(hourglass52=32, cpm=64, simcc_res50=64, rtmw_m=64)
+# the card's Megvii decode against the CPU's on the same maps: keypoints in input pixels, scores relative
+MEGVII_KPT_ATOL = 1e-3
+MEGVII_SCORE_REL = 1e-6
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them (the FMA units: K2 and K3's f32 instance), and device memory.
@@ -463,6 +504,10 @@ SC_GATE_GRAD_REL = 1e-5
 # the dot products over space summed in another order
 SPLIT_ATTENTION_REL = 1e-5
 SPLIT_ATTENTION_GRAD_REL = 1e-5
+# the squeeze-and-excite kernels against their twin: the same f32 sums in another order (a warp's shuffle
+# tree over each plane; the twin's mean), and the weights' gradients the same products of those
+SE_LAYER_REL = 1e-5
+SE_LAYER_GRAD_REL = 1e-5
 _TOPDOWN_TEST = dict(test_dataloader=dict(dataset=dict(pipeline=[
     dict(type="LoadImage"), dict(type="GetBBoxCenterScale"), dict(type="TopdownAffine", input_size=(192, 256)),
     dict(type="PackPoseInputs")])))
@@ -574,6 +619,73 @@ VIPNAS_FIXTURE = dict(
     keys=("heatmaps",),
 )
 CNN_ZOO_FIXTURES = (SCNET_FIXTURE, VIPNAS_FIXTURE)
+# ``tests/golden_torch/{rtmw,hourglass,cpm,mspn}_fixture.npz``: the SimCC and multi-stage families narrowed, their
+# weights made at run time from seeds (``seeded_fixture_state``), their JAX outputs from the JAX variables that
+# ``state_dict_from_jax`` carries onto them: RTMW (CSPNeXt, CSPNeXtPAFPN with ``in_channels`` narrower than the
+# backbone's widths, as RTMW-m's, and RTMWHead; 133 keypoints under COCO-WholeBody's metainfo), a two-stack
+# HourglassNet with CPMHead and CPM (its stem at full width: the module has no width option) at 256 x 192, MSRA;
+# MSPN with the pose refine machine at 257 x 193, MSRA (the Megvii decode's JAX predict departs, see
+# ``megvii_decode_batch``). The hourglass runs only at even sides, where the JAX stem conv's "SAME" padding is
+# (2, 3) and the port's mmpose's (3, 3): its fixture's model takes JAX's padding (``jax_same_padding``)
+_WB_TEST = dict(test_dataloader=dict(dataset=dict(_TOPDOWN_TEST["test_dataloader"]["dataset"],
+                                                  type="CocoWholeBodyDataset")))
+_MSRA = dict(type="MSRAHeatmap", input_size=(192, 256), heatmap_size=(48, 64), sigma=2)
+_MSE = dict(type="KeypointMSELoss", use_target_weight=True)
+RTMW_FIXTURE = dict(
+    name="rtmw", dataset="coco_wholebody",
+    cfg=dict(_WB_TEST, model=dict(
+        type="TopdownPoseEstimator", data_preprocessor=_PREPROCESSOR,
+        backbone=dict(type="CSPNeXt", arch="P5", expand_ratio=0.5, deepen_factor=0.167, widen_factor=0.125,
+                      out_indices=(3, 4), channel_attention=True),
+        neck=dict(type="CSPNeXtPAFPN", in_channels=[48, 96], out_channels=None, out_indices=(0, 1), num_csp_blocks=1,
+                  expand_ratio=0.5),
+        head=dict(type="RTMWHead", in_channels=96, out_channels=133, input_size=(192, 256), in_featuremap_size=(6, 8),
+                  simcc_split_ratio=2.0, final_layer_kernel_size=7,
+                  gau_cfg=dict(hidden_dims=32, s=16, expansion_factor=2, act_fn="SiLU", use_rel_bias=False,
+                               pos_enc=False),
+                  loss=dict(type="KLDiscretLoss", use_target_weight=True, beta=10.0, label_softmax=True),
+                  decoder=dict(type="SimCCLabel", input_size=(192, 256), sigma=(4.9, 5.66), simcc_split_ratio=2.0,
+                               normalize=False, use_dark=False)),
+        test_cfg=dict(flip_test=True))),
+    weights=lambda: seeded_fixture_state(RTMW_FIXTURE), outputs=GOLDEN_JPEG / "rtmw_fixture.npz",
+    keys=("keypoint_x_labels", "keypoint_y_labels"),
+)
+HOURGLASS_FIXTURE = dict(
+    name="hourglass", jax_same_stem=True,
+    cfg=dict(_TOPDOWN_TEST, model=dict(
+        type="TopdownPoseEstimator", data_preprocessor=_PREPROCESSOR,
+        backbone=dict(type="HourglassNet", num_stacks=2, downsample_times=4, stage_channels=(16, 16, 24, 24, 32),
+                      stage_blocks=(1, 1, 1, 1, 2), feat_channel=16),
+        head=dict(type="CPMHead", in_channels=16, out_channels=17, num_stages=2, deconv_out_channels=None, loss=_MSE,
+                  decoder=_MSRA),
+        test_cfg=dict(flip_test=True))),
+    weights=lambda: seeded_fixture_state(HOURGLASS_FIXTURE), outputs=GOLDEN_JPEG / "hourglass_fixture.npz",
+    keys=("heatmaps",),
+)
+CPM_FIXTURE = dict(
+    name="cpm",
+    cfg=dict(_TOPDOWN_TEST, model=dict(
+        type="TopdownPoseEstimator", data_preprocessor=_PREPROCESSOR,
+        backbone=dict(type="CPM", out_channels=17, num_stages=3, feat_channels=16, middle_channels=8),
+        head=dict(type="CPMHead", in_channels=17, out_channels=17, num_stages=3, loss=_MSE,
+                  decoder=dict(_MSRA, heatmap_size=(24, 32))),
+        test_cfg=dict(flip_test=True))),
+    weights=lambda: seeded_fixture_state(CPM_FIXTURE), outputs=GOLDEN_JPEG / "cpm_fixture.npz",
+    keys=("heatmaps",),
+)
+MSPN_FIXTURE = dict(
+    name="mspn",
+    cfg=dict(test_dataloader=dict(dataset=dict(pipeline=_ODD_PIPELINE)), model=dict(
+        type="TopdownPoseEstimator", data_preprocessor=_PREPROCESSOR,
+        backbone=dict(type="MSPN", unit_channels=16, num_stages=2, num_units=4, num_blocks=(1, 1, 1, 1),
+                      res_top_channels=8),
+        head=dict(type="MSPNHead", num_stages=2, num_units=4, out_shape=(72, 56), unit_channels=16, out_channels=17,
+                  use_prm=True, level_indices=[0, 1, 2, 3, 1, 2, 3, 3], loss=_MSE, decoder=_ODD_MSRA),
+        test_cfg=dict(flip_test=True))),
+    weights=lambda: seeded_fixture_state(MSPN_FIXTURE), outputs=GOLDEN_JPEG / "mspn_fixture.npz",
+    keys=("heatmaps",),
+)
+MULTISTAGE_FIXTURES = (RTMW_FIXTURE, HOURGLASS_FIXTURE, CPM_FIXTURE, MSPN_FIXTURE)
 # the keys of a kernel's record that K2 and K2b fill from ``k2_timings``
 K2_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 K3_NAMES = ("out", "dx", "ln1_scale", "ln1_bias", "w_qkv", "b_qkv", "w_proj", "b_proj",
@@ -631,6 +743,34 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def traced(host: bool = False):
+    """``torch.profiler`` over the card's activity, and the host's too where
+    ``host``. Every trace here reads only the kernels' names and device
+    times: recording and parsing the host's operators as well took 5-28 s a
+    trace of two train steps (the H100 machine's host), so a long trace
+    leaves them out. A short one, of a few calls, keeps them: traced without
+    them, late in the whole script such a trace lost most of the card's
+    records (a kernel missing, K2's decode read at a twentieth of its time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA])
+
+
+def device_records(prof) -> list:
+    """(name, device us) of each kernel, copy or fill that a finished trace
+    recorded, read from the tracer's results as they come, without building
+    the profiler's event list."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+def all_of(fns):
+    """One callable that calls each of ``fns`` in turn."""
+    return lambda: [fn() for fn in fns]
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -1051,6 +1191,30 @@ def dpm_fixture_state():
     return {k: v.clone() for k, v in model.module.state_dict().items()}
 
 
+def jax_same_padding(module):
+    """``module`` (a ``ConvModule`` of ``models/backbones/classic.py``) with its
+    input padded as flax's "SAME" pads: total ``max((ceil(n / s) - 1) * s + k -
+    n, 0)`` a side, the larger half after (at a stride-2 7x7 conv on an even
+    side (2, 3), where the port pads mmpose's (3, 3)): a substitution of the
+    module's forward, for holding a model against the JAX package's."""
+    import torch.nn.functional as F
+
+    conv = module.conv
+    k, stride = conv.kernel_size[0], conv.stride[0]
+    conv.padding = (0, 0)
+    forward = module.forward
+
+    def padded(x, *args):
+        pads = []
+        for n in (x.shape[3], x.shape[2]):
+            total = max((-(-n // stride) - 1) * stride + k - n, 0)
+            pads += [total // 2, total - total // 2]
+        return forward(F.pad(x, pads), *args)
+
+    module.forward = padded
+    return module
+
+
 def seeded_fixture_state(fixture):
     """A model fixture's weights made on the CPU from seeds:
     ``PoseModel.init_weights(seed=0)`` and the BatchNorm statistics
@@ -1131,7 +1295,9 @@ def golden_fixture_ap(samples, dataset="coco"):
 
 def fixture_model(fixture, device):
     """``init_model`` on a model fixture's config and weights (a file, or
-    made by a function and written to one), every key the model's."""
+    made by a function and written to one), every key the model's; with
+    ``jax_same_stem``, the stem's first conv padded as the JAX module pads it
+    (``jax_same_padding``)."""
     import tempfile
 
     import torch
@@ -1149,6 +1315,8 @@ def fixture_model(fixture, device):
         model = init_model(cfg, checkpoint=str(weights), device=device)
     if set(saved) != set(model.module.state_dict()):
         raise AssertionError(f"{fixture['name']} fixture: its keys are not the model's")
+    if fixture.get("jax_same_stem"):
+        jax_same_padding(model.module.backbone.stem[0])
     return model
 
 
@@ -1852,6 +2020,87 @@ def ubody_sets(cfg, root, ann_file, loader="train_dataloader"):
     return options, kept
 
 
+def interhand_set_from_coco(ann_file, out_file, seed=FACE_HAND_SEED):
+    """The persons of a COCO keypoint file as InterHand2.6M's instances, in
+    the JAX ``InterHand2DDoubleDataset``'s COCO-style layout, written to
+    ``out_file``: each instance a pair of hands (``face_hand_parts``' two
+    boxes), its box their union, its 42 keypoints the right hand's 21 then
+    the left's (the order the cocktail14 recipe's ``KeypointConverter``
+    reads), drawn inside each hand's box (``draw_keypoints``); each image id
+    a multiple of 10 (the recipe's ``sample_interval=10`` keeps them all)."""
+    import copy
+
+    import numpy as np
+
+    gt = json.loads(Path(ann_file).read_text())
+    parts = face_hand_parts(ann_file)
+    rng = np.random.RandomState(seed + 100)
+    out = dict(copy.deepcopy(gt), annotations=[])
+    for im in out["images"]:
+        im["id"] = 10 * im["id"]
+    for a in gt["annotations"]:
+        right, left = parts[a["id"]]["right"], parts[a["id"]]["left"]
+        x0, y0 = min(right[0], left[0]), min(right[1], left[1])
+        x1, y1 = max(right[0] + right[2], left[0] + left[2]), max(right[1] + right[3], left[1] + left[3])
+        kpts = draw_keypoints(rng, right, 21) + draw_keypoints(rng, left, 21)
+        out["annotations"].append(dict(id=a["id"], image_id=10 * a["image_id"], category_id=1,
+                                       bbox=[x0, y0, x1 - x0, y1 - y0], area=(x1 - x0) * (y1 - y0), iscrowd=0,
+                                       keypoints=kpts, num_keypoints=int(np.count_nonzero(kpts[2::3]))))
+    out["categories"] = [dict(id=1, name="hand", keypoints=[str(k) for k in range(42)], skeleton=[])]
+    Path(out_file).write_text(json.dumps(out))
+
+
+def cocktail14_sets(cfg, root, ann_file, loader="train_dataloader"):
+    """The RTMW recipe's cocktail14 mix (``configs/wholebody_2d_keypoint/
+    rtmpose/cocktail14/``: four ``CombinedDataset``s of 14 datasets, the
+    UBody scenes a fifth inside the first) over the images under ``root``:
+    ``ann_file`` (COCO's layout) in each leaf dataset's layout, as
+    ``root/<its config key>.json``: COCO-WholeBody's
+    (``wholebody_set_from_coco``), each UBody scene's as ``ubody_sets``
+    writes them (image ids such that its ``sample_interval`` keeps a
+    quarter, a different one in turn), Halpe's and the faces'
+    (``face_hand_sets_from_coco``), InterHand2.6M's (``interhand_set_from_coco``)
+    and the body sets' through the inverse of their ``KeypointConverter``
+    (``body_set_from_coco``; Human-Art-21's fingers and toes unannotated).
+    Returns the ``--cfg-options`` items that point each leaf at its file."""
+    root = Path(root)
+    wholebody = root / f"{loader}_wholebody.json"
+    wholebody_set_from_coco(ann_file, wholebody)
+    options, scenes = [], []
+
+    def walk(d, key):
+        if d["type"] == "CombinedDataset":
+            for i, sub in enumerate(d["datasets"]):
+                walk(sub, f"{key}.datasets.{i}")
+            return
+        name = key.replace(".", "_") + ".json"
+        kind = d["type"]
+        if kind == "CocoWholeBodyDataset":
+            Path(root, name).write_text(wholebody.read_text())
+        elif kind == "UBody2dDataset":
+            scene = json.loads(wholebody.read_text())
+            new_id = {im["id"]: 10 * im["id"] + (0 if im["id"] % 4 == len(scenes) % 4 else 1)
+                      for im in scene["images"]}
+            for im in scene["images"]:
+                im["id"] = new_id[im["id"]]
+            for a in scene["annotations"]:
+                a["image_id"] = new_id[a["image_id"]]
+            scenes.append(name)
+            Path(root, name).write_text(json.dumps(scene))
+        elif kind in FACE_SETS or kind in PERSON_SETS:
+            written = face_hand_sets_from_coco(ann_file, root, [kind], prefix=f"{loader}_sets_")
+            Path(root, written[kind]).rename(root / name)
+        elif kind == "InterHand2DDoubleDataset":
+            interhand_set_from_coco(ann_file, root / name)
+        else:
+            mapping = next((t["mapping"] for t in d.get("pipeline", []) if t["type"] == "KeypointConverter"), None)
+            body_set_from_coco(ann_file, root / name, kind, [(s, t) for s, t in mapping if t < 17])
+        options.extend(f"{key}.{item}" for item in (f"data_root={root}", f"ann_file={name}", "data_prefix.img=imgs/"))
+
+    walk(cfg[loader]["dataset"], f"{loader}.dataset")
+    return options
+
+
 def tiny_train_cfg(ann_file, batch_size, num_workers=0, approximate_gelu=False):
     """A train config over a ``mini_coco_set``: the tiny model at f32 with
     the flagship head's losses and drop_path 0, the flagship's train
@@ -2004,9 +2253,10 @@ def face_hand_counters():
 def cnn_zoo_counters():
     """The CNN backbones' kernels' wrappers (no TPU kernel: their own line),
     whose ``launches`` count their kernels' launches."""
-    from probpose_code_torch.ops.kernels import sc_gate, split_attention
+    from probpose_code_torch.ops.kernels import sc_gate, se_layer, split_attention
 
     return dict(sc_gate_forward=sc_gate.sc_gate_forward, sc_gate_backward=sc_gate.sc_gate_backward,
+                se_layer_forward=se_layer.se_layer_forward, se_layer_backward=se_layer.se_layer_backward,
                 split_attention_forward=split_attention.split_attention_forward,
                 split_attention_backward=split_attention.split_attention_backward)
 
@@ -2289,7 +2539,6 @@ def first_step_check(name, runner):
 def _runner_watch():
     """``RunnerWatch``, defined once the port's ``Hook`` can be imported."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from probpose_code_torch.engine.checkpoint import read_checkpoint
     from probpose_code_torch.engine.hooks import Hook
@@ -2314,13 +2563,13 @@ def _runner_watch():
                 self.start["average_equal"] = all(torch.equal(p.cpu(), saved[n])
                                                   for n, p in zip(names, runner.hooks[0].ema_params))
             if self.profile_step:  # the tracer's first start is slow: once here, outside the window
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                with traced():
                     torch.cuda.synchronize()
 
         def after_train_iter(self, runner, step, metrics):
             if self.profile_step and step == self.profile_step - 1:
                 t = time.perf_counter()
-                self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                self.prof = traced()
                 self.prof.start()
                 self.t0 = time.perf_counter()
                 self.profiler_s += self.t0 - t
@@ -2378,12 +2627,18 @@ class Smoke:
         """The CNN backbones' kernels' launches on ``path``'s main path (their
         counts set to 0 with the others'), kept for the ``cnn_zoo`` line.
         Fails unless SCNet's gate kernel launched where ``model`` is an
-        SCNet and the split attention's where it is a ResNeSt (the
-        backward too where the path trains), and neither elsewhere."""
+        SCNet, the split attention's where it is a ResNeSt and the
+        squeeze-and-excite kernels where it has an ``SELayer`` (SEResNet,
+        the ViPNAS backbones) (the backward too where the path
+        trains), and none elsewhere."""
+        from probpose_code_torch.models.backbones.classic import SELayer
+
         launches = {k: c.launches for k, c in cnn_zoo_counters().items()}
         self.record.setdefault("cnn_zoo_launches", {})[path] = launches
         kind = model.aux["backbone_cfg"].get("type")
+        se = any(isinstance(m, SELayer) for m in model.module.modules())
         want = dict(sc_gate_forward=kind == "SCNet", sc_gate_backward=kind == "SCNet" and backward,
+                    se_layer_forward=se, se_layer_backward=se and backward,
                     split_attention_forward=kind == "ResNeSt", split_attention_backward=kind == "ResNeSt" and backward)
         if any(bool(launches[k]) != v for k, v in want.items()):
             raise AssertionError(f"{path}: CNN backbone kernel launches {launches}, expected launched {want}")
@@ -3227,7 +3482,6 @@ class Smoke:
         import tempfile
 
         import torch
-        from torch.profiler import ProfilerActivity, profile
 
         from probpose_code_torch.datasets.loader import stop_workers
         from probpose_code_torch.engine.checkpoint import load_checkpoint, read_checkpoint
@@ -3253,7 +3507,7 @@ class Smoke:
 
             def before_train_epoch(self, runner, epoch):
                 if self.profile_step:  # the tracer's first start is slow: once here, outside the window
-                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                    with traced():
                         torch.cuda.synchronize()
 
             def delta(self):
@@ -3275,7 +3529,7 @@ class Smoke:
                 self.steps.append(self.delta())
                 if self.profile_step and step == self.profile_step - 1:
                     t = time.perf_counter()
-                    self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    self.prof = traced()
                     self.prof.start()
                     self.t0 = time.perf_counter()
                     self.profiler_s += self.t0 - t
@@ -3781,8 +4035,11 @@ class Smoke:
         twin's and its bound: the multiply-adds of its products at the
         rate of f32 products in 3xTF32, as they run (``PEAK_F32_3XTF32``),
         or its inputs read and outputs written once. The times are the
-        kernels' device time a call (profiled, ``kernel_device_ms``) and
-        the twin's, beside the calls' CUDA-event times. No PyTorch call
+        kernels' device time a call by CUDA events, with the L2 cache
+        flushed before each call and without (``queued_ms``: the profiler
+        drops records, and read the backward at half its time once), the
+        twin's (profiled, ``kernel_device_ms``), and the calls' CUDA-event
+        times back to back. No PyTorch call
         computes the squared-ReLU attention, so there is no library time.
         Launches made here are not the main path's."""
         import numpy as np
@@ -3834,14 +4091,16 @@ class Smoke:
                 r = dict(
                     name=name, route="cuda", source="probpose_code_torch/csrc/gau.cu",
                     ports="probpose_code_tpu/models/utils/rtmcc_block.py:99", max_abs_err=abs_err,
-                    ms=Smoke.kernel_device_ms(fn), plain_ms=Smoke.kernel_device_ms(plain, calls=10),
-                    bound_ms=max(need.values()) * 1e3, bound_by=max(need, key=need.get), library_ms=None)
+                    ms=Smoke.queued_ms([fn]), ms_warm=Smoke.queued_ms([fn], cold=False),
+                    plain_ms=Smoke.kernel_device_ms(plain, calls=10), bound_ms=max(need.values()) * 1e3,
+                    bound_by=max(need, key=need.get), library_ms=None)
                 if (B, n) == GAU_TIMED[0]:
                     records[name] = dict(r, by_shape={})
-                records[name]["by_shape"][f"B={B},n={n}"] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                                              "bound_by", "max_abs_err")}
-                print(f"  {name} B={B} n={n}: device {r['ms']:.4f} ms a call (call {cuda_time_ms(fn, 20):.4f} ms by "
-                      f"CUDA events, the wrapper's host work included), plain {r['plain_ms']:.4f} ms device (call "
+                records[name]["by_shape"][f"B={B},n={n}"] = {k: r[k] for k in ("ms", "ms_warm", "plain_ms",
+                                                                              "bound_ms", "bound_by", "max_abs_err")}
+                print(f"  {name} B={B} n={n}: device {r['ms']:.4f} ms a call with the L2 cache flushed, "
+                      f"{r['ms_warm']:.4f} without (call {cuda_time_ms(fn, 20):.4f} ms by CUDA events back to back, "
+                      f"the wrapper's host work included), plain {r['plain_ms']:.4f} ms device (call "
                       f"{cuda_time_ms(plain, 10):.4f}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
                       f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB), {r['ms'] / r['bound_ms']:.1f}x its bound, max "
                       f"abs err {abs_err:.3e}")
@@ -3879,7 +4138,8 @@ class Smoke:
         persons copied to 128 instances in its dataset's layout (2 steps;
         ``animal_fashion_options``), val at its end over the 62 golden
         persons in the layout by the recipe's evaluator; then ``tools.test``
-        on ``epoch_1.pth`` over the same persons as its test set. Fails
+        on ``epoch_1.pth`` over the same persons as its test set (both
+        loading in the process). Fails
         unless both steps run, no kernel of the port's TPU list launches,
         the GAU kernels launch where the model runs a GAU, one decode runs a
         step, the first loss dict equals ``make_train_step``'s, and every
@@ -3906,8 +4166,10 @@ class Smoke:
                 _, ann = golden_jpeg_set(tmp)
                 copy_instances(ann, 128, Path(tmp, "train.json"))
                 options = animal_fashion_options(cfg, "train_dataloader", tmp, Path(tmp, "train.json"))
+                # the val and test sets (62 persons) load in the process: a worker pool's start would take most
+                # of their time
                 options += animal_fashion_options(cfg, "val_dataloader", tmp, ann) + [
-                    "train_dataloader.num_workers=4", "val_dataloader.num_workers=4", "train_cfg.max_epochs=1",
+                    "train_dataloader.num_workers=4", "val_dataloader.num_workers=0", "train_cfg.max_epochs=1",
                     "default_hooks.logger.interval=1"]
                 # the main path: counts set to 0 just before, read just after
                 t0 = time.perf_counter()
@@ -3933,7 +4195,7 @@ class Smoke:
                 first_step_check(path, runner)
                 runner.close()
 
-                test = animal_fashion_options(cfg, "test_dataloader", tmp, ann) + ["test_dataloader.num_workers=4"]
+                test = animal_fashion_options(cfg, "test_dataloader", tmp, ann) + ["test_dataloader.num_workers=0"]
                 out = io.StringIO()
                 t0 = time.perf_counter()
                 with contextlib.redirect_stdout(out):
@@ -3945,17 +4207,241 @@ class Smoke:
                 if not tested or not all(math.isfinite(v) for v in tested.values()):
                     raise AssertionError(f"{key}: tools.test gave {tested}")
 
+    def multistage_golden(self):
+        """The RTMW, hourglass, CPM and MSPN fixtures (``MULTISTAGE_FIXTURES``)
+        on the card as ``classic_golden``: ``model_fixture_report`` within
+        ``UDP_BARS`` and ``FIXTURE_OUTPUT_REL``, no kernel of the TPU list
+        launched, the GAU kernels by RTMW alone."""
+        for fixture in MULTISTAGE_FIXTURES:
+            self._fixture_phase(fixture)
+
+    def multistage_predict(self):
+        """The SimCC and multi-stage recipes (``MULTISTAGE``: SimCC-ResNet-50 at
+        256 x 192 and 384 x 288, SimCC-MobileNetV2, SimCC-ViPNAS-MobileNetV3,
+        RTMW-m, Hourglass-52 at 256 and 384, CPM, MSPN-50, 4xMSPN-50, RSN-18,
+        3xRSN-50) at full width through ``predict_phase`` (random weights,
+        seed 0, 64 boxes with flip-TTA, 3 timed calls, one profiled: crops/s,
+        the busy share, peak memory; the GAU kernels counted on RTMW's path,
+        the depthwise on MobileNetV2's). For the two Megvii recipes
+        (4xMSPN-50, RSN-18) the card's decode of two crops' flip-averaged maps
+        against the CPU's decode of the same maps (``MEGVII_KPT_ATOL``,
+        ``MEGVII_SCORE_REL``)."""
+        import torch
+
+        from probpose_code_torch.apis import init_model
+        from probpose_code_torch.apis.inference import crop_batch
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.ops.decode import megvii_decode_batch
+
+        for name, config in MULTISTAGE.items():
+            simcc = name.startswith(("simcc", "rtmw"))
+            keys = ("keypoint_x_labels", "keypoint_y_labels") if simcc else ("heatmaps",)
+            self.predict_phase(config, name, keys, f"{name}_predict_launches", timed_calls=3, profile_calls=1)
+            dc = Config.fromfile(str(config))["model"]["head"]["decoder"]
+            if dc["type"] != "MegviiHeatmap":
+                continue
+            model = init_model(Config.fromfile(str(config)), device="cuda")
+            img, boxes = synthetic_boxes(2, seed=5)
+            crops = crop_batch(img, boxes, model.input_size, model.device, model.cfg_full)[0]
+            got = model.predict(crops)
+            kpts, scores = megvii_decode_batch(got["heatmaps"].cpu(), dc["kernel_size"], model.input_size)
+            err = (got["keypoints"].cpu() - kpts).abs().max().item()
+            rel = ((got["keypoint_scores"].cpu() - scores).abs().max() / scores.abs().max()).item()
+            print(f"{name}: the Megvii decode on the card vs the CPU on the same maps: keypoints max err {err:.3e} "
+                  f"px (bar {MEGVII_KPT_ATOL:g}), scores rel {rel:.3e} (bar {MEGVII_SCORE_REL:g})")
+            if not (err <= MEGVII_KPT_ATOL and rel <= MEGVII_SCORE_REL):
+                raise AssertionError(f"{name}: the Megvii decode on the card disagrees with the CPU's")
+            del model
+            torch.cuda.empty_cache()
+
+    def multistage_train(self):
+        """The bare train steps (``train_phase``, the recipes' optimizers and
+        schedules, targets encoded on the card) of Hourglass-52 at 256 x 256
+        (B = 32), CPM at 256 x 192, SimCC-ResNet-50 and RTMW-m (B = 64)
+        (``MULTISTAGE_TRAIN``): crops/s, peak memory and the busy share; then
+        the 2% rule's candidate ops of these steps, each alone at its step's
+        shapes, forward and backward (``multistage_op_shares``)."""
+        import torch
+
+        from probpose_code_torch.config import Config
+
+        shares = self.record.setdefault("op_shares", {})
+        for i, (name, B) in enumerate(MULTISTAGE_TRAIN.items()):
+            config = MULTISTAGE[name]
+            cfg = Config.fromfile(str(config))
+            K = cfg["model"]["head"]["out_channels"]
+            model, _, _, busy_ms = self.train_phase(config, name, synthetic_codec_batch(B, 41 + i, cfg["codec"], K),
+                                                    f"{name}_train_launches")
+            shares[name] = self.multistage_op_shares(name, busy_ms, model, B)
+            del model
+            torch.cuda.empty_cache()
+
+    @staticmethod
+    def multistage_op_shares(key, busy_ms, model, B):
+        """The 2% rule's candidates that ``model`` runs, each alone on the card
+        at the shapes one forward of ``B`` crops gives it (forward hooks),
+        forward and backward, over the profiled step's device time
+        ``busy_ms``: the hourglass's 2x repeat and sum (``hourglass_up``),
+        CPM's concatenation of each belief map with the middle branch
+        (``cpm_concat``), CSPNeXtPAFPN's nearest resize (``pafpn_resize``),
+        RTMWHead's pixel shuffle (``pixel_shuffle``) and the ScaleNorms of
+        the SimCC heads' tokens (``scale_norm``), and the SimCC loss
+        (``KLDiscretLoss`` over both vectors, ``simcc_loss``). Returns {op:
+        device ms, share %, calls}."""
+        import torch
+        import torch.nn.functional as F
+
+        from probpose_code_torch.models.backbones.multistage import CPM, HourglassModule
+        from probpose_code_torch.models.heads.rtmcc_head import RTMCCHead, RTMWHead, SimCCHead
+        from probpose_code_torch.models.necks.necks import CSPNeXtPAFPN
+        from probpose_code_torch.models.utils.rtmcc_block import ScaleNorm
+
+        def leaf(*shape):
+            return torch.randn(*shape, device=model.device).requires_grad_(True)
+
+        cases, hooks = {}, []
+
+        def add(op, fn, ins):
+            cases.setdefault(op, []).append((fn, ins))
+
+        def hook(m, args, out):
+            if isinstance(m, HourglassModule):
+                b, c, h, w = args[0].shape
+                ins = leaf(b, c, h, w), leaf(b, c, h // 2, w // 2)
+                add("hourglass_up", lambda ins=ins: ins[0] + ins[1][:, :, :, None, :, None].expand(
+                    b, c, h // 2, 2, w // 2, 2).reshape(b, c, h, w), ins)
+            elif isinstance(m, CPM):
+                for belief in out[:-1]:
+                    ins = leaf(*belief.shape), leaf(belief.shape[0], m.middle_conv[0][0].conv.out_channels,
+                                                    *belief.shape[2:])
+                    add("cpm_concat", lambda ins=ins: torch.cat(ins, dim=1), ins)
+            elif isinstance(m, CSPNeXtPAFPN):
+                for low, high in zip(args[0][:-1], args[0][1:]):
+                    ins = (leaf(high.shape[0], m.reduce_layers[0].conv.out_channels, *high.shape[2:]),)
+                    add("pafpn_resize", lambda ins=ins, size=tuple(low.shape[2:]): F.interpolate(
+                        ins[0], size=size, mode="nearest-exact"), ins)
+            elif isinstance(m, RTMWHead):
+                ins = (leaf(*args[0][-1].shape),)
+                add("pixel_shuffle", lambda ins=ins: m.shuffle(ins[0]), ins)
+            elif isinstance(m, ScaleNorm):
+                ins = (leaf(*args[0].shape),)
+                add("scale_norm", lambda ins=ins, m=m: m(ins[0]), ins)
+            if isinstance(m, (RTMCCHead, RTMWHead, SimCCHead)):
+                px, py = leaf(*out[0].shape), leaf(*out[1].shape)
+                tx, ty = torch.softmax(torch.randn_like(px), -1), torch.softmax(torch.randn_like(py), -1)
+                w = torch.ones(px.shape[:2], device=model.device)
+                loss = model.loss_modules["keypoint"]
+                add("simcc_loss", lambda: loss((px, py), (tx, ty), w), (px, py))
+
+        for m in model.module.modules():
+            if isinstance(m, (HourglassModule, CPM, CSPNeXtPAFPN, RTMWHead, ScaleNorm, RTMCCHead, SimCCHead)):
+                hooks.append(m.register_forward_hook(hook))
+        w, h = model.input_size
+        model.eval()
+        with torch.no_grad():
+            model.module(torch.zeros(B, h, w, 3, device=model.device))
+        for handle in hooks:
+            handle.remove()
+
+        def run(calls):
+            for fn, ins in calls:
+                out = fn()
+                torch.autograd.grad(out, ins, torch.ones_like(out))
+
+        shares = {}
+        for op, calls in cases.items():
+            ms = Smoke.kernel_device_ms(lambda calls=calls: run(calls), calls=5)
+            shares[op] = dict(device_ms=round(ms, 4), share=round(100 * ms / busy_ms, 2) if busy_ms else None,
+                              calls=len(calls))
+        print(f"{key}: the 2% rule's candidate ops alone at the step's shapes, device ms a step and % of the profiled "
+              f"{busy_ms} ms of device time: {json.dumps(shares)}")
+        return shares
+
+    def rtmw_runner(self):
+        """RTMW-m's recipe through ``tools.train``'s main at a batch of 64 with
+        eight train workers (val and test loading in the process) over the
+        cocktail14 mix made from the first 8 golden persons
+        (``cocktail14_sets``: the 14 datasets' layouts, four combined
+        sets, the UBody scenes a fifth; about two steps an epoch): two epochs
+        across the pipeline switch (``custom_hooks.1.switch_epoch=1``), the
+        EMA hook, a val pass by ``CocoWholeBodyMetric`` at the end over the 62
+        golden persons in COCO-WholeBody's layout; then ``tools.test`` on
+        ``epoch_2.pth``. Fails unless every step runs, no kernel of the TPU
+        list launches, the GAU kernels launch (forward and backward), one
+        JPEG decode runs a step, the photometric distortion runs on the card
+        in the first epoch, the first loss dict equals ``make_train_step``'s,
+        and every metric of the val and the test is finite."""
+        import contextlib
+        import io
+        import tempfile
+
+        import torch
+
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.datasets.loader import stop_workers
+        from probpose_code_torch.ops.kernels.jpeg import decode_batch
+        from probpose_code_torch.tools import test as test_cli
+        from probpose_code_torch.tools import train as train_cli
+
+        families = [f"coco/{part}AP" for part in ("body_", "foot_", "face_", "lefthand_", "righthand_", "")]
+        cfg = Config.fromfile(str(RTMW))
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+            stack.callback(stop_workers)
+            _, ann = golden_jpeg_set(tmp)
+            copy_instances(ann, 8, Path(tmp, "persons.json"))
+            wholebody_set_from_coco(ann, Path(tmp, "val.json"))
+            options = cocktail14_sets(cfg, tmp, Path(tmp, "persons.json")) + coco_data_options(tmp, workers=0) + [
+                "train_dataloader.batch_size=64", "train_dataloader.num_workers=8", "train_cfg.max_epochs=2",
+                "train_cfg.val_interval=2", "custom_hooks.1.switch_epoch=1", "default_hooks.logger.interval=1"]
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            read_counts = reset_counts()  # the main path: counts set to 0 just before, read just after
+            runner = train_cli.main([str(RTMW), "--work-dir", str(Path(tmp, "work")), "--cfg-options", *options])
+            torch.cuda.synchronize()
+            launches, decodes = read_counts(), decode_batch.launches
+            augments = {k: c.launches for k, c in augment_counters().items()}
+            self.read_gau("rtmw_runner", True, backward=True)
+            B, steps, n = runner.train_loader.batch_size, runner.state.step, len(runner.train_loader.dataset)
+            print(f"rtmw_runner main path: {steps} steps of {B} over {n} instances of the cocktail14 mix in "
+                  f"{time.perf_counter() - t0:.2f} s, launches {json.dumps(launches)}, JPEG decodes {decodes}, "
+                  f"photometric kernels {json.dumps(augments)}, GAU kernels "
+                  f"{json.dumps(self.record['gau_launches']['rtmw_runner'])}, peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            report_runner_epochs("rtmw_runner", runner, 0)
+            log = Path(tmp, "work", "train.log").read_text()
+            val = [line for line in log.splitlines() if "val: " in line]
+            print(f"rtmw_runner val: {val[-1] if val else None}")
+            if (B != 64 or steps != 2 * (n // B) or launches != NO_LAUNCHES or decodes != steps + len(runner.val_loader)
+                    or "pipeline switch at epoch 1" not in log or not val or not augments["photometric_distortion"]):
+                raise AssertionError(f"rtmw_runner: batch {B}, {steps} steps over {n}, launches {launches}, "
+                                     f"{decodes} decodes, augments {augments}, val {val}")
+            self.record["rtmw_runner_launches"] = launches
+            first_step_check("rtmw_runner", runner)
+            runner.close()
+
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                test_cli.main([str(RTMW), str(Path(tmp, "work", "epoch_2.pth")), "--cfg-options",
+                               *[kv.replace("val_", "test_", 1) for kv in coco_data_options(tmp, workers=0)]])
+            tested = dict(line.split(": ", 1) for line in out.getvalue().splitlines() if line.startswith("coco/"))
+            print(f"rtmw_runner tools.test on epoch_2.pth in {time.perf_counter() - t0:.2f} s: "
+                  f"{json.dumps({k: tested.get(k) for k in families})}")
+            if not all(math.isfinite(float(tested.get(k, "nan"))) for k in families):
+                raise AssertionError(f"rtmw_runner: tools.test gave {tested}")
+
     def cnn_zoo_golden(self):
         """The SCNet-50 and ViPNAS fixtures (``CNN_ZOO_FIXTURES``) on the card
         as ``classic_golden``: ``model_fixture_report`` within ``UDP_BARS`` and
         ``FIXTURE_OUTPUT_REL``, no kernel of the TPU list launched, SCNet's
-        gate forward launched by the SCNet fixture alone."""
+        gate forward launched by the SCNet fixture alone and the
+        squeeze-and-excite forward by the ViPNAS one alone."""
         for fixture in CNN_ZOO_FIXTURES:
             self._fixture_phase(fixture)  # its counts set to 0 just before, the TPU kernels' read just after
             launches = {k: c.launches for k, c in cnn_zoo_counters().items()}
             self.record.setdefault("cnn_zoo_launches", {})[f"{fixture['name']}_golden"] = launches
-            if bool(launches["sc_gate_forward"]) != (fixture is SCNET_FIXTURE) or any(
-                    n for k, n in launches.items() if k != "sc_gate_forward"):
+            forward = "sc_gate_forward" if fixture is SCNET_FIXTURE else "se_layer_forward"
+            if not launches[forward] or any(n for k, n in launches.items() if k != forward):
                 raise AssertionError(f"{fixture['name']}_golden: the CNN backbones' kernels launched {launches}")
 
     def cnn_zoo_predict(self):
@@ -4082,18 +4568,111 @@ class Smoke:
             for i, (suffix, fn, twin) in enumerate(
                     (("forward", each(lambda *case, f=forward: f(*case[:-1])), each(lambda *case, p=plain: p(*case[:-1]))),
                      ("backward", each(lambda *case, b=backward: b(case[-1], *case[:-1])), each(plain_grad)))):
-                ms, plain_ms = Smoke.kernel_device_ms(fn, calls=10), Smoke.kernel_device_ms(twin, calls=10)
+                launch = forward if suffix == "forward" else backward
+                fns = [lambda case=case, f=launch: f(*case[:-1]) if suffix == "forward" else f(case[-1], *case[:-1])
+                       for case in cases]
+                ms, warm = Smoke.queued_ms(fns), Smoke.queued_ms(fns, cold=False)
+                plain_ms = Smoke.kernel_device_ms(twin, calls=10)
                 nb, ops = sum(nbytes(case)[i] for case in cases), sum(nops(case)[i] for case in cases)
                 need = dict(operations=ops / PEAK_F32, bytes=nb / PEAK_BYTES)
                 records.append(dict(name=f"{name}_{suffix}", route="cuda", source=f"probpose_code_torch/csrc/{name}.cu",
-                                    ports=ports, max_abs_err=abs_err[i], ms=ms, plain_ms=plain_ms,
+                                    ports=ports, max_abs_err=abs_err[i], ms=ms, ms_warm=warm, plain_ms=plain_ms,
                                     bound_ms=max(need.values()) * 1e3, bound_by=max(need, key=need.get),
                                     library_ms=None))
                 r = records[-1]
-                print(f"  {r['name']}: device {ms:.4f} ms (call {cuda_time_ms(fn, 10):.4f} by CUDA events), plain "
+                print(f"  {r['name']}: device {ms:.4f} ms with the L2 cache flushed before each launch, {warm:.4f} "
+                      f"without (CUDA events; the call back to back {cuda_time_ms(fn, 10):.4f}), plain "
                       f"{plain_ms:.4f} ms device, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {ops / 1e9:.3f} GFLOP, "
                       f"{nb / 1e6:.1f} MB), {ms / r['bound_ms']:.1f}x its bound, max abs err {r['max_abs_err']:.3e}")
-        self.record["cnn_zoo_kernels"] = records
+        self.record["cnn_zoo_kernels"] = records + self.se_layer_kernels()
+
+    def se_layer_kernels(self):
+        """The squeeze-and-excite kernels (``ops/kernels/se_layer.py``,
+        ``csrc/se_layer.cu``; the 2% rule's free place) against their
+        plain twin at ViPNAS-Res50's B = 64 step's SE layers (``cnn_zoo_shapes``;
+        weights, maps and the output's gradient drawn from a seed), the gate a
+        sigmoid, and the first layer's shape once more with the hard sigmoid
+        (ViPNAS-MobileNetV3's): the forward at ``SE_LAYER_REL``, the map's and
+        the weights' gradients at ``SE_LAYER_GRAD_REL`` (against autograd
+        through the twin), the backward twice bit for bit. Then the device
+        time of the forward and of the backward summed over the step's layers
+        beside the twin's, and the bound: the bytes each must move
+        (``se_layer_bytes``) over 3.35 TB/s. No single PyTorch call computes
+        the layer: no library time. Returns the two records."""
+        import numpy as np
+        import torch
+
+        from probpose_code_torch.apis import init_model
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.models.builder import full_f32_precision
+        from probpose_code_torch.ops.kernels import se_layer
+
+        rng = np.random.RandomState(19)
+
+        def draw(*shape, s=1.0):
+            return torch.from_numpy((s * rng.randn(*shape)).astype(np.float32)).cuda()
+
+        model = init_model(Config.fromfile(str(CNN_ZOO["vipnas-res50"])), device="cuda")
+        layers = [(m.conv1["conv"].out_channels, shape) for o, m, shape in self.cnn_zoo_shapes(model) if o == "se_layer"]
+        del model
+        cases = [(draw(B, C, H, W), draw(mid, C, s=C ** -0.5), draw(mid, s=0.1), draw(C, mid, s=mid ** -0.5),
+                  draw(C, s=0.1), draw(B, C, H, W)) for mid, (B, C, H, W) in layers]
+
+        def rel(a, b):
+            return float((a - b).abs().max() / b.abs().max())
+
+        errors, abs_err, deterministic = dict(forward=0.0, gradients=0.0), [0.0, 0.0], True
+        with full_f32_precision():
+            for i, (*ins, dy) in enumerate(cases + cases[:1]):
+                hard = i == len(cases)
+                out, *saved = se_layer.se_layer_forward(*ins, hard)
+                grads = se_layer.se_layer_backward(dy, ins[0], *saved, ins[1], ins[3], hard)
+                again = se_layer.se_layer_backward(dy, ins[0], *saved, ins[1], ins[3], hard)
+                leaves = [t.clone().requires_grad_() for t in ins]
+                ref = se_layer.se_layer_plain(*leaves, hard)
+                ref_grads = torch.autograd.grad(ref, leaves, dy)
+                errors["forward"] = max(errors["forward"], rel(out, ref.detach()))
+                errors["gradients"] = max(errors["gradients"], *(rel(g, r) for g, r in zip(grads, ref_grads)))
+                abs_err[0] = max(abs_err[0], float((out - ref.detach()).abs().max()))
+                abs_err[1] = max(abs_err[1], *(float((g - r).abs().max()) for g, r in zip(grads, ref_grads)))
+                deterministic &= all(torch.equal(a, b) for a, b in zip(grads, again))
+        print(f"cnn_zoo_kernels se_layer over the {len(cases)} SE layers of ViPNAS-Res50's B=64 step and one with the "
+              f"hard sigmoid: rel max err {json.dumps(errors)} (bars {SE_LAYER_REL:g} forward, {SE_LAYER_GRAD_REL:g} "
+              f"gradients); the backward repeats bit for bit: {deterministic}")
+        if not (errors["forward"] < SE_LAYER_REL and errors["gradients"] < SE_LAYER_GRAD_REL and deterministic):
+            raise AssertionError(f"cnn_zoo_kernels: the se_layer kernels disagree with the twin: {errors}")
+
+        saved = [se_layer.se_layer_forward(*ins, False)[1:] for *ins, _ in cases]
+
+        def plain_grad(x, w1, b1, w2, b2, dy):
+            leaves = [t.detach().requires_grad_() for t in (x, w1, b1, w2, b2)]
+            return torch.autograd.grad(se_layer.se_layer_plain(*leaves), leaves, dy)
+
+        timed = (("forward", lambda: [se_layer.se_layer_forward(*c[:-1], False) for c in cases],
+                  lambda: [se_layer.se_layer_plain(*c[:-1]) for c in cases]),
+                 ("backward", lambda: [se_layer.se_layer_backward(c[-1], c[0], *st, c[1], c[3], False)
+                                       for c, st in zip(cases, saved)],
+                  lambda: [plain_grad(*c) for c in cases]))
+        cold = ([lambda c=c: se_layer.se_layer_forward(*c[:-1], False) for c in cases],
+                [lambda c=c, st=st: se_layer.se_layer_backward(c[-1], c[0], *st, c[1], c[3], False)
+                 for c, st in zip(cases, saved)])
+        records = []
+        for i, (suffix, fn, twin) in enumerate(timed):
+            ms, warm = Smoke.queued_ms(cold[i]), Smoke.queued_ms(cold[i], cold=False)
+            plain_ms = Smoke.kernel_device_ms(twin, calls=10)
+            nb = sum(se_layer.se_layer_bytes(c[0].numel(), c[0].shape[0] * c[0].shape[1])[i] for c in cases)
+            ops = sum((2 + i) * c[0].numel() + 4 * c[0].shape[0] * c[1].numel() * (1 + i) for c in cases)
+            need = dict(operations=ops / PEAK_F32, bytes=nb / PEAK_BYTES)
+            records.append(dict(name=f"se_layer_{suffix}", route="cuda", source="probpose_code_torch/csrc/se_layer.cu",
+                                ports="probpose_code_tpu/models/backbones/classic.py:SELayer", max_abs_err=abs_err[i],
+                                ms=ms, ms_warm=warm, plain_ms=plain_ms, bound_ms=max(need.values()) * 1e3,
+                                bound_by=max(need, key=need.get), library_ms=None))
+            r = records[-1]
+            print(f"  {r['name']}: {ms:.4f} ms with the L2 cache flushed before each layer, {warm:.4f} without "
+                  f"(CUDA events; the call back to back {cuda_time_ms(fn, 10):.4f}), plain "
+                  f"{plain_ms:.4f} ms device, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {ops / 1e9:.3f} GFLOP, "
+                  f"{nb / 1e6:.1f} MB), {ms / r['bound_ms']:.1f}x its bound, max abs err {r['max_abs_err']:.3e}")
+        return records
 
     @staticmethod
     def cnn_zoo_shapes(model):
@@ -4126,7 +4705,8 @@ class Smoke:
         at the shapes one forward of 64 crops gives it (``cnn_zoo_shapes``),
         over the profiled call's or step's device time ``busy_ms``: the
         squeeze and excite (``SELayer``: the pooling, its two 1x1 convs, the
-        gate and the scale), SCNet's gate (``self_calibration``: as the
+        gate and the scale; as the kernels of ``csrc/se_layer.cu`` and as its
+        plain twin), SCNet's gate (``self_calibration``: as the
         kernels of ``csrc/sc_gate.cu`` and as its plain twin), the split
         attention's radix softmax and weighted sum (``split_attention``: as
         the kernels of ``csrc/split_attention.cu`` and as its plain twin)
@@ -4136,7 +4716,7 @@ class Smoke:
         import torch
 
         from probpose_code_torch.models.backbones import classic
-        from probpose_code_torch.ops.kernels import sc_gate, split_attention
+        from probpose_code_torch.ops.kernels import sc_gate, se_layer, split_attention
 
         def leaf(*shape):
             return torch.randn(*shape, device=model.device).requires_grad_(backward)
@@ -4146,6 +4726,11 @@ class Smoke:
             if op == "se_layer":
                 x = leaf(B, C, H, W)
                 cases.setdefault(op, []).append((lambda m=m, x=x: m(x, torch.float32), (x, *m.parameters())))
+                ws = m.conv1["conv"].weight.flatten(1), m.conv1["conv"].bias, m.conv2["conv"].weight.flatten(1), \
+                    m.conv2["conv"].bias
+                cases.setdefault(op + "_plain", []).append(
+                    (lambda x=x, ws=ws, hard=m.hard: se_layer.se_layer_plain(x, *ws, hard),
+                     (x, *m.parameters())))
             elif op == "self_calibration":
                 r = m.k2[0].kernel_size
                 ins = leaf(B, C, H, W), leaf(B, C, H // r, W // r), leaf(B, C, H, W)
@@ -4993,8 +5578,10 @@ class Smoke:
         ``AdaptiveWingLoss``'s (``ops/kernels/adaptive_wing.py``,
         ``csrc/adaptive_wing.cu``) over HRNetV2-w18's WFLW maps (64, 98, 64,
         64) with its weights (loss and gradient at ``AWING_REL``). Then each
-        kernel's device time (``kernel_device_ms``; the depthwise kernels
-        summed over the 17 shapes, a step's worth) beside the twin's, the
+        kernel's device time by CUDA events, with the L2 cache flushed before
+        each launch and without (``queued_ms``: the profiler drops records
+        late in the run; the depthwise kernels summed over the 17 shapes, a
+        step's worth) beside the twin's (``kernel_device_ms``), the
         library call's (the depthwise twin is cuDNN's ``F.conv2d``, so its
         plain and library times are one call's, measured apart; no PyTorch
         call computes the loss) and the bound: the bytes that each moves
@@ -5071,7 +5658,7 @@ class Smoke:
         abs_err["adaptive_wing_backward"] = float((grad - ref_grad).abs().max())
 
         def each(fn):
-            return lambda: [fn(*case) for case in cases]
+            return [functools.partial(fn, *case) for case in cases]
 
         def plain_grad(x, w, dy, stride):
             leaves = [x.detach().requires_grad_(), w.detach().requires_grad_()]
@@ -5086,32 +5673,34 @@ class Smoke:
         awing_bytes = aw.adaptive_wing_bytes(elements, weights.numel(), True)
         timed = dict(
             depthwise_forward=(each(lambda x, w, dy, s: dw.depthwise_forward(x, w, s)),
-                               each(lambda x, w, dy, s: dw.depthwise_conv3x3_plain(x, w, s)), True, fwd_ops,
+                               all_of(each(lambda x, w, dy, s: dw.depthwise_conv3x3_plain(x, w, s))), True, fwd_ops,
                                fwd_bytes, "probpose_code_tpu/models/backbones/mobilenet_v2.py:45",
                                "probpose_code_torch/csrc/depthwise.cu"),
-            depthwise_backward=(each(lambda x, w, dy, s: dw.depthwise_backward(dy, x, w, s)), each(plain_grad), True,
-                                2 * fwd_ops, bwd_bytes, "probpose_code_tpu/models/backbones/mobilenet_v2.py:45",
+            depthwise_backward=(each(lambda x, w, dy, s: dw.depthwise_backward(dy, x, w, s)), all_of(each(plain_grad)),
+                                True, 2 * fwd_ops, bwd_bytes, "probpose_code_tpu/models/backbones/mobilenet_v2.py:45",
                                 "probpose_code_torch/csrc/depthwise.cu"),
-            adaptive_wing_forward=(lambda: aw.adaptive_wing_forward(output, target, weights, params),
+            adaptive_wing_forward=([lambda: aw.adaptive_wing_forward(output, target, weights, params)],
                                    lambda: aw.adaptive_wing_loss_plain(output, target, weights, *params), False,
                                    30 * elements, awing_bytes[0], "probpose_code_tpu/models/losses/heatmap_loss.py:139",
                                    "probpose_code_torch/csrc/adaptive_wing.cu"),
-            adaptive_wing_backward=(lambda: aw.adaptive_wing_backward(dloss, output, target, weights, params),
+            adaptive_wing_backward=([lambda: aw.adaptive_wing_backward(dloss, output, target, weights, params)],
                                     lambda: torch.autograd.grad(aw.adaptive_wing_loss_plain(
                                         leaf, target, weights, *params), [leaf]), False, 40 * elements,
                                     awing_bytes[1], "probpose_code_tpu/models/losses/heatmap_loss.py:139",
                                     "probpose_code_torch/csrc/adaptive_wing.cu"))
         records = []
-        for name, (fn, plain, library, ops, nbytes, ports, source) in timed.items():
+        for name, (fns, plain, library, ops, nbytes, ports, source) in timed.items():
             with full_f32_precision():
-                ms, plain_ms = Smoke.kernel_device_ms(fn, calls=10), Smoke.kernel_device_ms(plain, calls=10)
+                ms, warm = Smoke.queued_ms(fns), Smoke.queued_ms(fns, cold=False)
+                plain_ms = Smoke.kernel_device_ms(plain, calls=10)
                 library_ms = Smoke.kernel_device_ms(plain, calls=10) if library else None
             need = dict(operations=ops / PEAK_F32, bytes=nbytes / PEAK_BYTES)
             records.append(dict(name=name, route="cuda", source=source, ports=ports, max_abs_err=abs_err[name],
-                                ms=ms, plain_ms=plain_ms, bound_ms=max(need.values()) * 1e3,
+                                ms=ms, ms_warm=warm, plain_ms=plain_ms, bound_ms=max(need.values()) * 1e3,
                                 bound_by=max(need, key=need.get), library_ms=library_ms))
             r = records[-1]
-            print(f"  {name}: device {ms:.4f} ms (call {cuda_time_ms(fn, 10):.4f} by CUDA events), plain {plain_ms:.4f}"
+            print(f"  {name}: device {ms:.4f} ms with the L2 cache flushed before each launch, {warm:.4f} without "
+                  f"(CUDA events; the call back to back {cuda_time_ms(all_of(fns), 10):.4f}), plain {plain_ms:.4f}"
                   f" ms device" + (f", library (cuDNN F.conv2d) {library_ms:.4f}" if library else "")
                   + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} "
                   f"MB), {ms / r['bound_ms']:.1f}x its bound, max abs err {r['max_abs_err']:.3e}")
@@ -5386,9 +5975,8 @@ class Smoke:
         also its share. Returns the device's busy ms a call (None where the
         profiler recorded no device time)."""
         import torch
-        from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with traced() as prof:
             t0 = time.perf_counter()
             for _ in range(calls):
                 fn()
@@ -5401,13 +5989,10 @@ class Smoke:
         """Print a finished profile: device time by kernel, the busy share of
         ``wall_us`` and, where K2 ran, its share. Returns the device's busy
         ms a call (None where the profiler recorded no device time)."""
-        from torch.autograd import DeviceType
-
         by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                t, n = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+        for name, us in device_records(prof):
+            t, n = by_name.get(name, (0.0, 0))
+            by_name[name] = (t + us, n + 1)
         if not by_name:
             print("profile: the profiler recorded no device time (busy share not measured)")
             return
@@ -5427,27 +6012,28 @@ class Smoke:
     @staticmethod
     def products_rate(fn, flops, calls=3):
         """(device ms a call of the GEMM kernels, TFLOP/s of ``flops``) over
-        a profile of ``calls`` calls of fn, traced as ``profile`` traces. A
-        trace that recorded no device time at all is taken once more; if
-        that one is empty too, both numbers are NaN (not measured)."""
+        a profile of ``calls`` calls of fn, traced with the host's activity
+        (``traced``). A trace that recorded no device time at all, or none in the GEMM
+        kernels (the tracer drops records late in a long run), is taken once
+        more; if the second recorded no device time either, both numbers are
+        NaN (not measured), and if it saw device time but no GEMM kernel, it
+        fails."""
         import torch
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
 
         fn()
         torch.cuda.synchronize()
         for _ in range(2):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with traced(host=True) as prof:
                 for _ in range(calls):
                     fn()
                 torch.cuda.synchronize()
-            device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-            if device:
+            device = device_records(prof)
+            if any("gemm" in name for name, _ in device):
                 break
-        else:
+        if not device:
             print("products: the profiler recorded no device time (their rate not measured)")
             return float("nan"), float("nan")
-        us = sum(e.time_range.elapsed_us() for e in device if "gemm" in e.name)
+        us = sum(t for name, t in device if "gemm" in name)
         if us == 0:
             raise AssertionError("the profiler saw device time but no GEMM kernel")
         ms = us / calls / 1e3
@@ -5457,30 +6043,60 @@ class Smoke:
     def kernel_device_ms(fn, name=None, calls=20):
         """Device ms a call of fn in the kernels whose name holds ``name`` (in
         all its kernels where ``name`` is None), over a profile of ``calls``
-        calls of fn, traced as ``profile`` traces. A trace that recorded no
-        device time at all is taken once more; if that one is empty too, the
-        result is NaN (not measured)."""
+        calls of fn, traced with the host's activity (``traced``). A trace
+        that recorded none of those kernels is taken once more; if the second
+        recorded no device time at all, the result is NaN (not measured), and
+        if it saw device time but none of those kernels, it fails."""
         import torch
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
 
         fn()
         torch.cuda.synchronize()
         for _ in range(2):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with traced(host=True) as prof:
                 for _ in range(calls):
                     fn()
                 torch.cuda.synchronize()
-            device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-            if device:
+            device = device_records(prof)
+            mine = [us for kernel, us in device if name is None or name in kernel]
+            if mine:
                 break
-        else:
+        if not device:
             print(f"{name or 'device time'}: the profiler recorded no device time (not measured)")
             return float("nan")
-        mine = [e.time_range.elapsed_us() for e in device if name is None or name in e.name]
         if not mine:
             raise AssertionError(f"the profiler saw device time but no {name}")
         return sum(mine) / calls / 1e3
+
+    @staticmethod
+    def queued_ms(fns, calls=5, cold=True):
+        """Device ms of one pass over ``fns`` (callables, each a kernel's call
+        at a step's shape) by CUDA events around each call, the call queued
+        behind a wait on the card (``torch.cuda._sleep``) long enough for the
+        host to queue all of its launches, so that the events see the
+        kernels alone and no host gap; ``cold``: behind a flush of the L2
+        cache too (a 128 MB buffer zeroed), so that each call's inputs come
+        from device memory, as its bound counts them. The profiler's device
+        time is not used here: late in a long run the tracer drops records
+        (a third of them, late in this script), which reads as a shorter
+        time."""
+        import torch
+
+        flush = torch.empty(2**25, dtype=torch.float32, device="cuda")
+        pairs = []
+        for fn in fns:  # warm-up
+            fn()
+        for _ in range(calls):
+            for fn in fns:
+                if cold:
+                    flush.zero_()
+                torch.cuda._sleep(2_000_000)
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                pairs.append((start, end))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / calls
 
     @staticmethod
     def host_us(fn, calls=200):
@@ -5966,70 +6582,82 @@ def main() -> int:
 
     card = card_line()
     print(f"card: {card}", flush=True)
+    # loader workers import this script again, and a pool starts them one after another: run by its path, the
+    # script would be compiled anew in each; by name, each reads the bytecode compiled here once
+    script = str(ROOT / "chip_smoke.py")
+    py_compile.compile(script, cfile=importlib.util.cache_from_source(script), doraise=True)
+    sys.modules["__main__"].__spec__ = importlib.util.find_spec("chip_smoke")
+    from probpose_code_torch.datasets.loader import keep_workers
+
     smoke = Smoke()
-    smoke.phase("build", smoke.build)
-    if not smoke.failures:
-        smoke.phase("k1_parity", smoke.k1_parity)
-        smoke.phase("k2_parity", smoke.k2_parity)
-        smoke.phase("k3_parity", smoke.k3_parity)
-        smoke.phase("golden", smoke.golden)
-        smoke.phase("checkpoint_file", smoke.checkpoint_file)
-        smoke.phase("flagship", smoke.flagship)
-        smoke.phase("train", smoke.train)
-        smoke.phase("k4_parity", smoke.k4_parity)
-        smoke.phase("vitpose_predict", smoke.vitpose_predict)
-        smoke.phase("vitpose_train", smoke.vitpose_train)
-        smoke.phase("vit_large_parity", smoke.vit_large_parity)
-        smoke.phase("vitpose_small_predict", smoke.vitpose_small_predict)
-        smoke.phase("vitpose_large_predict", smoke.vitpose_large_predict)
-        smoke.phase("vitpose_huge_predict", smoke.vitpose_huge_predict)
-        smoke.phase("vitpose_large_train", smoke.vitpose_large_train)
-        smoke.phase("vitpose_huge_train", smoke.vitpose_huge_train)
-        smoke.phase("jpeg_decode", smoke.jpeg_decode)
-        smoke.phase("val_full", smoke.val_full)
-        smoke.phase("val_full_jpeg", smoke.val_full_jpeg)
-        smoke.phase("val_shipped", smoke.val_shipped)
-        smoke.phase("val_flagship", smoke.val_flagship)
-        smoke.phase("train_flagship", smoke.train_flagship)
-        smoke.phase("serve", smoke.serve)
-        smoke.phase("dpm_predict", smoke.dpm_predict)
-        smoke.phase("dpm_train", smoke.dpm_train)
-        smoke.phase("hrnet_golden", smoke.hrnet_golden)
-        smoke.phase("hrnet_predict", smoke.hrnet_predict)
-        smoke.phase("hrnet_train", smoke.hrnet_train)
-        smoke.phase("classic_golden", smoke.classic_golden)
-        smoke.phase("gau_parity", smoke.gau_parity)
-        smoke.phase("rtmpose_golden", smoke.rtmpose_golden)
-        smoke.phase("res50_predict", smoke.res50_predict)
-        smoke.phase("hrnet_msra_predict", smoke.hrnet_msra_predict)
-        smoke.phase("res50_train", smoke.res50_train)
-        smoke.phase("rtmpose_predict", smoke.rtmpose_predict)
-        smoke.phase("rtmpose_train", smoke.rtmpose_train)
-        smoke.phase("rtmpose_augment", smoke.rtmpose_augment)
-        smoke.phase("rtmpose_train_runner", smoke.rtmpose_train_runner)
-        smoke.phase("rtmpose_aic_train", smoke.rtmpose_aic_train)
-        smoke.phase("body8_train_runner", smoke.body8_train_runner)
-        smoke.phase("halpe26_runner", smoke.halpe26_runner)
-        smoke.phase("crowdpose_val", smoke.crowdpose_val)
-        smoke.phase("wholebody_golden", smoke.wholebody_golden)
-        smoke.phase("wholebody_predict", smoke.wholebody_predict)
-        smoke.phase("wholebody_train", smoke.wholebody_train)
-        smoke.phase("wholebody_train_runner", smoke.wholebody_train_runner)
-        smoke.phase("ubody_train", smoke.ubody_train)
-        smoke.phase("face_golden", smoke.face_golden)
-        smoke.phase("face_hand_predict", smoke.face_hand_predict)
-        smoke.phase("face6_train_runner", smoke.face6_train_runner)
-        smoke.phase("hand5_train", smoke.hand5_train)
-        smoke.phase("face_hand_kernels", smoke.face_hand_kernels)
-        smoke.phase("face_hand_train", smoke.face_hand_train)
-        smoke.phase("dpm_golden", smoke.dpm_golden)
-        smoke.phase("animal_fashion_predict", smoke.animal_fashion_predict)
-        smoke.phase("animal_fashion_runner", smoke.animal_fashion_runner)
-        smoke.phase("cnn_zoo_golden", smoke.cnn_zoo_golden)
-        smoke.phase("cnn_zoo_predict", smoke.cnn_zoo_predict)
-        smoke.phase("cnn_zoo_kernels", smoke.cnn_zoo_kernels)
-        smoke.phase("cnn_zoo_train", smoke.cnn_zoo_train)
-        smoke.phase("timings", smoke.timings)
+    with keep_workers():  # the fork server starts once for the run's passes, not once a pass
+        smoke.phase("build", smoke.build)
+        if not smoke.failures:
+            smoke.phase("k1_parity", smoke.k1_parity)
+            smoke.phase("k2_parity", smoke.k2_parity)
+            smoke.phase("k3_parity", smoke.k3_parity)
+            smoke.phase("golden", smoke.golden)
+            smoke.phase("checkpoint_file", smoke.checkpoint_file)
+            smoke.phase("flagship", smoke.flagship)
+            smoke.phase("train", smoke.train)
+            smoke.phase("k4_parity", smoke.k4_parity)
+            smoke.phase("vitpose_predict", smoke.vitpose_predict)
+            smoke.phase("vitpose_train", smoke.vitpose_train)
+            smoke.phase("vit_large_parity", smoke.vit_large_parity)
+            smoke.phase("vitpose_small_predict", smoke.vitpose_small_predict)
+            smoke.phase("vitpose_large_predict", smoke.vitpose_large_predict)
+            smoke.phase("vitpose_huge_predict", smoke.vitpose_huge_predict)
+            smoke.phase("vitpose_large_train", smoke.vitpose_large_train)
+            smoke.phase("vitpose_huge_train", smoke.vitpose_huge_train)
+            smoke.phase("jpeg_decode", smoke.jpeg_decode)
+            smoke.phase("val_full", smoke.val_full)
+            smoke.phase("val_full_jpeg", smoke.val_full_jpeg)
+            smoke.phase("val_shipped", smoke.val_shipped)
+            smoke.phase("val_flagship", smoke.val_flagship)
+            smoke.phase("train_flagship", smoke.train_flagship)
+            smoke.phase("serve", smoke.serve)
+            smoke.phase("dpm_predict", smoke.dpm_predict)
+            smoke.phase("dpm_train", smoke.dpm_train)
+            smoke.phase("hrnet_golden", smoke.hrnet_golden)
+            smoke.phase("hrnet_predict", smoke.hrnet_predict)
+            smoke.phase("hrnet_train", smoke.hrnet_train)
+            smoke.phase("classic_golden", smoke.classic_golden)
+            smoke.phase("gau_parity", smoke.gau_parity)
+            smoke.phase("rtmpose_golden", smoke.rtmpose_golden)
+            smoke.phase("res50_predict", smoke.res50_predict)
+            smoke.phase("hrnet_msra_predict", smoke.hrnet_msra_predict)
+            smoke.phase("res50_train", smoke.res50_train)
+            smoke.phase("rtmpose_predict", smoke.rtmpose_predict)
+            smoke.phase("rtmpose_train", smoke.rtmpose_train)
+            smoke.phase("rtmpose_augment", smoke.rtmpose_augment)
+            smoke.phase("rtmpose_train_runner", smoke.rtmpose_train_runner)
+            smoke.phase("rtmpose_aic_train", smoke.rtmpose_aic_train)
+            smoke.phase("body8_train_runner", smoke.body8_train_runner)
+            smoke.phase("halpe26_runner", smoke.halpe26_runner)
+            smoke.phase("crowdpose_val", smoke.crowdpose_val)
+            smoke.phase("wholebody_golden", smoke.wholebody_golden)
+            smoke.phase("wholebody_predict", smoke.wholebody_predict)
+            smoke.phase("wholebody_train", smoke.wholebody_train)
+            smoke.phase("wholebody_train_runner", smoke.wholebody_train_runner)
+            smoke.phase("ubody_train", smoke.ubody_train)
+            smoke.phase("face_golden", smoke.face_golden)
+            smoke.phase("face_hand_predict", smoke.face_hand_predict)
+            smoke.phase("face6_train_runner", smoke.face6_train_runner)
+            smoke.phase("hand5_train", smoke.hand5_train)
+            smoke.phase("face_hand_kernels", smoke.face_hand_kernels)
+            smoke.phase("face_hand_train", smoke.face_hand_train)
+            smoke.phase("dpm_golden", smoke.dpm_golden)
+            smoke.phase("animal_fashion_predict", smoke.animal_fashion_predict)
+            smoke.phase("animal_fashion_runner", smoke.animal_fashion_runner)
+            smoke.phase("cnn_zoo_golden", smoke.cnn_zoo_golden)
+            smoke.phase("cnn_zoo_predict", smoke.cnn_zoo_predict)
+            smoke.phase("cnn_zoo_kernels", smoke.cnn_zoo_kernels)
+            smoke.phase("cnn_zoo_train", smoke.cnn_zoo_train)
+            smoke.phase("timings", smoke.timings)
+            smoke.phase("multistage_golden", smoke.multistage_golden)
+            smoke.phase("multistage_predict", smoke.multistage_predict)
+            smoke.phase("multistage_train", smoke.multistage_train)
+            smoke.phase("rtmw_runner", smoke.rtmw_runner)
     left = stop_descendants()
     if left:
         print(f"chip_smoke: stopped processes left running: {left}", file=sys.stderr)
@@ -6066,10 +6694,12 @@ def main() -> int:
                                          launches_by_path={path: n[rec["name"]] for path, n in face_hand.items()})
                                     for rec in smoke.record["face_hand_kernels"]]}))
     # the CNN backbones' kernels, no TPU kernel: their own line, SCNet's gate's launches those of SCNet-50's
-    # train step, the split attention's those of ResNeSt-50's, and each one's on every path
+    # train step, the split attention's those of ResNeSt-50's, the squeeze and excite's those of ViPNAS-Res50's,
+    # and each one's on every path
     cnn_zoo = smoke.record["cnn_zoo_launches"]
     main_path = dict(sc_gate_forward="scnet50_train", sc_gate_backward="scnet50_train",
-                     split_attention_forward="resnest50_train", split_attention_backward="resnest50_train")
+                     split_attention_forward="resnest50_train", split_attention_backward="resnest50_train",
+                     se_layer_forward="vipnas-res50_train", se_layer_backward="vipnas-res50_train")
     print(json.dumps({"cnn_zoo": [dict(rec, launches=cnn_zoo[main_path[rec["name"]]][rec["name"]],
                                        launches_by_path={path: n[rec["name"]] for path, n in cnn_zoo.items()})
                                   for rec in smoke.record["cnn_zoo_kernels"]]}))

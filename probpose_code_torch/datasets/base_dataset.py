@@ -7,12 +7,15 @@ parsing with the ProbPose ``keypoints_visibility`` (v==2) flag and
 ``pad_to_contain``, detector boxes from a ``bbox_file``, the top-down
 organization and filters), the body datasets under their metainfo
 (``BODY_DATASETS``: ``CocoDataset``, ``CocoCropDataset`` and those of
-``datasets/zoo.py:24-61`` that the body8 recipes mix),
+``datasets/zoo.py:24-61`` that the body8 and cocktail14 recipes mix,
+``HumanArt21Dataset`` among them),
 ``CocoWholeBodyDataset`` and ``UBody2dDataset`` (133 keypoints), the face
 and hand datasets (``FACE_HAND_DATASETS``, ``zoo.py:38-49``, and mmpose's
 readings of COCO-WholeBody's faces and hands and of Halpe's hands:
 ``CocoWholeBodyFaceDataset``, ``CocoWholeBodyHandDataset``,
-``HalpeHandDataset``), the animal, fashion and ExLPose datasets
+``HalpeHandDataset``; ``INTERHAND_DATASETS``: ``InterHand2DDoubleDataset``,
+``zoo.py:53``, the JAX class's COCO-style reading: mmpose's
+``camera_param_file`` and ``joint_file`` fall into its ``**kwargs``), the animal, fashion and ExLPose datasets
 (``ANIMAL_FASHION_DATASETS``, ``zoo.py:35``, ``:55-69``, and
 ``DeepFashionDataset`` with mmpose's ``subset``) and ``CombinedDataset``.
 ``config_metainfo`` gives the table that a dataset config names.
@@ -277,7 +280,7 @@ class BaseCocoStyleDataset:
 BODY_DATASETS = dict(CocoDataset="coco", CocoCropDataset="coco_crop", AicDataset="aic",
                      CrowdPoseDataset="crowdpose", MpiiDataset="mpii", JhmdbDataset="jhmdb",
                      HalpeDataset="halpe", PoseTrack18Dataset="posetrack18", OCHumanDataset="ochuman",
-                     HumanArtDataset="humanart")
+                     HumanArtDataset="humanart", HumanArt21Dataset="humanart21")
 # The face and hand datasets the same way (``datasets/zoo.py:38-49``). The JAX parser takes each box from the
 # file's ``bbox``: mmpose's WFLW, 300W and AFLW classes build theirs from ``center`` and ``scale`` (x 200) and
 # AFLW's NME norm from ``box_size``, and its Panoptic class sets ``head_size``; the port copies the JAX reading.
@@ -285,13 +288,17 @@ FACE_HAND_DATASETS = dict(Face300WDataset="300w", Face300WLPDataset="300wlp", WF
                           AFLWDataset="aflw", COFWDataset="cofw", LapaDataset="lapa",
                           OneHand10KDataset="onehand10k", FreiHandDataset="freihand2d", Rhd2DDataset="rhd2d",
                           PanopticHand2DDataset="panoptic_hand2d")
+# The cocktail14 recipe's InterHand2.6M the same way (``zoo.py:53``): the JAX class's COCO-style reading, mmpose's
+# ``camera_param_file`` and ``joint_file`` in its keyword arguments, two hands (42 keypoints) an instance under the
+# 21-keypoint table.
+INTERHAND_DATASETS = dict(InterHand2DDoubleDataset="interhand2d")
 # The animal, fashion and ExLPose datasets the same way (``datasets/zoo.py:35``, ``:55-69``), the JAX reading
 # of each file's ``bbox`` too.
 ANIMAL_FASHION_DATASETS = dict(AP10KDataset="ap10k", AnimalPoseDataset="animalpose", Horse10Dataset="horse10",
                                MacaqueDataset="macaque", FlyDataset="fly", LocustDataset="locust",
                                ZebraDataset="zebra", ATRWDataset="atrw", AnimalKingdomDataset="ak",
                                DeepFashion2Dataset="deepfashion2", ExlposeDataset="exlpose")
-for _name, _table in {**BODY_DATASETS, **FACE_HAND_DATASETS, **ANIMAL_FASHION_DATASETS}.items():
+for _name, _table in {**BODY_DATASETS, **FACE_HAND_DATASETS, **INTERHAND_DATASETS, **ANIMAL_FASHION_DATASETS}.items():
     globals()[_name] = DATASETS.register_module(module=type(_name, (BaseCocoStyleDataset,), dict(
         METAINFO=dict(dataset_name=_table), __doc__=f"The COCO-style dataset under the {_table!r} metainfo.")))
 del _name, _table

@@ -28,11 +28,16 @@ as the JAX pool does: each pickles the dataset once, and a task carries only
 ``(epoch, batch id)``, from which the worker computes the batch's indices
 and seed. ``close`` ends them. The fork server, and multiprocessing's
 resource tracker beside it, outlive a pass so that the next one starts its
-workers at once; ``stop_workers`` ends both when the caller is done.
+workers at once; ``stop_workers`` ends both when the caller is done. A
+process that runs many passes one after another, each through an entry
+point that calls ``stop_workers`` at its end (``tools.train``,
+``tools.test``), runs them inside ``keep_workers``: the fork server then
+starts once, not once a pass, and stops when the block ends.
 """
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing
 import random
 from typing import Dict, Iterator, List, Optional, Tuple
@@ -131,14 +136,35 @@ def collate_pose_samples(samples: List[dict]) -> Dict:
     return batch
 
 
+_kept = 0  # the depth of ``keep_workers`` blocks around the caller
+
+
 def stop_workers() -> None:
     """Stop the fork server and the resource tracker that worker passes
     leave running, and wait for both to exit; a later pass starts them
-    again. Neither start method has a public stop, hence the private calls."""
+    again. Inside ``keep_workers`` it leaves both running. Neither start
+    method has a public stop, hence the private calls."""
     from multiprocessing import forkserver, resource_tracker
 
+    if _kept:
+        return
     forkserver._forkserver._stop()
     resource_tracker._resource_tracker._stop()
+
+
+@contextlib.contextmanager
+def keep_workers() -> Iterator[None]:
+    """Within the block ``stop_workers`` leaves the fork server and the
+    resource tracker running, so that each pass after the first starts its
+    workers without starting the fork server again (it imports torch and
+    this package: seconds); the outermost block stops both at its end."""
+    global _kept
+    _kept += 1
+    try:
+        yield
+    finally:
+        _kept -= 1
+        stop_workers()
 
 
 class _Batches(torch.utils.data.Dataset):

@@ -5,7 +5,8 @@ CropCOCO (``coco_crop.py``: COCO's table under another name), AI
 Challenger (``data/aic.json``), the other body datasets of the body8
 recipes (``body.py``, ``halpe.py``: ``data/<name>.json``) and
 COCO-WholeBody and UBody-2D (``wholebody.py``) and the face and hand
-datasets (``face.py``, ``hand.py``), the animal and fashion datasets
+datasets (``face.py``, ``hand.py``; the cocktail14 recipe's Human-Art-21 and
+InterHand2.6M in ``body.py`` and ``hand.py``), the animal and fashion datasets
 (``animal.py``, ``fashion.py``) and ExLPose (``body.py``):
 ``parse_pose_metainfo`` (``__init__.py:65``) over those tables.
 """
@@ -23,6 +24,7 @@ from .wholebody import COCO_WHOLEBODY, UBODY2D
 DATASET_METAINFO = {"coco": COCO_METAINFO, "coco_crop": {**COCO_METAINFO, "dataset_name": "coco_crop"},
                     "aic": AIC_METAINFO, "crowdpose": body.CROWDPOSE, "mpii": body.MPII, "jhmdb": body.JHMDB,
                     "posetrack18": body.POSETRACK18, "ochuman": body.OCHUMAN, "humanart": body.HUMANART,
+                    "humanart21": body.HUMANART21, "interhand2d": hand.INTERHAND2D,
                     "halpe": HALPE, "halpe26": body.HALPE26,
                     "coco_wholebody": COCO_WHOLEBODY, "ubody2d": UBODY2D,
                     "300w": face.FACE_300W, "300wlp": face.FACE_300WLP, "wflw": face.WFLW, "cofw": face.COFW,

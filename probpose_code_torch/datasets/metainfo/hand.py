@@ -36,3 +36,56 @@ FREIHAND2D = hand_table("freihand")
 RHD2D = hand_table("rhd2d", tip_first=True)
 PANOPTIC_HAND2D = hand_table("panoptic_hand2d")
 COCO_WHOLEBODY_HAND = hand_table("coco_wholebody_hand", sigmas=_SIGMAS)
+
+# InterHand2.6M's hand (the cocktail14 recipe's InterHand2DDoubleDataset): each finger from the tip down, the
+# wrist last
+INTERHAND2D = table(
+    "interhand2d",
+    [
+        ("thumb4", [255, 128, 0], "", ""),
+        ("thumb3", [255, 128, 0], "", ""),
+        ("thumb2", [255, 128, 0], "", ""),
+        ("thumb1", [255, 128, 0], "", ""),
+        ("forefinger4", [255, 153, 255], "", ""),
+        ("forefinger3", [255, 153, 255], "", ""),
+        ("forefinger2", [255, 153, 255], "", ""),
+        ("forefinger1", [255, 153, 255], "", ""),
+        ("middle_finger4", [102, 178, 255], "", ""),
+        ("middle_finger3", [102, 178, 255], "", ""),
+        ("middle_finger2", [102, 178, 255], "", ""),
+        ("middle_finger1", [102, 178, 255], "", ""),
+        ("ring_finger4", [255, 51, 51], "", ""),
+        ("ring_finger3", [255, 51, 51], "", ""),
+        ("ring_finger2", [255, 51, 51], "", ""),
+        ("ring_finger1", [255, 51, 51], "", ""),
+        ("pinky_finger4", [0, 255, 0], "", ""),
+        ("pinky_finger3", [0, 255, 0], "", ""),
+        ("pinky_finger2", [0, 255, 0], "", ""),
+        ("pinky_finger1", [0, 255, 0], "", ""),
+        ("wrist", [255, 255, 255], "", ""),
+    ],
+    [
+        (("wrist", "thumb1"), [255, 128, 0]),
+        (("thumb1", "thumb2"), [255, 128, 0]),
+        (("thumb2", "thumb3"), [255, 128, 0]),
+        (("thumb3", "thumb4"), [255, 128, 0]),
+        (("wrist", "forefinger1"), [255, 153, 255]),
+        (("forefinger1", "forefinger2"), [255, 153, 255]),
+        (("forefinger2", "forefinger3"), [255, 153, 255]),
+        (("forefinger3", "forefinger4"), [255, 153, 255]),
+        (("wrist", "middle_finger1"), [102, 178, 255]),
+        (("middle_finger1", "middle_finger2"), [102, 178, 255]),
+        (("middle_finger2", "middle_finger3"), [102, 178, 255]),
+        (("middle_finger3", "middle_finger4"), [102, 178, 255]),
+        (("wrist", "ring_finger1"), [255, 51, 51]),
+        (("ring_finger1", "ring_finger2"), [255, 51, 51]),
+        (("ring_finger2", "ring_finger3"), [255, 51, 51]),
+        (("ring_finger3", "ring_finger4"), [255, 51, 51]),
+        (("wrist", "pinky_finger1"), [0, 255, 0]),
+        (("pinky_finger1", "pinky_finger2"), [0, 255, 0]),
+        (("pinky_finger2", "pinky_finger3"), [0, 255, 0]),
+        (("pinky_finger3", "pinky_finger4"), [0, 255, 0]),
+    ],
+    [1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0],
+    [],
+)

@@ -31,7 +31,14 @@ from the JAX module names to mmpose's) and ViPNASHead, whose JAX head
 keeps a transposed conv a group (``deconv{i}_g{j}``): their kernels,
 concatenated along the input axis, are one grouped ``ConvTranspose2d``
 weight. The JAX converter has no inverse for those families but ResNet and
-ResNeXt's 7x7 stem (``:839``).
+ResNeXt's 7x7 stem (``:839``). RTMPose's and RTMW's CSPNeXt, RTMW's
+CSPNeXtPAFPN and the SimCC heads (RTMCCHead, SimCCHead, RTMWHead) take the
+names that ``convert_torch_cspnext_backbone`` (``:183``),
+``convert_torch_cspnext_pafpn`` (``:573``) and ``_convert_rtmw_head``
+(``:621``) read, so one weights file loads in both packages; HourglassNet,
+CPM, MSPN / RSN, CPMHead and MSPNHead, which no JAX converter reads, take
+mmpose's names as a reading of its modules gives them
+(``models/backbones/multistage.py``, ``models/heads/multistage_heads.py``).
 """
 
 from __future__ import annotations
@@ -351,9 +358,97 @@ def _vipnas_mbv3_rules(bb):
             (r"l(\d)_b(\d+)_se/fc(\d)", lambda m: layer(m, f"se.conv{m[3]}.conv"))]
 
 
+def _cspnext_rules(bb):
+    """CSPNeXt (the inverse of ``convert_torch_cspnext_backbone``,
+    ``engine/checkpoint.py:183``): a stage's CSP layer sits behind its SPP
+    bottleneck where it has one."""
+
+    def csp(m):
+        return f"stage{m[1]}.{2 if f'stage{m[1]}_spp' in bb else 1}"
+
+    return [(r"stem(\d)/" + _CONV_BN, r"stem.\1.\2"), (r"stage(\d)_conv/" + _CONV_BN, r"stage\1.0.\2"),
+            (r"stage(\d)_spp/(conv\d)/" + _CONV_BN, r"stage\1.1.\2.\3"),
+            (r"stage(\d)_csp/attention/fc", lambda m: f"{csp(m)}.attention.fc")] + [
+        (r"stage(\d)_csp/" + pattern, lambda m, name=name: f"{csp(m)}.{m.expand(name)}")
+        for pattern, name in _CSP_LAYER]
+
+
+# a CSP layer's modules under the flax names and mmpose's, the groups after the layer's own
+_CSP_LAYER = [(r"(main_conv|short_conv|final_conv)/" + _CONV_BN, r"\2.\3"),
+              (r"block(\d+)/conv1/" + _CONV_BN, r"blocks.\2.conv1.\3"),
+              (r"block(\d+)/conv2/(depthwise|pointwise)/" + _CONV_BN, r"blocks.\2.conv2.\3_conv.\4")]
+
+
+def _pafpn_rules(neck):
+    """CSPNeXtPAFPN (the inverse of ``convert_torch_cspnext_pafpn``, ``:573``):
+    ``reduce{i}`` / ``top_down{i}`` are ``reduce_layers.{n - 1 - i}`` /
+    ``top_down_blocks.{n - 1 - i}`` for n levels."""
+    n = 1 + sum(re.fullmatch(r"reduce\d+", k) is not None for k in neck)
+    rules = [(r"reduce(\d+)/" + _CONV_BN, lambda m: f"reduce_layers.{n - 1 - int(m[1])}.{m[2]}"),
+             (r"down(\d+)/" + _CONV_BN, r"downsamples.\1.\2"), (r"out_conv(\d+)/" + _CONV_BN, r"out_convs.\1.\2")]
+    for pattern, name in _CSP_LAYER:
+        rules.append((r"top_down(\d+)/" + pattern,
+                      lambda m, name=name: f"top_down_blocks.{n - 1 - int(m[1])}.{m.expand(name)}"))
+        rules.append((r"bottom_up(\d+)/" + pattern, lambda m, name=name: f"bottom_up_blocks.{m[1]}.{m.expand(name)}"))
+    return rules
+
+
+def _block(name):
+    """A basic block's or bottleneck's module under mmpose's name."""
+    return {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}.get(name, name)
+
+
+def _hourglass_rules(bb):
+    return [(r"stem_conv/" + _CONV_BN, r"stem.0.\1"),
+            (r"stem_res/block(\d+)/(\w+)", lambda m: f"stem.1.{m[1]}.{_block(m[2])}"),
+            (r"hourglass(\d+)/((?:low2/)*)(up1|low1|low2|low3)/block(\d+)/(\w+)",
+             lambda m: f"hourglass_modules.{m[1]}.{m[2].replace('/', '.')}{m[3]}.{m[4]}.{_block(m[5])}"),
+            (r"inter(\d+)/block0/(\w+)", lambda m: f"inters.{m[1]}.{_block(m[2])}"),
+            (r"conv1x1_(\d+)/" + _CONV_BN, r"conv1x1s.\1.\2"), (r"out_conv(\d+)/" + _CONV_BN, r"out_convs.\1.\2"),
+            (r"remap(\d+)/" + _CONV_BN, r"remap_convs.\1.\2")]
+
+
+def _cpm_rules(bb):
+    stem, middle = (0, 2, 4, 6, 7, 8), (0, 2, 4)
+    return [(r"stem(\d)/" + _CONV_BN, lambda m: f"stem.{stem[int(m[1])]}.{m[2]}"), (r"stem_out", "stem.9.conv"),
+            (r"middle(\d)/" + _CONV_BN, lambda m: f"middle.{middle[int(m[1])]}.{m[2]}"),
+            (r"middle_conv(\d+)/" + _CONV_BN, r"middle_conv.\1.0.\2"),
+            (r"stage(\d+)_conv(\d)/" + _CONV_BN, r"cpm_stages.\1.model.\2.\3"),
+            (r"stage(\d+)_out0/" + _CONV_BN, r"out_convs.\1.0.\2"), (r"stage(\d+)_out1", r"out_convs.\1.1.conv")]
+
+
+def _multistage_rules(bb):
+    """MSPN and RSN: ``stage{i}/down{j}_block{b}`` is the stage's
+    ``downsample.layer{j + 1}.{b}``, ``stage{i}/up{j}`` its ``upsample.up{j}``."""
+    rsn = "conv2_1_1" in bb["stage0"]["down0_block0"]
+    stages = "multi_stage_rsn" if rsn else "multi_stage_mspn"
+
+    def block(m, name):
+        return f"{stages}.{m[1]}.downsample.layer{int(m[2]) + 1}.{m[3]}.{name}"
+
+    down = r"stage(\d+)/down(\d+)_block(\d+)/"
+    rules = [(r"top/" + _CONV_BN, r"top.top.0.\1"),
+             (r"stage(\d+)/up(\d+)/(\w+)/" + _CONV_BN, rf"{stages}.\1.upsample.up\2.\3.\4"),
+             (down + r"downsample/" + _CONV_BN, lambda m: block(m, f"downsample.{m[4]}"))]
+    if rsn:
+        parts = dict(conv1="conv_bn_relu1", conv3="conv_bn3")
+        return rules + [(down + r"(conv[13])/" + _CONV_BN, lambda m: block(m, f"{parts[m[4]]}.{m[5]}")),
+                        (down + r"conv2_(\d+)_(\d+)/" + _CONV_BN, lambda m: block(m, f"conv_bn_relu2_{m[4]}_{m[5]}.{m[6]}"))]
+    return rules + [(down + r"((?:conv|bn)\d)", lambda m: block(m, m[4])),
+                    (down + r"downsample_(conv|bn)", lambda m: block(m, f"downsample.{m[4]}"))]
+
+
 def _cnn_rules(bb: Dict[str, Any]):
     """The rules of the JAX backbone ``bb``'s family, told by its modules'
     names, or None (a ViT or an HRNet)."""
+    if "stem_res" in bb:
+        return _hourglass_rules
+    if "middle0" in bb:
+        return _cpm_rules
+    if "top" in bb and "stage0" in bb:
+        return _multistage_rules
+    if "stage1_conv" in bb:
+        return _cspnext_rules
     if "stem_conv" in bb:
         return _vipnas_mbv3_rules if "l1_b0_expand" in bb else _vipnas_resnet_rules
     if "stem0" in bb:
@@ -379,36 +474,95 @@ def _modules(tree: Dict[str, Any], path=()):
             yield from _modules(v, path + (k,))
 
 
-def _cnn_from_jax(sd: Dict[str, np.ndarray], bb: Dict[str, Any], bb_s: Dict[str, Any], rules) -> None:
-    """Each flax module of ``bb`` under its mmpose name: a conv's kernel (a
-    ``Dense``'s as a 1x1 conv) and bias, a BatchNorm's scale, bias and
-    statistics."""
+def _cnn_from_jax(sd: Dict[str, np.ndarray], bb: Dict[str, Any], bb_s: Dict[str, Any], rules,
+                  prefix: str = "backbone", dense: str = "conv") -> None:
+    """Each flax module of ``bb`` under its mmpose name after ``prefix``: a
+    conv's kernel (a transposed conv's, ``deconv*``, flipped) and bias, a
+    ``Dense``'s as a 1x1 conv (``dense="conv"``) or a linear layer
+    (``"linear"``), a BatchNorm's scale, bias and statistics; another
+    module's arrays (ScaleNorm's ``g``, the GAU's ``gamma``, ``beta``,
+    ``res_scale``) under their own names."""
     for path, leaves in _modules(bb):
         joined = "/".join(path)
         for pattern, name in rules:
             m = re.fullmatch(pattern, joined)
             if m:
-                key = "backbone." + (name(m) if callable(name) else m.expand(name))
+                key = f"{prefix}." + (name(m) if callable(name) else m.expand(name))
                 break
         else:
-            raise KeyError(f"state_dict_from_jax: no torch name for the JAX backbone's module {joined}")
+            raise KeyError(f"state_dict_from_jax: no torch name for the JAX {prefix}'s module {joined}")
+        stats = bb_s
+        for part in path:
+            stats = stats.get(part, {})
         if "kernel" in leaves:
             kernel = leaves["kernel"]
-            sd[f"{key}.weight"] = _conv(kernel) if kernel.ndim == 4 else kernel.T[:, :, None, None]
+            if kernel.ndim == 4:
+                sd[f"{key}.weight"] = _deconv(kernel) if path[-1].startswith("deconv") else _conv(kernel)
+            else:
+                sd[f"{key}.weight"] = kernel.T if dense == "linear" else kernel.T[:, :, None, None]
             if "bias" in leaves:
                 sd[f"{key}.bias"] = leaves["bias"]
-        else:
-            stats = bb_s
-            for part in path:
-                stats = stats[part]
+        elif "mean" in stats:
             _bn_from_jax(sd, key, leaves, stats)
+        else:
+            for leaf, value in leaves.items():
+                sd[f"{key}.{'res_scale.scale' if leaf == 'res_scale' else leaf}"] = value
+
+
+# The SimCC heads' and the multi-stage heads' modules under mmpose's names (their JAX converters'
+# ``_convert_rtmw_head``, ``:621``, and ``_convert_rtmcc_head``, ``:540``, read them)
+_GAU = [(r"gau", "gau"), (r"gau/(ln|uv|o)", r"gau.\1")]
+_RTMW_HEAD = _GAU + [(r"(final_layer2?|conv_dec)_" + _CONV_BN, r"\1.\2"), (r"(mlp2?)_norm", r"\1.0"),
+                     (r"(mlp2?)", r"\1.1"), (r"(cls_[xy])", r"\1")]
+_RTMCC_HEAD = _GAU + [(r"final_layer", "final_layer"), (r"mlp_norm", "mlp.0"), (r"mlp_fc", "mlp.1"),
+                      (r"(cls_[xy])", r"\1")]
+_SIMCC_HEAD = [(r"deconv_layers/deconv(\d+)", lambda m: f"deconv_layers.{3 * int(m[1])}"),
+               (r"deconv_layers/bn(\d+)", lambda m: f"deconv_layers.{3 * int(m[1]) + 1}"),
+               (r"(final_layer|mlp_head_[xy])", r"\1")]
+_CPM_HEAD = [(r"deconv(\d+)/deconv(\d+)", lambda m: f"multi_deconv_layers.{m[1]}.{3 * int(m[2])}"),
+             (r"deconv(\d+)/bn(\d+)", lambda m: f"multi_deconv_layers.{m[1]}.{3 * int(m[2]) + 1}"),
+             (r"final(\d+)", r"multi_final_layers.\1")]
+_PRM = dict(prm1_conv="conv_bn_relu_prm_1.conv", prm1_bn="conv_bn_relu_prm_1.bn", mid_fc0="middle_path.0",
+            mid_bn0="middle_path.1", mid_fc1="middle_path.3", mid_bn1="middle_path.4",
+            bottom_conv1="bottom_path.0.conv", bottom_bn1="bottom_path.0.bn",
+            bottom_dw="bottom_path.1.depthwise_conv.conv", bottom_dw_bn="bottom_path.1.depthwise_conv.bn",
+            bottom_pw="bottom_path.1.pointwise_conv.conv", bottom_pw_bn="bottom_path.1.pointwise_conv.bn")
+
+
+def _mspn_head_rules(head):
+    units = sum(re.fullmatch(r"s0_u\d+_conv1", k) is not None for k in head)
+    parts = dict(conv1="conv_layers.0.conv", bn1="conv_layers.0.bn", conv2="conv_layers.1.conv", bn2="conv_layers.1.bn")
+
+    def layer(m):
+        return f"predict_layers.{int(m[1]) * units + int(m[2])}"
+
+    return [(r"s(\d+)_u(\d+)_(conv[12]|bn[12])", lambda m: f"{layer(m)}.{parts[m[3]]}"),
+            (r"s(\d+)_u(\d+)_prm/(\w+)", lambda m: f"{layer(m)}.prm.{_PRM[m[3]]}")]
+
+
+def _head_rules(head: Dict[str, Any]):
+    """The rules of the SimCC and multi-stage heads, told by their modules'
+    names, or None (the heatmap, ProbMap and ViPNAS heads)."""
+    if "final_layer2_conv" in head:
+        return _RTMW_HEAD
+    if "mlp_fc" in head:
+        return _RTMCC_HEAD
+    if "mlp_head_x" in head:
+        return _SIMCC_HEAD
+    if "final0" in head:
+        return _CPM_HEAD
+    if "s0_u0_conv1" in head:
+        return _mspn_head_rules(head)
+    return None
 
 
 def state_dict_from_jax(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
     """JAX ``{"params", "batch_stats"}`` (a ViT, an HRNet or a classic CNN:
     ResNet, ResNetV1d, ResNeXt, SEResNet, SEResNeXt, SCNet, ResNeSt,
-    ShuffleNetV1 / V2, VGG, AlexNet, ViPNAS_ResNet, ViPNAS_MobileNetV3; a
-    ProbMapHead, a DoubleProbMapHead, a HeatmapHead or a ViPNASHead) -> torch
+    ShuffleNetV1 / V2, VGG, AlexNet, ViPNAS_ResNet, ViPNAS_MobileNetV3,
+    CSPNeXt, HourglassNet, CPM, MSPN, RSN; a CSPNeXtPAFPN neck; a
+    ProbMapHead, a DoubleProbMapHead, a HeatmapHead, a ViPNASHead, an
+    RTMCCHead, a SimCCHead, an RTMWHead, a CPMHead or an MSPNHead) -> torch
     state dict."""
     params, stats = variables["params"], variables.get("batch_stats", {})
     sd: Dict[str, np.ndarray] = {}
@@ -421,8 +575,14 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Te
         _cnn_from_jax(sd, bb, stats.get("backbone", {}), rules(bb))
     else:
         _hrnet_from_jax(sd, bb, stats.get("backbone", {}))
+    if "neck" in params:  # CSPNeXtPAFPN; the other necks have no parameters
+        _cnn_from_jax(sd, params["neck"], stats.get("neck", {}), _pafpn_rules(params["neck"]), prefix="neck")
 
     head, head_s = params["head"], stats.get("head", {})
+    rules = _head_rules(head)
+    if rules is not None:
+        _cnn_from_jax(sd, head, head_s, rules, prefix="head", dense="linear")
+        return OrderedDict((k, torch.from_numpy(np.array(v, copy=True))) for k, v in sd.items())
 
     def tower(prefix, node, node_s):
         """A heatmap tower: deconv stack, conv stack, final layer."""

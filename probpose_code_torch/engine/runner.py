@@ -49,7 +49,7 @@ from probpose_code_torch.engine.checkpoint import (
     save_checkpoint,
 )
 from probpose_code_torch.engine.optim import build_optimizer
-from probpose_code_torch.models.builder import PoseModel
+from probpose_code_torch.models.builder import UNTRAINED_HEADS, PoseModel
 from probpose_code_torch.parallel import TrainState, create_train_state, make_train_step
 from probpose_code_torch.registry import DATASETS, EVALUATORS, HOOKS
 from probpose_code_torch.structures.data_sample import InstanceData
@@ -171,6 +171,11 @@ class Runner:
         self.generator = torch.Generator(device=self.model.device).manual_seed(int(self.cfg.get("seed", 0)))
 
     def train(self, max_epochs: Optional[int] = None) -> TrainState:
+        """Refuses the heads the port serves and does not train
+        (``models.builder.UNTRAINED_HEADS``: MSPN / RSN) before any data is
+        read."""
+        if self.model.head_type in UNTRAINED_HEADS:
+            raise NotImplementedError(UNTRAINED_HEADS[self.model.head_type])
         if self.train_loader is None:
             self.train_loader = self.build_train_loader()
         self.setup_training()

@@ -62,11 +62,8 @@ from probpose_code_torch.models.backbones.mobilenet_v2 import make_divisible
 from probpose_code_torch.models.backbones.vit import resolve_dtype
 from probpose_code_torch.models.heads.heatmap_head import conv_in
 from probpose_code_torch.ops.kernels.sc_gate import self_calibration
+from probpose_code_torch.ops.kernels.se_layer import hsigmoid, se_layer
 from probpose_code_torch.registry import MODELS
-
-
-def hsigmoid(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp((x + 3) / 6, 0.0, 1.0)
 
 
 def hswish(x: torch.Tensor) -> torch.Tensor:
@@ -109,13 +106,16 @@ class SELayer(nn.Module):
         mid = make_divisible(channels // ratio, 8)
         self.conv1 = nn.ModuleDict(dict(conv=nn.Conv2d(channels, mid, 1)))
         self.conv2 = nn.ModuleDict(dict(conv=nn.Conv2d(mid, channels, 1)))
-        self.gate = hsigmoid if hard else torch.sigmoid
+        self.hard = hard
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        s = x.float().mean(dim=(2, 3), keepdim=True)
-        s = torch.relu(conv_in(self.conv1["conv"], s, dtype))
-        s = self.gate(conv_in(self.conv2["conv"], s, dtype))
-        return x * s.to(x.dtype)
+        """``ops/kernels/se_layer.py:se_layer``: on the card its kernels, on
+        the CPU its plain twin; in f32 (no config runs it in another type:
+        ``ValueError``; f64 for the tests' gradients)."""
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"SELayer: the layer runs in float32, not {dtype}")
+        c1, c2 = self.conv1["conv"], self.conv2["conv"]
+        return se_layer(x.float(), c1.weight.flatten(1), c1.bias, c2.weight.flatten(1), c2.bias, self.hard)
 
 
 # -- SEResNet, SEResNeXt, SCNet -------------------------------------------------------

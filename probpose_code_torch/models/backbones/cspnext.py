@@ -134,6 +134,7 @@ class CSPNeXt(nn.Module):
         self.stem = nn.Sequential(ConvModule(in_channels, stem_ch, 3, 2), ConvModule(stem_ch, stem_ch, 3),
                                   ConvModule(stem_ch, stem_ch * 2, 3))
         cin = stem_ch * 2
+        widths = [cin]
         self.num_stages = len(arch_setting)
         for i, (_, out_ch, num_blocks, add_identity, use_spp) in enumerate(arch_setting):
             out_ch = int(out_ch * widen_factor)
@@ -144,6 +145,9 @@ class CSPNeXt(nn.Module):
             stage.append(CSPLayer(out_ch, out_ch, expand_ratio, num_blocks, add_identity, channel_attention))
             setattr(self, f"stage{i + 1}", nn.Sequential(*stage))
             cin = out_ch
+            widths.append(out_ch)
+        # the widths of the outputs, which a neck or head takes where its config's widths differ
+        self.out_channels = tuple(widths[i] for i in self.out_indices)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, ...]:
         """(B, 3, H, W) -> the stages of ``out_indices`` (0 is the stem);

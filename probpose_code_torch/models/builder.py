@@ -4,15 +4,18 @@ Port of ``probpose_code_tpu/models/builder.py``: ``build_pose_estimator``
 (``:39``) reads the same reference-style config dicts, ``build_loss_modules``
 (``:132``) builds the head's losses, and ``PoseModel`` owns the module, its
 predict program for top-down ProbMapHead, DoubleProbMapHead, HeatmapHead
-(and ViPNASHead), RTMCCHead and RegressionHead models (preprocess ->
+(and ViPNASHead; CPMHead and MSPNHead, the last of their maps), the SimCC
+heads (RTMCCHead, SimCCHead, RTMWHead) and RegressionHead models (preprocess ->
 original and mirrored crops as one doubled batch -> flip-TTA average -> the
 expected-OKS decode, ``:815-832``, argmax and DARK-UDP for the UDP codec, argmax and the
-quarter-pixel step or DARK for the MSRA codec, ``:870-908``, SimCC's joint
+quarter-pixel step or DARK for the MSRA codec, ``:870-908``, the Megvii
+codec's own decode (the JAX predict takes the UDP branch), SimCC's joint
 argmax, ``:833-837``, or the regression head's coordinates times the input
 size, ``:841-844``) and its loss (``loss_fn``, ``:406``, ``:486``, with the
 targets and DoubleProbMap's bbox mask made on the device by
-``device_preprocess_batch``, ``:363``). The RLE, integral and DSNT
-regression heads are not ported.
+``device_preprocess_batch``, ``:363``; CPMHead's ``cpm_head_loss``,
+``:490-493``). The RLE, integral and DSNT regression heads are not ported;
+MSPNHead's training is refused (``UNTRAINED_HEADS``).
 """
 
 from __future__ import annotations
@@ -48,13 +51,15 @@ from .backbones import classic, resnest, vipnas  # noqa: F401  (register)
 from .backbones.cspnext import CSPNeXt  # noqa: F401  (registers)
 from .backbones.hrnet import HRNet  # noqa: F401  (registers)
 from .backbones.mobilenet_v2 import MobileNetV2  # noqa: F401  (registers)
+from .backbones.multistage import CPM, MSPN, RSN, HourglassNet  # noqa: F401  (register)
 from .backbones.resnet import ResNet  # noqa: F401  (registers)
 from .backbones.vit import VisionTransformer  # noqa: F401  (registers)
 from .heads.heatmap_head import HeatmapHead, ViPNASHead  # noqa: F401  (registers)
+from .heads.multistage_heads import CPMHead, MSPNHead, cpm_head_loss, mspn_head_loss  # noqa: F401  (register)
 from .heads.probmap_head import DoubleProbMapHead, ProbMapHead  # noqa: F401  (registers)
 from .heads.regression_head import RegressionHead  # noqa: F401  (registers)
-from .heads.rtmcc_head import RTMCCHead  # noqa: F401  (registers)
-from .necks.necks import FeatureMapProcessor, GlobalAveragePooling  # noqa: F401  (registers)
+from .heads.rtmcc_head import RTMCCHead, RTMWHead, SimCCHead  # noqa: F401  (register)
+from .necks.necks import CSPNeXtPAFPN, FeatureMapProcessor, GlobalAveragePooling  # noqa: F401  (register)
 from .pose_estimators.topdown import (
     TopdownPoseEstimator,
     double_probmap_head_loss,
@@ -70,11 +75,19 @@ from .pose_estimators.topdown import (
     simcc_head_predict,
 )
 
-HEAD_TYPES = ("ProbMapHead", "DoubleProbMapHead", "HeatmapHead", "ViPNASHead", "RTMCCHead", "RegressionHead")
-# the heads whose heatmaps take HeatmapHead's predict and loss
-HEATMAP_HEADS = ("HeatmapHead", "ViPNASHead")
-# the codecs whose decode a HeatmapHead runs
-HEATMAP_DECODERS = ("UDPHeatmap", "MSRAHeatmap")
+HEAD_TYPES = ("ProbMapHead", "DoubleProbMapHead", "HeatmapHead", "ViPNASHead", "CPMHead", "MSPNHead", "RTMCCHead",
+              "SimCCHead", "RTMWHead", "RegressionHead")
+# the heads whose heatmaps take HeatmapHead's predict (the multi-stage heads' last map) and loss (theirs apart)
+HEATMAP_HEADS = ("HeatmapHead", "ViPNASHead", "CPMHead", "MSPNHead")
+# the codecs whose decode a heatmap head runs
+HEATMAP_DECODERS = ("UDPHeatmap", "MSRAHeatmap", "MegviiHeatmap")
+# the heads whose (x, y) vectors take SimCC's predict and loss
+SIMCC_HEADS = ("RTMCCHead", "SimCCHead", "RTMWHead")
+# heads the port serves and does not train, and why
+UNTRAINED_HEADS = dict(MSPNHead=(
+    "MSPN / RSN training: mspn_head_loss reads multi-level targets (multilevel_heatmaps) that no codec route of "
+    "the JAX package makes (its collate ships heatmaps only), so the JAX package cannot train these configs "
+    "either; the port serves them"))
 
 
 def _adapt_backbone_cfg(cfg: Dict[str, Any]) -> Dict[str, Any]:
@@ -94,6 +107,27 @@ def _adapt_backbone_cfg(cfg: Dict[str, Any]) -> Dict[str, Any]:
     return cfg
 
 
+def _feature_map_size(backbone, neck, input_size: Tuple[int, int]) -> Tuple[int, int]:
+    """(w, h) of the last feature map at ``input_size`` (w, h): one forward of
+    a zero crop on the CPU in evaluation mode (no BatchNorm statistics
+    move). The SimCC heads' classifiers take w * h inputs (the flax heads'
+    from the data; a config's ``in_featuremap_size`` may not match it, as the
+    MPII config's (6, 8) at 256 x 256)."""
+    w, h = input_size
+    modules = [m for m in (backbone, neck) if m is not None]
+    modes = [m.training for m in modules]
+    with torch.no_grad():
+        for m in modules:
+            m.eval()
+        feats = backbone(torch.zeros(1, 3, h, w))
+        if neck is not None:
+            feats = neck(feats)
+        for m, mode in zip(modules, modes):
+            m.train(mode)
+    last = feats[-1] if isinstance(feats, (tuple, list)) else feats
+    return int(last.shape[3]), int(last.shape[2])
+
+
 def build_pose_estimator(cfg: Dict[str, Any]):
     """Build the module tree from a model config dict. Returns (module, aux),
     aux carrying the data_preprocessor / test_cfg / head / backbone configs."""
@@ -107,8 +141,18 @@ def build_pose_estimator(cfg: Dict[str, Any]):
     neck_cfg = cfg.pop("neck", None)
 
     backbone = MODELS.build(_adapt_backbone_cfg(backbone_cfg))
-    head = MODELS.build(dict(head_cfg))
-    neck = MODELS.build(dict(neck_cfg)) if neck_cfg else None
+    neck_kwargs, head_kwargs = {}, {}
+    # the flax necks and heads take their input widths from the data: the port's take the widths the
+    # backbone (and neck) give, where the config's differ (RTMW-m: CSPNeXt-m gives 384 and 768 channels to a
+    # neck of in_channels=[512, 768])
+    if neck_cfg and neck_cfg.get("type") == "CSPNeXtPAFPN":
+        neck_kwargs["feat_channels"] = backbone.out_channels
+    neck = MODELS.build(dict(neck_cfg, **neck_kwargs)) if neck_cfg else None
+    if head_cfg.get("type") == "RTMWHead":
+        head_kwargs["feat_channels"] = (neck or backbone).out_channels
+    if head_cfg.get("type") in ("SimCCHead", "RTMWHead"):
+        head_kwargs["in_featuremap_size"] = _feature_map_size(backbone, neck, tuple(head_cfg["input_size"]))
+    head = MODELS.build(dict(head_cfg, **head_kwargs))
     estimator_cls = MODELS.get(model_type) if isinstance(model_type, str) else model_type
     if estimator_cls is None:
         raise KeyError(f"unknown pose estimator type {model_type}")
@@ -303,16 +347,16 @@ class PoseModel:
                     if isinstance(both, dict):
                         outputs = {k: v[:B] for k, v in both.items()}
                         outputs_flipped = {k: v[B:] for k, v in both.items()}
-                    elif isinstance(both, tuple):  # SimCC's (x, y) vectors
-                        outputs = tuple(v[:B] for v in both)
-                        outputs_flipped = tuple(v[B:] for v in both)
+                    elif isinstance(both, (tuple, list)):  # SimCC's (x, y) vectors, the multi-stage heads' maps
+                        outputs = type(both)(v[:B] for v in both)
+                        outputs_flipped = type(both)(v[B:] for v in both)
                     else:
                         outputs, outputs_flipped = both[:B], both[B:]
                 else:
                     outputs = self.module(x)
                 if self.head_type == "RegressionHead":
                     return regression_head_predict(outputs, outputs_flipped, flip_indices, self.input_size)
-                if self.head_type == "RTMCCHead":
+                if self.head_type in SIMCC_HEADS:
                     return simcc_head_predict(outputs, outputs_flipped, flip_indices,
                                               simcc_split_ratio=self.decoder_cfg.get("simcc_split_ratio", 2.0))
                 if self.head_type in HEATMAP_HEADS:
@@ -433,12 +477,19 @@ class PoseModel:
         ``generator`` draws the stochastic-depth masks. Returns ``(total, (loss_dict, new_state))``
         as the JAX package does; ``new_state["batch_stats"]`` holds the
         running statistics this forward updated."""
+        if self.head_type in UNTRAINED_HEADS and "multilevel_heatmaps" not in batch:
+            raise NotImplementedError(UNTRAINED_HEADS[self.head_type])
         self.train()
         batch = self.device_preprocess_batch(batch)
         outputs = self.module(self.preprocess(batch["inputs"]), generator)
-        if self.head_type in HEATMAP_HEADS:
+        if self.head_type == "CPMHead":
+            losses = cpm_head_loss(outputs, batch, self.loss_modules["keypoint"])
+        elif self.head_type == "MSPNHead":
+            losses = mspn_head_loss(outputs, batch, self.loss_modules["keypoint"],
+                                    list(self.aux["head_cfg"].get("level_indices", [])))
+        elif self.head_type in HEATMAP_HEADS:
             losses = heatmap_head_loss(outputs, batch, self.loss_modules["keypoint"])
-        elif self.head_type == "RTMCCHead":
+        elif self.head_type in SIMCC_HEADS:
             losses = simcc_head_loss(outputs, batch, self.loss_modules["keypoint"])
         elif self.head_type == "RegressionHead":
             losses = regression_head_loss(outputs, batch, self.loss_modules["keypoint"])

@@ -35,6 +35,7 @@ from probpose_code_torch.ops.decode import (
     argmax_probmap_decode_batch,
     dark_refine_batch,
     dark_udp_refine_batch,
+    megvii_decode_batch,
     quarter_offset_refine_batch,
     simcc_maximum_batch,
 )
@@ -137,12 +138,21 @@ def heatmap_head_predict(
     """Flip-TTA average in heatmap mode, then the codec's decode to input
     space (``builder.py:884-908``): for UDP argmax + DARK-UDP, scaled by
     input / (W - 1); for MSRA argmax + the quarter-pixel step (DARK with
-    ``unbiased``), scaled by input / W. ``PoseModel.make_predict`` refuses
-    the other codecs."""
+    ``unbiased``), scaled by input / W; for Megvii its own decode
+    (``megvii_decode_batch``, the codec's; the JAX predict sends it down the
+    UDP branch, ``builder.py:901-904``). ``PoseModel.make_predict`` refuses
+    the other codecs. The multi-stage heads' lists of maps decode their last
+    (``builder.py:880-883``)."""
+    if isinstance(heatmaps, (list, tuple)):
+        heatmaps = heatmaps[-1]
+        heatmaps_flipped = None if heatmaps_flipped is None else heatmaps_flipped[-1]
     if heatmaps_flipped is not None:
         heatmaps = (heatmaps + flip_heatmaps(heatmaps_flipped, flip_indices=flip_indices,
                                              shift_heatmap=shift_heatmap)) * 0.5
     B, K, H, W = heatmaps.shape
+    if decoder_cfg.get("type") == "MegviiHeatmap":
+        keypoints, scores = megvii_decode_batch(heatmaps, decoder_cfg.get("kernel_size", 11), input_size)
+        return dict(keypoints=keypoints, keypoint_scores=scores, heatmaps=heatmaps)
     locs, vals = heatmap_maximum_batch(heatmaps)
     blur = decoder_cfg.get("blur_kernel_size", 11)
     if decoder_cfg.get("type", "UDPHeatmap") == "MSRAHeatmap":

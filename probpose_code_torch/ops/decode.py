@@ -5,7 +5,9 @@ Port of ``probpose_code_tpu/ops/decode.py``: ``subpixel_refine_batch``
 ``dark_udp_refine_batch`` (``:123``), ``argmax_probmap_decode_batch``
 (``:184``), the MSRA codec's ``quarter_offset_refine_batch`` (``:197``) and
 ``dark_refine_batch`` (``:214``), ``simcc_maximum_batch`` (``:244``) and
-``expected_oks_decode_to_input_space`` (``:257``).
+``expected_oks_decode_to_input_space`` (``:257``); and, batched on the
+device, the decode of ``probpose_code_tpu/codecs/megvii_heatmap.py``
+(``:63-77``, ``megvii_decode_batch``).
 
 The expected-OKS decode is the plain twin of the K2 CUDA kernel
 (``ops/kernels/expected_oks.py``): the CPU path runs it, and the card's
@@ -189,6 +191,29 @@ def quarter_offset_refine_batch(keypoints: torch.Tensor, heatmaps: torch.Tensor)
     shift_x = torch.where(valid_x, torch.sign(dx) * 0.25, 0.0)
     shift_y = torch.where(valid_y, torch.sign(dy) * 0.25, 0.0)
     return keypoints + torch.stack([shift_x, shift_y], dim=-1)
+
+
+def megvii_decode_batch(heatmaps: torch.Tensor, kernel_size: int,
+                        input_size: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Megvii (CPN / MSPN) decode of each (b, k) map: the modulation
+    blur of ``kernel_size`` (``gaussian_blur_batch``: zero border, rescaled
+    to the map's maximum), the first maximum, and at peaks with 1 < x < W - 1
+    and 1 < y < H - 1 a quarter pixel toward the larger neighbour on each
+    axis plus 0.5; the keypoints times input / heatmap size, the scores the
+    maximum / 255 + 0.5. Returns keypoints (B, K, 2) and scores (B, K)."""
+    B, K, H, W = heatmaps.shape
+    hm = gaussian_blur_batch(heatmaps, kernel_size)
+    locs, vals = heatmap_maximum_batch(hm)
+    x = locs[..., 0].to(torch.int32)
+    y = locs[..., 1].to(torch.int32)
+    valid = (x > 1) & (x < W - 1) & (y > 1) & (y < H - 1)
+    xc, yc = x.clamp(1, W - 2), y.clamp(1, H - 2)
+    dx = gather_hw(hm, xc + 1, yc) - gather_hw(hm, xc - 1, yc)
+    dy = gather_hw(hm, xc, yc + 1) - gather_hw(hm, xc, yc - 1)
+    shift = torch.stack([torch.sign(dx), torch.sign(dy)], dim=-1) * 0.25 + 0.5
+    keypoints = locs + torch.where(valid[..., None], shift, 0.0)
+    scale = torch.tensor([input_size[0] / W, input_size[1] / H], dtype=torch.float32, device=locs.device)
+    return keypoints * scale, vals / 255.0 + 0.5
 
 
 def dark_refine_batch(keypoints: torch.Tensor, heatmaps: torch.Tensor, blur_kernel_size: int = 11) -> torch.Tensor:

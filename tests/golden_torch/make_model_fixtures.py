@@ -3,7 +3,7 @@
 Needs the JAX package, so it runs where it is installed (the card's
 machine has none): ``JAX_PLATFORMS=cpu python tests/golden_torch/make_model_fixtures.py``
 from the repository root (or name ``classic``, ``rtmpose``, ``wholebody``,
-``dpm``, ``face``, ``scnet`` or ``vipnas`` to make one). For each of ``chip_smoke.CLASSIC_FIXTURE``
+``dpm``, ``face``, ``scnet``, ``vipnas``, ``rtmw``, ``hourglass``, ``cpm`` or ``mspn`` to make one). For each of ``chip_smoke.CLASSIC_FIXTURE``
 (a narrow ResNet-50 SimpleBaseline with the DARK codec),
 ``chip_smoke.RTMPOSE_FIXTURE`` (a narrow CSPNeXt + RTMCCHead with SimCC),
 ``chip_smoke.WHOLEBODY_FIXTURE`` (the same with 133 outputs under
@@ -13,17 +13,22 @@ CSPNeXt + RTMCCHead with 106 outputs under LaPa's metainfo, and a narrow
 ResNet-18 + ``GlobalAveragePooling`` + ``RegressionHead`` of 98 joints under
 WFLW's, both at 256 x 256 on the golden persons' face boxes) and
 ``chip_smoke.CNN_ZOO_FIXTURES`` (SCNet-50 with a narrow HeatmapHead, and a
-narrow ViPNAS_ResNet with ViPNASHead, both MSRA at 193 x 257) it writes:
+narrow ViPNAS_ResNet with ViPNASHead, both MSRA at 193 x 257) and
+``chip_smoke.MULTISTAGE_FIXTURES`` (narrow RTMW with 133 keypoints, a
+two-stack HourglassNet with CPMHead, CPM, MSPN with the pose refine
+machine) it writes:
 
 - ``<name>_weights.pth``: the port's module with weights drawn from seed 0
   (``PoseModel.init_weights``) and BatchNorm statistics randomized from seed
   1, as a state dict under mmpose's names; the DoubleProbPose fixture's
   weights (about 90 MB) are not written: ``chip_smoke.dpm_fixture_state``
   makes them from seeds where they are used, and so does
-  ``chip_smoke.seeded_fixture_state`` the SCNet and ViPNAS fixtures';
+  ``chip_smoke.seeded_fixture_state`` the SCNet, ViPNAS, RTMW, hourglass,
+  CPM and MSPN fixtures';
 - ``<name>_fixture.npz``: the JAX package's outputs on those weights (loaded
   through ``convert_torch_state_dict``; for the SCNet and ViPNAS fixtures,
-  whose backbones it does not know, the JAX variables that the port's
+  and the four multi-stage and SimCC ones, whose models it does not know
+  or whose names it reads from the other side, the JAX variables that the port's
   ``state_dict_from_jax`` carries onto them exactly, ``carried_variables``)
   at the fixture's input (256 x 192, or 257 x 193): its
   predict program (flip-TTA and decode) on the crops of the 62 boxes of the
@@ -65,6 +70,7 @@ from chip_smoke import (  # noqa: E402
     DPM_FIXTURE,
     FACE_FIXTURES,
     GOLDEN,
+    MULTISTAGE_FIXTURES,
     RTMPOSE_FIXTURE,
     SIMCC_TIE_REL,
     WHOLEBODY_FIXTURE,
@@ -191,7 +197,7 @@ def make(fixture):
     model_cfg = {k: v for k, v in cfg["model"].items() if k != "neck" or v["type"] != "GlobalAveragePooling"}
     model = JaxPoseModel(model_cfg, metainfo=parse_pose_metainfo({"dataset_name": dataset}))
     input_size = tuple(cfg["test_dataloader"]["dataset"]["pipeline"][2]["input_size"])
-    if fixture in CNN_ZOO_FIXTURES:  # backbones that ``convert_torch_state_dict`` does not know
+    if fixture in CNN_ZOO_FIXTURES + MULTISTAGE_FIXTURES:  # models that ``convert_torch_state_dict`` does not know
         variables = carried_variables(sd, model, (1, input_size[1], input_size[0], 3))
     else:
         variables = jax_variables(sd)
@@ -238,6 +244,6 @@ def make(fixture):
 if __name__ == "__main__":
     torch.set_num_threads(4)
     for fixture in (CLASSIC_FIXTURE, RTMPOSE_FIXTURE, WHOLEBODY_FIXTURE, DPM_FIXTURE, *FACE_FIXTURES,
-                    *CNN_ZOO_FIXTURES):
+                    *CNN_ZOO_FIXTURES, *MULTISTAGE_FIXTURES):
         if len(sys.argv) < 2 or fixture["name"] in sys.argv[1:] or fixture["name"].split("_")[0] in sys.argv[1:]:
             make(fixture)

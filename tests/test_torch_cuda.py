@@ -45,7 +45,13 @@ AdaptiveWingLoss's kernels with and without weights, SCNet's gate
 kernels (forward and the gradients of its three inputs, bit for bit across
 two runs) on odd sides and pooled sizes of each ratio SCNet meets, and
 ResNeSt's split attention kernels at radix 1 to 4 on planes smaller and
-larger than a block, against their plain twins.
+larger than a block, and the squeeze-and-excite kernels (forward, the
+map's and the weights' gradients, bit for bit across two runs) with the
+sigmoid and the hard sigmoid on plane sizes with and without 16-byte rows,
+against their plain twins; the Megvii decode on the card against the
+CPU's; the RTMW, hourglass, CPM and MSPN model fixtures; and the SimCC and
+multi-stage models (RTMW with its GAU kernels) predicting on the card as on
+the CPU.
 Bars are ``chip_smoke.py``'s, with its reasons.
 """
 
@@ -76,6 +82,10 @@ from chip_smoke import (
     AWING_REL,
     SC_GATE_GRAD_REL,
     SC_GATE_REL,
+    SE_LAYER_GRAD_REL,
+    SE_LAYER_REL,
+    MEGVII_KPT_ATOL,
+    MEGVII_SCORE_REL,
     SPLIT_ATTENTION_GRAD_REL,
     SPLIT_ATTENTION_REL,
     DEPTHWISE_GRAD_REL,
@@ -1116,3 +1126,113 @@ def test_split_attention_rejects_what_it_does_not_take(card):
         sa.split_attention_forward(torch.zeros(1, 5, 2, 4, 4, device="cuda"), torch.zeros(1, 5, 2, device="cuda"))
     with pytest.raises(ValueError):
         sa.split_attention_forward(torch.zeros(1, 2, 2, 4, 4, device="cuda"), torch.zeros(1, 2, 3, device="cuda"))
+
+
+@pytest.mark.parametrize("B,C,H,W,hard", [(2, 48, 64, 48, False), (3, 40, 17, 13, False), (2, 16, 8, 6, True),
+                                          (1, 24, 1, 1, True), (4, 96, 9, 7, False)])
+def test_se_layer_kernels_match_plain(card, B, C, H, W, hard):
+    """The squeeze-and-excite layer on the card (its kernels, through
+    autograd) against its plain twin on the CPU: the output at
+    ``SE_LAYER_REL``, the gradients of the map and of the two convolutions'
+    weights and biases at ``SE_LAYER_GRAD_REL``, the backward bit for bit
+    across two runs."""
+    from probpose_code_torch.ops.kernels import se_layer as se
+
+    rng = np.random.RandomState(C + H)
+    mid = max(C // 8, 4)
+    ins = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.randn(B, C, H, W), rng.randn(mid, C) / np.sqrt(C), 0.1 * rng.randn(mid), rng.randn(C, mid) / np.sqrt(mid),
+        0.1 * rng.randn(C))]
+    dy = torch.from_numpy(rng.randn(B, C, H, W).astype(np.float32))
+    results = []
+    for device in ("cpu", "cuda"):
+        leaves = [t.to(device).requires_grad_() for t in ins]
+        out = se.se_layer(*leaves, hard)
+        results.append([t.detach().cpu() for t in (out, *torch.autograd.grad(out, leaves, dy.to(device)))])
+    for i, (got, ref) in enumerate(zip(results[1], results[0])):
+        bar = SE_LAYER_REL if i == 0 else SE_LAYER_GRAD_REL
+        assert float((got - ref).abs().max() / ref.abs().max()) < bar, i
+    x, w1, b1, w2, b2 = (t.cuda() for t in ins)
+    _, *saved = se.se_layer_forward(x, w1, b1, w2, b2, hard)
+    first = se.se_layer_backward(dy.cuda(), x, *saved, w1, w2, hard)
+    second = se.se_layer_backward(dy.cuda(), x, *saved, w1, w2, hard)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert se.se_layer_forward.launches and se.se_layer_backward.launches
+
+
+def test_se_layer_rejects_what_it_does_not_take(card):
+    from probpose_code_torch.ops.kernels import se_layer as se
+
+    w1, b1, w2, b2 = (torch.zeros(*s, device="cuda") for s in ((4, 8), (4,), (8, 4), (8,)))
+    with pytest.raises(ValueError):
+        se.se_layer_forward(torch.zeros(1, 8, 4, 4, device="cuda", dtype=torch.float16), w1, b1, w2, b2, False)
+    with pytest.raises(ValueError):
+        se.se_layer_forward(torch.zeros(8, 4, 4, device="cuda"), w1, b1, w2, b2, False)
+
+
+def test_megvii_decode_on_the_card_matches_the_cpu(card):
+    """The Megvii decode of peaked maps on the card against the CPU's:
+    keypoints at ``MEGVII_KPT_ATOL`` input pixels, scores at
+    ``MEGVII_SCORE_REL``."""
+    from chip_smoke import peaked_heatmaps
+    from probpose_code_torch.ops.decode import megvii_decode_batch
+
+    maps = torch.from_numpy(peaked_heatmaps(8, 17, 64, 48, seed=3) * 255)
+    got = megvii_decode_batch(maps.cuda(), 11, (192, 256))
+    want = megvii_decode_batch(maps.cpu(), 11, (192, 256))
+    assert float((got[0].cpu() - want[0]).abs().max()) <= MEGVII_KPT_ATOL
+    assert float((got[1].cpu() - want[1]).abs().max() / want[1].abs().max()) <= MEGVII_SCORE_REL
+
+
+@pytest.mark.parametrize("name", ["rtmw", "hourglass", "cpm", "mspn"])
+def test_multistage_fixtures_on_the_card(card, name):
+    """``chip_smoke.model_fixture_report`` on the card for the SimCC and
+    multi-stage fixtures: the JAX package's keypoints, scores and AP at
+    ``UDP_BARS``, its maps or vectors on the fixture's crops at
+    ``FIXTURE_OUTPUT_REL``; no kernel of the TPU list."""
+    from chip_smoke import MULTISTAGE_FIXTURES, model_fixture_report
+
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    report = model_fixture_report(next(f for f in MULTISTAGE_FIXTURES if f["name"] == name), device="cuda")
+    assert report["ok"], report
+    assert all(c.launches == 0 for c in counters.values())
+
+
+@pytest.mark.parametrize("name", ["simcc", "rtmw", "hourglass", "mspn"])
+def test_multistage_models_predict_on_the_card_as_on_the_cpu(card, name):
+    """Narrow SimCC-ResNet, RTMW (its GAU on the card's kernels), a two-stack
+    hourglass and an MSPN with the Megvii decode: ``predict`` on two crops
+    on the card against the CPU, the SimCC vectors or heatmaps at
+    ``HRNET_REL``."""
+    import copy
+
+    from chip_smoke import HOURGLASS_FIXTURE, MSPN_FIXTURE, RTMW_FIXTURE, gau_counters
+    from probpose_code_torch.models.builder import PoseModel
+
+    cfg = copy.deepcopy(dict(rtmw=RTMW_FIXTURE, hourglass=HOURGLASS_FIXTURE, mspn=MSPN_FIXTURE,
+                             simcc=RTMW_FIXTURE)[name]["cfg"]["model"])
+    if name == "simcc":
+        cfg["backbone"] = dict(type="ResNet", depth=18, stem_channels=8, base_channels=4, out_indices=(3,))
+        cfg["head"] = dict(type="SimCCHead", in_channels=32, out_channels=17, input_size=(192, 256),
+                           in_featuremap_size=(6, 8), deconv_out_channels=(8, 8),
+                           decoder=dict(type="SimCCLabel", input_size=(192, 256), sigma=6.0, simcc_split_ratio=2.0))
+        cfg.pop("neck")
+    if name == "mspn":
+        cfg["head"]["decoder"] = dict(type="MegviiHeatmap", input_size=(193, 257), heatmap_size=(56, 72),
+                                      kernel_size=11)
+    meta = {"flip_indices": list(range(cfg["head"].get("out_channels", 17))),
+            "num_keypoints": cfg["head"].get("out_channels", 17)}
+    cpu = PoseModel(cfg, metainfo=meta, device="cpu")
+    cpu.init_weights(seed=1)
+    card = PoseModel(cfg, metainfo=meta, device="cuda")
+    card.module.load_state_dict(cpu.module.state_dict())
+    w, h = cpu.input_size
+    crops = torch.from_numpy(np.round(np.random.RandomState(2).rand(2, h, w, 3) * 255).astype(np.float32))
+    gau_counters()["gau_forward"].launches = 0
+    want, got = cpu.predict(crops), card.predict(crops.cuda())
+    keys = ("keypoint_x_labels", "keypoint_y_labels") if name in ("simcc", "rtmw") else ("heatmaps",)
+    for k in keys:
+        assert float((got[k].cpu() - want[k]).abs().max() / want[k].abs().max()) < HRNET_REL, k
+    assert bool(gau_counters()["gau_forward"].launches) == (name == "rtmw")

@@ -30,7 +30,7 @@ import pytest
 import torch
 
 from chip_smoke import TINY_CFG, VAL_PIPELINE, golden_png_set, write_png
-from probpose_code_torch.datasets.loader import DataLoader, stop_workers
+from probpose_code_torch.datasets.loader import DataLoader, keep_workers, stop_workers
 from probpose_code_torch.datasets.png import decode_png
 from probpose_code_torch.datasets.transforms.loading import imread
 from probpose_code_torch.datasets.transforms.topdown import TopdownAffine, resize_linear
@@ -287,21 +287,49 @@ def test_loader_batches_equal_jax(png_set, num_workers):
             assert_same(a[k], b[k + "_sep"], k)
 
 
+def running(pid):
+    try:
+        return Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
 def test_stop_workers_ends_the_servers(png_set):
     """A worker pass leaves the fork server and the resource tracker running
     for the next one; ``stop_workers`` ends and reaps both."""
     from multiprocessing import forkserver, resource_tracker
-
-    def running(pid):
-        try:
-            return Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()[0] != "Z"
-        except OSError:
-            return False
 
     loader = DataLoader(DATASETS.build(coco_cfg("CocoDataset", png_set.parent, pipeline=VAL_PIPELINE)), 24,
                         num_workers=2)
     assert [len(b["data_samples"]) for b in loader] == [24, 24, 14]
     servers = [forkserver._forkserver._forkserver_pid, resource_tracker._resource_tracker._pid]
     assert all(map(running, servers))
+    stop_workers()
+    assert not any(map(running, servers))
+
+
+def test_keep_workers_keeps_the_servers_to_its_end(png_set):
+    """Inside ``keep_workers`` (nested too) a pass and its ``stop_workers``
+    leave the fork server and the resource tracker running, and the next
+    pass forks its workers from the same server; the outer block's end
+    stops and reaps both, and a later ``stop_workers`` stops again."""
+    from multiprocessing import forkserver, resource_tracker
+
+    dataset = DATASETS.build(coco_cfg("CocoDataset", png_set.parent, pipeline=VAL_PIPELINE))
+    with keep_workers():
+        passes = []
+        for _ in range(2):
+            with keep_workers():
+                loader = DataLoader(dataset, 24, num_workers=2)
+                assert [len(b["data_samples"]) for b in loader] == [24, 24, 14]
+                stop_workers()
+            passes.append([forkserver._forkserver._forkserver_pid, resource_tracker._resource_tracker._pid])
+            assert all(map(running, passes[-1]))
+        assert passes[0] == passes[1]
+    assert not any(map(running, passes[0]))
+    loader = DataLoader(dataset, 24, num_workers=2)
+    assert [len(b["data_samples"]) for b in loader] == [24, 24, 14]
+    servers = [forkserver._forkserver._forkserver_pid, resource_tracker._resource_tracker._pid]
+    assert servers != passes[0] and all(map(running, servers))
     stop_workers()
     assert not any(map(running, servers))
