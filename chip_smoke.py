@@ -239,13 +239,18 @@ transform it ports, the median's ``launches`` from
 that augments on the card) and the CNN backbones' kernels' (no TPU
 kernel: the ``cnn_zoo`` line, ``launches`` from ``cnn_zoo_train``'s SCNet-50
 step for SCNet's gate, its ResNeSt-50 step for the split attention and its
-ViPNAS-Res50 step for the squeeze and excite), the
+ViPNAS-Res50 step for the squeeze and excite) and the normalisation
+kernels' (no TPU kernel: the ``norms`` line, BatchNorm's ``launches`` from
+LiteHRNet-18's train step, LayerNorm's from Swin-T's, and each one's
+``launches_by_path`` on every main path: BatchNorm's where a path trains a
+model with a BatchNorm), the
 last line ``{"ok": true,
 "device": ...}``. Any failure exits non-zero without them. It imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import importlib.util
@@ -346,6 +351,32 @@ MULTISTAGE = dict(
 )
 # and the steps that ``multistage_train`` runs, with their batch (the configs': 32 for the hourglass)
 MULTISTAGE_TRAIN = dict(hourglass52=32, cpm=64, simcc_res50=64, rtmw_m=64)
+# the rest of top-down's backbones (LiteHRNet, Swin, HRFormer, PVT / PVTv2): the recipes that
+# ``topdown_rest_predict`` runs at full width and depth, and the steps that ``topdown_rest_train`` runs with
+# their batch
+TOPDOWN_REST = dict(
+    litehrnet18=_TD_COCO / "td-hm_litehrnet-18_8xb64-210e_coco-256x192.py",
+    litehrnet30=_TD_COCO / "td-hm_litehrnet-30_8xb64-210e_coco-256x192.py",
+    litehrnet30_384=_TD_COCO / "td-hm_litehrnet-30_8xb32-210e_coco-384x288.py",
+    swin_t=_TD_COCO / "td-hm_swin-t-p4-w7_8xb32-210e_coco-256x192.py",
+    swin_b=_TD_COCO / "td-hm_swin-b-p4-w7_8xb32-210e_coco-256x192.py",
+    swin_l=_TD_COCO / "td-hm_swin-l-p4-w7_8xb32-210e_coco-256x192.py",
+    swin_l_384=_TD_COCO / "td-hm_swin-l-p4-w7_8xb32-210e_coco-384x288.py",
+    hrformer_small=_TD_COCO / "td-hm_hrformer-small_8xb32-210e_coco-256x192.py",
+    hrformer_base=_TD_COCO / "td-hm_hrformer-base_8xb32-210e_coco-256x192.py",
+    hrformer_base_384=_TD_COCO / "td-hm_hrformer-base_8xb32-210e_coco-384x288.py",
+    pvt_s=_TD_COCO / "td-hm_pvt-s_8xb64-210e_coco-256x192.py",
+    pvtv2_b2=_TD_COCO / "td-hm_pvtv2-b2_8xb64-210e_coco-256x192.py",
+)
+TOPDOWN_REST_TRAIN = dict(litehrnet18=64, swin_t=32, hrformer_small=32, pvtv2_b2=64)
+# the backbones whose depthwise 3x3 convs run ``ops/kernels/depthwise.py`` (PVT's only with its conv FFN, PVTv2's)
+DEPTHWISE_BACKBONES = ("MobileNetV2", "LiteHRNet", "HRFormer", "PyramidVisionTransformerV2")
+# the backbones whose LayerNorms run ``ops/kernels/layer_norm.py``
+TRANSFORMER_BACKBONES = ("SwinTransformer", "HRFormer", "PyramidVisionTransformer", "PyramidVisionTransformerV2")
+# the normalisation kernels against their twins (f32, summation order): outputs, running statistics and
+# gradients relative to their largest element
+NORM_REL = 1e-5
+NORM_GRAD_REL = 1e-4
 # the card's Megvii decode against the CPU's on the same maps: keypoints in input pixels, scores relative
 MEGVII_KPT_ATOL = 1e-3
 MEGVII_SCORE_REL = 1e-6
@@ -686,6 +717,55 @@ MSPN_FIXTURE = dict(
     keys=("heatmaps",),
 )
 MULTISTAGE_FIXTURES = (RTMW_FIXTURE, HOURGLASS_FIXTURE, CPM_FIXTURE, MSPN_FIXTURE)
+# ``tests/golden_torch/{litehrnet,swin,hrformer,pvtv2}_fixture.npz``: the rest of top-down's backbones narrowed, each
+# with a HeatmapHead (MSRA), their weights made at run time from seeds (``seeded_fixture_state``), their JAX
+# outputs from the JAX variables that ``state_dict_from_jax`` carries onto them: LiteHRNet (three stages of one
+# module of one block, widths 8-32) at 256 x 192, where the port runs with JAX's stride-2 padding
+# (``jax_same_strided``: LiteHRNet runs only at even sides) and the JAX outputs are its module's eager ``apply``
+# (``jax.jit`` cannot trace it); Swin (widths 16-128, two blocks a stage) and PVTv2 (widths 8-64, one block a
+# stage) at 256 x 192; HRFormer (widths 8-64, one block a branch) at 257 x 193, where its strided inputs are odd
+_LITE_NARROW = dict(stem=dict(stem_channels=16, out_channels=16, expand_ratio=1), num_stages=3, stages_spec=dict(
+    num_modules=(1, 1, 1), num_branches=(2, 3, 4), num_blocks=(1, 1, 1), module_type=("LITE",) * 3,
+    with_fuse=(True,) * 3, reduce_ratios=(4, 4, 4), num_channels=((8, 16), (8, 16, 24), (8, 16, 24, 32))),
+    with_head=True)
+
+
+def _heatmap_model(backbone, in_channels, deconv, decoder=_MSRA):
+    return dict(type="TopdownPoseEstimator", data_preprocessor=_PREPROCESSOR, backbone=backbone,
+                head=dict(type="HeatmapHead", in_channels=in_channels, out_channels=17, deconv_out_channels=deconv,
+                          deconv_kernel_sizes=(4,) * len(deconv or ()), loss=_MSE, decoder=decoder),
+                test_cfg=dict(flip_test=True))
+
+
+LITEHRNET_FIXTURE = dict(
+    name="litehrnet", jax_same_strided=True,
+    cfg=dict(_TOPDOWN_TEST, model=_heatmap_model(dict(type="LiteHRNet", extra=_LITE_NARROW), 8, None)),
+    weights=lambda: seeded_fixture_state(LITEHRNET_FIXTURE), outputs=GOLDEN_JPEG / "litehrnet_fixture.npz",
+    keys=("heatmaps",),
+)
+SWIN_FIXTURE = dict(
+    name="swin",
+    cfg=dict(_TOPDOWN_TEST, model=_heatmap_model(dict(
+        type="SwinTransformer", embed_dims=16, depths=(2, 2, 2, 2), num_heads=(1, 2, 2, 4), out_indices=(3,)),
+        128, (16, 16, 16))),
+    weights=lambda: seeded_fixture_state(SWIN_FIXTURE), outputs=GOLDEN_JPEG / "swin_fixture.npz", keys=("heatmaps",),
+)
+HRFORMER_FIXTURE = dict(
+    name="hrformer",
+    cfg=dict(test_dataloader=dict(dataset=dict(pipeline=_ODD_PIPELINE)), model=_heatmap_model(
+        dict(type="HRFormer", base_channels=8, depths=(1, 1, 1)), 8, None, dict(_ODD_MSRA, heatmap_size=(49, 65)))),
+    weights=lambda: seeded_fixture_state(HRFORMER_FIXTURE), outputs=GOLDEN_JPEG / "hrformer_fixture.npz",
+    keys=("heatmaps",),
+)
+PVTV2_FIXTURE = dict(
+    name="pvtv2",
+    cfg=dict(_TOPDOWN_TEST, model=_heatmap_model(dict(
+        type="PyramidVisionTransformerV2", embed_dims=8, num_layers=(1, 1, 1, 1), out_indices=(3,)), 64,
+        (16, 16, 16))),
+    weights=lambda: seeded_fixture_state(PVTV2_FIXTURE), outputs=GOLDEN_JPEG / "pvtv2_fixture.npz",
+    keys=("heatmaps",),
+)
+TOPDOWN_REST_FIXTURES = (LITEHRNET_FIXTURE, SWIN_FIXTURE, HRFORMER_FIXTURE, PVTV2_FIXTURE)
 # the keys of a kernel's record that K2 and K2b fill from ``k2_timings``
 K2_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 K3_NAMES = ("out", "dx", "ln1_scale", "ln1_bias", "w_qkv", "b_qkv", "w_proj", "b_proj",
@@ -1191,25 +1271,56 @@ def dpm_fixture_state():
     return {k: v.clone() for k, v in model.module.state_dict().items()}
 
 
-def jax_same_padding(module):
-    """``module`` (a ``ConvModule`` of ``models/backbones/classic.py``) with its
-    input padded as flax's "SAME" pads: total ``max((ceil(n / s) - 1) * s + k -
-    n, 0)`` a side, the larger half after (at a stride-2 7x7 conv on an even
-    side (2, 3), where the port pads mmpose's (3, 3)): a substitution of the
-    module's forward, for holding a model against the JAX package's."""
+@contextlib.contextmanager
+def jax_same_strided():
+    """For the duration, every stride-2 convolution padded ``k // 2`` (the
+    port's, mmpose's) padded as flax's "SAME" pads instead: total ``max((ceil(n
+    / s) - 1) * s + k - n, 0)`` a side, the larger half after ((0, 1) at a 3x3
+    conv on an even side, (2, 3) at a 7x7 one): ``F.conv2d`` substituted, and
+    LiteHRNet's strided depthwise convs (``litehrnet.depthwise``, on the card
+    the kernels of ``csrc/depthwise.cu``, which pad 1) run as ``F.conv2d``. A
+    substitution for holding a model against the JAX package;
+    ``jax_same_padding`` keeps it on for one module's forward."""
     import torch.nn.functional as F
 
-    conv = module.conv
-    k, stride = conv.kernel_size[0], conv.stride[0]
-    conv.padding = (0, 0)
-    forward = module.forward
+    from probpose_code_torch.models.backbones import litehrnet
 
-    def padded(x, *args):
+    conv2d, depthwise = F.conv2d, litehrnet.depthwise
+
+    def same(x, w, b=None, stride=1, padding=0, dilation=1, groups=1):
+        s = stride if isinstance(stride, int) else stride[0]
+        k = w.shape[-1]
+        if s != 2 or padding not in (k // 2, (k // 2, k // 2)):
+            return conv2d(x, w, b, stride, padding, dilation, groups)
         pads = []
         for n in (x.shape[3], x.shape[2]):
-            total = max((-(-n // stride) - 1) * stride + k - n, 0)
+            total = max((-(-n // s) - 1) * s + k - n, 0)
             pads += [total // 2, total - total // 2]
-        return forward(F.pad(x, pads), *args)
+        return conv2d(F.pad(x, pads), w, b, stride, 0, dilation, groups)
+
+    def strided_depthwise(conv, x):
+        if conv.stride[0] == 1:
+            return depthwise(conv, x)
+        return F.conv2d(x.float(), conv.weight, None, conv.stride, 1, 1, conv.groups)
+
+    F.conv2d, litehrnet.depthwise = same, strided_depthwise
+    try:
+        yield
+    finally:
+        F.conv2d, litehrnet.depthwise = conv2d, depthwise
+
+
+def jax_same_padding(module):
+    """``module`` (a ``ConvModule`` of ``models/backbones/classic.py``) with its
+    forward run under ``jax_same_strided``: a stride-2 conv in it padded as
+    flax's "SAME" pads ((2, 3) at a stride-2 7x7 conv on an even side, where
+    the port pads mmpose's (3, 3)), for holding a model against the JAX
+    package's."""
+    forward = module.forward
+
+    def padded(*args):
+        with jax_same_strided():
+            return forward(*args)
 
     module.forward = padded
     return module
@@ -1337,7 +1448,16 @@ def model_fixture_report(fixture, device):
     (``UDP_BARS``; the aux outputs at the scores' bar); and
     ``PoseModel.predict`` on the fixture's two crops against the JAX
     package's heatmaps, SimCC vectors or regressed keypoints
-    (``FIXTURE_OUTPUT_REL``). Returns a report with ``ok``."""
+    (``FIXTURE_OUTPUT_REL``); with ``jax_same_strided``, the strided convs
+    padded as JAX pads them (``jax_same_strided``). Returns a report with
+    ``ok``."""
+    if fixture.get("jax_same_strided"):
+        with jax_same_strided():
+            return _model_fixture_report(fixture, device)
+    return _model_fixture_report(fixture, device)
+
+
+def _model_fixture_report(fixture, device):
     import numpy as np
     import torch
 
@@ -2261,6 +2381,16 @@ def cnn_zoo_counters():
                 split_attention_backward=split_attention.split_attention_backward)
 
 
+def norm_counters():
+    """The normalisation kernels' wrappers (no TPU kernel: their own line),
+    whose ``launches`` count their calls: BatchNorm in training mode (every
+    model's ``BatchNorm2d``) and the transformer backbones' LayerNorm."""
+    from probpose_code_torch.ops.kernels import batch_norm, layer_norm
+
+    return dict(batch_norm_forward=batch_norm.batch_norm_forward, batch_norm_backward=batch_norm.batch_norm_backward,
+                layer_norm_forward=layer_norm.layer_norm_forward, layer_norm_backward=layer_norm.layer_norm_backward)
+
+
 def has_gau(model) -> bool:
     """Whether ``model``'s head runs a GAU (RTMPose's ``RTMCCHead``)."""
     from probpose_code_torch.models.utils.rtmcc_block import RTMCCBlock
@@ -2268,10 +2398,24 @@ def has_gau(model) -> bool:
     return any(isinstance(m, RTMCCBlock) for m in model.module.modules())
 
 
+def norm_layers(model):
+    """(whether ``model`` trains a BatchNorm: a ``BatchNorm2d`` of
+    ``models/heads/heatmap_head.py`` that is not frozen, whether its backbone
+    runs the transformers' LayerNorm: Swin, HRFormer, PVT), the normalisation
+    kernels a training step of it launches (``read_norms``)."""
+    from probpose_code_torch.models.backbones.resnet import FrozenBatchNorm2d
+    from probpose_code_torch.models.heads.heatmap_head import BatchNorm2d
+
+    frozen = {id(m) for f in getattr(model.module.backbone, "frozen_modules", list)() for m in f.modules()}
+    trains = any(isinstance(m, BatchNorm2d) and not isinstance(m, FrozenBatchNorm2d) and id(m) not in frozen
+                 for m in model.module.modules())
+    return trains, model.aux["backbone_cfg"].get("type") in TRANSFORMER_BACKBONES
+
+
 def reset_counts():
     """Every kernel's count, the JPEG decode's, the photometric kernels',
-    the GAU kernels', the face and hand kernels' and the CNN backbones'
-    set to 0; returns a reader of the kernels' counts
+    the GAU kernels', the face and hand kernels', the CNN backbones' and the
+    normalisation kernels' set to 0; returns a reader of the kernels' counts
     (``decode_batch.launches`` holds the decode's, ``augment_counters``,
     ``gau_counters``, ``face_hand_counters`` and ``cnn_zoo_counters`` the
     others)."""
@@ -2279,7 +2423,7 @@ def reset_counts():
 
     counters = kernel_counters()
     for c in (*counters.values(), *augment_counters().values(), *gau_counters().values(),
-              *face_hand_counters().values(), *cnn_zoo_counters().values(), decode_batch):
+              *face_hand_counters().values(), *cnn_zoo_counters().values(), *norm_counters().values(), decode_batch):
         c.launches = 0
     return lambda: {k: c.launches for k, c in counters.items()}
 
@@ -2610,15 +2754,16 @@ class Smoke:
     def read_face_hand(self, path, model, backward=False):
         """The face and hand kernels' launches on ``path``'s main path (their
         counts set to 0 with the others'), kept for the ``face_hand`` line.
-        Fails unless the depthwise kernels launched where ``model`` has a
-        MobileNetV2 (the backward too where the path trains), the
+        Fails unless the depthwise kernels launched where ``model``'s
+        backbone has depthwise convs (``DEPTHWISE_BACKBONES``; the backward
+        too where the path trains), the
         AdaptiveWingLoss kernels where it trains under that loss, and
         neither elsewhere."""
         launches = {k: c.launches for k, c in face_hand_counters().items()}
         self.record.setdefault("face_hand_launches", {})[path] = launches
-        mobilenet = model.aux["backbone_cfg"].get("type") == "MobileNetV2"
+        depthwise = model.aux["backbone_cfg"].get("type") in DEPTHWISE_BACKBONES
         awing = backward and (model.aux["head_cfg"].get("loss") or {}).get("type") == "AdaptiveWingLoss"
-        want = dict(depthwise_forward=mobilenet, depthwise_backward=mobilenet and backward,
+        want = dict(depthwise_forward=depthwise, depthwise_backward=depthwise and backward,
                     adaptive_wing_forward=awing, adaptive_wing_backward=awing)
         if any(bool(launches[k]) != v for k, v in want.items()):
             raise AssertionError(f"{path}: face and hand kernel launches {launches}, expected launched {want}")
@@ -2629,8 +2774,8 @@ class Smoke:
         Fails unless SCNet's gate kernel launched where ``model`` is an
         SCNet, the split attention's where it is a ResNeSt and the
         squeeze-and-excite kernels where it has an ``SELayer`` (SEResNet,
-        the ViPNAS backbones) (the backward too where the path
-        trains), and none elsewhere."""
+        the ViPNAS backbones, LiteHRNet's spatial weighting) (the backward
+        too where the path trains), and none elsewhere."""
         from probpose_code_torch.models.backbones.classic import SELayer
 
         launches = {k: c.launches for k, c in cnn_zoo_counters().items()}
@@ -2642,6 +2787,22 @@ class Smoke:
                     split_attention_forward=kind == "ResNeSt", split_attention_backward=kind == "ResNeSt" and backward)
         if any(bool(launches[k]) != v for k, v in want.items()):
             raise AssertionError(f"{path}: CNN backbone kernel launches {launches}, expected launched {want}")
+
+    def read_norms(self, path, batch_norm, layer_norm, backward=False):
+        """The normalisation kernels' launches on ``path``'s main path (their
+        counts set to 0 with the others'), kept for the ``norms`` line. Fails
+        unless BatchNorm's forward and backward launched where the path trains
+        a model with a BatchNorm in training mode (``batch_norm``;
+        ``norm_layers``), LayerNorm's forward where the model runs the
+        transformers' LayerNorm (``layer_norm``) and its backward where that
+        trains, and none elsewhere (BatchNorm in evaluation mode normalises by
+        its running statistics, no kernel)."""
+        launches = {k: c.launches for k, c in norm_counters().items()}
+        self.record.setdefault("norm_launches", {})[path] = launches
+        want = dict(batch_norm_forward=batch_norm and backward, batch_norm_backward=batch_norm and backward,
+                    layer_norm_forward=layer_norm, layer_norm_backward=layer_norm and backward)
+        if any(bool(launches[k]) != v for k, v in want.items()):
+            raise AssertionError(f"{path}: normalisation kernel launches {launches}, expected launched {want}")
 
     def phase(self, name, fn):
         t0 = time.time()
@@ -2808,6 +2969,7 @@ class Smoke:
         samples = inference_topdown(model, img, boxes)
         torch.cuda.synchronize()
         launches = read_counts()
+        self.read_norms("flagship", False, False)
         print(f"flagship main path: {len(samples)} crops, launches {json.dumps(launches)}")
         kpts = np.stack([s.pred_instances.keypoints for s in samples])
         fields = [np.stack([s.pred_instances[f] for s in samples]) for f in
@@ -2866,6 +3028,7 @@ class Smoke:
         report_steps(run(1))
         torch.cuda.synchronize()
         launches = read_counts()
+        self.read_norms("train", *norm_layers(model), backward=True)
         g0 = qkv0.grad.abs().max().item()
         print(f"train main path: one step of B={B}, launches {json.dumps(launches)}; "
               f"max |grad| of backbone.layers.0.attn.qkv.weight {g0:.3e}")
@@ -2987,6 +3150,7 @@ class Smoke:
         samples = inference_topdown(model, img, boxes)
         torch.cuda.synchronize()
         launches = read_counts()
+        self.read_norms(path, False, False)
         print(f"{path} main path: {len(samples)} crops, launches {json.dumps(launches)}")
         kpts = np.stack([s.pred_instances.keypoints for s in samples])
         scores = np.stack([s.pred_instances.keypoint_scores for s in samples])
@@ -3106,6 +3270,7 @@ class Smoke:
             raise AssertionError(f"{name}: a train step at the recipe's B={B} does not fit on the card "
                                  f"({torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated at most)") from e
         launches = read_counts()
+        self.read_norms(path, *norm_layers(model), backward=True)
         report_steps(logs)
         g0 = qkv0.grad.abs().max().item()
         print(f"{path} main path: one step of B={B}, launches {json.dumps(launches)}; "
@@ -3177,6 +3342,7 @@ class Smoke:
 
     def val_golden(self, variant):
         report, launches = run_val_golden(variant, "cuda", self.full_weights())
+        self.read_norms(f"val_{variant}", False, False)
         print(f"val_{variant}: {report['instances']} instances through Runner.val; keypoint err p50 "
               f"{report['p50']:.4f}, p90 {report['p90']:.4f}, p99 {report['p99']:.4f}, max {report['max']:.4f} px; "
               f"aux max err {json.dumps(report['aux'])}; AP {report['AP']:.4f} (fixture {report['fixture_AP']:.4f}, "
@@ -3302,6 +3468,7 @@ class Smoke:
 
         report, launches = run_val_jpeg("cuda", self.full_weights())
         decodes = decode_batch.launches
+        self.read_norms("val_full_jpeg", False, False)
         print(f"val_full_jpeg: {report['instances']} instances through Runner.val from JPEG files; keypoint err "
               f"against the JAX Runner.val on the same files: p50 {report['p50']:.4f}, p90 {report['p90']:.4f}, "
               f"p99 {report['p99']:.4f}, max {report['max']:.4f} px; score max err {report['scores']:.5f}; AP "
@@ -3351,6 +3518,7 @@ class Smoke:
             answers = [post(p.read_bytes()) for p in paths]
             torch.cuda.synchronize()
             launches, decodes = read_counts(), decode_batch.launches
+            self.read_norms("serve", False, False)
             expected = [serve.payload(inference_topdown(model, str(p))) for p in paths]
             per_request = {k: v / len(paths) for k, v in launches.items()}
             print(f"serve: {len(paths)} POSTed JPEGs, statuses {[a[0] for a in answers]}, launches a request "
@@ -3423,6 +3591,7 @@ class Smoke:
             metrics = runner.val()
             torch.cuda.synchronize()
             launches, decodes = read_counts(), decode_batch.launches
+            self.read_norms("val_flagship", False, False)
             crops, batches = len(runner.val_dataset), len(runner.val_loader)
             self.record["decode_launches"] = decodes
             runs = [dict(runner.val_times)]
@@ -3593,6 +3762,7 @@ class Smoke:
             runner = train_cli.main(argv + ["train_cfg.max_epochs=2"], hooks=[watch])
             torch.cuda.synchronize()
             launches, decodes = read_counts(), decode_batch.launches
+            self.read_norms("train_flagship", *norm_layers(runner.model), backward=True)
             print(f"train_flagship main path: {runner.state.step} steps of {runner.train_loader.batch_size}, "
                   f"launches {json.dumps(launches)}, JPEG decodes {decodes}")
             if decodes != runner.state.step + len(runner.val_loader):
@@ -3660,6 +3830,7 @@ class Smoke:
         samples = inference_topdown(model, img, boxes)
         torch.cuda.synchronize()
         launches = read_counts()
+        self.read_norms("dpm_predict", False, False)
         print(f"dpm_predict main path: {len(samples)} crops, launches {json.dumps(launches)}")
         kpts = np.stack([s.pred_instances.keypoints for s in samples])
         fields = [np.stack([s.pred_instances[f] for s in samples]) for f in
@@ -3776,6 +3947,7 @@ class Smoke:
             runner = train_cli.main(argv, hooks=[watch])
             torch.cuda.synchronize()
             launches, decodes = read_counts(), decode_batch.launches
+            self.read_norms("dpm_train", *norm_layers(runner.model), backward=True)
             batches = len(runner.val_loader)
             per_batch = {k: v / batches for k, v in (watch.val or {}).items()}
             t = runner.train_times[0]
@@ -3869,6 +4041,7 @@ class Smoke:
         read_counts = reset_counts()
         report = udp_fixture_report(model)
         launches = read_counts()
+        self.read_norms("hrnet_golden", False, False)
         print(f"hrnet_golden: {json.dumps(report)}; launches {json.dumps(launches)}; bars {json.dumps(UDP_BARS)}")
         if missing or not report["ok"] or launches != NO_LAUNCHES:
             raise AssertionError(f"hrnet_golden out of its bars (keys not shared: {sorted(missing)[:3]})")
@@ -3898,6 +4071,7 @@ class Smoke:
         self.read_gau(record_key.removesuffix("_launches"), has_gau(model))
         self.read_face_hand(record_key.removesuffix("_launches"), model)
         self.read_cnn_zoo(record_key.removesuffix("_launches"), model)
+        self.read_norms(record_key.removesuffix("_launches"), False, norm_layers(model)[1])
         kpts = np.stack([s.pred_instances.keypoints for s in samples])
         scores = np.stack([s.pred_instances.keypoint_scores for s in samples])
         print(f"{record_key.removesuffix('_launches')} main path: {len(samples)} crops, launches {json.dumps(launches)}")
@@ -3964,6 +4138,7 @@ class Smoke:
         self.read_gau(record_key.removesuffix("_launches"), has_gau(model), backward=True)
         self.read_face_hand(record_key.removesuffix("_launches"), model, backward=True)
         self.read_cnn_zoo(record_key.removesuffix("_launches"), model, backward=True)
+        self.read_norms(record_key.removesuffix("_launches"), *norm_layers(model), backward=True)
         print(f"{record_key.removesuffix('_launches')} main path: one step of B={B}, launches {json.dumps(launches)}")
         if launches != NO_LAUNCHES:
             raise AssertionError(f"{name} train launched a kernel of the port: {launches}")
@@ -4019,6 +4194,9 @@ class Smoke:
         report = model_fixture_report(fixture, device="cuda")
         launches = read_counts()
         self.read_gau(f"{fixture['name']}_golden", "keypoint_x_labels" in fixture["keys"])
+        cfg = fixture["cfg"]() if callable(fixture["cfg"]) else fixture["cfg"]
+        backbone = ((cfg.get("model") or {}).get("backbone") or {}) if isinstance(cfg, dict) else {}
+        self.read_norms(f"{fixture['name']}_golden", False, backbone.get("type") in TRANSFORMER_BACKBONES)
         print(f"{fixture['name']}_golden: {json.dumps(report)}; launches {json.dumps(launches)}; bars "
               f"{json.dumps(UDP_BARS)}, outputs {FIXTURE_OUTPUT_REL:g}")
         if not report["ok"] or any(bool(n) != (k in kernels) for k, n in launches.items()):
@@ -4180,6 +4358,7 @@ class Smoke:
                 torch.cuda.synchronize()
                 launches, decodes = read_counts(), decode_batch.launches
                 self.read_gau(path, has_gau(runner.model), backward=True)
+                self.read_norms(path, *norm_layers(runner.model), backward=True)
                 B, steps, val_batches = runner.train_loader.batch_size, runner.state.step, len(runner.val_loader)
                 print(f"{path} main path: {steps} steps of {B} over {len(runner.train_loader.dataset)} instances "
                       f"({cfg['train_dataloader']['dataset']['type']}, {runner.metainfo['num_keypoints']} keypoints) "
@@ -4401,6 +4580,7 @@ class Smoke:
             launches, decodes = read_counts(), decode_batch.launches
             augments = {k: c.launches for k, c in augment_counters().items()}
             self.read_gau("rtmw_runner", True, backward=True)
+            self.read_norms("rtmw_runner", *norm_layers(runner.model), backward=True)
             B, steps, n = runner.train_loader.batch_size, runner.state.step, len(runner.train_loader.dataset)
             print(f"rtmw_runner main path: {steps} steps of {B} over {n} instances of the cocktail14 mix in "
                   f"{time.perf_counter() - t0:.2f} s, launches {json.dumps(launches)}, JPEG decodes {decodes}, "
@@ -4429,6 +4609,669 @@ class Smoke:
                   f"{json.dumps({k: tested.get(k) for k in families})}")
             if not all(math.isfinite(float(tested.get(k, "nan"))) for k in families):
                 raise AssertionError(f"rtmw_runner: tools.test gave {tested}")
+
+    def topdown_rest_golden(self):
+        """The LiteHRNet, Swin, HRFormer and PVTv2 fixtures (``TOPDOWN_REST_FIXTURES``)
+        on the card as ``classic_golden``: ``model_fixture_report`` within
+        ``UDP_BARS`` and ``FIXTURE_OUTPUT_REL`` (LiteHRNet with JAX's stride-2
+        padding, ``jax_same_strided``), no kernel of the TPU list launched, the
+        depthwise kernels' forward by every fixture but Swin's, the
+        squeeze-and-excite forward (LiteHRNet's spatial weighting) by
+        LiteHRNet's alone and the LayerNorm forward by every fixture but
+        LiteHRNet's (no BatchNorm kernel: evaluation mode)."""
+        for fixture in TOPDOWN_REST_FIXTURES:
+            self._fixture_phase(fixture)  # its counts set to 0 just before, the TPU kernels' read just after
+            path = f"{fixture['name']}_golden"
+            depthwise = {k: c.launches for k, c in face_hand_counters().items()}
+            cnn_zoo = {k: c.launches for k, c in cnn_zoo_counters().items()}
+            self.record.setdefault("face_hand_launches", {})[path] = depthwise
+            self.record.setdefault("cnn_zoo_launches", {})[path] = cnn_zoo
+            want_dw, want_se = fixture is not SWIN_FIXTURE, fixture is LITEHRNET_FIXTURE
+            if (bool(depthwise["depthwise_forward"]) != want_dw or bool(cnn_zoo["se_layer_forward"]) != want_se
+                    or depthwise["depthwise_backward"] or any(n for k, n in cnn_zoo.items() if k != "se_layer_forward")):
+                raise AssertionError(f"{path}: kernel launches {depthwise}, {cnn_zoo}")
+
+    def topdown_rest_predict(self):
+        """The rest of top-down's recipes (``TOPDOWN_REST``: LiteHRNet-18 and -30
+        at 256 x 192, LiteHRNet-30 at 384 x 288, Swin-T, -B, -L at 256 x 192 and
+        Swin-L at 384 x 288, HRFormer-small and -base at 256 x 192 and -base at
+        384 x 288, PVT-S, PVTv2-b2) at full width and depth through
+        ``predict_phase`` (random weights, seed 0, 64 boxes with flip-TTA, 3
+        timed calls, one profiled: crops/s, the busy share, peak memory; the
+        depthwise kernels counted on the LiteHRNet, HRFormer and PVTv2 paths,
+        the squeeze-and-excite kernels on LiteHRNet's)."""
+        import torch
+
+        for name, config in TOPDOWN_REST.items():
+            self.predict_phase(config, name, ("heatmaps",), f"{name}_predict_launches", timed_calls=3,
+                               profile_calls=1)
+            torch.cuda.empty_cache()
+
+    def topdown_rest_train(self):
+        """The bare train steps (``train_phase``, MSRA targets rendered on the
+        card, the recipes' optimizers and schedules) of LiteHRNet-18 (B = 64),
+        Swin-T (B = 32), HRFormer-small (B = 32) and PVTv2-b2 (B = 64) at 256 x
+        192 (``TOPDOWN_REST_TRAIN``): crops/s, peak memory and the busy share;
+        then the 2% rule's candidate ops of these steps, each alone at its
+        step's shapes, forward and backward (``topdown_rest_op_shares``)."""
+        import torch
+
+        from probpose_code_torch.config import Config
+
+        shares = self.record.setdefault("op_shares", {})
+        for i, (name, B) in enumerate(TOPDOWN_REST_TRAIN.items()):
+            config = TOPDOWN_REST[name]
+            model, _, _, busy_ms = self.train_phase(
+                config, name, synthetic_codec_batch(B, 61 + i, Config.fromfile(str(config))["codec"]),
+                f"{name}_train_launches")
+            shares[name] = self.topdown_rest_op_shares(name, busy_ms, model, B)
+            del model
+            torch.cuda.empty_cache()
+
+    @staticmethod
+    def topdown_rest_calls(model, B):
+        """The calls one forward of ``B`` crops of ``model`` (in training mode)
+        makes to the ops that the 2% rule weighs in this slice's backbones, by
+        name, with their arguments: the window attention core
+        (``window_attention_plain``) and its layout (``windowed_attention``'s
+        pad, roll and partition, and back), PVT's attention core
+        (``sr_attention_plain``), the LayerNorms (``layer_norm``), GELU,
+        the depthwise convs (LiteHRNet's ``depthwise``, the FFNs'
+        ``depthwise_with_bias``), the nearest resizes (``resize_nearest``),
+        LiteHRNet's spatial weighting (an ``SELayer``), cross-resolution weighting and channel
+        split and shuffle, and BatchNorm in training mode. Each function is
+        substituted by a recording one for the forward; modules by hooks."""
+        import torch
+        import torch.nn.functional as F
+
+        from probpose_code_torch.models.backbones import litehrnet, transformers
+        from probpose_code_torch.models.backbones.classic import SELayer
+        from probpose_code_torch.models.heads.heatmap_head import BatchNorm2d
+
+        calls = {}
+
+        def record(op, fn, keep=lambda *args: args):
+            def recording(*args, **kwargs):
+                calls.setdefault(op, []).append(keep(*args))
+                return fn(*args, **kwargs)
+            return recording
+
+        def shape(t):
+            return torch.Size(t.shape)
+
+        saved = [(transformers, "window_attention_plain"), (transformers, "windowed_attention"),
+                 (transformers, "sr_attention_plain"), (transformers, "layer_norm"), (F, "gelu"),
+                 (litehrnet, "depthwise"), (transformers, "depthwise_with_bias"), (litehrnet, "resize_nearest"),
+                 (transformers, "resize_nearest")]
+        saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+        ops = dict(window_attention_plain="window_attention", windowed_attention="window_layout",
+                   sr_attention_plain="sr_attention", layer_norm="layer_norm", gelu="gelu",
+                   depthwise="depthwise", depthwise_with_bias="depthwise", resize_nearest="resize_nearest")
+        keeps = dict(
+            window_attention_plain=lambda q, k, v, bias, mask: (shape(q), shape(bias), mask),
+            windowed_attention=lambda x, norm, attn, ws, shift, mask, dtype: (shape(x), ws, shift),
+            sr_attention_plain=lambda q, k, v: (shape(q), shape(k)),
+            layer_norm=lambda x, ln: (shape(x), ln), gelu=lambda x, *a: (shape(x),),
+            depthwise=lambda conv, x: (shape(x), conv, False), depthwise_with_bias=lambda conv, x: (shape(x), conv, True),
+            resize_nearest=lambda x, h, w: (shape(x), h, w))
+        for mod, name, fn in saved:
+            setattr(mod, name, record(ops[name], fn, keeps[name]))
+        hooks = []
+        for m in model.module.modules():
+            kind = {SELayer: "spatial_weighting", litehrnet.CrossResolutionWeighting: "crw",
+                    litehrnet.ConditionalChannelWeighting: "channel_split_shuffle",
+                    BatchNorm2d: "batch_norm"}.get(type(m))
+            if kind:
+                hooks.append(m.register_forward_hook(
+                    lambda m, args, out, kind=kind: calls.setdefault(kind, []).append((m, args))))
+        w, h = model.input_size
+        model.module.train()
+        try:
+            with torch.no_grad():
+                model.module(torch.zeros(B, h, w, 3, device=model.device))
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+            for handle in hooks:
+                handle.remove()
+        return calls
+
+    @staticmethod
+    def batch_norm_calls(model, B):
+        """(module, shape, channels last) of each call that one forward of
+        ``B`` crops of ``model`` in training mode (no gradients) makes to a
+        BatchNorm that trains (``BatchNorm2d``, frozen ones left out): the
+        calls that go to ``ops/kernels/batch_norm.py`` in its train step."""
+        import torch
+
+        from probpose_code_torch.models.backbones.resnet import FrozenBatchNorm2d
+        from probpose_code_torch.models.heads.heatmap_head import BatchNorm2d
+
+        calls = []
+
+        def hook(m, args):
+            if m.training:
+                x = args[0]
+                calls.append((m, torch.Size(x.shape),
+                              x.is_contiguous(memory_format=torch.channels_last) and not x.is_contiguous()))
+
+        hooks = [m.register_forward_pre_hook(hook) for m in model.module.modules()
+                 if isinstance(m, BatchNorm2d) and not isinstance(m, FrozenBatchNorm2d)]
+        w, h = model.input_size
+        model.module.train()
+        try:
+            with torch.no_grad():
+                model.module(torch.zeros(B, h, w, 3, device=model.device),
+                             torch.Generator(device=model.device).manual_seed(0))
+        finally:
+            for handle in hooks:
+                handle.remove()
+        return calls
+
+    @staticmethod
+    def topdown_rest_op_shares(key, busy_ms, model, B):
+        """The 2% rule's candidates of ``model``'s step (``topdown_rest_calls``),
+        each op's calls of one forward run alone on the card at their shapes
+        on random leaves, forward and backward, profiled
+        (``kernel_device_ms``), over the profiled step's device time
+        ``busy_ms``. The depthwise convs and the spatial weighting are kernels
+        already (``csrc/depthwise.cu``, ``csrc/se_layer.cu``), and so are
+        BatchNorm and LayerNorm since the 2% rule chose them
+        (``csrc/batch_norm.cu``, ``csrc/layer_norm.cu``): their plain twins
+        are timed beside them (``*_plain``), at the same calls. Returns {op:
+        device ms, share %, calls}."""
+        import torch
+        import torch.nn.functional as F
+
+        from probpose_code_torch.models.backbones import litehrnet, transformers
+        from probpose_code_torch.models.backbones.classic import channel_shuffle
+        from probpose_code_torch.ops.kernels.batch_norm import batch_norm_train_plain
+        from probpose_code_torch.ops.kernels.layer_norm import layer_norm_plain
+
+        dev = model.device
+
+        def leaf(s):
+            return torch.randn(s, device=dev).requires_grad_(True)
+
+        def case(fn, *shapes, params=()):
+            ins = [leaf(s) for s in shapes]
+            return lambda: (fn(*ins), ins + [p for p in params if p.requires_grad])
+
+        cases = {}
+        for op, calls in Smoke.topdown_rest_calls(model, B).items():
+            for args in calls:
+                if op == "window_attention":
+                    (q, bias, mask) = args
+                    fn = case(lambda q, k, v, b, mask=mask: transformers.window_attention_plain(q, k, v, b, mask),
+                              q, q, q, bias)
+                elif op == "window_layout":
+                    (s, ws, shift) = args
+
+                    def layout(x, ws=ws, shift=shift):
+                        Bx, H, W, C = x.shape
+                        pb, pr = (ws - H % ws) % ws, (ws - W % ws) % ws
+                        y = F.pad(x, (0, 0, 0, pr, 0, pb))
+                        y = torch.roll(y, (-shift, -shift), (1, 2)) if shift else y
+                        y = transformers.window_reverse(transformers.window_partition(y, ws) * 1.0, ws, H + pb, W + pr)
+                        y = torch.roll(y, (shift, shift), (1, 2)) if shift else y
+                        return y[:, :H, :W]
+                    fn = case(layout, s)
+                elif op == "sr_attention":
+                    (q, k) = args
+                    fn = case(transformers.sr_attention_plain, q, k, k)
+                elif op == "layer_norm":
+                    (s, ln) = args
+                    fn = case(lambda x, ln=ln: transformers.layer_norm(x, ln), s, params=list(ln.parameters()))
+                    cases.setdefault("layer_norm_plain", []).append(case(
+                        lambda x, ln=ln: layer_norm_plain(x, ln.weight, ln.bias, ln.eps), s,
+                        params=list(ln.parameters())))
+                elif op == "gelu":
+                    fn = case(F.gelu, args[0])
+                elif op == "depthwise":
+                    (s, conv, bias) = args
+                    fn = case(lambda x, conv=conv, bias=bias: (transformers.depthwise_with_bias if bias else
+                                                               litehrnet.depthwise)(conv, x), s,
+                              params=list(conv.parameters()))
+                elif op == "resize_nearest":
+                    (s, h, w) = args
+                    fn = case(lambda x, h=h, w=w: litehrnet.resize_nearest(x, h, w), s)
+                elif op == "channel_split_shuffle":
+                    m, (xs, _) = args
+                    def shuffle(*xs, m=m):
+                        x1 = [x[:, :c] for x, c in zip(xs, m.halves)]
+                        x2 = [x[:, c:] * 1.0 for x, c in zip(xs, m.halves)]
+                        return torch.cat([channel_shuffle(torch.cat([a, b], 1), 2).flatten() for a, b in zip(x1, x2)])
+                    fn = case(shuffle, *[x.shape for x in xs])
+                elif op == "crw":
+                    m, (xs, dt) = args
+                    fn = case(lambda *xs, m=m, dt=dt: torch.cat([y.flatten() for y in m(list(xs), dt)]),
+                              *[x.shape for x in xs], params=list(m.parameters()))
+                elif op == "spatial_weighting":
+                    m, (x, dt) = args
+                    fn = case(lambda x, m=m, dt=dt: m(x, dt), x.shape, params=list(m.parameters()))
+                elif op == "batch_norm":
+                    m, (x,) = args
+                    fn = case(m, x.shape, params=list(m.parameters()))
+                    cases.setdefault("batch_norm_plain", []).append(case(
+                        lambda x, m=m: batch_norm_train_plain(x, m.weight, m.bias, m.running_mean.clone(),
+                                                              m.running_var.clone(), m.momentum, m.eps), x.shape,
+                        params=list(m.parameters())))
+                cases.setdefault(op, []).append(fn)
+
+        def run(fns):
+            for fn in fns:
+                out, ins = fn()
+                torch.autograd.grad(out, ins, torch.ones_like(out))
+
+        shares = {}
+        for op, fns in cases.items():
+            ms = Smoke.kernel_device_ms(lambda fns=fns: run(fns), calls=3)
+            shares[op] = dict(device_ms=round(ms, 4), share=round(100 * ms / busy_ms, 2) if busy_ms else None,
+                              calls=len(fns))
+        print(f"{key}: the 2% rule's candidate ops alone at the step's shapes, forward and backward, device ms a step "
+              f"and % of the profiled {busy_ms} ms of device time: {json.dumps(shares)}")
+        return shares
+
+    def topdown_rest_kernels(self):
+        """The kernels on this slice's paths against their plain twins at those
+        paths' shapes (inputs drawn from a seed): the depthwise 3x3 kernels
+        (``ops/kernels/depthwise.py``) at each shape of the depthwise convs of LiteHRNet-18's
+        B = 64 step (strides 1 and 2; forward at ``DEPTHWISE_REL``, the input's
+        and the weight's gradients at ``DEPTHWISE_GRAD_REL``, the backward
+        twice bit for bit) and with the bias added after them at the FFNs'
+        depthwise convs of HRFormer-small's B = 32 and PVTv2-b2's B = 64 steps
+        (``depthwise_with_bias`` against ``F.conv2d`` with the bias); the
+        squeeze-and-excite kernels (``ops/kernels/se_layer.py``) at
+        LiteHRNet-18's spatial weightings (``SE_LAYER_REL``,
+        ``SE_LAYER_GRAD_REL``). Then the depthwise kernels' device time over
+        LiteHRNet-18's step (every launch of one forward and one backward, by
+        CUDA events with the L2 cache flushed before each, ``queued_ms``)
+        beside cuDNN's ``F.conv2d`` at the same shapes (the twin, profiled),
+        and their bound. Launches made here are not the main path's."""
+        import torch
+        import torch.nn.functional as F
+
+        from probpose_code_torch.apis import init_model
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.models.builder import full_f32_precision
+        from probpose_code_torch.ops.kernels import depthwise as dw
+        from probpose_code_torch.ops.kernels import se_layer
+
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        t0 = time.perf_counter()
+
+        def draw(*shape, s=1.0):  # on the card: NumPy's draws of a step's maps took over a minute
+            return s * torch.randn(*shape, device="cuda", generator=gen)
+
+        def rel(a, b):
+            return float((a - b).abs().max() / b.abs().max())
+
+        shapes = {}
+        for name, B in (("litehrnet18", 64), ("swin_t", 32), ("hrformer_small", 32), ("pvtv2_b2", 64)):
+            model = init_model(Config.fromfile(str(TOPDOWN_REST[name])), device="cuda")
+            calls = self.topdown_rest_calls(model, B)
+            # the shapes alone (and the modules), not the activations
+            calls["batch_norm"] = [(m, x.shape, x.is_contiguous(memory_format=torch.channels_last)
+                                    and not x.is_contiguous()) for m, (x,) in calls.get("batch_norm", [])]
+            calls["spatial_weighting"] = [(m, x.shape) for m, (x, _) in calls.get("spatial_weighting", [])]
+            shapes[name] = {k: v for k, v in calls.items() if k in ("batch_norm", "layer_norm", "depthwise",
+                                                                      "spatial_weighting")}
+            del model, calls
+        for name, config in (("probpose_s", FLAGSHIP), ("rtmpose_m", RTMPOSE)):  # at their recipes' batches
+            cfg = Config.fromfile(str(config))
+            model = init_model(cfg, device="cuda")
+            shapes[name] = dict(batch_norm=self.batch_norm_calls(model, cfg["train_dataloader"]["batch_size"]))
+            del model
+        torch.cuda.empty_cache()
+        print(f"topdown_rest_kernels: the six steps' calls captured in {time.perf_counter() - t0:.1f} s")
+        cases = []  # (x channels last, weight, bias or None, dy, stride, path)
+        for name, calls in shapes.items():
+            for (B, C, H, W), conv, bias in calls.get("depthwise", []):
+                s = conv.stride[0]
+                Ho, Wo = (H - 1) // s + 1, (W - 1) // s + 1
+                cases.append((draw(B, H, W, C).permute(0, 3, 1, 2), draw(C, 1, 3, 3, s=1 / 3),
+                              draw(C, s=0.1) if bias else None, draw(B, Ho, Wo, C).permute(0, 3, 1, 2), s, name))
+        errors, abs_err, deterministic = dict(forward=0.0, dx=0.0, dw=0.0, db=0.0), [0.0, 0.0], True
+        # each shape (stride, bias) once for the parity checks; every conv of LiteHRNet-18's step for the times
+        distinct = list({(tuple(c[0].shape), c[4], c[2] is None): c for c in cases}.values())
+        with full_f32_precision():
+            for x, w, b, dy, s, _ in distinct:
+                leaves = [t.clone().requires_grad_() for t in (x, w) + ((b,) if b is not None else ())]
+                ref = F.conv2d(leaves[0], leaves[1], leaves[2] if b is not None else None, s, 1, 1, x.shape[1])
+                ref_grads = torch.autograd.grad(ref, leaves, dy)
+                mine = [t.clone().requires_grad_() for t in (x, w) + ((b,) if b is not None else ())]
+                y = dw.depthwise_conv3x3(mine[0], mine[1], s)
+                y = y + mine[2][:, None, None] if b is not None else y
+                grads = torch.autograd.grad(y, mine, dy)
+                again = dw.depthwise_backward(dy, x, w, s)
+                errors["forward"] = max(errors["forward"], rel(y.detach(), ref.detach()))
+                for key, g, r in zip(("dx", "dw", "db"), grads, ref_grads):
+                    errors[key] = max(errors[key], rel(g, r))
+                abs_err[0] = max(abs_err[0], float((y - ref).abs().max()))
+                abs_err[1] = max(abs_err[1], *(float((g - r).abs().max()) for g, r in zip(grads, ref_grads)))
+                deterministic &= torch.equal(grads[0], again[0]) and torch.equal(grads[1], again[1])
+        counts = {name: sum(c[5] == name for c in cases) for name in shapes if name != "swin_t"}
+        print(f"topdown_rest_kernels depthwise over the {len(distinct)} shapes of the {json.dumps(counts)} depthwise "
+              f"convs of the B=64 LiteHRNet-18, "
+              f"B=32 HRFormer-small and B=64 PVTv2-b2 steps (the last two with the bias after the kernel): rel max "
+              f"err {json.dumps(errors)} (bars {DEPTHWISE_REL:g} forward, {DEPTHWISE_GRAD_REL:g} gradients); the "
+              f"backward repeats bit for bit: {deterministic}")
+        if not (errors["forward"] < DEPTHWISE_REL and max(errors["dx"], errors["dw"], errors["db"]) < DEPTHWISE_GRAD_REL
+                and deterministic):
+            raise AssertionError(f"topdown_rest_kernels: the depthwise kernels disagree with the twin: {errors}")
+
+        se_cases = []
+        for m, (B, C, H, W) in shapes["litehrnet18"]["spatial_weighting"]:
+            mid = m.conv1["conv"].out_channels
+            se_cases.append((draw(B, C, H, W), draw(mid, C, s=C ** -0.5), draw(mid, s=0.1),
+                             draw(C, mid, s=mid ** -0.5), draw(C, s=0.1), draw(B, C, H, W)))
+        se_err = dict(forward=0.0, gradients=0.0)
+        with full_f32_precision():
+            for *ins, dy in se_cases:
+                out, *saved = se_layer.se_layer_forward(*ins, False)
+                grads = se_layer.se_layer_backward(dy, ins[0], *saved, ins[1], ins[3], False)
+                leaves = [t.clone().requires_grad_() for t in ins]
+                ref = se_layer.se_layer_plain(*leaves)
+                ref_grads = torch.autograd.grad(ref, leaves, dy)
+                se_err["forward"] = max(se_err["forward"], rel(out, ref.detach()))
+                se_err["gradients"] = max(se_err["gradients"], *(rel(g, r) for g, r in zip(grads, ref_grads)))
+        print(f"topdown_rest_kernels se_layer over the {len(se_cases)} spatial weightings of LiteHRNet-18's B=64 step: "
+              f"rel max err {json.dumps(se_err)} (bars {SE_LAYER_REL:g} forward, {SE_LAYER_GRAD_REL:g} gradients)")
+        if not (se_err["forward"] < SE_LAYER_REL and se_err["gradients"] < SE_LAYER_GRAD_REL):
+            raise AssertionError(f"topdown_rest_kernels: the se_layer kernels disagree with the twin: {se_err}")
+
+        lite = [c for c in cases if c[5] == "litehrnet18"]
+        fwd = [functools.partial(dw.depthwise_forward, x, w, s) for x, w, _, _, s, _ in lite]
+        bwd = [functools.partial(dw.depthwise_backward, dy, x, w, s) for x, w, _, dy, s, _ in lite]
+
+        def cudnn(x, w, dy, s):
+            leaves = [x.detach().requires_grad_(), w.detach().requires_grad_()]
+            torch.autograd.grad(dw.depthwise_conv3x3_plain(*leaves, s), leaves, dy)
+
+        nbytes = [sum(dw.depthwise_bytes(*x.shape, s)[i] for x, _, _, _, s, _ in lite) for i in (0, 1)]
+        ops = sum(2 * 9 * dy.numel() for _, _, _, dy, _, _ in lite)
+        with full_f32_precision():
+            ms = [Smoke.queued_ms(fwd), Smoke.queued_ms(bwd)]
+            warm = [Smoke.queued_ms(fwd, cold=False), Smoke.queued_ms(bwd, cold=False)]
+            library = [Smoke.kernel_device_ms(all_of([functools.partial(dw.depthwise_conv3x3_plain, x, w, s)
+                                                      for x, w, _, _, s, _ in lite]), calls=10),
+                       Smoke.kernel_device_ms(all_of([functools.partial(cudnn, x, w, dy, s)
+                                                      for x, w, _, dy, s, _ in lite]), calls=10)]
+        bound = [max(nbytes[0] / PEAK_BYTES, ops / PEAK_F32) * 1e3, max(nbytes[1] / PEAK_BYTES, 2 * ops / PEAK_F32) * 1e3]
+        record = dict(convs=len(lite), forward_ms=ms[0], forward_ms_warm=warm[0], backward_ms=ms[1],
+                      backward_ms_warm=warm[1], cudnn_forward_ms=library[0], cudnn_forward_backward_ms=library[1],
+                      forward_bound_ms=bound[0], backward_bound_ms=bound[1], max_abs_err=abs_err)
+        self.record["litehrnet_depthwise"] = record
+        print(f"topdown_rest_kernels depthwise over LiteHRNet-18's B=64 step ({len(lite)} convs, summed): forward "
+              f"{ms[0]:.4f} ms with the L2 cache flushed before each launch ({warm[0]:.4f} without), backward "
+              f"{ms[1]:.4f} ms ({warm[1]:.4f}); cuDNN's F.conv2d at the same shapes {library[0]:.4f} ms forward, "
+              f"{library[1]:.4f} ms forward and backward (profiled); bounds {bound[0]:.4f} / {bound[1]:.4f} ms "
+              f"({nbytes[0] / 1e6:.1f} / {nbytes[1] / 1e6:.1f} MB over 3.35 TB/s)")
+        self.norm_kernels(shapes)
+
+    def norm_kernels(self, shapes):
+        """The BatchNorm and LayerNorm kernels (``ops/kernels/batch_norm.py``,
+        ``layer_norm.py``: the 2% rule's two, ``PERF.md`` §6) against their
+        plain twins at the train steps' shapes (``shapes``:
+        ``topdown_rest_calls`` of LiteHRNet-18 at B = 64, Swin-T and
+        HRFormer-small at B = 32 and PVTv2-b2 at B = 64; ``batch_norm_calls``
+        of ProbPose-S at B = 64 and RTMPose-m at B = 256), inputs drawn from a
+        seed: BatchNorm at every BatchNorm of the LiteHRNet-18,
+        HRFormer-small, ProbPose-S and RTMPose-m steps in their layouts (NCHW
+        and channels last) and settings (CSPNeXt's eps 1e-3 and momentum
+        0.03), the output and the running statistics at ``NORM_REL``, the
+        gradients of the map, weight and bias (against autograd through the
+        twin) at ``NORM_GRAD_REL``; LayerNorm at every LayerNorm of the
+        Swin-T, HRFormer-small and PVTv2-b2 steps the same way; each shape
+        (and layout and setting) once; each backward twice bit for bit. Then
+        each kernel's device time summed over one step's calls of
+        LiteHRNet-18 (BatchNorm) and Swin-T (LayerNorm), by CUDA events with
+        the L2 cache flushed before each call (``queued_ms``), beside the
+        twin's and the library call's (``F.batch_norm`` with
+        ``training=True``, ``F.layer_norm``: the same functions but for the
+        variance's formula; profiled; a backward's times its backward alone,
+        the graphs made before the trace), and the bound: the bytes each must
+        move over 3.35 TB/s. Keeps the four records for the ``norms`` line."""
+        import torch
+        import torch.nn.functional as F
+
+        from probpose_code_torch.models.builder import full_f32_precision
+        from probpose_code_torch.ops.kernels import batch_norm as bn
+        from probpose_code_torch.ops.kernels import layer_norm as ln
+
+        gen = torch.Generator(device="cuda").manual_seed(29)
+
+        def draw(*shape, s=1.0, shift=0.0):  # on the card, as ``topdown_rest_kernels``'s
+            return shift + s * torch.randn(*shape, device="cuda", generator=gen)
+
+        def rel(a, b):
+            return float((a - b).abs().max() / b.abs().max())
+
+        t0 = time.perf_counter()
+
+        def bn_case(m, shape, last, name):  # (x, w, b, running mean, running var, dy, path, momentum, eps)
+            B, C, H, W = shape
+            x, dy = draw(B, C, H, W, shift=0.5), draw(B, C, H, W)
+            if last:
+                x, dy = (t.contiguous(memory_format=torch.channels_last) for t in (x, dy))
+            return (x, draw(C, s=0.2, shift=1.0), draw(C, s=0.1), draw(C, s=0.1), draw(C, s=0.1, shift=1.0).abs(),
+                    dy, name, m.momentum, m.eps)
+
+        bn_paths = ("litehrnet18", "hrformer_small", "probpose_s", "rtmpose_m")
+        bn_counts = {name: len(shapes[name]["batch_norm"]) for name in bn_paths}
+        # every call of LiteHRNet-18's step (timed below); each shape, layout and setting of the four steps once
+        # for the parity checks
+        lite = [bn_case(*c, "litehrnet18") for c in shapes["litehrnet18"]["batch_norm"]]
+        bn_keys = {}
+        for name in bn_paths:
+            for m, shape, last in shapes[name]["batch_norm"]:
+                bn_keys.setdefault((tuple(shape), last, m.momentum, m.eps), (m, shape, last, name))
+        ln_cases = []  # (x, w, b, dy, eps, path)
+        for name in ("swin_t", "hrformer_small", "pvtv2_b2"):
+            for shape, m in shapes[name]["layer_norm"]:
+                C = shape[-1]
+                ln_cases.append((draw(*shape, shift=0.3), draw(C, s=0.2, shift=1.0), draw(C, s=0.1), draw(*shape),
+                                 m.eps, name))
+        errors = dict(bn_forward=0.0, bn_stats=0.0, bn_grads=0.0, ln_forward=0.0, ln_grads=0.0)
+        abs_err = dict(batch_norm_forward=0.0, batch_norm_backward=0.0, layer_norm_forward=0.0,
+                       layer_norm_backward=0.0)
+        deterministic = True
+
+        bn_distinct = [bn_case(*c) for c in bn_keys.values()]
+        ln_distinct = list({tuple(c[0].shape): c for c in ln_cases}.values())  # each shape once for the parity checks
+        with full_f32_precision():
+            for x, w, b, rm, rv, dy, _, mom, eps in bn_distinct:
+                stats = [rm.clone(), rv.clone()]
+                y, mean, inv = bn.batch_norm_forward(x, w, b, *stats, mom, eps)
+                grads = bn.batch_norm_backward(dy, x, w, mean, inv)
+                again = bn.batch_norm_backward(dy, x, w, mean, inv)
+                leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+                ref_stats = [rm.clone(), rv.clone()]
+                ref = bn.batch_norm_train_plain(*leaves, *ref_stats, mom, eps)
+                ref_grads = torch.autograd.grad(ref, leaves, dy)
+                errors["bn_forward"] = max(errors["bn_forward"], rel(y, ref.detach()))
+                errors["bn_stats"] = max(errors["bn_stats"], *(rel(a, r) for a, r in zip(stats, ref_stats)))
+                errors["bn_grads"] = max(errors["bn_grads"], *(rel(g, r) for g, r in zip(grads, ref_grads)))
+                abs_err["batch_norm_forward"] = max(abs_err["batch_norm_forward"], float((y - ref).abs().max()))
+                abs_err["batch_norm_backward"] = max(abs_err["batch_norm_backward"],
+                                                     *(float((g - r).abs().max()) for g, r in zip(grads, ref_grads)))
+                deterministic &= all(torch.equal(g, a) for g, a in zip(grads, again))
+            for x, w, b, dy, eps, _ in ln_distinct:
+                y, mean, inv = ln.layer_norm_forward(x, w, b, eps)
+                grads = ln.layer_norm_backward(dy, x, w, mean, inv)
+                again = ln.layer_norm_backward(dy, x, w, mean, inv)
+                leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+                ref = ln.layer_norm_plain(*leaves, eps)
+                ref_grads = torch.autograd.grad(ref, leaves, dy)
+                errors["ln_forward"] = max(errors["ln_forward"], rel(y, ref.detach()))
+                errors["ln_grads"] = max(errors["ln_grads"], *(rel(g, r) for g, r in zip(grads, ref_grads)))
+                abs_err["layer_norm_forward"] = max(abs_err["layer_norm_forward"], float((y - ref).abs().max()))
+                abs_err["layer_norm_backward"] = max(abs_err["layer_norm_backward"],
+                                                     *(float((g - r).abs().max()) for g, r in zip(grads, ref_grads)))
+                deterministic &= all(torch.equal(g, a) for g, a in zip(grads, again))
+        layouts = sum(c[0].is_contiguous(memory_format=torch.channels_last) and not c[0].is_contiguous()
+                      for c in bn_distinct)
+        print(f"norm_kernels over the {len(bn_distinct)} shapes and settings ({layouts} channels last) of the "
+              f"BatchNorms of the B=64 LiteHRNet-18, B=32 HRFormer-small, B=64 ProbPose-S and B=256 RTMPose-m steps "
+              f"({json.dumps(bn_counts)} calls) and the {len(ln_distinct)} of the "
+              f"{len(ln_cases)} LayerNorms of the Swin-T, HRFormer-small and PVTv2-b2 steps "
+              f"({time.perf_counter() - t0:.1f} s): "
+              f"rel max err {json.dumps(errors)} (bars {NORM_REL:g} outputs and statistics, {NORM_GRAD_REL:g} "
+              f"gradients); the backwards repeat bit for bit: {deterministic}")
+        if not (max(errors["bn_forward"], errors["bn_stats"], errors["ln_forward"]) < NORM_REL
+                and max(errors["bn_grads"], errors["ln_grads"]) < NORM_GRAD_REL and deterministic):
+            raise AssertionError(f"norm_kernels: the normalisation kernels disagree with their twins: {errors}")
+
+        del bn_distinct
+        swin = [c for c in ln_cases if c[5] == "swin_t"]
+        saved_bn = [bn.batch_norm_forward(x, w, b, rm.clone(), rv.clone(), mom, eps)[1:]
+                    for x, w, b, rm, rv, _, _, mom, eps in lite]
+        saved_ln = [ln.layer_norm_forward(x, w, b, eps)[1:] for x, w, b, _, eps, _ in swin]
+
+        def bn_plain(grad, library):
+            """A call over LiteHRNet-18's step of the twin or the library: the
+            forward, or (``grad``) the backward alone, its graphs made here."""
+            graphs = []
+            for x, w, b, rm, rv, dy, _, mom, eps in lite:
+                leaves = [t.detach().requires_grad_(grad) for t in (x, w, b)]
+                y = (functools.partial(F.batch_norm, leaves[0], rm.clone(), rv.clone(), leaves[1], leaves[2], True,
+                                       mom, eps) if library
+                     else functools.partial(bn.batch_norm_train_plain, *leaves, rm.clone(), rv.clone(), mom, eps))
+                graphs.append((y() if grad else y, leaves, dy))
+            if grad:
+                return lambda: [torch.autograd.grad(y, leaves, dy, retain_graph=True) for y, leaves, dy in graphs]
+            return lambda: [y() for y, _, _ in graphs]
+
+        def ln_plain(grad, library):
+            """The same over Swin-T's step's LayerNorms."""
+            graphs = []
+            for x, w, b, dy, eps, _ in swin:
+                leaves = [t.detach().requires_grad_(grad) for t in (x, w, b)]
+                y = (functools.partial(F.layer_norm, leaves[0], leaves[0].shape[-1:], leaves[1], leaves[2], eps)
+                     if library else functools.partial(ln.layer_norm_plain, *leaves, eps))
+                graphs.append((y() if grad else y, leaves, dy))
+            if grad:
+                return lambda: [torch.autograd.grad(y, leaves, dy, retain_graph=True) for y, leaves, dy in graphs]
+            return lambda: [y() for y, _, _ in graphs]
+
+        bn_elements = sum(c[0].numel() for c in lite)
+        bn_channels = sum(c[0].shape[1] for c in lite)
+        ln_elements = sum(c[0].numel() for c in swin)
+        ln_rows = sum(c[0].numel() // c[0].shape[-1] for c in swin)
+        ln_channels = sum(c[0].shape[-1] for c in swin)
+        bn_bytes = bn.batch_norm_bytes(bn_elements, bn_channels)
+        ln_bytes = ln.layer_norm_bytes(ln_elements, ln_rows, ln_channels)
+        timed = dict(
+            batch_norm_forward=([functools.partial(bn.batch_norm_forward, x, w, b, rm, rv, mom, eps)
+                                 for x, w, b, rm, rv, _, _, mom, eps in lite],
+                                functools.partial(bn_plain, False, False), functools.partial(bn_plain, False, True), 8 * bn_elements, bn_bytes[0], "litehrnet18",
+                                "probpose_code_tpu/models/backbones/resnet.py:24", "probpose_code_torch/csrc/batch_norm.cu"),
+            batch_norm_backward=([functools.partial(bn.batch_norm_backward, c[5], c[0], c[1], *sv)
+                                  for c, sv in zip(lite, saved_bn)], functools.partial(bn_plain, True, False),
+                                 functools.partial(bn_plain, True, True),
+                                 10 * bn_elements, bn_bytes[1], "litehrnet18",
+                                 "probpose_code_tpu/models/backbones/resnet.py:24", "probpose_code_torch/csrc/batch_norm.cu"),
+            layer_norm_forward=([functools.partial(ln.layer_norm_forward, x, w, b, eps) for x, w, b, _, eps, _ in swin],
+                                functools.partial(ln_plain, False, False),
+                                functools.partial(ln_plain, False, True), 8 * ln_elements, ln_bytes[0], "swin_t",
+                                "probpose_code_tpu/models/backbones/transformers.py:103",
+                                "probpose_code_torch/csrc/layer_norm.cu"),
+            layer_norm_backward=([functools.partial(ln.layer_norm_backward, c[3], c[0], c[1], *sv)
+                                  for c, sv in zip(swin, saved_ln)], functools.partial(ln_plain, True, False),
+                                 functools.partial(ln_plain, True, True),
+                                 10 * ln_elements, ln_bytes[1], "swin_t",
+                                 "probpose_code_tpu/models/backbones/transformers.py:103",
+                                 "probpose_code_torch/csrc/layer_norm.cu"))
+        records = []
+        for name, (fns, plain, library, ops, nbytes, path, ports, source) in timed.items():
+            with full_f32_precision():
+                ms, warm = Smoke.queued_ms(fns), Smoke.queued_ms(fns, cold=False)
+                plain_ms = Smoke.kernel_device_ms(plain(), calls=5)
+                library_ms = Smoke.kernel_device_ms(library(), calls=5)
+            need = dict(operations=ops / PEAK_F32, bytes=nbytes / PEAK_BYTES)
+            records.append(dict(name=name, route="cuda", source=source, ports=ports, main_path=f"{path}_train",
+                                max_abs_err=abs_err[name], ms=ms, ms_warm=warm, plain_ms=plain_ms,
+                                bound_ms=max(need.values()) * 1e3, bound_by=max(need, key=need.get),
+                                library_ms=library_ms))
+            r = records[-1]
+            lib = ("F.batch_norm" if "batch" in name else "F.layer_norm") + (", its backward alone" if "backward" in name
+                                                                               else "")
+            print(f"  {name} over one {path} step's {len(fns)} calls: device {ms:.4f} ms with the L2 cache flushed "
+                  f"before each call, {warm:.4f} without (CUDA events), plain {plain_ms:.4f} ms, library ({lib}) "
+                  f"{library_ms:.4f} ms (profiled), bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {nbytes / 1e6:.1f} "
+                  f"MB), {ms / r['bound_ms']:.1f}x its bound, max abs err {r['max_abs_err']:.3e}")
+        self.record["norm_kernels"] = records
+
+    def topdown_rest_runner(self):
+        """LiteHRNet-18's recipe through ``tools.train``'s main at its batch of 64
+        with four workers: one epoch of two steps over the golden JPEGs'
+        persons copied to 128 instances, val at its end over the 62 golden
+        persons by ``CocoMetric``; then ``tools.test`` of Swin-T's recipe (random
+        weights: no checkpoint) over the same persons. Fails unless both steps
+        run, no kernel of the TPU list launches, the depthwise,
+        squeeze-and-excite and BatchNorm kernels launch (forward and
+        backward) and the test's LayerNorm kernel, one decode runs a step, the
+        first loss dict equals ``make_train_step``'s, and the val's and the
+        test's metrics are finite."""
+        import io
+        import tempfile
+
+        import torch
+
+        from probpose_code_torch.datasets.loader import stop_workers
+        from probpose_code_torch.ops.kernels.jpeg import decode_batch
+        from probpose_code_torch.tools import test as test_cli
+        from probpose_code_torch.tools import train as train_cli
+
+        config = TOPDOWN_REST["litehrnet18"]
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+            stack.callback(stop_workers)
+            _, ann = golden_jpeg_set(tmp)
+            copy_instances(ann, 128, Path(tmp, "train.json"))
+            Path(tmp, "val.json").write_text(ann.read_text())
+            options = coco_data_options(tmp, "train.json", workers=4) + [
+                "val_dataloader.num_workers=0", "train_cfg.max_epochs=1", "train_cfg.val_interval=1",
+                "default_hooks.logger.interval=1"]
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            read_counts = reset_counts()  # the main path: counts set to 0 just before, read just after
+            runner = train_cli.main([str(config), "--work-dir", str(Path(tmp, "work")), "--cfg-options", *options])
+            torch.cuda.synchronize()
+            launches, decodes = read_counts(), decode_batch.launches
+            self.read_face_hand("litehrnet18_runner", runner.model, backward=True)
+            self.read_cnn_zoo("litehrnet18_runner", runner.model, backward=True)
+            self.read_norms("litehrnet18_runner", *norm_layers(runner.model), backward=True)
+            B, steps, val_batches = runner.train_loader.batch_size, runner.state.step, len(runner.val_loader)
+            print(f"litehrnet18_runner main path: {steps} steps of {B} over {len(runner.train_loader.dataset)} "
+                  f"instances in {time.perf_counter() - t0:.2f} s, launches {json.dumps(launches)}, JPEG decodes "
+                  f"{decodes}, depthwise {json.dumps(self.record['face_hand_launches']['litehrnet18_runner'])}, "
+                  f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            report_runner_epochs("litehrnet18_runner", runner, 0)
+            val = [line for line in Path(tmp, "work", "train.log").read_text().splitlines() if "val: " in line]
+            print(f"litehrnet18_runner val: {val[-1] if val else None}")
+            if B != 64 or steps != 2 or launches != NO_LAUNCHES or decodes != steps + val_batches or not val:
+                raise AssertionError(f"litehrnet18_runner: batch {B}, {steps} steps, launches {launches}, {decodes} "
+                                     f"decodes, val {val}")
+            self.record["litehrnet18_runner_launches"] = launches
+            first_step_check("litehrnet18_runner", runner)
+            runner.close()
+
+            config = TOPDOWN_REST["swin_t"]
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            read_counts = reset_counts()
+            with contextlib.redirect_stdout(out):
+                test_cli.main([str(config), "--cfg-options",
+                               *[kv.replace("val_", "test_", 1) for kv in coco_data_options(tmp, workers=0)]])
+            launches = read_counts()
+            self.read_norms("swin_t_test", False, True)
+            rows = (line.partition(": ") for line in out.getvalue().splitlines())
+            tested = {k: float(v) for k, _, v in rows if k.startswith("coco/")}
+            print(f"swin_t tools.test over {len(json.loads(ann.read_text())['annotations'])} instances in "
+                  f"{time.perf_counter() - t0:.2f} s (random weights): {json.dumps(tested)}, launches "
+                  f"{json.dumps(launches)}")
+            if not tested or not all(math.isfinite(v) for v in tested.values()) or launches != NO_LAUNCHES:
+                raise AssertionError(f"swin_t: tools.test gave {tested}, launches {launches}")
 
     def cnn_zoo_golden(self):
         """The SCNet-50 and ViPNAS fixtures (``CNN_ZOO_FIXTURES``) on the card
@@ -4811,6 +5654,7 @@ class Smoke:
             runner = train_cli.main(argv)
             torch.cuda.synchronize()
             launches = read_counts()
+            self.read_norms("res50_train", *norm_layers(runner.model), backward=True)
             t = runner.train_times[0]
             print(f"res50_train tools.train: {runner.state.step} steps of {runner.train_loader.batch_size}, launches "
                   f"{json.dumps(launches)}; epoch 1: {t['crops']} crops, {t['crops'] / t['window']:.1f} train "
@@ -4872,6 +5716,7 @@ class Smoke:
             dt = time.perf_counter() - t0
             launches, decodes = read_counts(), decode_batch.launches
             self.read_gau("rtmpose_val", True)
+            self.read_norms("rtmpose_val", False, False)
             kpts = np.stack([s.pred_instances.keypoints for s in evaluator.samples])
             print(f"rtmpose_train Runner.val: {len(evaluator.samples)} instances in {dt:.3f} s, launches "
                   f"{json.dumps(launches)}, JPEG decodes {decodes}; metrics {json.dumps(metrics)}; val_times "
@@ -5124,6 +5969,7 @@ class Smoke:
         launches, decodes = read_counts(), decode_batch.launches
         augments = {k: c.launches for k, c in augment_counters().items()}
         self.read_gau(name, True, backward=True)
+        self.read_norms(name, *norm_layers(runner.model), backward=True)
         peak = torch.cuda.max_memory_allocated() / 2**30
         batch = Config.fromfile(str(config))["train_dataloader"]["batch_size"]
         B, steps, val_batches = runner.train_loader.batch_size, runner.state.step, len(runner.val_loader)
@@ -5216,6 +6062,7 @@ class Smoke:
             dt = time.perf_counter() - t0
             launches, decodes = read_counts(), decode_batch.launches
             self.read_gau("wholebody_hrnet_val", False)
+            self.read_norms("wholebody_hrnet_val", False, False)
             tested = dict(line.split(": ", 1) for line in out.getvalue().splitlines() if line.startswith("coco/"))
             print(f"wholebody_train: tools.test on HRNet-w32 whole-body over 62 instances in {dt:.2f} s, launches "
                   f"{json.dumps(launches)}, JPEG decodes {decodes}; {json.dumps({k: tested.get(k) for k in families})}")
@@ -5363,6 +6210,7 @@ class Smoke:
             torch.cuda.synchronize()
             launches, decodes = read_counts(), decode_batch.launches
             self.read_gau("ubody_train", True, backward=True)
+            self.read_norms("ubody_train", *norm_layers(runner.model), backward=True)
             self.record["ubody_augment_launches"] = {k: c.launches for k, c in augment_counters().items()}
             datasets = runner.train_loader.dataset.datasets
             B, steps, val_batches = runner.train_loader.batch_size, runner.state.step, len(runner.val_loader)
@@ -5505,6 +6353,7 @@ class Smoke:
             torch.cuda.synchronize()
             launches, decodes = read_counts(), decode_batch.launches
             self.read_gau("hand5_train", True, backward=True)
+            self.read_norms("hand5_train", *norm_layers(runner.model), backward=True)
             augments = {k: c.launches for k, c in augment_counters().items()}
             B, steps, val_batches = runner.train_loader.batch_size, runner.state.step, len(runner.val_loader)
             print(f"hand5_train main path: {steps} steps of {B} over {len(runner.train_loader.dataset)} hands (5 "
@@ -5816,6 +6665,7 @@ class Smoke:
             torch.cuda.synchronize()
             launches, decodes = read_counts(), decode_batch.launches
             self.read_gau("halpe26_runner", True, backward=True)
+            self.read_norms("halpe26_runner", *norm_layers(runner.model), backward=True)
             augments = {k: c.launches for k, c in augment_counters().items()}
             peak = torch.cuda.max_memory_allocated() / 2**30
             B, steps, val_batches = runner.train_loader.batch_size, runner.state.step, len(runner.val_loader)
@@ -5881,6 +6731,7 @@ class Smoke:
                 test_cli.main([str(CROWDPOSE), "--cfg-options", *options])
             dt = time.perf_counter() - t0
             launches, decodes = read_counts(), decode_batch.launches
+            self.read_norms("crowdpose_val", False, False)
             stats = dict(line.split(": ", 1) for line in out.getvalue().splitlines() if line.startswith("crowdpose/"))
             n = sum(a["num_keypoints"] > 0 for a in json.loads(ann_file.read_text())["annotations"])
             print(f"crowdpose_val: tools.test over {n} instances in {dt:.2f} s, launches {json.dumps(launches)}, JPEG "
@@ -5950,6 +6801,7 @@ class Smoke:
             torch.cuda.synchronize()
             launches = read_counts()
             self.read_gau("rtmpose_aic_train", True, backward=True)
+            self.read_norms("rtmpose_aic_train", *norm_layers(runner.model), backward=True)
             B, steps = runner.train_loader.batch_size, runner.state.step
             print(f"rtmpose_aic_train main path: {steps} steps of {B} over {len(runner.train_loader.dataset)} "
                   f"instances (COCO and AIC), launches {json.dumps(launches)}")
@@ -6658,6 +7510,11 @@ def main() -> int:
             smoke.phase("multistage_predict", smoke.multistage_predict)
             smoke.phase("multistage_train", smoke.multistage_train)
             smoke.phase("rtmw_runner", smoke.rtmw_runner)
+            smoke.phase("topdown_rest_golden", smoke.topdown_rest_golden)
+            smoke.phase("topdown_rest_kernels", smoke.topdown_rest_kernels)
+            smoke.phase("topdown_rest_predict", smoke.topdown_rest_predict)
+            smoke.phase("topdown_rest_train", smoke.topdown_rest_train)
+            smoke.phase("topdown_rest_runner", smoke.topdown_rest_runner)
     left = stop_descendants()
     if left:
         print(f"chip_smoke: stopped processes left running: {left}", file=sys.stderr)
@@ -6703,6 +7560,12 @@ def main() -> int:
     print(json.dumps({"cnn_zoo": [dict(rec, launches=cnn_zoo[main_path[rec["name"]]][rec["name"]],
                                        launches_by_path={path: n[rec["name"]] for path, n in cnn_zoo.items()})
                                   for rec in smoke.record["cnn_zoo_kernels"]]}))
+    # the normalisation kernels, no TPU kernel: their own line, BatchNorm's launches those of LiteHRNet-18's train
+    # step, LayerNorm's those of Swin-T's, and each one's on every main path
+    norms = smoke.record["norm_launches"]
+    print(json.dumps({"norms": [dict(rec, launches=norms[rec.pop("main_path")][rec["name"]],
+                                     launches_by_path={path: n[rec["name"]] for path, n in norms.items()})
+                                for rec in smoke.record["norm_kernels"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -38,7 +38,11 @@ names that ``convert_torch_cspnext_backbone`` (``:183``),
 (``:621``) read, so one weights file loads in both packages; HourglassNet,
 CPM, MSPN / RSN, CPMHead and MSPNHead, which no JAX converter reads, take
 mmpose's names as a reading of its modules gives them
-(``models/backbones/multistage.py``, ``models/heads/multistage_heads.py``).
+(``models/backbones/multistage.py``, ``models/heads/multistage_heads.py``),
+and so do LiteHRNet, SwinTransformer, HRFormer and PVT / PVTv2 where their
+structure is mmpose's (``models/backbones/litehrnet.py``,
+``transformers.py``; flax LayerNorm's ``scale`` is torch's ``weight``, PVT's
+``q`` and ``kv`` are stacked into ``in_proj_weight`` / ``in_proj_bias``).
 """
 
 from __future__ import annotations
@@ -438,6 +442,107 @@ def _multistage_rules(bb):
                     (down + r"downsample_(conv|bn)", lambda m: block(m, f"downsample.{m[4]}"))]
 
 
+def _litehrnet_rules(bb):
+    """LiteHRNet (``models/backbones/litehrnet.py``)."""
+    block = r"s(\d)_m(\d+)_b(\d+)/"
+    layer = r"stage\1.\2.layers.\3."
+    fuse = r"s(\d)_m(\d+)_fuse(\d)_(\d)"
+    return [(r"stem/(conv1|b1_pw|b2_expand|b2_linear)/" + _CONV_BN,
+             lambda m: f"stem.{_LITE_STEM[m[1]]}.{m[2]}"),
+            (r"stem/(b1_dw|b2_dw)(_bn)?", lambda m: f"stem.{_LITE_STEM[m[1]]}.{'bn' if m[2] else 'conv'}"),
+            (r"t(\d)_proj(\d)/" + _CONV_BN, r"transition\1.\2.\3"),
+            (r"t(\d)_dw(\d)", r"transition\1.\2.0"), (r"t(\d)_dw_bn(\d)", r"transition\1.\2.1"),
+            (r"t(\d)_pw(\d)/" + _CONV_BN, lambda m: f"transition{m[1]}.{m[2]}.{2 + (m[3] == 'bn')}"),
+            (block + r"crw/(conv[12])/" + _CONV_BN, layer + r"cross_resolution_weighting.\4.\5"),
+            (block + r"dw(\d)", layer + r"depthwise_convs.\4.conv"),
+            (block + r"dw_bn(\d)", layer + r"depthwise_convs.\4.bn"),
+            (block + r"sw(\d)/fc([12])", layer + r"spatial_weighting.\4.conv\5.conv"),
+            (fuse + r"/" + _CONV_BN, lambda m: f"stage{m[1]}.{m[2]}.fuse_layers.{m[3]}.{m[4]}.{int(m[5] == 'bn')}"),
+            (fuse + r"_(dw|dwbn)(\d)", lambda m: f"stage{m[1]}.{m[2]}.fuse_layers.{m[3]}.{m[4]}.{m[6]}."
+                                             f"{int(m[5] == 'dwbn')}"),
+            (fuse + r"_pw(\d)/" + _CONV_BN, lambda m: f"stage{m[1]}.{m[2]}.fuse_layers.{m[3]}.{m[4]}.{m[5]}."
+                                                    f"{2 + (m[6] == 'bn')}"),
+            (r"head_dw(\d)", r"head_layer.projects.\1.depthwise_conv.conv"),
+            (r"head_dw_bn(\d)", r"head_layer.projects.\1.depthwise_conv.bn"),
+            (r"head_pw(\d)/" + _CONV_BN, r"head_layer.projects.\1.pointwise_conv.\2")]
+
+
+_LITE_STEM = dict(conv1="conv1", b1_dw="branch1.0", b1_pw="branch1.1", b2_expand="expand_conv",
+                  b2_dw="depthwise_conv", b2_linear="linear_conv")
+
+
+def _swin_rules(bb):
+    """SwinTransformer (``models/backbones/transformers.py``)."""
+    block = r"stage(\d)_block(\d+)/"
+    blocks = r"stages.\1.blocks.\2."
+    return [(r"patch_embed", "patch_embed.projection"), (r"patch_norm", "patch_embed.norm"),
+            (block + r"(norm[12])", blocks + r"\3"), (block + r"attn", blocks + "attn.w_msa"),
+            (block + r"attn/(qkv|proj)", blocks + r"attn.w_msa.\3"),
+            (block + r"mlp/fc1", blocks + "ffn.layers.0.0"), (block + r"mlp/fc2", blocks + "ffn.layers.1"),
+            (r"merge_norm(\d)", r"stages.\1.downsample.norm"),
+            (r"merge_reduction(\d)", r"stages.\1.downsample.reduction"), (r"out_norm(\d)", r"norm\1")]
+
+
+def _hrformer_rules(bb):
+    """HRFormer (``models/backbones/transformers.py``); its stages count from
+    0 in JAX, from 2 in mmpose."""
+
+    def stage(m):
+        return f"stage{int(m[1]) + 2}.{m[2]}"
+
+    ffn = dict(ffn1="fc1", ffn_dw="dw3x3", ffn2="fc2")
+    block = r"s(\d)_m(\d+)_br(\d)_blk(\d+)"
+    return [(r"stem([12])/conv", r"conv\1"), (r"stem([12])/bn", r"bn\1"), (r"layer1_b(\d)/(\w+)", r"layer1.\1.\2"),
+            (r"t0_b0/" + _CONV_BN, lambda m: f"transition1.0.{int(m[1] == 'bn')}"),
+            (r"t0_b1/" + _CONV_BN, lambda m: f"transition1.1.0.{int(m[1] == 'bn')}"),
+            (r"t(\d)_new/" + _CONV_BN, lambda m: f"transition{int(m[1]) + 1}.{int(m[1]) + 1}.0.{int(m[2] == 'bn')}"),
+            (block + r"/(norm[12])", lambda m: f"{stage(m)}.branches.{m[3]}.{m[4]}.{m[5]}"),
+            (block + r"/attn", lambda m: f"{stage(m)}.branches.{m[3]}.{m[4]}.attn.attn"),
+            (block + r"/attn/(qkv|proj)", lambda m: f"{stage(m)}.branches.{m[3]}.{m[4]}.attn.attn.{m[5]}"),
+            (block + r"/(ffn1|ffn_dw|ffn2)", lambda m: f"{stage(m)}.branches.{m[3]}.{m[4]}.ffn.{ffn[m[5]]}"),
+            (r"s(\d)_m(\d+)_f(\d)_(\d)/" + _CONV_BN,
+             lambda m: f"{stage(m)}.fuse_layers.{m[3]}.{m[4]}.{int(m[5] == 'bn')}"),
+            (r"s(\d)_m(\d+)_f(\d)_(\d)_d(\d)/" + _CONV_BN,
+             lambda m: f"{stage(m)}.fuse_layers.{m[3]}.{m[4]}.{m[5]}.{int(m[6] == 'bn')}")]
+
+
+def _pvt_rules(bb):
+    """PVT / PVTv2 (``models/backbones/transformers.py``): the blocks follow
+    ``pos_embed`` where there is one; ``q`` and ``kv`` are stacked after
+    (``_pvt_in_proj``)."""
+    offset = int("pos_embed0" in bb)
+    conv_ffn = "dwconv" in bb.get("s0_b0_mlp", {})
+
+    def block(m, name):
+        return f"layers.{m[1]}.1.{int(m[2]) + offset}.{name}"
+
+    attn = dict(q="attn.attn.q", kv="attn.attn.kv", proj="attn.attn.out_proj", sr="attn.sr", sr_norm="attn.norm")
+    mlp = dict(fc1="ffn.layers.0", dwconv="ffn.layers.1", fc2=f"ffn.layers.{4 if conv_ffn else 3}")
+    return [(r"patch_embed(\d)", r"layers.\1.0.projection"), (r"embed_norm(\d)", r"layers.\1.0.norm"),
+            (r"stage_norm(\d)", r"layers.\1.2"), (r"s(\d)_b(\d+)_(norm[12])", lambda m: block(m, m[3])),
+            (r"s(\d)_b(\d+)_attn/(q|kv|proj|sr|sr_norm)", lambda m: block(m, attn[m[3]])),
+            (r"s(\d)_b(\d+)_mlp/(fc1|dwconv|fc2)", lambda m: block(m, mlp[m[3]]))]
+
+
+def _pvt_from_jax(sd: Dict[str, np.ndarray], bb: Dict[str, Any]) -> None:
+    """PVT's position embeddings (the backbone's own arrays), its other
+    modules by ``_pvt_rules``, then each attention's ``q`` and ``kv`` stacked
+    as ``in_proj_weight`` / ``in_proj_bias``."""
+    for name, value in bb.items():
+        if name.startswith("pos_embed"):
+            sd[f"backbone.layers.{name[len('pos_embed'):]}.1.0.pos_embed"] = value
+    _cnn_from_jax(sd, {k: v for k, v in bb.items() if isinstance(v, dict)}, {}, _pvt_rules(bb), dense="linear",
+                  leaf_names=_LAYER_NORM)
+    for key in [k for k in sd if k.endswith(".attn.attn.q.weight")]:
+        prefix = key[:-len("q.weight")]
+        for leaf, stacked in (("weight", "in_proj_weight"), ("bias", "in_proj_bias")):
+            sd[prefix + stacked] = np.concatenate([sd.pop(f"{prefix}q.{leaf}"), sd.pop(f"{prefix}kv.{leaf}")])
+
+
+# flax LayerNorm's scale is torch's weight
+_LAYER_NORM = dict(scale="weight")
+
+
 def _cnn_rules(bb: Dict[str, Any]):
     """The rules of the JAX backbone ``bb``'s family, told by its modules'
     names, or None (a ViT or an HRNet)."""
@@ -475,13 +580,15 @@ def _modules(tree: Dict[str, Any], path=()):
 
 
 def _cnn_from_jax(sd: Dict[str, np.ndarray], bb: Dict[str, Any], bb_s: Dict[str, Any], rules,
-                  prefix: str = "backbone", dense: str = "conv") -> None:
+                  prefix: str = "backbone", dense: str = "conv", leaf_names: Optional[Dict[str, str]] = None) -> None:
     """Each flax module of ``bb`` under its mmpose name after ``prefix``: a
     conv's kernel (a transposed conv's, ``deconv*``, flipped) and bias, a
     ``Dense``'s as a 1x1 conv (``dense="conv"``) or a linear layer
     (``"linear"``), a BatchNorm's scale, bias and statistics; another
     module's arrays (ScaleNorm's ``g``, the GAU's ``gamma``, ``beta``,
-    ``res_scale``) under their own names."""
+    ``res_scale``, a window attention's ``relative_position_bias_table``)
+    under their own names, or those ``leaf_names`` gives (LayerNorm's
+    ``scale``: ``weight``)."""
     for path, leaves in _modules(bb):
         joined = "/".join(path)
         for pattern, name in rules:
@@ -506,7 +613,8 @@ def _cnn_from_jax(sd: Dict[str, np.ndarray], bb: Dict[str, Any], bb_s: Dict[str,
             _bn_from_jax(sd, key, leaves, stats)
         else:
             for leaf, value in leaves.items():
-                sd[f"{key}.{'res_scale.scale' if leaf == 'res_scale' else leaf}"] = value
+                leaf = (leaf_names or {}).get(leaf, "res_scale.scale" if leaf == "res_scale" else leaf)
+                sd[f"{key}.{leaf}"] = value
 
 
 # The SimCC heads' and the multi-stage heads' modules under mmpose's names (their JAX converters'
@@ -560,21 +668,30 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Te
     """JAX ``{"params", "batch_stats"}`` (a ViT, an HRNet or a classic CNN:
     ResNet, ResNetV1d, ResNeXt, SEResNet, SEResNeXt, SCNet, ResNeSt,
     ShuffleNetV1 / V2, VGG, AlexNet, ViPNAS_ResNet, ViPNAS_MobileNetV3,
-    CSPNeXt, HourglassNet, CPM, MSPN, RSN; a CSPNeXtPAFPN neck; a
+    CSPNeXt, HourglassNet, CPM, MSPN, RSN, LiteHRNet, SwinTransformer,
+    HRFormer, PVT / PVTv2; a CSPNeXtPAFPN neck; a
     ProbMapHead, a DoubleProbMapHead, a HeatmapHead, a ViPNASHead, an
     RTMCCHead, a SimCCHead, an RTMWHead, a CPMHead or an MSPNHead) -> torch
     state dict."""
     params, stats = variables["params"], variables.get("batch_stats", {})
     sd: Dict[str, np.ndarray] = {}
 
-    bb = params["backbone"]
+    bb, bb_s = params["backbone"], stats.get("backbone", {})
     rules = _cnn_rules(bb)
-    if "patch_embed" in bb:
+    if "patch_embed0" in bb:
+        _pvt_from_jax(sd, bb)
+    elif "patch_norm" in bb:
+        _cnn_from_jax(sd, bb, bb_s, _swin_rules(bb), dense="linear", leaf_names=_LAYER_NORM)
+    elif "t0_b0" in bb:
+        _cnn_from_jax(sd, bb, bb_s, _hrformer_rules(bb), dense="linear", leaf_names=_LAYER_NORM)
+    elif "b1_dw" in bb.get("stem", {}):
+        _cnn_from_jax(sd, bb, bb_s, _litehrnet_rules(bb))
+    elif "patch_embed" in bb:
         _vit_from_jax(sd, bb)
     elif rules is not None:
-        _cnn_from_jax(sd, bb, stats.get("backbone", {}), rules(bb))
+        _cnn_from_jax(sd, bb, bb_s, rules(bb))
     else:
-        _hrnet_from_jax(sd, bb, stats.get("backbone", {}))
+        _hrnet_from_jax(sd, bb, bb_s)
     if "neck" in params:  # CSPNeXtPAFPN; the other necks have no parameters
         _cnn_from_jax(sd, params["neck"], stats.get("neck", {}), _pafpn_rules(params["neck"]), prefix="neck")
 

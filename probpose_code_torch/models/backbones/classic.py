@@ -97,13 +97,14 @@ class ConvModule(nn.Module):
 
 
 class SELayer(nn.Module):
-    """Squeeze and excite: the spatial mean, a 1x1 conv to
-    ``make_divisible(channels // ratio, 8)``, ReLU, a 1x1 conv back, sigmoid
-    (or the hard sigmoid), times the input."""
+    """Squeeze and excite: the spatial mean, a 1x1 conv to ``mid`` channels
+    (by default ``make_divisible(channels // ratio, 8)``; LiteHRNet's spatial
+    weighting takes ``max(1, int(channels / ratio))``), ReLU, a 1x1 conv back,
+    sigmoid (or the hard sigmoid), times the input."""
 
-    def __init__(self, channels: int, ratio: int = 16, hard: bool = False):
+    def __init__(self, channels: int, ratio: int = 16, hard: bool = False, mid: Optional[int] = None):
         super().__init__()
-        mid = make_divisible(channels // ratio, 8)
+        mid = mid or make_divisible(channels // ratio, 8)
         self.conv1 = nn.ModuleDict(dict(conv=nn.Conv2d(channels, mid, 1)))
         self.conv2 = nn.ModuleDict(dict(conv=nn.Conv2d(mid, channels, 1)))
         self.hard = hard

@@ -50,9 +50,16 @@ from . import losses  # noqa: F401  (registers)
 from .backbones import classic, resnest, vipnas  # noqa: F401  (register)
 from .backbones.cspnext import CSPNeXt  # noqa: F401  (registers)
 from .backbones.hrnet import HRNet  # noqa: F401  (registers)
+from .backbones.litehrnet import LiteHRNet  # noqa: F401  (registers)
 from .backbones.mobilenet_v2 import MobileNetV2  # noqa: F401  (registers)
 from .backbones.multistage import CPM, MSPN, RSN, HourglassNet  # noqa: F401  (register)
 from .backbones.resnet import ResNet  # noqa: F401  (registers)
+from .backbones.transformers import (  # noqa: F401  (register)
+    HRFormer,
+    PyramidVisionTransformer,
+    PyramidVisionTransformerV2,
+    SwinTransformer,
+)
 from .backbones.vit import VisionTransformer  # noqa: F401  (registers)
 from .heads.heatmap_head import HeatmapHead, ViPNASHead  # noqa: F401  (registers)
 from .heads.multistage_heads import CPMHead, MSPNHead, cpm_head_loss, mspn_head_loss  # noqa: F401  (register)
@@ -140,7 +147,14 @@ def build_pose_estimator(cfg: Dict[str, Any]):
     head_cfg = cfg.pop("head")
     neck_cfg = cfg.pop("neck", None)
 
-    backbone = MODELS.build(_adapt_backbone_cfg(backbone_cfg))
+    bb_cfg = _adapt_backbone_cfg(backbone_cfg)
+    decoder = head_cfg.get("decoder") or {}
+    if getattr(MODELS.get(bb_cfg.get("type")), "sized_by_input", False) and "input_size" in decoder:
+        # parameters whose shapes the flax modules take from the data (a window's relative position table,
+        # PVT's pos_embed): the torch ones from the codec's input
+        w, h = decoder["input_size"]
+        bb_cfg.setdefault("img_size", (h, w))
+    backbone = MODELS.build(bb_cfg)
     neck_kwargs, head_kwargs = {}, {}
     # the flax necks and heads take their input widths from the data: the port's take the widths the
     # backbone (and neck) give, where the config's differ (RTMW-m: CSPNeXt-m gives 384 and 768 channels to a
@@ -288,12 +302,12 @@ class PoseModel:
 
     def init_weights(self, seed: int = 0) -> None:
         """Random weights from a seeded generator: lecun-normal products,
-        pos_embed N(0, 0.02), unit norms and scales (ScaleNorm's ``g``, the
-        GAU's ``res_scale``), zero biases."""
+        pos_embed and the relative position tables N(0, 0.02), unit norms and
+        scales (ScaleNorm's ``g``, the GAU's ``res_scale``), zero biases."""
         gen = torch.Generator().manual_seed(seed)
         with torch.no_grad():
             for name, p in self.module.named_parameters():
-                if name.endswith("pos_embed"):
+                if name.endswith(("pos_embed", "relative_position_bias_table")):
                     value = torch.randn(p.shape, generator=gen) * 0.02
                 elif p.dim() >= 2:
                     fan_in = p.shape[1] * math.prod(p.shape[2:])

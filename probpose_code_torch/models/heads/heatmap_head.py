@@ -24,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from probpose_code_torch.models.backbones.vit import resolve_dtype
+from probpose_code_torch.ops.kernels.batch_norm import batch_norm_train
 from probpose_code_torch.registry import MODELS
 
 
@@ -33,19 +34,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     clipped at 0, and the running variance updated with that BIASED variance
     (torch's own BatchNorm2d updates it with the unbiased one, which drifts
     by n/(n-1) a step). Evaluation uses the running statistics, as torch's
-    does. Same buffers and state-dict keys as ``nn.BatchNorm2d``."""
+    does. Same buffers and state-dict keys as ``nn.BatchNorm2d``. Training
+    runs ``ops/kernels/batch_norm.py:batch_norm_train``: on the card the
+    kernels of ``csrc/batch_norm.cu``, on the CPU their plain twin."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
-            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return batch_norm_train(x, self.weight, self.bias, self.running_mean, self.running_var, self.momentum, self.eps)
 
 
 def conv_in(module: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -3,7 +3,8 @@
 Needs the JAX package, so it runs where it is installed (the card's
 machine has none): ``JAX_PLATFORMS=cpu python tests/golden_torch/make_model_fixtures.py``
 from the repository root (or name ``classic``, ``rtmpose``, ``wholebody``,
-``dpm``, ``face``, ``scnet``, ``vipnas``, ``rtmw``, ``hourglass``, ``cpm`` or ``mspn`` to make one). For each of ``chip_smoke.CLASSIC_FIXTURE``
+``dpm``, ``face``, ``scnet``, ``vipnas``, ``rtmw``, ``hourglass``, ``cpm``, ``mspn``, ``litehrnet``, ``swin``,
+``hrformer`` or ``pvtv2`` to make one). For each of ``chip_smoke.CLASSIC_FIXTURE``
 (a narrow ResNet-50 SimpleBaseline with the DARK codec),
 ``chip_smoke.RTMPOSE_FIXTURE`` (a narrow CSPNeXt + RTMCCHead with SimCC),
 ``chip_smoke.WHOLEBODY_FIXTURE`` (the same with 133 outputs under
@@ -16,7 +17,9 @@ WFLW's, both at 256 x 256 on the golden persons' face boxes) and
 narrow ViPNAS_ResNet with ViPNASHead, both MSRA at 193 x 257) and
 ``chip_smoke.MULTISTAGE_FIXTURES`` (narrow RTMW with 133 keypoints, a
 two-stack HourglassNet with CPMHead, CPM, MSPN with the pose refine
-machine) it writes:
+machine) and ``chip_smoke.TOPDOWN_REST_FIXTURES`` (narrow LiteHRNet, Swin,
+HRFormer and PVTv2 with a HeatmapHead; the JAX LiteHRNet cannot be jitted,
+and its predict runs eagerly, as every fixture's here) it writes:
 
 - ``<name>_weights.pth``: the port's module with weights drawn from seed 0
   (``PoseModel.init_weights``) and BatchNorm statistics randomized from seed
@@ -24,7 +27,7 @@ machine) it writes:
   weights (about 90 MB) are not written: ``chip_smoke.dpm_fixture_state``
   makes them from seeds where they are used, and so does
   ``chip_smoke.seeded_fixture_state`` the SCNet, ViPNAS, RTMW, hourglass,
-  CPM and MSPN fixtures';
+  CPM, MSPN, LiteHRNet, Swin, HRFormer and PVTv2 fixtures';
 - ``<name>_fixture.npz``: the JAX package's outputs on those weights (loaded
   through ``convert_torch_state_dict``; for the SCNet and ViPNAS fixtures,
   and the four multi-stage and SimCC ones, whose models it does not know
@@ -72,6 +75,7 @@ from chip_smoke import (  # noqa: E402
     GOLDEN,
     MULTISTAGE_FIXTURES,
     RTMPOSE_FIXTURE,
+    TOPDOWN_REST_FIXTURES,
     SIMCC_TIE_REL,
     WHOLEBODY_FIXTURE,
     face_fixture_gt,
@@ -166,7 +170,11 @@ def carried_variables(sd, model, input_shape):
     import jax
     import jax.numpy as jnp
 
-    shapes = jax.eval_shape(lambda: model.module.init(jax.random.PRNGKey(0), jnp.zeros(input_shape), train=False))
+    # the input abstract and the constants computed while tracing: the JAX LiteHRNet splits at a cumsum of its
+    # widths, which jit (and eval_shape) cannot trace otherwise
+    with jax.ensure_compile_time_eval():
+        shapes = jax.eval_shape(lambda key, x: model.module.init(key, x, train=False), jax.random.PRNGKey(0),
+                                jax.ShapeDtypeStruct(input_shape, jnp.float32))
     leaves, treedef = jax.tree_util.tree_flatten(shapes)
     offsets = np.cumsum([0] + [int(np.prod(leaf.shape)) for leaf in leaves])
     numbered = treedef.unflatten([np.arange(a, b, dtype=np.float64).reshape(leaf.shape)
@@ -197,7 +205,7 @@ def make(fixture):
     model_cfg = {k: v for k, v in cfg["model"].items() if k != "neck" or v["type"] != "GlobalAveragePooling"}
     model = JaxPoseModel(model_cfg, metainfo=parse_pose_metainfo({"dataset_name": dataset}))
     input_size = tuple(cfg["test_dataloader"]["dataset"]["pipeline"][2]["input_size"])
-    if fixture in CNN_ZOO_FIXTURES + MULTISTAGE_FIXTURES:  # models that ``convert_torch_state_dict`` does not know
+    if fixture in CNN_ZOO_FIXTURES + MULTISTAGE_FIXTURES + TOPDOWN_REST_FIXTURES:  # unknown to the converter
         variables = carried_variables(sd, model, (1, input_size[1], input_size[0], 3))
     else:
         variables = jax_variables(sd)
@@ -244,6 +252,6 @@ def make(fixture):
 if __name__ == "__main__":
     torch.set_num_threads(4)
     for fixture in (CLASSIC_FIXTURE, RTMPOSE_FIXTURE, WHOLEBODY_FIXTURE, DPM_FIXTURE, *FACE_FIXTURES,
-                    *CNN_ZOO_FIXTURES, *MULTISTAGE_FIXTURES):
+                    *CNN_ZOO_FIXTURES, *MULTISTAGE_FIXTURES, *TOPDOWN_REST_FIXTURES):
         if len(sys.argv) < 2 or fixture["name"] in sys.argv[1:] or fixture["name"].split("_")[0] in sys.argv[1:]:
             make(fixture)

@@ -51,7 +51,12 @@ sigmoid and the hard sigmoid on plane sizes with and without 16-byte rows,
 against their plain twins; the Megvii decode on the card against the
 CPU's; the RTMW, hourglass, CPM and MSPN model fixtures; and the SimCC and
 multi-stage models (RTMW with its GAU kernels) predicting on the card as on
-the CPU.
+the CPU; the BatchNorm and LayerNorm kernels (forward, the gradients of
+their three inputs, bit for bit across two runs; BatchNorm in both layouts
+and its running statistics) on widths and sides with and without 16-byte
+rows, the FFNs' depthwise conv with its bias after the kernels, the
+LiteHRNet, Swin, HRFormer and PVTv2 fixtures, and those four narrow models
+predicting and taking a training step on the card as on the CPU.
 Bars are ``chip_smoke.py``'s, with its reasons.
 """
 
@@ -1236,3 +1241,162 @@ def test_multistage_models_predict_on_the_card_as_on_the_cpu(card, name):
     for k in keys:
         assert float((got[k].cpu() - want[k]).abs().max() / want[k].abs().max()) < HRNET_REL, k
     assert bool(gau_counters()["gau_forward"].launches) == (name == "rtmw")
+
+
+@pytest.mark.parametrize("B,C,H,W,last,mom,eps", [
+    (8, 40, 64, 48, False, 0.1, 1e-5), (8, 40, 64, 48, True, 0.1, 1e-5), (3, 20, 9, 7, True, 0.1, 1e-5),
+    (2, 13, 17, 13, False, 0.1, 1e-5), (5, 6, 3, 5, True, 0.1, 1e-5), (64, 320, 8, 6, False, 0.1, 1e-5),
+    (256, 24, 128, 96, False, 0.03, 1e-3), (16, 96, 32, 24, True, 0.03, 1e-3)])
+def test_batch_norm_kernels_match_plain(card, B, C, H, W, last, mom, eps):
+    """BatchNorm's kernels in training mode against ``batch_norm_train_plain``
+    (torch autograd for the gradients), NCHW and channels last, widths and
+    sides with and without 16-byte rows, mmpose's settings and CSPNeXt's
+    (eps 1e-3, momentum 0.03; RTMPose-m's stem map at B = 256): the output and the running
+    statistics at ``chip_smoke.NORM_REL``, the gradients of the map, the
+    weight and the bias at ``NORM_GRAD_REL``; the backward repeats bit for
+    bit; each call counts one launch; ``BatchNorm2d`` goes through them in
+    training mode."""
+    from chip_smoke import NORM_GRAD_REL, NORM_REL
+    from probpose_code_torch.models.heads.heatmap_head import BatchNorm2d
+    from probpose_code_torch.ops.kernels import batch_norm as bn
+
+    rng = np.random.RandomState(B + C + H)
+
+    def draw(*shape, s=1.0, shift=0.0):
+        return torch.from_numpy((shift + s * rng.randn(*shape)).astype(np.float32)).cuda()
+
+    x, dy = draw(B, C, H, W, shift=0.5), draw(B, C, H, W)
+    if last:
+        x, dy = (t.contiguous(memory_format=torch.channels_last) for t in (x, dy))
+    w, b, rm, rv = draw(C, s=0.2, shift=1.0), draw(C, s=0.1), draw(C, s=0.1), draw(C, s=0.1, shift=1.0).abs()
+    stats, ref_stats = [rm.clone(), rv.clone()], [rm.clone(), rv.clone()]
+    before = (bn.batch_norm_forward.launches, bn.batch_norm_backward.launches)
+    y, mean, inv = bn.batch_norm_forward(x, w, b, *stats, mom, eps)
+    grads = bn.batch_norm_backward(dy, x, w, mean, inv)
+    again = bn.batch_norm_backward(dy, x, w, mean, inv)
+    assert (bn.batch_norm_forward.launches, bn.batch_norm_backward.launches) == (before[0] + 1, before[1] + 2)
+    assert y.is_contiguous(memory_format=torch.channels_last if last else torch.contiguous_format)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    ref = bn.batch_norm_train_plain(*leaves, *ref_stats, mom, eps)
+    ref_grads = torch.autograd.grad(ref, leaves, dy)
+    assert float((y - ref).abs().max() / ref.abs().max()) < NORM_REL
+    for a, r in zip(stats, ref_stats):
+        assert float((a - r).abs().max() / r.abs().max()) < NORM_REL
+    for g, r in zip(grads, ref_grads):
+        assert float((g - r).abs().max() / r.abs().max()) < NORM_GRAD_REL
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    module = BatchNorm2d(C, eps=eps, momentum=mom).cuda().train()
+    launched = bn.batch_norm_forward.launches
+    module(x)
+    assert bn.batch_norm_forward.launches == launched + 1
+    module.eval()
+    module(x)
+    assert bn.batch_norm_forward.launches == launched + 1
+    with pytest.raises(ValueError, match="float32"):
+        bn.batch_norm_forward(x.double(), w, b, rm, rv, 0.1, 1e-5)
+
+
+@pytest.mark.parametrize("shape", [(32, 64, 48, 96), (7, 3072), (3, 5, 13), (64, 48, 512), (1, 1, 7)])
+def test_layer_norm_kernels_match_plain(card, shape):
+    """LayerNorm's kernels against ``layer_norm_plain`` (torch autograd for
+    the gradients) on Swin's, PVT's and ragged widths: the output at
+    ``chip_smoke.NORM_REL``, the gradients of the input, the weight and the
+    bias at ``NORM_GRAD_REL``; the backward repeats bit for bit; each call
+    counts one launch."""
+    from chip_smoke import NORM_GRAD_REL, NORM_REL
+    from probpose_code_torch.ops.kernels import layer_norm as ln
+
+    rng = np.random.RandomState(sum(shape))
+    C = shape[-1]
+    x, dy = (torch.from_numpy((0.3 + rng.randn(*shape)).astype(np.float32)).cuda() for _ in range(2))
+    w, b = (torch.from_numpy((1.0 + 0.2 * rng.randn(C)).astype(np.float32)).cuda() for _ in range(2))
+    before = (ln.layer_norm_forward.launches, ln.layer_norm_backward.launches)
+    y, mean, inv = ln.layer_norm_forward(x, w, b, 1e-6)
+    grads = ln.layer_norm_backward(dy, x, w, mean, inv)
+    again = ln.layer_norm_backward(dy, x, w, mean, inv)
+    assert (ln.layer_norm_forward.launches, ln.layer_norm_backward.launches) == (before[0] + 1, before[1] + 2)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    ref = ln.layer_norm_plain(*leaves, 1e-6)
+    ref_grads = torch.autograd.grad(ref, leaves, dy)
+    assert float((y - ref).abs().max() / ref.abs().max()) < NORM_REL
+    for g, r in zip(grads, ref_grads):
+        assert float((g - r).abs().max() / max(r.abs().max(), 1e-30)) < NORM_GRAD_REL
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+
+
+@pytest.mark.parametrize("B,C,H,W", [(4, 128, 64, 48), (2, 312, 9, 7), (3, 2496, 8, 6)])
+def test_depthwise_with_bias_matches_conv(card, B, C, H, W):
+    """The FFNs' depthwise 3x3 with its bias after the kernels
+    (``transformers.depthwise_with_bias``, HRFormer's and PVTv2's widths)
+    against ``F.conv2d`` with the bias: the output at
+    ``DEPTHWISE_REL``, the gradients of the map, the weight and the bias at
+    ``DEPTHWISE_GRAD_REL``."""
+    import torch.nn.functional as F
+
+    from probpose_code_torch.models.backbones.transformers import depthwise_with_bias
+    from probpose_code_torch.models.builder import full_f32_precision
+
+    conv = torch.nn.Conv2d(C, C, 3, 1, 1, groups=C).cuda()
+    x = torch.randn(B, H, W, C, device="cuda").permute(0, 3, 1, 2).requires_grad_()
+    dy = torch.randn(B, C, H, W, device="cuda")
+    y = depthwise_with_bias(conv, x)
+    grads = torch.autograd.grad(y, [x, conv.weight, conv.bias], dy)
+    with full_f32_precision():
+        ref = F.conv2d(x, conv.weight, conv.bias, 1, 1, 1, C)
+        ref_grads = torch.autograd.grad(ref, [x, conv.weight, conv.bias], dy)
+    assert float((y - ref).abs().max() / ref.abs().max()) < DEPTHWISE_REL
+    for g, r in zip(grads, ref_grads):
+        assert float((g - r).abs().max() / r.abs().max()) < DEPTHWISE_GRAD_REL
+
+
+@pytest.mark.parametrize("name", ["litehrnet", "swin", "hrformer", "pvtv2"])
+def test_topdown_rest_fixtures_on_the_card(card, name):
+    """``chip_smoke.model_fixture_report`` on the card for the LiteHRNet (its
+    strided convs padded as JAX pads them), Swin, HRFormer and PVTv2
+    fixtures: the JAX package's keypoints, scores and AP at ``UDP_BARS``, its
+    maps on the fixture's crops at ``FIXTURE_OUTPUT_REL``; no kernel of the
+    TPU list."""
+    from chip_smoke import TOPDOWN_REST_FIXTURES, model_fixture_report
+
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    report = model_fixture_report(next(f for f in TOPDOWN_REST_FIXTURES if f["name"] == name), device="cuda")
+    assert report["ok"], report
+    assert all(c.launches == 0 for c in counters.values())
+
+
+@pytest.mark.parametrize("name", ["litehrnet", "swin", "hrformer", "pvtv2"])
+def test_topdown_rest_models_train_on_the_card_as_on_the_cpu(card, name):
+    """The narrow LiteHRNet, Swin, HRFormer and PVTv2 models (the fixtures'):
+    ``predict`` on two crops at ``HRNET_REL`` against the CPU, and one
+    training step's loss at ``NORM_GRAD_REL`` relative (the BatchNorm,
+    LayerNorm, depthwise and squeeze-and-excite kernels on the card, their
+    twins on the CPU; TF32 off)."""
+    import copy
+
+    from chip_smoke import NORM_GRAD_REL, TOPDOWN_REST_FIXTURES, synthetic_codec_batch
+    from probpose_code_torch.engine.optim import build_optimizer
+    from probpose_code_torch.models.builder import PoseModel, full_f32_precision
+    from probpose_code_torch.parallel import create_train_state, make_train_step
+
+    cfg = copy.deepcopy(next(f for f in TOPDOWN_REST_FIXTURES if f["name"] == name)["cfg"]["model"])
+    meta = {"flip_indices": [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15], "num_keypoints": 17}
+    cpu = PoseModel(cfg, metainfo=meta, device="cpu")
+    cpu.init_weights(seed=1)
+    card = PoseModel(cfg, metainfo=meta, device="cuda")
+    card.module.load_state_dict(cpu.module.state_dict())
+    w, h = cpu.input_size
+    crops = torch.from_numpy(np.round(np.random.RandomState(2).rand(2, h, w, 3) * 255).astype(np.float32))
+    want, got = cpu.predict(crops), card.predict(crops.cuda())
+    assert float((got["heatmaps"].cpu() - want["heatmaps"]).abs().max() / want["heatmaps"].abs().max()) < HRNET_REL
+    batch = synthetic_codec_batch(4, 3, cfg["head"]["decoder"])
+    losses = []
+    for model in (cpu, card):
+        optimizer, _ = build_optimizer(model, dict(optimizer=dict(type="Adam", lr=1e-3)))
+        step = make_train_step(model, optimizer)
+        with full_f32_precision():
+            _, metrics = step(create_train_state(model, optimizer), {k: v.to(model.device) for k, v in batch.items()},
+                              torch.Generator(device=model.device).manual_seed(0))
+        losses.append(float(metrics["loss"]))
+    assert abs(losses[1] - losses[0]) <= NORM_GRAD_REL * abs(losses[0])
