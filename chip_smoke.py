@@ -224,7 +224,23 @@ RSN; the Megvii decode on the card against the CPU's),
 and the 2% rule's op shares) and ``rtmw_runner`` (RTMW-m through
 ``tools.train`` over a cocktail14 mix across the pipeline switch, val,
 ``tools.test``). ``timings`` also times K1 in f32 at ViTPose-S, -L and
--H's shapes and K4 at ViTPose-L and -H's.
+-H's shapes and K4 at ViTPose-L and -H's. Last, after ``topdown_rest_runner``:
+``regression_golden`` (the RLE, DSNT and Vis fixtures,
+``REGRESSION_FIXTURES``), ``regression_predict`` (the eight ``REGRESSION``
+recipes through ``predict_phase``: the plain regression ResNet-50 on COCO and
+MPII without a neck, RLE-ResNet-50, -152 at 384 x 288 and -MobileNetV2,
+IPR- and DSNT-debias-ResNet-50, Vis-ResNet-50 with its visibility),
+``regression_train`` (the RLE-ResNet-50, RLE-MobileNetV2, Vis-ResNet-50 and
+regression ResNet-50 steps at B = 64, the RLE ones profiled again with the
+flow's twin, and the 2% rule's op shares), ``regression_runner``
+(RLE-ResNet-50 through ``tools.train`` with val, ``tools.test`` of the
+DSNT-debias recipe and of the PoseTrack18 HRNet-w32 recipe over the golden
+images as three videos, printing ``PoseTrack18Metric``'s table, and the DSNT
+recipe's ``tools.train`` refused by name) and ``regression_kernels`` (the
+RealNVP flow kernels, ``csrc/realnvp.cu``, against their twin at N = 1,088
+and 1,024, forward and backward, timed; their two records join the kernels
+line with ``launches`` from the RLE-ResNet-50 step and ``launches_by_path``
+on every main path, the runner's too).
 
 The lines before the last hold the kernels' record as JSON (each kernel's
 ``launches`` from the flagship's paths, and ``launches_by_path`` on every
@@ -369,6 +385,30 @@ TOPDOWN_REST = dict(
     pvtv2_b2=_TD_COCO / "td-hm_pvtv2-b2_8xb64-210e_coco-256x192.py",
 )
 TOPDOWN_REST_TRAIN = dict(litehrnet18=64, swin_t=32, hrformer_small=32, pvtv2_b2=64)
+# the regression heads and PoseTrack18 (``regression_*`` phases): the recipes that ``regression_predict`` runs at full
+# width and depth, the steps that ``regression_train`` runs at B = 64 (the plain regression ResNet-50, its head
+# pooling the backbone's map: no neck), and the PoseTrack18 recipe ``regression_runner`` tests
+_REG = ROOT / "configs/body_2d_keypoint/topdown_regression"
+_IPR = ROOT / "configs/body_2d_keypoint/integral_regression/coco"
+REGRESSION = dict(
+    reg_res50_coco=_REG / "coco/td-reg_res50_8xb64-210e_coco-256x192.py",
+    reg_res50_mpii=_REG / "mpii/td-reg_res50_8xb64-210e_mpii-256x256.py",
+    rle_res50=_REG / "coco/td-reg_res50_rle-8xb64-210e_coco-256x192.py",
+    rle_res152_384=_REG / "coco/td-reg_res152_rle-8xb64-210e_coco-384x288.py",
+    rle_mobilenetv2=_REG / "coco/td-reg_mobilenetv2_rle_8xb64-210e_coco-192x256.py",
+    ipr_res50=_IPR / "ipr_res50_8xb64-210e_coco-192x256.py",
+    dsnt_debias_res50=_IPR / "ipr_res50_debias-8xb64-210e_coco-256x256.py",
+    vis_res50=_TD_COCO / "td-hm-vis_res50_8xb64-210e_coco-aic-256x192-merge.py",
+)
+REGRESSION_TRAIN = ("rle_res50", "rle_mobilenetv2", "vis_res50", "reg_res50_coco")
+POSETRACK = ROOT / "configs/body_2d_keypoint/topdown_heatmap/posetrack18/td-hm_hrnet-w32_8xb64-20e_posetrack18-256x192.py"
+# the flow kernel against its twin (f32 on both sides): the log-density relative to its largest value (summation
+# order); the gradients relative to each array's largest element, where a saturated tanh's 1 - s^2 keeps few of f32's
+# digits (two f32 implementations on the CPU differ by 1.7e-4 there, tests/test_torch_rle.py) and the densities of
+# residuals up to |10| reach 1e4; the nets' weights drawn at N(0, REALNVP_STD^2), where s and t are of order 1
+REALNVP_REL = 1e-5
+REALNVP_GRAD_REL = 2e-3
+REALNVP_STD = 0.3
 # the backbones whose depthwise 3x3 convs run ``ops/kernels/depthwise.py`` (PVT's only with its conv FFN, PVTv2's)
 DEPTHWISE_BACKBONES = ("MobileNetV2", "LiteHRNet", "HRFormer", "PyramidVisionTransformerV2")
 # the backbones whose LayerNorms run ``ops/kernels/layer_norm.py``
@@ -766,6 +806,45 @@ PVTV2_FIXTURE = dict(
     keys=("heatmaps",),
 )
 TOPDOWN_REST_FIXTURES = (LITEHRNET_FIXTURE, SWIN_FIXTURE, HRFORMER_FIXTURE, PVTV2_FIXTURE)
+# ``tests/golden_torch/{rle,dsnt,vis}_fixture.npz``: the regression heads on a ResNet-18 of 4-32 channels without a
+# neck at 256 x 192: RLEHead (its keypoints, and its scores 1 - mean(sigma)), DSNTHead at beta = 10 with deconvolutions
+# of 8 channels (the soft-argmax keypoints), and VisPredictHead around a HeatmapHead, MSRA (the keypoints, the scores
+# and the visibility); their weights made at run time from seeds (``seeded_fixture_state``), their JAX outputs from
+# the JAX variables that ``state_dict_from_jax`` carries onto them
+_NARROW_RESNET18 = dict(type="ResNet", depth=18, stem_channels=16, base_channels=4, out_indices=(3,))
+RLE_FIXTURE = dict(
+    name="rle",
+    cfg=dict(_TOPDOWN_TEST, model=dict(
+        type="TopdownPoseEstimator", data_preprocessor=_PREPROCESSOR, backbone=_NARROW_RESNET18,
+        head=dict(type="RLEHead", in_channels=32, num_joints=17, loss=dict(type="RLELoss", use_target_weight=True),
+                  decoder=dict(type="RegressionLabel", input_size=(192, 256))),
+        test_cfg=dict(flip_test=True, shift_coords=True))),
+    weights=lambda: seeded_fixture_state(RLE_FIXTURE), outputs=GOLDEN_JPEG / "rle_fixture.npz", keys=("keypoints",),
+)
+DSNT_FIXTURE = dict(
+    name="dsnt",
+    cfg=dict(_TOPDOWN_TEST, model=dict(
+        type="TopdownPoseEstimator", data_preprocessor=_PREPROCESSOR, backbone=_NARROW_RESNET18,
+        head=dict(type="DSNTHead", in_channels=32, in_featuremap_size=(6, 8), num_joints=17, debias=True, beta=10.0,
+                  deconv_out_channels=(8, 8, 8), loss=dict(type="MultipleLossWrapper", losses=[
+                      dict(type="SmoothL1Loss", use_target_weight=True),
+                      dict(type="JSDiscretLoss", use_target_weight=True)]),
+                  decoder=dict(type="IntegralRegressionLabel", input_size=(192, 256), heatmap_size=(48, 64),
+                               sigma=2.0, normalize=True)),
+        test_cfg=dict(flip_test=True, shift_coords=True, shift_heatmap=True))),
+    weights=lambda: seeded_fixture_state(DSNT_FIXTURE), outputs=GOLDEN_JPEG / "dsnt_fixture.npz", keys=("keypoints",),
+)
+VIS_FIXTURE = dict(
+    name="vis", aux=("keypoints_visible",),
+    cfg=dict(_TOPDOWN_TEST, model=dict(
+        type="TopdownPoseEstimator", data_preprocessor=_PREPROCESSOR, backbone=_NARROW_RESNET18,
+        head=dict(type="VisPredictHead", loss=dict(type="BCELoss", use_target_weight=True, use_sigmoid=True),
+                  pose_cfg=dict(type="HeatmapHead", in_channels=32, out_channels=17, deconv_out_channels=(8, 8, 8),
+                                loss=_MSE, decoder=_MSRA)),
+        test_cfg=dict(flip_test=True))),
+    weights=lambda: seeded_fixture_state(VIS_FIXTURE), outputs=GOLDEN_JPEG / "vis_fixture.npz", keys=("heatmaps",),
+)
+REGRESSION_FIXTURES = (RLE_FIXTURE, DSNT_FIXTURE, VIS_FIXTURE)
 # the keys of a kernel's record that K2 and K2b fill from ``k2_timings``
 K2_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 K3_NAMES = ("out", "dx", "ln1_scale", "ln1_bias", "w_qkv", "b_qkv", "w_proj", "b_proj",
@@ -1710,6 +1789,46 @@ def golden_jpeg_set(root, full=False):
     return data, root / "ann.json"
 
 
+POSETRACK_VIDEOS = 3
+
+
+def posetrack_set(root):
+    """The golden fixture's 24 images as the frames of ``POSETRACK_VIDEOS``
+    videos in PoseTrack18's layout under ``root``: ``images/val/<video>/
+    <frame>.jpg`` (image i the frame i // 3 of video i % 3), the persons in
+    ``annotations/posetrack18_val.json`` (COCO's 17 keypoints read as
+    PoseTrack18's; every other person with a ``bbox_head``, the top of its
+    box; the last image's persons with no annotated keypoint: a frame with
+    no ground truth) and a detection of each person's box (score 1) in
+    ``annotations/posetrack18_val_human_detections.json``. Returns the
+    ``--cfg-options`` that point a PoseTrack18 config's test loader and
+    evaluator at them."""
+    root = Path(root)
+    _, ann = golden_jpeg_set(root / "golden")
+    gt = json.loads(ann.read_text())
+    for i, im in enumerate(sorted(gt["images"], key=lambda im: im["id"])):
+        video = f"{i % POSETRACK_VIDEOS:06d}_mpii_test"
+        name = f"images/val/{video}/{i // POSETRACK_VIDEOS:06d}.jpg"
+        (root / name).parent.mkdir(parents=True, exist_ok=True)
+        (root / "golden" / "imgs" / im["file_name"]).rename(root / name)
+        im.update(file_name=name, vid_id=i % POSETRACK_VIDEOS, frame_id=i // POSETRACK_VIDEOS)
+    last = max(im["id"] for im in gt["images"])
+    for j, a in enumerate(gt["annotations"]):
+        x, y, w, h = a["bbox"]
+        a["track_id"] = j
+        if j % 2 == 0:
+            a["bbox_head"] = [x + 0.3 * w, y, 0.4 * w, 0.15 * h]
+        if a["image_id"] == last:
+            a["keypoints"], a["num_keypoints"] = [0] * len(a["keypoints"]), 0
+    (root / "annotations").mkdir(exist_ok=True)
+    (root / "annotations/posetrack18_val.json").write_text(json.dumps(gt))
+    dets = [dict(image_id=a["image_id"], category_id=1, bbox=a["bbox"], score=1.0) for a in gt["annotations"]]
+    (root / "annotations/posetrack18_val_human_detections.json").write_text(json.dumps(dets))
+    return [f"test_dataloader.dataset.data_root={root}/",
+            f"test_dataloader.dataset.bbox_file={root}/annotations/posetrack18_val_human_detections.json",
+            f"test_evaluator.ann_file={root}/annotations/posetrack18_val.json"]
+
+
 VAL_PIPELINE = [
     dict(type="LoadImage"), dict(type="GetBBoxCenterScale"),
     dict(type="TopdownAffine", input_size=(192, 256), use_udp=True, input_padding=1.25), dict(type="PackPoseInputs"),
@@ -2391,6 +2510,14 @@ def norm_counters():
                 layer_norm_forward=layer_norm.layer_norm_forward, layer_norm_backward=layer_norm.layer_norm_backward)
 
 
+def realnvp_counters():
+    """The RealNVP flow kernels' wrappers (no TPU kernel: their records join
+    the kernels line), whose ``launches`` count their calls."""
+    from probpose_code_torch.ops.kernels import realnvp
+
+    return dict(realnvp_forward=realnvp.realnvp_forward, realnvp_backward=realnvp.realnvp_backward)
+
+
 def has_gau(model) -> bool:
     """Whether ``model``'s head runs a GAU (RTMPose's ``RTMCCHead``)."""
     from probpose_code_torch.models.utils.rtmcc_block import RTMCCBlock
@@ -2414,8 +2541,8 @@ def norm_layers(model):
 
 def reset_counts():
     """Every kernel's count, the JPEG decode's, the photometric kernels',
-    the GAU kernels', the face and hand kernels', the CNN backbones' and the
-    normalisation kernels' set to 0; returns a reader of the kernels' counts
+    the GAU kernels', the face and hand kernels', the CNN backbones', the
+    normalisation kernels' and the flow kernels' set to 0; returns a reader of the kernels' counts
     (``decode_batch.launches`` holds the decode's, ``augment_counters``,
     ``gau_counters``, ``face_hand_counters`` and ``cnn_zoo_counters`` the
     others)."""
@@ -2423,7 +2550,8 @@ def reset_counts():
 
     counters = kernel_counters()
     for c in (*counters.values(), *augment_counters().values(), *gau_counters().values(),
-              *face_hand_counters().values(), *cnn_zoo_counters().values(), *norm_counters().values(), decode_batch):
+              *face_hand_counters().values(), *cnn_zoo_counters().values(), *norm_counters().values(),
+              *realnvp_counters().values(), decode_batch):
         c.launches = 0
     return lambda: {k: c.launches for k, c in counters.items()}
 
@@ -2803,6 +2931,17 @@ class Smoke:
                     layer_norm_forward=layer_norm, layer_norm_backward=layer_norm and backward)
         if any(bool(launches[k]) != v for k, v in want.items()):
             raise AssertionError(f"{path}: normalisation kernel launches {launches}, expected launched {want}")
+
+    def read_realnvp(self, path, model, backward=False):
+        """The flow kernels' launches on ``path``'s main path (their counts set
+        to 0 with the others'), kept for their records in the kernels line.
+        Fails unless both launched where the path trains an RLEHead (its
+        RLELoss runs the flow; predict does not), and neither elsewhere."""
+        launches = {k: c.launches for k, c in realnvp_counters().items()}
+        self.record.setdefault("realnvp_launches", {})[path] = launches
+        rle = backward and model.head_type == "RLEHead"
+        if any(bool(n) != rle for n in launches.values()):
+            raise AssertionError(f"{path}: flow kernel launches {launches}, expected launched {rle}")
 
     def phase(self, name, fn):
         t0 = time.time()
@@ -4072,9 +4211,14 @@ class Smoke:
         self.read_face_hand(record_key.removesuffix("_launches"), model)
         self.read_cnn_zoo(record_key.removesuffix("_launches"), model)
         self.read_norms(record_key.removesuffix("_launches"), False, norm_layers(model)[1])
+        self.read_realnvp(record_key.removesuffix("_launches"), model)
         kpts = np.stack([s.pred_instances.keypoints for s in samples])
         scores = np.stack([s.pred_instances.keypoint_scores for s in samples])
         print(f"{record_key.removesuffix('_launches')} main path: {len(samples)} crops, launches {json.dumps(launches)}")
+        if "keypoints_visible" in samples[0].pred_instances:  # a VisPredictHead's
+            visible = np.stack([s.pred_instances.keypoints_visible for s in samples])
+            print(f"{name} keypoints_visible {visible.shape}: mean {visible.mean():.4f}, min {visible.min():.4f}, "
+                  f"max {visible.max():.4f}")
         K = model.metainfo["num_keypoints"]
         if kpts.shape != (64, 1, K, 2) or not (np.isfinite(kpts).all() and np.isfinite(scores).all()):
             raise AssertionError(f"{name} outputs {kpts.shape}, not finite")
@@ -4139,6 +4283,7 @@ class Smoke:
         self.read_face_hand(record_key.removesuffix("_launches"), model, backward=True)
         self.read_cnn_zoo(record_key.removesuffix("_launches"), model, backward=True)
         self.read_norms(record_key.removesuffix("_launches"), *norm_layers(model), backward=True)
+        self.read_realnvp(record_key.removesuffix("_launches"), model, backward=True)
         print(f"{record_key.removesuffix('_launches')} main path: one step of B={B}, launches {json.dumps(launches)}")
         if launches != NO_LAUNCHES:
             raise AssertionError(f"{name} train launched a kernel of the port: {launches}")
@@ -5272,6 +5417,330 @@ class Smoke:
                   f"{json.dumps(launches)}")
             if not tested or not all(math.isfinite(v) for v in tested.values()) or launches != NO_LAUNCHES:
                 raise AssertionError(f"swin_t: tools.test gave {tested}, launches {launches}")
+
+    def regression_golden(self):
+        """The RLE, DSNT and Vis fixtures (``REGRESSION_FIXTURES``) on the card as
+        ``classic_golden``: ``model_fixture_report`` within ``UDP_BARS`` and
+        ``FIXTURE_OUTPUT_REL`` (the Vis fixture's visibility at the scores'
+        bar), no kernel of the TPU list launched and no flow kernel (the flow
+        runs in the loss alone)."""
+        for fixture in REGRESSION_FIXTURES:
+            self._fixture_phase(fixture)
+            launches = {k: c.launches for k, c in realnvp_counters().items()}
+            if any(launches.values()):
+                raise AssertionError(f"{fixture['name']}_golden launched the flow kernels: {launches}")
+
+    @staticmethod
+    def realnvp_case(N, seed):
+        """An RealNVP at N(0, ``REALNVP_STD``^2) weights and N residuals up to
+        |10| (a quarter near 0) and a seeded gradient of the log-density, on
+        the card: (flow, x, packed parameters, grad)."""
+        import torch
+
+        from probpose_code_torch.models.utils.realnvp import RealNVP
+
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        flow = RealNVP().cuda()
+        with torch.no_grad():
+            for p in flow.parameters():
+                p.copy_(REALNVP_STD * torch.randn(p.shape, device="cuda", generator=gen))
+        x = 20 * torch.rand(N, 2, device="cuda", generator=gen) - 10
+        x[: N // 4] *= 0.01
+        params = torch.cat([p.detach().reshape(-1) for p in flow.packed_parameters()])
+        return flow, x, params, torch.rand(N, device="cuda", generator=gen) + 0.5
+
+    def regression_kernels(self):
+        """The flow kernels (``ops/kernels/realnvp.py``, ``csrc/realnvp.cu``)
+        against their twin (``RealNVP.log_prob_plain`` through autograd, on the
+        card, TF32 off) at the RLE steps' shapes, N = B K = 1,088 (COCO) and
+        1,024 (MPII), weights at N(0, ``REALNVP_STD``^2): the log-density at
+        ``REALNVP_REL``, the gradients of the residuals and of the 53,784
+        parameters at ``REALNVP_GRAD_REL``, the backward twice bit for bit (no
+        atomics). Then at N = 1,088 the forward's and the backward's device
+        time (CUDA events, the L2 cache flushed before each call, and warm),
+        the twin's (forward; backward alone, its graph made first; profiled),
+        and the bound: the operations over 67 TFLOP/s f32 or the bytes over
+        3.35 TB/s. No library call computes the flow (``library_ms`` null).
+        Appends the two records to the kernels line; their launches are those
+        of ``rle_res50_train``'s main path."""
+        import torch
+
+        from probpose_code_torch.models.builder import full_f32_precision
+        from probpose_code_torch.ops.kernels import realnvp
+
+        def rel(a, b):
+            return float((a - b).abs().max() / b.abs().max())
+
+        errors = dict(forward=0.0, dx=0.0, dparams=0.0)
+        abs_err = dict(realnvp_forward=0.0, realnvp_backward=0.0)
+        deterministic = True
+        with full_f32_precision():
+            for N in (1088, 1024):
+                flow, x, params, grad = self.realnvp_case(N, seed=31 + N)
+                logp, zs = realnvp.realnvp_forward(x, params)
+                dx, dparams = realnvp.realnvp_backward(grad, zs, params)
+                again = realnvp.realnvp_backward(grad, zs, params)
+                deterministic &= torch.equal(dx, again[0]) and torch.equal(dparams, again[1])
+                xt = x.clone().requires_grad_()
+                ref = flow.log_prob_plain(xt)
+                ref_grads = torch.autograd.grad(ref, [xt, *flow.packed_parameters()], grad)
+                ref_dparams = torch.cat([g.reshape(-1) for g in ref_grads[1:]])
+                errors["forward"] = max(errors["forward"], rel(logp, ref.detach()))
+                errors["dx"] = max(errors["dx"], rel(dx, ref_grads[0]))
+                # each parameter array against its own largest gradient
+                at = 0
+                for g in ref_grads[1:]:
+                    errors["dparams"] = max(errors["dparams"], rel(dparams[at:at + g.numel()], g.reshape(-1)))
+                    at += g.numel()
+                abs_err["realnvp_forward"] = max(abs_err["realnvp_forward"], float((logp - ref.detach()).abs().max()))
+                abs_err["realnvp_backward"] = max(abs_err["realnvp_backward"], float((dx - ref_grads[0]).abs().max()),
+                                                  float((dparams - ref_dparams).abs().max()))
+                with torch.no_grad():
+                    s_max = max(float(flow.s[i](flow.mask[i] * x).abs().max()) for i in range(6))
+                    top = float(ref.abs().max())
+        print(f"regression_kernels: the flow at N = 1,088 and 1,024 (weights N(0, {REALNVP_STD}^2), |x| up to 10, "
+              f"|s| up to {s_max:.3f}, |log-density| up to {top:.1f} at N = 1,024): rel max err "
+              f"{json.dumps(errors)} (bars {REALNVP_REL:g} forward, {REALNVP_GRAD_REL:g} gradients, each array to its "
+              f"largest); max abs err {json.dumps(abs_err)}; the backward repeats bit for bit: {deterministic}")
+        if not (errors["forward"] < REALNVP_REL and max(errors["dx"], errors["dparams"]) < REALNVP_GRAD_REL
+                and deterministic):
+            raise AssertionError(f"regression_kernels: the flow kernels disagree with the twin: {errors}")
+
+        flow, x, params, grad = self.realnvp_case(1088, seed=7)
+        _, zs = realnvp.realnvp_forward(x, params)
+        xt = x.clone().requires_grad_()
+        graph = flow.log_prob_plain(xt)
+        leaves = [xt, *flow.packed_parameters()]
+        flops, nbytes = realnvp.realnvp_flops(1088), realnvp.realnvp_bytes(1088)
+        timed = dict(
+            realnvp_forward=(lambda: realnvp.realnvp_forward(x, params), lambda: flow.log_prob_plain(x),
+                             flops[0], nbytes[0]),
+            realnvp_backward=(lambda: realnvp.realnvp_backward(grad, zs, params),
+                              lambda: torch.autograd.grad(graph, leaves, grad, retain_graph=True), flops[1], nbytes[1]))
+        launches = self.record.get("realnvp_launches", {})
+        for name, (fn, plain, ops, moved) in timed.items():
+            with full_f32_precision():
+                ms, warm = Smoke.queued_ms([fn]), Smoke.queued_ms([fn], cold=False)
+                plain_ms = Smoke.kernel_device_ms(plain, calls=5)
+            need = dict(operations=ops / PEAK_F32, bytes=moved / PEAK_BYTES)
+            record = dict(name=name, route="cuda", source="probpose_code_torch/csrc/realnvp.cu",
+                          replaces="none: no TPU kernel (the JAX flow, probpose_code_tpu/models/utils/realnvp.py:37, "
+                                   "runs in XLA)",
+                          launches=launches.get("rle_res50_train", {}).get(name, 0), max_abs_err=abs_err[name], ms=ms,
+                          ms_warm=warm, plain_ms=plain_ms, bound_ms=max(need.values()) * 1e3,
+                          bound_by=max(need, key=need.get), library_ms=None,
+                          launches_by_path={path: n[name] for path, n in launches.items()})
+            self.record.setdefault("kernels", []).append(record)
+            print(f"  {name} at N = 1,088: device {ms:.4f} ms with the L2 cache flushed, {warm:.4f} warm (CUDA events), "
+                  f"twin {plain_ms:.4f} ms ({'its backward alone, ' if 'backward' in name else ''}profiled), bound "
+                  f"{record['bound_ms']:.5f} ms ({record['bound_by']}: {ops / 1e6:.1f} MFLOP, {moved / 1e6:.3f} MB), "
+                  f"{ms / record['bound_ms']:.0f}x its bound, {plain_ms / ms:.1f}x faster than the twin; no library "
+                  f"call computes the flow")
+
+    def regression_predict(self):
+        """The regression recipes (``REGRESSION``: plain regression ResNet-50 on
+        COCO and MPII, their heads pooling the backbone's map; RLE-ResNet-50,
+        RLE-ResNet-152 at 384 x 288, RLE-MobileNetV2; IPR-ResNet-50 at 192 x
+        256, DSNT-debias-ResNet-50 at 256 x 256; Vis-ResNet-50) at full width
+        and depth through ``predict_phase`` (random weights, seed 0, 64 boxes
+        with flip-TTA, 3 timed calls, one profiled: crops/s, the busy share,
+        peak memory; the keypoints, and the Vis head's visibility, against the
+        CPU; no flow kernel: the flow runs in the loss alone)."""
+        import torch
+
+        for name, config in REGRESSION.items():
+            keys = ("keypoints", "keypoints_visible") if name.startswith("vis") else ("keypoints",)
+            self.predict_phase(config, name, keys, f"{name}_predict_launches", timed_calls=3, profile_calls=1)
+            torch.cuda.empty_cache()
+
+    def regression_train(self):
+        """The bare train steps (``train_phase``, the recipes' optimizers and
+        schedules, targets encoded on the card) at B = 64 of RLE-ResNet-50 at
+        256 x 192, RLE-MobileNetV2 at 192 x 256, Vis-ResNet-50 at 256 x 192 and
+        the plain regression ResNet-50 (``REGRESSION_TRAIN``): crops/s, peak
+        memory, the busy share and the kernels a step. The RLE steps' kernels
+        a step with the flow's twin in their place (``RealNVP.forward`` set to
+        ``log_prob_plain`` for that profile alone). Then the 2% rule's
+        candidate ops of these steps, each alone at its step's shapes, forward
+        and backward (``regression_op_shares``)."""
+        import torch
+
+        from probpose_code_torch.config import Config
+        from probpose_code_torch.models.utils.realnvp import RealNVP
+
+        shares = self.record.setdefault("op_shares", {})
+        for i, name in enumerate(REGRESSION_TRAIN):
+            cfg = Config.fromfile(str(REGRESSION[name]))
+            head = cfg["model"]["head"]
+            codec = head["pose_cfg"]["decoder"] if head["type"] == "VisPredictHead" else head["decoder"]
+            batch = synthetic_codec_batch(64, 71 + i, codec, K=17)
+            model, state, step, busy_ms = self.train_phase(REGRESSION[name], name, batch, f"{name}_train_launches")
+            if model.head_type == "RLEHead":
+                gen = torch.Generator(device="cuda").manual_seed(5)
+                forward = RealNVP.forward
+                RealNVP.forward = RealNVP.log_prob_plain
+                try:
+                    run_steps(step, state, batch, gen, lambda s: 0.0, 1)  # warm-up
+                    torch.cuda.synchronize()
+                    self.profile(lambda: run_steps(step, state, batch, gen, lambda s: 0.0, 1), calls=2,
+                                 what=f"{name} train steps with the flow's twin")
+                finally:
+                    RealNVP.forward = forward
+            shares[name] = self.regression_op_shares(name, busy_ms, model, batch)
+            del model, state, step
+            torch.cuda.empty_cache()
+
+    @staticmethod
+    def regression_op_shares(key, busy_ms, model, batch):
+        """The 2% rule's candidates of a regression step, each alone on the
+        card at the shapes the step gives it, forward and backward, over the
+        profiled step's device time ``busy_ms``: the flow (``RealNVP`` on the
+        B K residuals: the kernels, and the twin), RLELoss (its elementwise
+        terms and the flow kernels), the head's pooling and ``fc`` on the
+        backbone's map, the Vis head's visibility branch and its
+        ``BCELoss``, the wrapped heatmap head's ``KeypointMSELoss``, and the
+        targets' encode on the card (forward). Returns {op: device ms,
+        share %, calls}."""
+        import torch
+
+        B = batch["inputs"].shape[0]
+        with torch.no_grad():
+            feats = model.module.backbone(model.preprocess(batch["inputs"][:1]).permute(0, 3, 1, 2))
+        C, h, w = feats[-1].shape[1:] if isinstance(feats, (tuple, list)) else feats.shape[1:]
+        head = model.module.head
+        K = 17
+
+        def leaf(*shape, s=1.0):
+            return (s * torch.randn(*shape, device="cuda")).requires_grad_()
+
+        cases = {}
+        if model.head_type == "RLEHead":
+            flow = head.loss.flow_model
+            x = leaf(B * K, 2, s=3.0)
+            cases["flow"] = (lambda: flow(x), [x, *flow.parameters()])
+            cases["flow_plain"] = (lambda: flow.log_prob_plain(x), [x, *flow.parameters()])
+            pred, sigma = leaf(B, K, 2, s=0.3), leaf(B, K, 2)
+            labels, weights = torch.rand(B, K, 2, device="cuda"), batch["keypoint_weights"]
+            loss = model.loss_modules["keypoint"]
+            cases["rle_loss"] = (lambda: loss(pred, sigma, labels, weights, log_phi_fn=head.log_phi),
+                                 [pred, sigma, *flow.parameters()])
+        if model.head_type in ("RLEHead", "RegressionHead"):
+            maps = leaf(B, C, h, w)
+            cases["pool_fc"] = (lambda: head(maps), [maps, *head.fc.parameters()])
+        if model.head_type == "VisPredictHead":
+            maps = leaf(B, C, h, w)
+            target = batch["keypoint_weights"]
+            vis_loss = model.loss_modules["vis"]
+            cases["vis_branch"] = (lambda: vis_loss(head.vis_head(maps), target, torch.ones_like(target)),
+                                   [maps, *head.vis_head.parameters()])
+            hm = leaf(B, K, 64, 48)
+            gt = torch.rand(B, K, 64, 48, device="cuda")
+            cases["heatmap_loss"] = (lambda: model.loss_modules["keypoint"](hm, gt, target), [hm])
+        encode = {k: v for k, v in batch.items() if k != "inputs"}
+        cases["encode"] = (lambda: model.device_preprocess_batch(dict(encode)), None)
+
+        def run(fn, ins):
+            out = fn()
+            if ins is not None:
+                torch.autograd.grad(out, ins, torch.ones_like(out), allow_unused=True)
+
+        shares = {}
+        for op, (fn, ins) in cases.items():
+            ms = Smoke.kernel_device_ms(lambda fn=fn, ins=ins: run(fn, ins), calls=5)
+            shares[op] = dict(device_ms=round(ms, 4), share=round(100 * ms / busy_ms, 2) if busy_ms else None, calls=1)
+        print(f"{key}: the 2% rule's candidate ops alone at the step's shapes, forward and backward, device ms a step "
+              f"and % of the profiled {busy_ms} ms of device time: {json.dumps(shares)}")
+        return shares
+
+    def regression_runner(self):
+        """The entry points: ``tools.train`` of RLE-ResNet-50's recipe at its
+        batch of 64 with four workers, one epoch of two steps over the golden
+        JPEGs' persons copied to 128 instances and val at its end by
+        ``CocoMetric`` over the 62 golden persons (the flow kernels launched,
+        the first loss dict equal to ``make_train_step``'s); ``tools.test``
+        of the PoseTrack18 HRNet-w32 recipe (random weights) over the golden
+        images as three videos (``posetrack_set``: detections, a frame
+        without ground truth), which prints ``PoseTrack18Metric``'s table;
+        ``tools.test`` of the DSNT-debias recipe over the golden persons; and
+        ``tools.train`` of that recipe, which must fail with the port's
+        refusal by name and nothing else. Fails unless every metric printed
+        is finite."""
+        import io
+        import tempfile
+
+        import torch
+
+        from probpose_code_torch.datasets.loader import stop_workers
+        from probpose_code_torch.models.builder import UNTRAINED_HEADS
+        from probpose_code_torch.tools import test as test_cli
+        from probpose_code_torch.tools import train as train_cli
+
+        def tested(config, options, path):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            read_counts = reset_counts()
+            with contextlib.redirect_stdout(out):
+                test_cli.main([str(config), "--cfg-options", *options])
+            launches = read_counts()
+            rows = (line.partition(": ") for line in out.getvalue().splitlines())
+            metrics = {k: float(v) for k, _, v in rows if k.startswith("coco/")}
+            print(f"{path} tools.test in {time.perf_counter() - t0:.2f} s (random weights): {json.dumps(metrics)}, "
+                  f"launches {json.dumps(launches)}")
+            if not metrics or not all(math.isfinite(v) for v in metrics.values()) or launches != NO_LAUNCHES:
+                raise AssertionError(f"{path}: tools.test gave {metrics}, launches {launches}")
+            return metrics
+
+        config = REGRESSION["rle_res50"]
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+            stack.callback(stop_workers)
+            _, ann = golden_jpeg_set(tmp)
+            copy_instances(ann, 128, Path(tmp, "train.json"))
+            Path(tmp, "val.json").write_text(ann.read_text())
+            options = coco_data_options(tmp, "train.json", workers=4) + [
+                "val_dataloader.num_workers=0", "train_cfg.max_epochs=1", "train_cfg.val_interval=1",
+                "default_hooks.logger.interval=1"]
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            read_counts = reset_counts()  # the main path: counts set to 0 just before, read just after
+            runner = train_cli.main([str(config), "--work-dir", str(Path(tmp, "work")), "--cfg-options", *options])
+            torch.cuda.synchronize()
+            launches = read_counts()
+            self.read_realnvp("rle_res50_runner", runner.model, backward=True)
+            self.read_norms("rle_res50_runner", *norm_layers(runner.model), backward=True)
+            B, steps = runner.train_loader.batch_size, runner.state.step
+            print(f"rle_res50_runner main path: {steps} steps of {B} over {len(runner.train_loader.dataset)} "
+                  f"instances in {time.perf_counter() - t0:.2f} s, launches {json.dumps(launches)}, flow kernels "
+                  f"{json.dumps(self.record['realnvp_launches']['rle_res50_runner'])}, peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            report_runner_epochs("rle_res50_runner", runner, 0)
+            val = [line for line in Path(tmp, "work", "train.log").read_text().splitlines() if "val: " in line]
+            print(f"rle_res50_runner val: {val[-1] if val else None}")
+            if B != 64 or steps != 2 or launches != NO_LAUNCHES or not val:
+                raise AssertionError(f"rle_res50_runner: batch {B}, {steps} steps, launches {launches}, val {val}")
+            first_step_check("rle_res50_runner", runner)
+            runner.close()
+
+            tested(REGRESSION["dsnt_debias_res50"],
+                   [kv.replace("val_", "test_", 1) for kv in coco_data_options(tmp, workers=0)], "dsnt_debias_res50")
+            try:
+                train_cli.main([str(REGRESSION["dsnt_debias_res50"]), "--work-dir", str(Path(tmp, "work_dsnt")),
+                                "--cfg-options", *options])
+            except NotImplementedError as e:
+                if str(e) != UNTRAINED_HEADS["DSNTHead"]:
+                    raise
+                print(f"dsnt_debias_res50 tools.train refused by name: {e}")
+            else:
+                raise AssertionError("dsnt_debias_res50: tools.train ran; the port refuses to train the integral heads")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            options = posetrack_set(tmp) + ["test_dataloader.num_workers=0"]
+            metrics = tested(POSETRACK, options, "posetrack18_hrnet_w32")
+            table = {k: v for k, v in metrics.items() if not k.startswith(("coco/coco_", "coco/vis_", "coco/prob_",
+                                                                              "coco/score_"))}
+            print(f"posetrack18_hrnet_w32 PoseTrack18Metric table over {POSETRACK_VIDEOS} videos: {json.dumps(table)}")
+            if [k for k in table] != [f"coco/{k} AP" for k in ("Head", "Shou", "Elb", "Wri", "Hip", "Knee", "Ankl")] \
+                    + ["coco/AP"]:
+                raise AssertionError(f"posetrack18_hrnet_w32: the table's stats {list(table)}")
 
     def cnn_zoo_golden(self):
         """The SCNet-50 and ViPNAS fixtures (``CNN_ZOO_FIXTURES``) on the card
@@ -7515,6 +7984,11 @@ def main() -> int:
             smoke.phase("topdown_rest_predict", smoke.topdown_rest_predict)
             smoke.phase("topdown_rest_train", smoke.topdown_rest_train)
             smoke.phase("topdown_rest_runner", smoke.topdown_rest_runner)
+            smoke.phase("regression_golden", smoke.regression_golden)
+            smoke.phase("regression_predict", smoke.regression_predict)
+            smoke.phase("regression_train", smoke.regression_train)
+            smoke.phase("regression_runner", smoke.regression_runner)
+            smoke.phase("regression_kernels", smoke.regression_kernels)
     left = stop_descendants()
     if left:
         print(f"chip_smoke: stopped processes left running: {left}", file=sys.stderr)

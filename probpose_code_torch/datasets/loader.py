@@ -76,8 +76,9 @@ def collate_pose_samples(samples: List[dict]) -> Dict:
     ``warp_mat_sep`` for its separable warp; the port warps every canvas by
     the gather, so keeps one name. A training batch (from
     ``GenerateTarget``) adds ``kpts_hm`` (B, K, 2), ``kpts_visible`` (B, K)
-    and the labels: ``keypoint_weights``, ``in_image``, ``annotated`` and
-    ``keypoints_visibility``, all float32 (``kpts_hm`` float64 where the
+    and the labels: ``keypoint_weights``, ``keypoints_visible_weights``
+    (ones for a sample without them in a batch where others have them),
+    ``in_image``, ``annotated`` and ``keypoints_visibility``, all float32 (``kpts_hm`` float64 where the
     codec computes in float64: MSRAHeatmap, DoubleProbMap; SimCCLabel's are
     the keypoints' bins). A DoubleProbMap batch's
     ``kpts_hm`` and ``kpts_hm_out`` are its two windows' keypoints (float64,
@@ -122,9 +123,17 @@ def collate_pose_samples(samples: List[dict]) -> Dict:
                 batch[key] = np.stack([np.asarray(s[name]).reshape(-1, 2) for s in samples]).astype(kpts_type)
         batch["kpts_visible"] = np.stack([np.asarray(s["device_kpts_visible"]).reshape(-1)
                                           for s in samples]).astype(np.float32)
-        labels, instances = data_samples[0].gt_instance_labels, data_samples[0].gt_instances
+        instances = data_samples[0].gt_instances
         for name in LABELS:
-            if name in labels:
+            have = [name in d.gt_instance_labels for d in data_samples]
+            if any(have) and not all(have) and name == "keypoints_visible_weights":
+                # a CombinedDataset batch of converted samples (AIC's KeypointConverter) and unconverted ones
+                # (COCO): ones for the latter, the weight a batch without any gets (the JAX collate stacks the
+                # first sample's keys: it raises an AttributeError, or drops the weights of the whole batch)
+                batch[name] = _stacked(d.gt_instance_labels[name] if name in d.gt_instance_labels
+                                       else np.ones_like(np.asarray(d.gt_instance_labels["keypoint_weights"]))
+                                       for d in data_samples).astype(np.float32)
+            elif all(have):
                 batch[name] = _stacked(d.gt_instance_labels[name] for d in data_samples).astype(np.float32)
         for name, key in INSTANCE_LABELS + ((("keypoints_in_image", "keypoints_in_image"),) if double else ()):
             if name in instances:

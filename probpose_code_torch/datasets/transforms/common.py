@@ -340,7 +340,8 @@ class GenerateTarget:
     weights from the port's codec. ``RegressionLabel`` ships the
     input-space keypoints as they are (the device divides them by the input
     size) and makes the codec's weights: 1 for a visible keypoint inside the
-    input. ``DoubleProbMap`` (``probpose_code_tpu/
+    input; ``IntegralRegressionLabel`` the same (the device renders its maps
+    from them too). ``DoubleProbMap`` (``probpose_code_tpu/
     codecs/double_probmap.py:29-131``, encoded on the host in the JAX
     package) ships the keypoints in both windows' frames, in float64 as the
     codec computes them (``device_kpts_hm``: the in-window, padding
@@ -365,7 +366,7 @@ class GenerateTarget:
         if self.type in CODECS:  # the port's copy of the codec gives the keypoints and weights
             self.codec = CODECS[self.type](**{k: v for k, v in encoder.items() if k != "type"})
             return
-        if self.type == "RegressionLabel":
+        if self.type in ("RegressionLabel", "IntegralRegressionLabel"):
             return
         self.heatmap_size = tuple(encoder["heatmap_size"])
         self.scale_factor = ((np.array(self.input_size) - 1) / (np.array(self.heatmap_size) - 1)).astype(np.float32)
@@ -399,7 +400,7 @@ class GenerateTarget:
             encoded["device_kpts_visible"] = np.asarray(keypoints_visible, np.float32)
             encoded["label_mapping_table"] = dict(keypoint_weights="keypoint_weights")
             return encoded
-        if self.type == "RegressionLabel":
+        if self.type in ("RegressionLabel", "IntegralRegressionLabel"):
             # the host codec's weights (``regression_label.py:37-39``): visible keypoints inside the input
             w, h = self.input_size
             valid = ((keypoints >= 0) & (keypoints <= [w - 1, h - 1])).all(axis=-1) & (keypoints_visible > 0.5)

@@ -43,6 +43,12 @@ and so do LiteHRNet, SwinTransformer, HRFormer and PVT / PVTv2 where their
 structure is mmpose's (``models/backbones/litehrnet.py``,
 ``transformers.py``; flax LayerNorm's ``scale`` is torch's ``weight``, PVT's
 ``q`` and ``kv`` are stacked into ``in_proj_weight`` / ``in_proj_bias``).
+The regression heads take the JAX heads' variables the same way
+(``models/heads/regression_head.py``, ``integral_regression_head.py``,
+``vis_head.py`` list their names): ``head.fc``, RLEHead's flow
+``head.flow.s{i}.Dense_{j}`` / ``t{i}`` (with the flow's constant buffers),
+the integral heads' ``deconv_layers`` and ``final_layer``, and
+VisPredictHead's ``vis_fc`` and ``pose_head``.
 """
 
 from __future__ import annotations
@@ -664,6 +670,23 @@ def _head_rules(head: Dict[str, Any]):
     return None
 
 
+def flow_state_from_jax(flow: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX RealNVP's parameters (``s{i}`` / ``t{i}``, three ``Dense``
+    layers each) under the port's ``RealNVP`` names (``s.{i}.{0,2,4}``,
+    ``t.{i}.{0,2,4}``), with its constant buffers (the prior's ``loc`` and
+    ``cov``, the ``mask``)."""
+    sd = {}
+    for i in range(6):
+        for net in ("s", "t"):
+            for j in range(3):
+                node = flow[f"{net}{i}"][f"Dense_{j}"]
+                sd[f"{net}.{i}.{2 * j}.weight"] = np.asarray(node["kernel"]).T
+                sd[f"{net}.{i}.{2 * j}.bias"] = np.asarray(node["bias"])
+    sd.update(loc=np.zeros(2, np.float32), cov=np.eye(2, dtype=np.float32),
+              mask=np.array([[0, 1], [1, 0]] * 3, np.float32))
+    return sd
+
+
 def state_dict_from_jax(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
     """JAX ``{"params", "batch_stats"}`` (a ViT, an HRNet or a classic CNN:
     ResNet, ResNetV1d, ResNeXt, SEResNet, SEResNeXt, SCNet, ResNeSt,
@@ -671,8 +694,9 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Te
     CSPNeXt, HourglassNet, CPM, MSPN, RSN, LiteHRNet, SwinTransformer,
     HRFormer, PVT / PVTv2; a CSPNeXtPAFPN neck; a
     ProbMapHead, a DoubleProbMapHead, a HeatmapHead, a ViPNASHead, an
-    RTMCCHead, a SimCCHead, an RTMWHead, a CPMHead or an MSPNHead) -> torch
-    state dict."""
+    RTMCCHead, a SimCCHead, an RTMWHead, a CPMHead, an MSPNHead, a
+    RegressionHead, an RLEHead, an IntegralRegressionHead / DSNTHead or a
+    VisPredictHead around a heatmap head) -> torch state dict."""
     params, stats = variables["params"], variables.get("batch_stats", {})
     sd: Dict[str, np.ndarray] = {}
 
@@ -720,7 +744,18 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Te
             sd[f"{prefix}.final_layer.weight"] = _conv(node["final_layer"]["kernel"])
             sd[f"{prefix}.final_layer.bias"] = node["final_layer"]["bias"]
 
+    def dense(name, node):
+        sd[f"{name}.weight"] = node["kernel"].T
+        sd[f"{name}.bias"] = node["bias"]
+
     tower("head", head, head_s)
+    if "fc" in head:  # RegressionHead, RLEHead
+        dense("head.fc", head["fc"])
+    if "flow" in head:  # RLEHead's RealNVP
+        sd.update({f"head.loss.flow_model.{k}": v for k, v in flow_state_from_jax(head["flow"]).items()})
+    if "vis_fc" in head:  # VisPredictHead: the visibility layer and the wrapped (heatmap) head
+        dense("head.vis_head.2", head["vis_fc"])
+        tower("head.pose_head", head["pose_head"], head_s.get("pose_head", {}))
     j = 0
     while f"deconv{j}_g0" in head:  # ViPNASHead: the groups' kernels along the input axis, one grouped weight
         groups = sum(re.fullmatch(rf"deconv{j}_g\d+", k) is not None for k in head)

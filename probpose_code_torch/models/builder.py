@@ -5,17 +5,21 @@ Port of ``probpose_code_tpu/models/builder.py``: ``build_pose_estimator``
 (``:132``) builds the head's losses, and ``PoseModel`` owns the module, its
 predict program for top-down ProbMapHead, DoubleProbMapHead, HeatmapHead
 (and ViPNASHead; CPMHead and MSPNHead, the last of their maps), the SimCC
-heads (RTMCCHead, SimCCHead, RTMWHead) and RegressionHead models (preprocess ->
+heads (RTMCCHead, SimCCHead, RTMWHead), the regression heads (RegressionHead,
+RLEHead, IntegralRegressionHead, DSNTHead) and VisPredictHead around any of
+them (preprocess ->
 original and mirrored crops as one doubled batch -> flip-TTA average -> the
 expected-OKS decode, ``:815-832``, argmax and DARK-UDP for the UDP codec, argmax and the
 quarter-pixel step or DARK for the MSRA codec, ``:870-908``, the Megvii
 codec's own decode (the JAX predict takes the UDP branch), SimCC's joint
 argmax, ``:833-837``, or the regression head's coordinates times the input
-size, ``:841-844``) and its loss (``loss_fn``, ``:406``, ``:486``, with the
+size, ``:841-844``; VisPredictHead's visibility averaged over the flip pair,
+``:787-796``) and its loss (``loss_fn``, ``:406``, ``:486``, with the
 targets and DoubleProbMap's bbox mask made on the device by
 ``device_preprocess_batch``, ``:363``; CPMHead's ``cpm_head_loss``,
-``:490-493``). The RLE, integral and DSNT regression heads are not ported;
-MSPNHead's training is refused (``UNTRAINED_HEADS``).
+``:490-493``; RLEHead's RLELoss through the head's flow, ``topdown.py:550-561``;
+VisPredictHead's wrapped loss and ``loss_vis``, ``:523-537``). MSPNHead's and
+the integral heads' training is refused (``UNTRAINED_HEADS``).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from probpose_code_torch.ops.encode import (
     generate_simcc_labels_device,
     generate_udp_gaussian_device,
     generate_unbiased_gaussian_device,
+    integral_regression_labels_device,
     probmap_encode_scales,
 )
 from probpose_code_torch.ops.kernels.jpeg import decode_batch
@@ -62,12 +67,15 @@ from .backbones.transformers import (  # noqa: F401  (register)
 )
 from .backbones.vit import VisionTransformer  # noqa: F401  (registers)
 from .heads.heatmap_head import HeatmapHead, ViPNASHead  # noqa: F401  (registers)
+from .heads.integral_regression_head import DSNTHead, IntegralRegressionHead  # noqa: F401  (register)
 from .heads.multistage_heads import CPMHead, MSPNHead, cpm_head_loss, mspn_head_loss  # noqa: F401  (register)
 from .heads.probmap_head import DoubleProbMapHead, ProbMapHead  # noqa: F401  (registers)
-from .heads.regression_head import RegressionHead  # noqa: F401  (registers)
+from .heads.regression_head import RegressionHead, RLEHead  # noqa: F401  (register)
 from .heads.rtmcc_head import RTMCCHead, RTMWHead, SimCCHead  # noqa: F401  (register)
+from .heads.vis_head import VisPredictHead  # noqa: F401  (registers)
 from .necks.necks import CSPNeXtPAFPN, FeatureMapProcessor, GlobalAveragePooling  # noqa: F401  (register)
 from .pose_estimators.topdown import (
+    INTEGRAL_HEADS,
     TopdownPoseEstimator,
     double_probmap_head_loss,
     double_probmap_head_predict,
@@ -80,10 +88,14 @@ from .pose_estimators.topdown import (
     regression_head_predict,
     simcc_head_loss,
     simcc_head_predict,
+    vis_head_loss,
 )
 
 HEAD_TYPES = ("ProbMapHead", "DoubleProbMapHead", "HeatmapHead", "ViPNASHead", "CPMHead", "MSPNHead", "RTMCCHead",
-              "SimCCHead", "RTMWHead", "RegressionHead")
+              "SimCCHead", "RTMWHead", "RegressionHead", "RLEHead", "IntegralRegressionHead", "DSNTHead",
+              "VisPredictHead")
+# the heads whose outputs take the regression heads' predict
+REGRESSION_HEADS = ("RegressionHead", "RLEHead", *INTEGRAL_HEADS)
 # the heads whose heatmaps take HeatmapHead's predict (the multi-stage heads' last map) and loss (theirs apart)
 HEATMAP_HEADS = ("HeatmapHead", "ViPNASHead", "CPMHead", "MSPNHead")
 # the codecs whose decode a heatmap head runs
@@ -91,10 +103,14 @@ HEATMAP_DECODERS = ("UDPHeatmap", "MSRAHeatmap", "MegviiHeatmap")
 # the heads whose (x, y) vectors take SimCC's predict and loss
 SIMCC_HEADS = ("RTMCCHead", "SimCCHead", "RTMWHead")
 # heads the port serves and does not train, and why
+_INTEGRAL_REASON = (
+    "integral regression training (IntegralRegressionHead / DSNTHead): the configs' MultipleLossWrapper takes lists "
+    "of outputs and targets, and the JAX package's regression_head_loss hands it the coordinate array, so its "
+    "loss_fn fails its assertion and the JAX package cannot train these configs; the port serves them")
 UNTRAINED_HEADS = dict(MSPNHead=(
     "MSPN / RSN training: mspn_head_loss reads multi-level targets (multilevel_heatmaps) that no codec route of "
     "the JAX package makes (its collate ships heatmaps only), so the JAX package cannot train these configs "
-    "either; the port serves them"))
+    "either; the port serves them"), IntegralRegressionHead=_INTEGRAL_REASON, DSNTHead=_INTEGRAL_REASON)
 
 
 def _adapt_backbone_cfg(cfg: Dict[str, Any]) -> Dict[str, Any]:
@@ -193,13 +209,21 @@ def build_loss_modules(head_cfg: Dict[str, Any]) -> Dict[str, Any]:
     """The ProbMap heads' five loss configs as callables, under the keys
     ``keypoint``, ``probability``, ``visibility``, ``oks`` and ``error``; a
     single-loss head's ``loss`` (HeatmapHead) replaces ``keypoint``
-    (``builder.py:145-147``)."""
+    (``builder.py:145-147``). VisPredictHead's ``loss`` supervises the
+    visibility (``vis``; ``BCELoss`` without target weights where it has
+    none) and its wrapped head's the pose (``keypoint``; ``KeypointMSELoss``
+    where it has none), ``:148-156``."""
     out = {
         key.replace("_loss", ""): MODELS.build(dict(head_cfg.get(key) or default))
         for key, default in _LOSS_DEFAULTS.items()
     }
     if head_cfg.get("loss"):
         out["keypoint"] = MODELS.build(dict(head_cfg["loss"]))
+    if head_cfg.get("type") == "VisPredictHead":
+        out["vis"] = out.pop("keypoint", None) if head_cfg.get("loss") else MODELS.build(
+            dict(type="BCELoss", use_target_weight=False))
+        inner = dict(head_cfg.get("pose_cfg") or {})
+        out["keypoint"] = MODELS.build(dict(inner.get("loss") or _LOSS_DEFAULTS["keypoint_loss"]))
     return out
 
 
@@ -272,7 +296,12 @@ class PoseModel:
         self.head_type = head_cfg.get("type")
         if self.head_type not in HEAD_TYPES or not isinstance(self.module, TopdownPoseEstimator):
             raise NotImplementedError(f"the port runs top-down models with a head of {HEAD_TYPES} only")
-        self.decoder_cfg = head_cfg.get("decoder") or {}
+        # VisPredictHead: the wrapped head decodes, with its codec (``builder.py:190-192``)
+        self.pose_cfg = dict(head_cfg.get("pose_cfg") or {}) if self.head_type == "VisPredictHead" else head_cfg
+        self.pose_head_type = self.pose_cfg.get("type")
+        if self.pose_head_type not in HEAD_TYPES or self.pose_head_type == "VisPredictHead":
+            raise NotImplementedError(f"VisPredictHead wraps a head of {HEAD_TYPES} (not itself) only")
+        self.decoder_cfg = self.pose_cfg.get("decoder") or {}
         if "input_size" in self.decoder_cfg:
             self.input_size = tuple(self.decoder_cfg["input_size"])
         else:
@@ -334,8 +363,7 @@ class PoseModel:
     def flip_indices(self):
         if self.metainfo:
             return list(self.metainfo["flip_indices"])
-        head = self.aux["head_cfg"]
-        return list(range(head.get("out_channels", head.get("num_joints", 17))))
+        return list(range(self.pose_cfg.get("out_channels", self.pose_cfg.get("num_joints", 17))))
 
     def make_predict(self):
         """(B, H, W, 3) raw crops on the model's device -> decoded predictions."""
@@ -344,10 +372,32 @@ class PoseModel:
         shift_heatmap = test_cfg.get("shift_heatmap", False)
         freeze_oks = self.aux["head_cfg"].get("freeze_oks", False)
         flip_indices = self.flip_indices()
-        if self.head_type in HEATMAP_HEADS and self.decoder_cfg.get("type", "UDPHeatmap") not in HEATMAP_DECODERS:
+        head_type = self.pose_head_type
+        if head_type in HEATMAP_HEADS and self.decoder_cfg.get("type", "UDPHeatmap") not in HEATMAP_DECODERS:
             raise NotImplementedError(f"the {self.decoder_cfg['type']} decode is not ported yet "
                                       f"({', '.join(HEATMAP_DECODERS)} are)")
         precision = contextlib.nullcontext if self.is_low_precision() else full_f32_precision
+
+        def decode(outputs, outputs_flipped):
+            if head_type in REGRESSION_HEADS:
+                return regression_head_predict(outputs, outputs_flipped, flip_indices, self.input_size, head_type)
+            if head_type in SIMCC_HEADS:
+                return simcc_head_predict(outputs, outputs_flipped, flip_indices,
+                                          simcc_split_ratio=self.decoder_cfg.get("simcc_split_ratio", 2.0))
+            if head_type in HEATMAP_HEADS:
+                return heatmap_head_predict(
+                    outputs, outputs_flipped, flip_indices, self.decoder_cfg, input_size=self.input_size,
+                    shift_heatmap=shift_heatmap,
+                )
+            if head_type == "DoubleProbMapHead":
+                return double_probmap_head_predict(
+                    outputs, outputs_flipped, flip_indices, self.decoder_cfg, input_size=self.input_size,
+                    shift_heatmap=shift_heatmap, freeze_oks=freeze_oks,
+                )
+            return probmap_head_predict(
+                outputs, outputs_flipped, flip_indices, input_size=self.input_size,
+                shift_heatmap=shift_heatmap, freeze_oks=freeze_oks,
+            )
 
         def predict(images: torch.Tensor) -> Dict[str, torch.Tensor]:
             self.eval()
@@ -368,25 +418,18 @@ class PoseModel:
                         outputs, outputs_flipped = both[:B], both[B:]
                 else:
                     outputs = self.module(x)
-                if self.head_type == "RegressionHead":
-                    return regression_head_predict(outputs, outputs_flipped, flip_indices, self.input_size)
-                if self.head_type in SIMCC_HEADS:
-                    return simcc_head_predict(outputs, outputs_flipped, flip_indices,
-                                              simcc_split_ratio=self.decoder_cfg.get("simcc_split_ratio", 2.0))
-                if self.head_type in HEATMAP_HEADS:
-                    return heatmap_head_predict(
-                        outputs, outputs_flipped, flip_indices, self.decoder_cfg, input_size=self.input_size,
-                        shift_heatmap=shift_heatmap,
-                    )
-                if self.head_type == "DoubleProbMapHead":
-                    return double_probmap_head_predict(
-                        outputs, outputs_flipped, flip_indices, self.decoder_cfg, input_size=self.input_size,
-                        shift_heatmap=shift_heatmap, freeze_oks=freeze_oks,
-                    )
-                return probmap_head_predict(
-                    outputs, outputs_flipped, flip_indices, input_size=self.input_size,
-                    shift_heatmap=shift_heatmap, freeze_oks=freeze_oks,
-                )
+                if self.head_type == "VisPredictHead":
+                    # unwrapped: the visibility averaged over the flip pair (its channels permuted), the
+                    # wrapped head decoded as usual
+                    outputs, visible = outputs
+                    if outputs_flipped is not None:
+                        outputs_flipped, visible_flipped = outputs_flipped
+                        idx = torch.as_tensor(flip_indices, device=visible.device)
+                        visible = (visible + visible_flipped[:, idx]) * 0.5
+                    preds = decode(outputs, outputs_flipped)
+                    preds["keypoints_visible"] = visible
+                    return preds
+                return decode(outputs, outputs_flipped)
 
         return predict
 
@@ -418,7 +461,9 @@ class PoseModel:
         (or their unbiased form) for MSRAHeatmap, expected-OKS maps for the
         ProbMap family, for SimCCLabel (``kpts_hm`` its bins) the
         ``keypoint_x_labels`` / ``keypoint_y_labels``, for RegressionLabel
-        (``kpts_hm`` in input pixels) the ``keypoint_labels``; a DoubleProbMap batch
+        (``kpts_hm`` in input pixels) the ``keypoint_labels``, for
+        IntegralRegressionLabel (the same) the labels and the sum-normalized
+        MSRA maps; a DoubleProbMap batch
         both windows' maps
         (``heatmaps`` from ``kpts_hm``, ``out_heatmaps`` from
         ``kpts_hm_out``) and, from ``bbox_mask_rect`` / ``bbox_mask_mat``,
@@ -461,6 +506,9 @@ class PoseModel:
         hm_size = tuple(dc.get("heatmap_size", (48, 64)))
         if dc.get("type") == "RegressionLabel":
             batch["keypoint_labels"] = regression_labels_device(kpts, tuple(dc["input_size"]))
+        elif dc.get("type") == "IntegralRegressionLabel":
+            batch["keypoint_labels"], batch["heatmaps"] = integral_regression_labels_device(
+                kpts, vis, tuple(dc["input_size"]), hm_size, float(dc["sigma"]), dc.get("normalize", True))
         elif dc.get("type") == "SimCCLabel":
             batch["keypoint_x_labels"], batch["keypoint_y_labels"] = generate_simcc_labels_device(
                 kpts, vis, tuple(dc["input_size"]), dc.get("simcc_split_ratio", 2.0), dc.get("sigma", 6.0),
@@ -505,8 +553,14 @@ class PoseModel:
             losses = heatmap_head_loss(outputs, batch, self.loss_modules["keypoint"])
         elif self.head_type in SIMCC_HEADS:
             losses = simcc_head_loss(outputs, batch, self.loss_modules["keypoint"])
-        elif self.head_type == "RegressionHead":
-            losses = regression_head_loss(outputs, batch, self.loss_modules["keypoint"])
+        elif self.head_type in ("RegressionHead", "RLEHead"):
+            losses = regression_head_loss(outputs, batch, self.loss_modules["keypoint"], self.head_type,
+                                          log_phi_fn=getattr(self.module.head, "log_phi", None))
+        elif self.head_type == "VisPredictHead":
+            if self.pose_head_type not in HEATMAP_HEADS:
+                raise NotImplementedError(f"VisPredictHead trains a wrapped heatmap head only, not "
+                                          f"{self.pose_head_type}")
+            losses = vis_head_loss(outputs, batch, self.loss_modules)
         elif self.head_type == "DoubleProbMapHead":
             losses = double_probmap_head_loss(
                 outputs, batch, self.loss_modules, self.aux["head_cfg"], input_size=self.input_size,

@@ -1,7 +1,9 @@
-"""Binary cross entropy and SimCC's discrete KL divergence in PyTorch.
+"""Binary cross entropy, SimCC's discrete KL divergence and DSNT's
+Jensen-Shannon divergence in PyTorch.
 
 Port of ``probpose_code_tpu/models/losses/classification_loss.py``:
-``BCELoss`` (``:35``) and ``KLDiscretLoss`` (``:67``). BCELoss keeps the
+``BCELoss`` (``:35``), ``KLDiscretLoss`` (``:67``) and ``JSDiscretLoss``
+(``:112-138``). BCELoss keeps the
 reference's ``use_sigmoid`` flag as it is: True means the input is already a
 probability (plain binary cross entropy), False that it is a logit (the
 stable log-sigmoid form).
@@ -90,3 +92,36 @@ class KLDiscretLoss:
                 t_loss = t_loss.reshape(N, K) * scale[None]
             loss = loss + t_loss.sum()
         return loss / K
+
+
+@MODELS.register_module()
+class JSDiscretLoss:
+    """Jensen-Shannon divergence between the predicted and the target
+    heatmap distributions, both multiplied by the keypoint weights where
+    ``use_target_weight``; summed, over B where ``size_average``."""
+
+    def __init__(self, use_target_weight: bool = True, size_average: bool = True):
+        self.use_target_weight = use_target_weight
+        self.size_average = size_average
+
+    @staticmethod
+    def _kl(p, q):
+        return p * (torch.log(torch.clamp(p, min=1e-24)) - torch.log(q + 1e-24))
+
+    def _js(self, pred, gt):
+        m = 0.5 * (pred + gt)
+        return 0.5 * (self._kl(pred, m) + self._kl(gt, m))
+
+    def __call__(self, pred_hm, gt_hm, target_weight=None):
+        if self.use_target_weight:
+            if target_weight is None:
+                raise ValueError("JSDiscretLoss: use_target_weight needs target_weight")
+            w = target_weight
+            while w.dim() < pred_hm.dim():
+                w = w[..., None]
+            loss = self._js(pred_hm * w, gt_hm * w)
+        else:
+            loss = self._js(pred_hm, gt_hm)
+        if self.size_average:
+            loss = loss / len(gt_hm)
+        return loss.sum()

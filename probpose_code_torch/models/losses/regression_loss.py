@@ -4,7 +4,8 @@ coordinate-regression heads' losses.
 Port of ``probpose_code_tpu/models/losses/regression_loss.py``: ``_smooth_l1``
 (``:19``), ``_apply_weight_product`` (``:24``), ``SmoothL1Loss`` (``:33``),
 ``L1LogLoss`` (``:46``, the error branch), ``MSELoss`` (``:83``, the OKS
-branch), ``WingLoss`` (``:96``) and ``SoftWingLoss`` (``:127``).
+branch), ``WingLoss`` (``:96``), ``SoftWingLoss`` (``:127``) and ``RLELoss``
+(``:267-318``).
 """
 
 from __future__ import annotations
@@ -103,3 +104,45 @@ class SoftWingLoss(_WeightedLoss):
         delta = (target - output).abs()
         losses = torch.where(delta < self.omega1, delta, self.omega2 * torch.log(1.0 + delta / self.epsilon) + self.B)
         return losses.mean(dim=-1).mean(dim=-1).sum() * self.loss_weight
+
+
+@MODELS.register_module()
+class RLELoss:
+    """Residual log-likelihood estimation (RLE): ``sigma`` is the head's raw
+    output (the sigmoid is taken here), ``error = (pred - target) / (sigma +
+    1e-9)``, the flow's log-density ``log_phi`` of the error (``log_phi_fn``:
+    ``RLEHead.log_phi``) gives ``log sigma - log phi``, and with ``residual``
+    the Laplace (``log 2 sigma + |error|``) or Gaussian (``log sqrt(2 pi)
+    sigma + error^2 / 2``) term is added; the target weights multiply it,
+    ``size_average`` divides by B, and the sum times ``loss_weight`` is the
+    loss."""
+
+    def __init__(self, use_target_weight: bool = False, size_average: bool = True, residual: bool = True,
+                 q_distribution: str = "laplace", loss_weight: float = 1.0):
+        if q_distribution not in ("laplace", "gaussian"):
+            raise ValueError(f"RLELoss: q_distribution {q_distribution!r}")
+        self.use_target_weight = use_target_weight
+        self.size_average = size_average
+        self.residual = residual
+        self.q_distribution = q_distribution
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, sigma, target, target_weight=None, log_phi_fn=None):
+        if log_phi_fn is None:
+            raise ValueError("RLELoss needs the flow's log-density (RLEHead.log_phi)")
+        sigma = torch.sigmoid(sigma)
+        error = (pred - target) / (sigma + 1e-9)
+        loss = torch.log(sigma) - log_phi_fn(error)[..., None]
+        if self.residual:
+            if self.q_distribution == "laplace":
+                loss = loss + (torch.log(sigma * 2) + error.abs())
+            else:
+                loss = loss + (torch.log(sigma * math.sqrt(2 * math.pi)) + 0.5 * error ** 2)
+        if self.use_target_weight and target_weight is not None:
+            w = target_weight
+            while w.dim() < loss.dim():
+                w = w[..., None]
+            loss = loss * w
+        if self.size_average:
+            loss = loss / pred.shape[0]
+        return loss.sum() * self.loss_weight

@@ -6,9 +6,10 @@ Port of ``probpose_code_tpu/models/pose_estimators/topdown.py``:
 (``:94-251``), the DoubleProbMap programs (``merge_double_heatmaps_device``,
 ``double_probmap_head_loss`` and ``double_probmap_head_predict``,
 ``:254-475``), ``heatmap_head_loss`` (``:637-651``) and the SimCC programs
-``simcc_head_loss`` (``:475``) and ``simcc_head_predict`` (``:504``), the
-``RegressionHead`` halves of ``regression_head_loss`` and
-``regression_head_predict`` (``:531-606``); and
+``simcc_head_loss`` (``:475``) and ``simcc_head_predict`` (``:504``),
+``regression_head_loss`` and ``regression_head_predict`` (``:531-606``: the
+plain, RLE and integral heads), VisPredictHead's loss (``vis_head_loss``,
+``models/builder.py:523-537``); and
 the plain heatmap head's decode of ``probpose_code_tpu/models/builder.py:
 make_predict`` (``:870-908``). ProbMap: the OKS and error targets come from
 the fast decode of the ground-truth and predicted heatmaps on the device,
@@ -19,7 +20,9 @@ argmax and DARK-UDP for the UDP codec, argmax and the quarter-pixel step
 (or DARK with ``unbiased``) for the MSRA codec. SimCC: flip average of
 the vectors, then the joint argmax over the split ratio. Regression: the
 loss module on the normalized coordinates, flip average with the shifted
-mirror, then the coordinates times the input size, every score 1.
+mirror, then the coordinates times the input size, every score 1 (RLE:
+the sigmoid of each pass's sigmas before the average, the score 1 - mean
+sigma; the integral heads: their soft-argmax coordinates).
 """
 
 from __future__ import annotations
@@ -43,6 +46,9 @@ from probpose_code_torch.ops.heatmap import heatmap_maximum_batch
 from probpose_code_torch.ops.kernels.expected_oks import expected_oks_decode
 from probpose_code_torch.ops.tta import flip_coordinates, flip_heatmaps, flip_vectors
 from probpose_code_torch.registry import MODELS
+
+# the heads whose outputs are (soft-argmax coordinates, heatmaps)
+INTEGRAL_HEADS = ("IntegralRegressionHead", "DSNTHead")
 
 
 @MODELS.register_module()
@@ -224,36 +230,85 @@ def simcc_head_predict(
 
 
 def regression_head_loss(
-    coords: torch.Tensor,
+    outputs: torch.Tensor,
     batch: Dict[str, torch.Tensor],
     loss_module: Any,
+    head_type: str = "RegressionHead",
+    log_phi_fn=None,
 ) -> Dict[str, torch.Tensor]:
-    """The RegressionHead's loss (reference ``regression_head.py:loss``):
-    ``loss_kpt``, the loss module on the (B, K, 2) normalized coordinates
-    against ``keypoint_labels``, and the monitor ``acc_pose``: the share of
-    the weighted keypoints within 0.05 of their label."""
+    """The regression heads' loss (reference ``regression_head.py:loss``,
+    ``rle_head.py:loss``): ``loss_kpt``, the loss module on the (B, K, 2)
+    normalized coordinates against ``keypoint_labels``; for ``RLEHead`` the
+    module is ``RLELoss`` on the coordinates and the raw sigmas of its (B, K,
+    4) output, with the flow's ``log_phi_fn``; and the monitor ``acc_pose``:
+    the share of the weighted keypoints within 0.05 of their label."""
     labels, weights = batch["keypoint_labels"], batch["keypoint_weights"]
+    if head_type == "RLEHead":
+        coords = outputs[..., :2]
+        loss = loss_module(coords, outputs[..., 2:4], labels, weights, log_phi_fn=log_phi_fn)
+    else:
+        coords = outputs
+        loss = loss_module(coords, labels, weights)
     dist = torch.linalg.norm(coords.detach() - labels, dim=-1)
     valid = weights > 0.5
     return {
-        "loss_kpt": loss_module(coords, labels, weights),
+        "loss_kpt": loss,
         "acc_pose": ((dist < 0.05) & valid).sum() / torch.clamp(valid.sum(), min=1),
     }
 
 
 def regression_head_predict(
-    coords: torch.Tensor,
-    coords_flipped: Optional[torch.Tensor],
+    outputs,
+    outputs_flipped,
     flip_indices,
     input_size: Tuple[int, int],
+    head_type: str = "RegressionHead",
 ) -> Dict[str, torch.Tensor]:
     """Flip-TTA average of the normalized coordinates (the mirrored ones
     flipped back and shifted, ``flip_coordinates``), then times the input
-    size; every score 1 (reference ``regression_head.py:predict``)."""
-    if coords_flipped is not None:
-        coords = (coords + flip_coordinates(coords_flipped, flip_indices, input_size)) * 0.5
+    size (reference ``regression_head.py:predict``). The integral heads'
+    coordinates are the first of their outputs. ``RLEHead``'s sigmas take
+    their sigmoid before the average (``rle_head.py:predict``), the mirrored
+    ones unpermuted as the JAX predict leaves them (``topdown.py:595-597``:
+    only the coordinates are flipped), and the scores are ``1 - mean(sigma)``;
+    every other head's scores are 1."""
+
+    def coords_of(out):
+        if head_type in INTEGRAL_HEADS:
+            return out[0]
+        if head_type == "RLEHead":
+            return torch.cat([out[..., :2], torch.sigmoid(out[..., 2:])], dim=-1)
+        return out
+
+    coords = coords_of(outputs)
+    if outputs_flipped is not None:
+        flipped = coords_of(outputs_flipped)
+        flipped = torch.cat([flip_coordinates(flipped[..., :2], flip_indices, input_size), flipped[..., 2:]], dim=-1)
+        coords = (coords + flipped) * 0.5
     size = torch.tensor([float(input_size[0]), float(input_size[1])], dtype=torch.float32, device=coords.device)
-    return dict(keypoints=coords * size, keypoint_scores=torch.ones(coords.shape[:2], device=coords.device))
+    keypoints = coords[..., :2] * size
+    if head_type == "RLEHead":
+        scores = (1.0 - coords[..., 2:4]).mean(dim=-1)
+    else:
+        scores = torch.ones(coords.shape[:2], device=coords.device)
+    return dict(keypoints=keypoints, keypoint_scores=scores)
+
+
+def vis_head_loss(outputs, batch: Dict[str, torch.Tensor], loss_modules: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """VisPredictHead's loss (``builder.py:523-537``): the wrapped heatmap
+    head's (``keypoint``), and ``loss_vis``, the visibility loss (``vis``) of
+    the predicted visibility against ``keypoint_weights``, weighted (where the
+    loss takes target weights) by ``keypoints_visible_weights``, or by ones
+    where the batch has none."""
+    pose_out, visible = outputs
+    losses = heatmap_head_loss(pose_out, batch, loss_modules["keypoint"])
+    target = batch["keypoint_weights"]
+    if getattr(loss_modules["vis"], "use_target_weight", False):
+        weight = batch.get("keypoints_visible_weights")
+        losses["loss_vis"] = loss_modules["vis"](visible, target, torch.ones_like(target) if weight is None else weight)
+    else:
+        losses["loss_vis"] = loss_modules["vis"](visible, target)
+    return losses
 
 
 # --------------------------------------------------------------------------

@@ -20,7 +20,10 @@ for the unbiased form, so that the maps equal the codec's (the port's copy,
 ``probpose_code_torch/codecs/``) to the last bit or two of exp. The
 regression codec's labels (``probpose_code_tpu/codecs/regression_label.py:
 encode``, ``:33-40``) are the input-space keypoints over the input size,
-divided in float64 and rounded once, as the host codec divides them.
+divided in float64 and rounded once, as the host codec divides them. The
+integral regression codec (``codecs/integral_regression_label.py:22-58``) is
+those labels and the MSRA gaussians of the same keypoints, each map divided
+by its sum (``+ 1e-24``) where ``normalize``.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from probpose_code_torch.codecs.utils.oks_map import oks_kernel_scales
 
 # the codecs whose targets are rendered here, on the device
 DEVICE_CODECS = ("ProbMap", "ArgMaxProbMap", "UDPHeatmap", "DoubleProbMap", "MSRAHeatmap", "SimCCLabel",
-                 "RegressionLabel")
+                 "RegressionLabel", "IntegralRegressionLabel")
 
 
 def probmap_encode_scales(
@@ -209,3 +212,20 @@ def regression_labels_device(kpts: torch.Tensor, input_size: Tuple[int, int]) ->
     an integer array) and rounded to f32 once."""
     wh = torch.tensor([float(input_size[0]), float(input_size[1])], dtype=torch.float64, device=kpts.device)
     return (kpts.double() / wh).float()
+
+
+def integral_regression_labels_device(
+    kpts: torch.Tensor, visible: torch.Tensor, input_size: Tuple[int, int], heatmap_size: Tuple[int, int],
+    sigma: float, normalize: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, K, 2) input-space keypoints and a (B, K) visibility gate -> the
+    ``IntegralRegressionLabel`` codec's (B, K, 2) labels and (B, K, H, W)
+    MSRA maps: the keypoints divided by the f32 scale ``input / heatmap`` in
+    f32 (the MSRA codec's ``heatmap_keypoints``), rendered by
+    ``generate_gaussian_device``, and each map divided by its sum plus 1e-24
+    where ``normalize``."""
+    scale = torch.as_tensor((np.array(input_size) / np.array(heatmap_size)).astype(np.float32), device=kpts.device)
+    heatmaps = generate_gaussian_device((kpts.float() / scale).double(), visible, heatmap_size, sigma)
+    if normalize:
+        heatmaps = heatmaps / (heatmaps.sum(dim=(-1, -2), keepdim=True) + 1e-24)
+    return regression_labels_device(kpts, input_size), heatmaps

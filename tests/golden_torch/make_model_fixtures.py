@@ -4,7 +4,7 @@ Needs the JAX package, so it runs where it is installed (the card's
 machine has none): ``JAX_PLATFORMS=cpu python tests/golden_torch/make_model_fixtures.py``
 from the repository root (or name ``classic``, ``rtmpose``, ``wholebody``,
 ``dpm``, ``face``, ``scnet``, ``vipnas``, ``rtmw``, ``hourglass``, ``cpm``, ``mspn``, ``litehrnet``, ``swin``,
-``hrformer`` or ``pvtv2`` to make one). For each of ``chip_smoke.CLASSIC_FIXTURE``
+``hrformer``, ``pvtv2``, ``rle``, ``dsnt`` or ``vis`` to make one). For each of ``chip_smoke.CLASSIC_FIXTURE``
 (a narrow ResNet-50 SimpleBaseline with the DARK codec),
 ``chip_smoke.RTMPOSE_FIXTURE`` (a narrow CSPNeXt + RTMCCHead with SimCC),
 ``chip_smoke.WHOLEBODY_FIXTURE`` (the same with 133 outputs under
@@ -19,7 +19,10 @@ narrow ViPNAS_ResNet with ViPNASHead, both MSRA at 193 x 257) and
 two-stack HourglassNet with CPMHead, CPM, MSPN with the pose refine
 machine) and ``chip_smoke.TOPDOWN_REST_FIXTURES`` (narrow LiteHRNet, Swin,
 HRFormer and PVTv2 with a HeatmapHead; the JAX LiteHRNet cannot be jitted,
-and its predict runs eagerly, as every fixture's here) it writes:
+and its predict runs eagerly, as every fixture's here) and
+``chip_smoke.REGRESSION_FIXTURES`` (a narrow ResNet-18 without a neck with
+RLEHead, with DSNTHead at beta = 10, and with VisPredictHead around a
+HeatmapHead) it writes:
 
 - ``<name>_weights.pth``: the port's module with weights drawn from seed 0
   (``PoseModel.init_weights``) and BatchNorm statistics randomized from seed
@@ -27,7 +30,7 @@ and its predict runs eagerly, as every fixture's here) it writes:
   weights (about 90 MB) are not written: ``chip_smoke.dpm_fixture_state``
   makes them from seeds where they are used, and so does
   ``chip_smoke.seeded_fixture_state`` the SCNet, ViPNAS, RTMW, hourglass,
-  CPM, MSPN, LiteHRNet, Swin, HRFormer and PVTv2 fixtures';
+  CPM, MSPN, LiteHRNet, Swin, HRFormer, PVTv2, RLE, DSNT and Vis fixtures';
 - ``<name>_fixture.npz``: the JAX package's outputs on those weights (loaded
   through ``convert_torch_state_dict``; for the SCNet and ViPNAS fixtures,
   and the four multi-stage and SimCC ones, whose models it does not know
@@ -74,6 +77,7 @@ from chip_smoke import (  # noqa: E402
     FACE_FIXTURES,
     GOLDEN,
     MULTISTAGE_FIXTURES,
+    REGRESSION_FIXTURES,
     RTMPOSE_FIXTURE,
     TOPDOWN_REST_FIXTURES,
     SIMCC_TIE_REL,
@@ -181,7 +185,8 @@ def carried_variables(sd, model, input_shape):
                                   for a, b, leaf in zip(offsets[:-1], offsets[1:], leaves)])
     flat = np.full(offsets[-1], np.nan, np.float32)
     for key, where in state_dict_from_jax(numbered).items():
-        if not key.endswith("num_batches_tracked"):
+        # the BatchNorm counters and RealNVP's prior and masks are constants of the torch modules, no variables
+        if not key.endswith(("num_batches_tracked", "flow_model.loc", "flow_model.cov", "flow_model.mask")):
             flat[where.numpy().astype(np.int64).ravel()] = sd[key].numpy().ravel()
     if np.isnan(flat).any():
         raise AssertionError("the state dict does not fill the JAX variables")
@@ -205,7 +210,8 @@ def make(fixture):
     model_cfg = {k: v for k, v in cfg["model"].items() if k != "neck" or v["type"] != "GlobalAveragePooling"}
     model = JaxPoseModel(model_cfg, metainfo=parse_pose_metainfo({"dataset_name": dataset}))
     input_size = tuple(cfg["test_dataloader"]["dataset"]["pipeline"][2]["input_size"])
-    if fixture in CNN_ZOO_FIXTURES + MULTISTAGE_FIXTURES + TOPDOWN_REST_FIXTURES:  # unknown to the converter
+    if fixture in CNN_ZOO_FIXTURES + MULTISTAGE_FIXTURES + TOPDOWN_REST_FIXTURES + REGRESSION_FIXTURES:
+        # unknown to the converter
         variables = carried_variables(sd, model, (1, input_size[1], input_size[0], 3))
     else:
         variables = jax_variables(sd)
@@ -252,6 +258,6 @@ def make(fixture):
 if __name__ == "__main__":
     torch.set_num_threads(4)
     for fixture in (CLASSIC_FIXTURE, RTMPOSE_FIXTURE, WHOLEBODY_FIXTURE, DPM_FIXTURE, *FACE_FIXTURES,
-                    *CNN_ZOO_FIXTURES, *MULTISTAGE_FIXTURES, *TOPDOWN_REST_FIXTURES):
+                    *CNN_ZOO_FIXTURES, *MULTISTAGE_FIXTURES, *TOPDOWN_REST_FIXTURES, *REGRESSION_FIXTURES):
         if len(sys.argv) < 2 or fixture["name"] in sys.argv[1:] or fixture["name"].split("_")[0] in sys.argv[1:]:
             make(fixture)

@@ -56,7 +56,12 @@ their three inputs, bit for bit across two runs; BatchNorm in both layouts
 and its running statistics) on widths and sides with and without 16-byte
 rows, the FFNs' depthwise conv with its bias after the kernels, the
 LiteHRNet, Swin, HRFormer and PVTv2 fixtures, and those four narrow models
-predicting and taking a training step on the card as on the CPU.
+predicting and taking a training step on the card as on the CPU; the RealNVP
+flow kernels (forward, the gradients of the residuals and of the packed
+parameters, bit for bit across two runs) on one row, a ragged tile and RLE's
+1,088 rows, the RLE, DSNT and Vis fixtures, and the narrow RLE model
+predicting and taking a training step (its RLELoss through the flow kernels)
+on the card as on the CPU.
 Bars are ``chip_smoke.py``'s, with its reasons.
 """
 
@@ -1400,3 +1405,94 @@ def test_topdown_rest_models_train_on_the_card_as_on_the_cpu(card, name):
                               torch.Generator(device=model.device).manual_seed(0))
         losses.append(float(metrics["loss"]))
     assert abs(losses[1] - losses[0]) <= NORM_GRAD_REL * abs(losses[0])
+
+
+@pytest.mark.parametrize("N", [1, 37, 1088])
+def test_realnvp_kernels_match_plain(card, N):
+    """The RealNVP flow kernels against the twin on the card (weights at
+    N(0, ``REALNVP_STD``^2), residuals up to |10|): the log-density at
+    ``REALNVP_REL``, the gradients of the residuals and of each parameter
+    array at ``REALNVP_GRAD_REL``, the backward bit for bit across two runs."""
+    from chip_smoke import REALNVP_GRAD_REL, REALNVP_REL
+    from probpose_code_torch.ops.kernels import realnvp
+
+    flow, x, params, grad = Smoke.realnvp_case(N, seed=N)
+    logp, zs = realnvp.realnvp_forward(x, params)
+    dx, dparams = realnvp.realnvp_backward(grad, zs, params)
+    again = realnvp.realnvp_backward(grad, zs, params)
+    assert torch.equal(dx, again[0]) and torch.equal(dparams, again[1])
+    xt = x.clone().requires_grad_()
+    ref = flow.log_prob_plain(xt)
+    ref_grads = torch.autograd.grad(ref, [xt, *flow.packed_parameters()], grad)
+    assert float((logp - ref.detach()).abs().max() / ref.detach().abs().max()) < REALNVP_REL
+    assert float((dx - ref_grads[0]).abs().max() / ref_grads[0].abs().max()) < REALNVP_GRAD_REL
+    at = 0
+    for g in ref_grads[1:]:
+        got = dparams[at:at + g.numel()].reshape(g.shape)
+        at += g.numel()
+        assert float((got - g).abs().max()) <= REALNVP_GRAD_REL * float(g.abs().max())
+
+
+def test_realnvp_rejects_what_it_does_not_take(card):
+    from probpose_code_torch.ops.kernels import realnvp
+
+    params = torch.zeros(realnvp.PARAMETERS, device="cuda")
+    with pytest.raises(ValueError):
+        realnvp.realnvp_forward(torch.zeros(4, 3, device="cuda"), params)
+    with pytest.raises(ValueError):
+        realnvp.realnvp_forward(torch.zeros(4, 2, device="cuda", dtype=torch.float64), params)
+    with pytest.raises(ValueError):
+        realnvp.realnvp_forward(torch.zeros(4, 2, device="cuda"), params[:-1])
+
+
+@pytest.mark.parametrize("name", ["rle", "dsnt", "vis"])
+def test_regression_fixtures_on_the_card(card, name):
+    """``chip_smoke.model_fixture_report`` on the card for the RLE, DSNT and
+    Vis fixtures: the JAX package's keypoints, scores (and the visibility)
+    and AP at ``UDP_BARS``, its outputs on the fixture's crops at
+    ``FIXTURE_OUTPUT_REL``; no kernel of the TPU list."""
+    from chip_smoke import REGRESSION_FIXTURES, model_fixture_report
+
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    report = model_fixture_report(next(f for f in REGRESSION_FIXTURES if f["name"] == name), device="cuda")
+    assert report["ok"], report
+    assert all(c.launches == 0 for c in counters.values())
+
+
+def test_rle_model_trains_on_the_card_as_on_the_cpu(card):
+    """The narrow RLE model (the fixture's): ``predict`` on two crops at
+    ``HRNET_REL`` against the CPU, and one training step's loss at 1e-4
+    relative (RLELoss through the flow kernels on the card, the twin on the
+    CPU; the BatchNorm kernels; TF32 off), the flow kernels launched."""
+    import copy
+
+    from chip_smoke import RLE_FIXTURE, synthetic_codec_batch
+    from probpose_code_torch.engine.optim import build_optimizer
+    from probpose_code_torch.models.builder import PoseModel, full_f32_precision
+    from probpose_code_torch.ops.kernels import realnvp
+    from probpose_code_torch.parallel import create_train_state, make_train_step
+
+    cfg = copy.deepcopy(RLE_FIXTURE["cfg"]["model"])
+    meta = {"flip_indices": [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15], "num_keypoints": 17}
+    cpu = PoseModel(cfg, metainfo=meta, device="cpu")
+    cpu.init_weights(seed=1)
+    card = PoseModel(cfg, metainfo=meta, device="cuda")
+    card.module.load_state_dict(cpu.module.state_dict())
+    crops = torch.from_numpy(np.round(np.random.RandomState(2).rand(2, 256, 192, 3) * 255).astype(np.float32))
+    want, got = cpu.predict(crops), card.predict(crops.cuda())
+    for key in ("keypoints", "keypoint_scores"):
+        assert float((got[key].cpu() - want[key]).abs().max() / want[key].abs().max()) < HRNET_REL, key
+    batch = synthetic_codec_batch(4, 3, cfg["head"]["decoder"])
+    losses = []
+    realnvp.realnvp_forward.launches = realnvp.realnvp_backward.launches = 0
+    for model in (cpu, card):
+        optimizer, _ = build_optimizer(model, dict(optimizer=dict(type="Adam", lr=1e-3)))
+        step = make_train_step(model, optimizer)
+        with full_f32_precision():
+            _, metrics = step(create_train_state(model, optimizer), {k: v.to(model.device) for k, v in batch.items()},
+                              torch.Generator(device=model.device).manual_seed(0))
+        losses.append(float(metrics["loss"]))
+    assert realnvp.realnvp_forward.launches == 1 and realnvp.realnvp_backward.launches == 1
+    assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0])
